@@ -8,17 +8,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions; TF32 off.
 2. build    nvcc-builds every kernel source of the port in parallel.
 3. kernels  every hand-written kernel against its plain PyTorch version on the
-            card, at ViT-B/16, ViT-Ti/16, a pruned FFN width and the
-            ``vit_procgen`` shapes, gates {0, 0.5, 1}, with and without a neuron
-            mask, fp32 and bf16; times kernel, plain version and a PyTorch
-            library composition with CUDA events, beside the data-sheet bound;
-            then times each launch inside the wrappers at ViT-B/16 (b=64 bf16,
-            b=64 fp32, b=1 fp32) beside ``torch.mm`` and SDPA.
+            card, fp32 and bf16: the ViT block kernels at ViT-B/16, ViT-Ti/16, a
+            pruned FFN width and the ``vit_procgen`` shapes, gates {0, 0.5, 1},
+            with and without a neuron mask; ``flash_attention`` at the
+            Llama-2-7B, Mistral-7B (GQA + window), ``code_llm_small`` and ragged
+            shapes (head_dim 32 to 256, softcap); ``quant4_matmul`` and
+            ``quant_matmul`` at the Llama-2-7B projections, a ragged pruned K,
+            one row and 16384 rows. Times kernel, plain version and a PyTorch
+            library call with CUDA events, beside the data-sheet bound; then
+            times each launch inside the wrappers ([PART] lines) beside
+            ``torch.mm`` and SDPA. The op-level ``ops.ffn.ffn_forward`` is
+            driven on the card against the same call on CPU copies.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, then on ViT-Ti/16 (odd
-            head count), counting kernel launches per phase of the run.
-5. anchor   the committed trained ``ckpts/vit_procgen`` on the committed held-out
-            slice: dense top-1 and top-1 after 25% 2SSP.
+            head count); then the LLM CLI (``cli.main_llm.run``) on a
+            Llama-2-7B-width model (32 layers, random bf16 weights made on the
+            card): 25% 2SSP with dense and pruned perplexity at s=2048, and a
+            dense ``--quantize int4`` evaluation; kernel launches per phase.
+5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1
+            and top-1 after 25% 2SSP) and ``ckpts/code_llm_small`` (perplexity
+            against the pinned value and the host CPU's plain path; int8, int4,
+            25% 2SSP).
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -309,6 +319,275 @@ def phase_kernels(device) -> dict:
     return records
 
 
+def drive_ffn_forward(device) -> int:
+    """The op-level FFN entry (``ops.ffn.ffn_forward``, the counterpart of the
+    JAX package's dispatching ``ffn_forward``) on CUDA tensors at the ViT-B/16
+    shape, against the same call on CPU copies; returns the ``fused_ffn``
+    launches this drive made."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.ffn import ffn_forward
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    b, s, d, f = 8, 197, 768, 3072  # 8 images keep the CPU side of the comparison short
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        inp = _ffn_inputs(gen, b, s, d, f, dtype, device)
+        mask = (torch.rand(f, generator=gen, device=device) > 0.3).float()
+        args = [inp[k] for k in ("x", "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")]
+        got, got_stats = ffn_forward(*args, neuron_mask=mask, collect_stats=True)
+        ref, ref_stats = ffn_forward(*[a.cpu() for a in args], neuron_mask=mask.cpu(),
+                                     collect_stats=True)
+        torch.cuda.synchronize()
+        err, rel = branch_err(got.cpu(), ref)
+        s_rel = ((got_stats.cpu() - ref_stats).abs().max() / ref_stats.abs().max()).item()
+        log(f"[KERNEL] ops.ffn.ffn_forward b={b} s={s} d={d} f={f} {dn} on the card vs the same "
+            f"call on CPU copies: max_abs_err={err:.3e} scaled={rel:.3e} stats_rel={s_rel:.3e} "
+            f"tol={TOL[dn]} ok")
+        if rel > TOL[dn] or s_rel > TOL[dn]:
+            raise AssertionError(f"ffn_forward {dn}: scaled error {rel:.3e}, stats {s_rel:.3e}")
+    launches = launch_counts["fused_ffn"]
+    if launches != 2:
+        raise AssertionError(f"ffn_forward launched fused_ffn {launches} times, expected 2")
+    return launches
+
+
+def drive_quant_matmul(device) -> int:
+    """``quant_matmul`` (int8) has no caller in either package: ``mm_quant``'s
+    int8 branch is a plain product with a convert, as in the JAX package. Its
+    public wrapper is driven here at the Llama-2-7B gate projection on weights
+    from ``quantize_weight_int8``, against that int8 branch of ``mm_quant``;
+    returns the launches this drive made."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_weight_int8
+    from ssp_x_vit_tpu_torch.ops.common import mm_quant
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    m, k, n = 2048, 4096, 11008
+    w_q, scale = quantize_weight_int8(torch.randn(k, n, generator=gen, device=device) * 0.02)
+    reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        x = torch.randn(m, k, generator=gen, device=device).to(dtype)
+        got = quant_matmul(x, w_q, scale)
+        ref = mm_quant(x, {"w_q": w_q, "w_scale": scale}, "w", dtype)
+        torch.cuda.synchronize()
+        err, rel = scaled_err(got, ref)
+        log(f"[KERNEL] quant_matmul M={m} K={k} N={n} {dn} vs mm_quant's int8 branch "
+            f"(torch.matmul with a convert): max_abs_err={err:.3e} scaled={rel:.3e} "
+            f"tol={TOL[dn]} ok")
+        if rel > TOL[dn]:
+            raise AssertionError(f"quant_matmul vs mm_quant {dn}: scaled error {rel:.3e}")
+    return launch_counts["quant_matmul"]
+
+
+def _attended_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    if not causal:
+        return s * s
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _sdpa_library(q, k, v, causal, window):
+    """One PyTorch call computing the same function (the yardstick; the port
+    never calls it): SDPA, GQA by ``enable_gqa``, a window by a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    kw = {}
+    if q.shape[1] != k.shape[1]:
+        kw["enable_gqa"] = True
+    if window is not None:
+        s = q.shape[2]
+        i = torch.arange(s, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    else:
+        kw["is_causal"] = causal
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def phase_llm_kernels(device) -> dict:
+    """flash_attention, quant4_matmul and quant_matmul against their plain
+    versions; returns their kernels-line records (timed at the Llama-2-7B
+    shapes of the main path, bf16)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.attention import flash_attention
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    records = {}
+
+    def rn(shape, dtype, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * std).to(dtype)
+
+    flash_cases = [  # (label, b, h, hkv, s, hd, causal, window, softcap, timed)
+        ("Llama-2-7B", 1, 32, 32, 2048, 128, True, None, None, True),
+        ("Mistral-7B", 1, 32, 8, 4096, 128, True, 1024, None, True),
+        ("code_llm_small", 2, 6, 2, 1024, 64, True, None, None, False),
+        ("ViT", 2, 4, 4, 197, 64, False, None, None, False),
+        ("ragged", 1, 2, 2, 160, 32, True, None, None, False),
+        ("phi head_dim", 1, 8, 4, 300, 80, True, None, None, False),
+        ("gemma head_dim", 1, 4, 2, 257, 256, True, None, 50.0, False),
+    ]
+    errs = {}
+    for label, b, h, hkv, s, hd, causal, window, softcap, timed in flash_cases:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        shape = (f"b={b} h={h} hkv={hkv} s={s} hd={hd}" + (" causal" if causal else "")
+                 + (f" window={window}" if window else "") + (f" softcap={softcap}" if softcap else ""))
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            q, k, v = rn((b, h, s, hd), dtype), rn((b, hkv, s, hd), dtype), rn((b, hkv, s, hd), dtype)
+            got = flash_attention(q, k, v, **kw)
+            ref = tfa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"flash_attention {shape} {dn}: non-finite output")
+            err, rel = scaled_err(got, ref)
+            log(f"[KERNEL] flash_attention {label} {shape} {dn}: max_abs_err={err:.3e} "
+                f"scaled={rel:.3e} tol={TOL[dn]} ok")
+            if rel > TOL[dn]:
+                raise AssertionError(f"flash_attention {shape} {dn}: scaled error {rel:.3e}")
+            errs[(label, dn)] = (err, rel)
+            if timed and dtype == torch.bfloat16:
+                k_ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+                p_ms = time_ms(lambda: tfa.flash_attention_plain(q, k, v, **kw), iters=5, warmup=1)
+                l_ms = time_ms(_sdpa_library(q, k, v, causal, window))
+                flops = 4 * hd * _attended_pairs(s, causal, window) * b * h
+                nbytes = 2 * (2 * b * h * s * hd + 2 * b * hkv * s * hd)
+                bound_ms, bound_by = _bound(flops, nbytes, dn)
+                log(f"[TIME] flash_attention {label} {shape} bf16: kernel {k_ms:.4f} ms "
+                    f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, library SDPA "
+                    f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                if label == "Llama-2-7B":
+                    records["flash_attention"] = dict(
+                        name="flash_attention", route="cuda",
+                        source="ssp_x_vit_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+                        replaces="ssp_x_vit_tpu/ops/pallas/flash_attention.py:466",
+                        tpu_kernel="flash_attention (forward)", shape=shape + " bf16",
+                        max_abs_err=err, scaled_err=rel, tol=TOL[dn],
+                        max_abs_err_fp32=errs[(label, "float32")][0],
+                        scaled_err_fp32=errs[(label, "float32")][1], tol_fp32=TOL["float32"],
+                        ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=l_ms, flops=flops, bytes=nbytes)
+
+    quant_cases = [  # (m, k, n, timed)
+        (2048, 4096, 11008, True),
+        (2048, 11008, 4096, False),
+        (2048, 8190, 4096, False),   # a 2SSP-pruned down projection: ragged K, unaligned rows
+        (1, 4096, 4096, False),      # split-K
+        (16384, 384, 1024, False),   # 8 candidates x 2048 tokens at the code_llm_small width
+    ]
+    for name, bits in (("quant4_matmul", 4), ("quant_matmul", 8)):
+        wrapper, plain = getattr(tqm, name), getattr(tqm, name + "_plain")
+        for m, k, n, timed in quant_cases:
+            shape = f"M={m} K={k} N={n}"
+            # any byte is a valid pair of nibbles; int8 codes stay within [-127, 127]
+            if bits == 4:
+                w = torch.randint(-128, 128, (k // 2, n), generator=gen, device=device).to(torch.int8)
+            else:
+                w = torch.randint(-127, 128, (k, n), generator=gen, device=device).to(torch.int8)
+            scale = torch.rand(n, generator=gen, device=device) * 0.01 + 0.001
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                x = rn((m, k), dtype)
+                got, ref = wrapper(x, w, scale), plain(x, w, scale)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name} {shape} {dn}: non-finite output")
+                err, rel = scaled_err(got, ref)
+                log(f"[KERNEL] {name} {shape} {dn}: max_abs_err={err:.3e} scaled={rel:.3e} "
+                    f"tol={TOL[dn]} ok")
+                if rel > TOL[dn]:
+                    raise AssertionError(f"{name} {shape} {dn}: scaled error {rel:.3e}")
+                errs[(name, dn)] = (err, rel)
+                if timed and dtype == torch.bfloat16:
+                    k_ms = time_ms(lambda: wrapper(x, w, scale))
+                    p_ms = time_ms(lambda: plain(x, w, scale))
+                    unpack = tqm.unpack_int4 if bits == 4 else (lambda t: t)
+                    w_bf16, scale_bf16 = unpack(w).to(dtype), scale.to(dtype)
+                    l_ms = time_ms(lambda: torch.mm(x, w_bf16) * scale_bf16)
+                    l_in_ms = time_ms(lambda: torch.mm(x, unpack(w).to(dtype)) * scale_bf16)
+                    flops = 2 * m * n * k
+                    nbytes = 2 * (m * k + m * n) + k * n * bits // 8 + 4 * n
+                    bound_ms, bound_by = _bound(flops, nbytes, dn)
+                    log(f"[TIME] {name} {shape} bf16: kernel {k_ms:.4f} ms "
+                        f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, library "
+                        f"torch.mm on a dequantised copy {l_ms:.4f} ms (dequantising inside the "
+                        f"timed call: {l_in_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
+                    records[name] = dict(
+                        name=name, route="cuda",
+                        source="ssp_x_vit_tpu_torch/ops/kernels/csrc/quant_gemm.cu",
+                        replaces="ssp_x_vit_tpu/ops/pallas/quant_matmul.py:111",
+                        tpu_kernel=name, shape=shape + " bf16",
+                        max_abs_err=err, scaled_err=rel, tol=TOL[dn],
+                        max_abs_err_fp32=errs[(name, "float32")][0],
+                        scaled_err_fp32=errs[(name, "float32")][1], tol_fp32=TOL["float32"],
+                        ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=l_ms, library_with_dequant_ms=l_in_ms,
+                        flops=flops, bytes=nbytes)
+    return records
+
+
+def time_llm_parts(device) -> None:
+    """Time each C entry point of the LLM kernels at the Llama-2-7B shapes of
+    one layer call (b=1, s=2048, bf16), beside the ``torch.matmul``s that carry
+    the layer's projections and the library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    dtype, m, d, f, h, hd = torch.bfloat16, 2048, 4096, 11008, 32, 128
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=device) * std).to(dtype)
+
+    x, hmid = rn(m, d), rn(m, f)
+    wq, wg, wd = rn(d, d, std=0.02), rn(d, f, std=0.02), rn(f, d, std=0.02)
+    q, k, v = rn(1, h, m, hd), rn(1, h, m, hd), rn(1, h, m, hd)
+    o = torch.empty_like(q)
+    w4 = torch.randint(-128, 128, (d // 2, f), generator=gen, device=device).to(torch.int8)
+    w8 = torch.randint(-127, 128, (d, f), generator=gen, device=device).to(torch.int8)
+    scale = torch.rand(f, generator=gen, device=device) * 0.01 + 0.001
+    out = torch.empty(m, f, dtype=dtype, device=device)
+    w_deq = tqm.unpack_int4(w4).to(dtype)
+    attn_flops = 4 * hd * _attended_pairs(m, True, None) * h
+    parts = [
+        ("flash_attention core (causal)", attn_flops,
+         lambda: build.flash_attention(q, k, v, o, scale=hd ** -0.5, causal=True, window=0,
+                                       softcap=0.0)),
+        ("library sdpa (causal)", attn_flops,
+         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        ("torch.matmul q/k/v/o projection (each)", 2 * m * d * d, lambda: torch.mm(x, wq)),
+        ("torch.matmul gate/up projection (each)", 2 * m * d * f, lambda: torch.mm(x, wg)),
+        ("torch.matmul down projection", 2 * m * d * f, lambda: torch.mm(hmid, wd)),
+        ("quant_gemm int4 gate/up projection", 2 * m * d * f,
+         lambda: build.quant_gemm(x, w4, scale, out, 4)),
+        ("quant_gemm int8 gate/up projection", 2 * m * d * f,
+         lambda: build.quant_gemm(x, w8, scale, out, 8)),
+        ("library torch.mm on a dequantised copy", 2 * m * d * f, lambda: torch.mm(x, w_deq)),
+    ]
+    for label, flops, fn in parts:
+        ms = time_ms(fn, iters=20)
+        log(f"[PART] bfloat16 Llama-2-7B layer b=1 s=2048 {label}: {ms:.4f} ms "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+
 def time_kernel_parts(device, b: int, dtype) -> None:
     """Time each C entry point the block wrappers launch (LayerNorm, the four
     GEMMs with their epilogues, the attention core) at ViT-B/16 shapes, on the
@@ -470,6 +749,186 @@ def phase_anchor(device) -> None:
         raise AssertionError(f"top-1 after 25% 2SSP {pruned} < 0.9")
 
 
+LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+                  num_kv_heads=32, intermediate_size=11008, rms_eps=1e-5, rope_theta=10000.0)
+
+
+def _to_host(params, dtype):
+    """A copy of a parameter tree on the host CPU, float leaves cast to ``dtype``."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = _to_host(v, dtype)
+        else:
+            out[k] = (v.to(dtype) if v.is_floating_point() else v).cpu()
+    return out
+
+
+def check_llm_forward(params, cfg, device) -> None:
+    """The first two layers of the full-width model on 1 x 2048 tokens: the
+    kernel path on the card against the plain path on the host CPU in fp32
+    (scaled error <= 1e-4) and at the bf16 default (<= 5e-2)."""
+    import dataclasses
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    two = dict(params, blocks={k: v[:2] for k, v in params["blocks"].items()})
+    ids = torch.from_numpy(synthetic_token_stream(2048, cfg.vocab_size, seed=5).astype("int64"))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref, _ = llama_forward(_to_host(two, torch.float32), ids, cfg2, compute_dtype=torch.float32)
+        host_s = time.perf_counter() - t0
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            before = launch_counts["flash_attention"]
+            card = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict)
+                        else v.to(dtype)) for k, v in two.items()}
+            got, _ = llama_forward(card, ids.to(device), cfg2, compute_dtype=dtype)
+            got = got.cpu()
+            if launch_counts["flash_attention"] - before != 2:
+                raise AssertionError("the 2-layer forward did not launch flash_attention twice")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"Llama-2-7B width forward {dtype}: non-finite logits")
+            err, rel = scaled_err(got, ref)
+            log(f"[MAIN] Llama-2-7B width, 2 layers, 1 x 2048 tokens: card kernels {dtype} vs host "
+                f"CPU plain fp32 ({host_s:.1f} s): max_abs_err={err:.3e} scaled={rel:.3e} tol={tol}")
+            if rel > tol:
+                raise AssertionError("the kernel forward disagrees with the CPU reference")
+
+
+def phase_main_llm(device) -> dict:
+    """The LLM CLI at the full width and depth of Llama-2-7B; returns launches
+    per kernel summed over its two runs."""
+    import math
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    cfg = LlamaConfig(**LLAMA_2_7B)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params["blocks"].values()) + sum(
+        v.numel() for k, v in params.items() if k != "blocks")
+    log(f"[MAIN] Llama-2-7B width model: {n_params / 1e9:.3f} B parameters in bf16 made on the "
+        f"card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)")
+    check_llm_forward(params, cfg, device)
+
+    common = ["--model", "llama-2-7b-width", "--synthetic-data", "--seq-len", "2048",
+              "--num-calibration", "16", "--num-calibration-2ssp", "8", "--backend", "cuda",
+              "--evaluate_perplexity", "--dense", "--logging", "WARNING"]
+    runs = [
+        ("2ssp", common + ["--pruning_method", "2ssp", "--sparsity_rate", "0.25"]),
+        ("int4", common + ["--quantize", "int4"]),
+    ]
+    totals = {name: 0 for name in KERNEL_NAMES}
+    results = {}
+    for label, argv in runs:
+        log(f"[MAIN] main_llm {' '.join(argv)}")
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = main_llm.run(main_llm.build_argparser().parse_args(argv), model=(params, cfg))
+        seconds = time.perf_counter() - t0
+        for name in KERNEL_NAMES:
+            totals[name] += launch_counts[name]
+        results[label] = out
+        by_phase = {ph: {k: n for k, n in counts.items() if n} for ph, counts
+                    in out["kernel_launches"].items()}
+        log(f"[MAIN] llm {label}: {seconds:.1f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} "
+            f"GiB; seconds by phase "
+            f"{json.dumps({k: round(v, 3) for k, v in out['phase_seconds'].items()})}")
+        log(f"[MAIN] llm {label}: launches by phase {json.dumps(by_phase)}")
+
+    out = results["2ssp"]
+    (entry,) = out["runs"]
+    dense, pruned = out["dense"]["ppl"], entry["ppl"]
+    log(f"[MAIN] llm 2ssp: dense ppl {dense:.2f}, after 25% 2SSP {pruned:.2f}; pruned attention "
+        f"{entry['pruned_attention_blocks']}, kept FFN width {entry['num_preserve_mlp']} of "
+        f"{cfg.intermediate_size}, achieved sparsity {entry['achieved_sparsity']:.4f}, pruning "
+        f"{entry['pruning_seconds']:.1f} s")
+    if not (math.isfinite(dense) and math.isfinite(pruned)):
+        raise AssertionError(f"non-finite perplexity: dense {dense}, pruned {pruned}")
+    if abs(entry["achieved_sparsity"] - 0.25) > 0.02:
+        raise AssertionError(f"achieved sparsity {entry['achieved_sparsity']} vs 0.25")
+    for phase in ("stats", "candidates", "evaluation"):
+        if out["kernel_launches"][phase]["flash_attention"] <= 0:
+            raise AssertionError(f"flash_attention not launched in the {phase} phase")
+    out4 = results["int4"]
+    ppl4 = out4["dense"]["ppl"]
+    log(f"[MAIN] llm int4: dense ppl {ppl4:.2f} (bf16 weights: {dense:.2f})")
+    for kernel in ("quant4_matmul", "flash_attention"):
+        if out4["kernel_launches"]["evaluation"][kernel] <= 0:
+            raise AssertionError(f"{kernel} not launched in the int4 evaluation")
+    # random weights sit near the vocabulary size either way: this catches a broken kernel only
+    if not math.isfinite(ppl4) or abs(math.log(ppl4) - math.log(dense)) > 0.05 * math.log(dense):
+        raise AssertionError(f"int4 perplexity {ppl4} vs dense {dense}")
+    return totals
+
+
+def phase_anchor_llm(device) -> None:
+    """The trained ``ckpts/code_llm_small``: perplexity on the card against the
+    pinned value (5%) and the port's plain path on the host CPU (1e-2), int8
+    within 2% of dense, int4 against the host's plain int4 path (1e-2), and a
+    25% 2SSP (finite, below 10x dense)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.evaluation import evaluate_perplexity
+    from ssp_x_vit_tpu_torch.llm.pruning import count_main_params, two_stage_2ssp
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4, quantize_llm_params_int8
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    with open(os.path.join(ckpt, "train_meta.json")) as f:
+        pinned = json.load(f)["val_ppl_16k"]
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:16384],
+                     np.int32)
+    train = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16,
+                                 "r")[:8 * 1024], np.int32)
+    kw = dict(seq_len=1024, batch_size=2)
+    host = _to_host(params, torch.float32)
+    dense = evaluate_perplexity(params, cfg, val, **kw)
+    dense_host = evaluate_perplexity(host, cfg, val, **kw)
+    int8 = evaluate_perplexity(quantize_llm_params_int8(params, cfg), cfg, val, **kw)
+    int4 = evaluate_perplexity(quantize_llm_params_int4(params, cfg), cfg, val, **kw)
+    int4_host = evaluate_perplexity(quantize_llm_params_int4(host, cfg), cfg, val, **kw)
+    log(f"[ANCHOR] code_llm_small val ppl (16384 tokens, s=1024, b=2): card {dense:.4f}, host CPU "
+        f"plain path {dense_host:.4f}, pinned {pinned}; int8 {int8:.4f}; int4 card {int4:.4f}, "
+        f"host {int4_host:.4f}")
+    if abs(dense - pinned) / pinned > 0.05:
+        raise AssertionError(f"ppl {dense} is not within 5% of the pinned {pinned}")
+    if abs(dense - dense_host) / dense_host > 1e-2:
+        raise AssertionError(f"ppl on the card {dense} vs the host's plain path {dense_host}")
+    if abs(int8 - dense) / dense > 0.02:
+        raise AssertionError(f"int8 ppl {int8} is not within 2% of dense {dense}")
+    if abs(int4 - int4_host) / int4_host > 1e-2:
+        raise AssertionError(f"int4 ppl on the card {int4} vs the host's plain path {int4_host}")
+    calib = [train[i * 1024:(i + 1) * 1024].reshape(1, 1024) for i in range(8)]
+    p2, c2, info = two_stage_2ssp(params, cfg, calib, 0.25, seq_len=1024)
+    pruned = evaluate_perplexity(p2, c2, val, **kw)
+    sparsity = 1.0 - count_main_params(c2)[0] / count_main_params(cfg)[0]
+    log(f"[ANCHOR] code_llm_small after 25% 2SSP: ppl {pruned:.4f}, pruned attention "
+        f"{info['pruned_attention_blocks']}, kept FFN width {info['num_preserve_mlp']} of "
+        f"{cfg.intermediate_size}, achieved sparsity {sparsity:.4f}")
+    if not math.isfinite(pruned) or pruned > 10 * dense:
+        raise AssertionError(f"ppl after 25% 2SSP {pruned} vs dense {dense}")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (takes no arguments)", file=sys.stderr)
@@ -506,15 +965,42 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[BUILD] {name}: {line.strip()}")
 
-    records = phase_kernels(device)
-    for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
-        time_kernel_parts(device, b, dtype)
-    with tempfile.TemporaryDirectory() as out_root:
-        launches = phase_main(out_root, device)
-    phase_anchor(device)
+    phase_t0 = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal phase_t0
+        torch.cuda.synchronize()
+        log(f"[PHASE] {name}: {time.perf_counter() - phase_t0:.1f} s")
+        phase_t0 = time.perf_counter()
 
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
 
+    records = phase_kernels(device)
+    records.update(phase_llm_kernels(device))
+    for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
+        time_kernel_parts(device, b, dtype)
+    time_llm_parts(device)
+    # Driven paths, each with the counts set to 0 just before it and read just
+    # after: the op-level ffn_forward and quant_matmul drives, the two ViT CLI
+    # runs, the two LLM CLI runs.
+    launches = {name: 0 for name in KERNEL_NAMES}
+    launches["fused_ffn"] += drive_ffn_forward(device)
+    launches["quant_matmul"] += drive_quant_matmul(device)
+    phase_done("kernels (phase 3)")
+    with tempfile.TemporaryDirectory() as out_root:
+        for name, n in phase_main(out_root, device).items():
+            launches[name] += n
+    phase_done("main, ViT (phase 4)")
+    for name, n in phase_main_llm(device).items():
+        launches[name] += n
+    phase_done("main, LLM (phase 4)")
+    phase_anchor(device)
+    phase_anchor_llm(device)
+    phase_done("anchors (phase 5)")
+
+    missing = [name for name in KERNEL_NAMES if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a driven path: {missing}")
     kernels = [dict(records[name], launches=launches[name]) for name in KERNEL_NAMES]
     print(json.dumps({"kernels": kernels}))
     print(smi)

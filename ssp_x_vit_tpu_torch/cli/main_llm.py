@@ -1,0 +1,374 @@
+"""LLM pruning CLI on PyTorch (counterpart of the repository's ``main_llm.py``;
+reference main.py:18-253): the same flags and flow: method dispatch, sparsity
+sweeps -1/-2, pruning-time measurement, perplexity and inference-time
+evaluation, weight-only quantized evaluation, native model saving.
+
+Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
+  python -m ssp_x_vit_tpu_torch.cli.main_llm --model tiny-random \\
+      --pruning_method 2ssp --sparsity_rate 0.375 --evaluate_perplexity --synthetic-data
+  python -m ssp_x_vit_tpu_torch.cli.main_llm --model ckpts/code_llm_small --dense \\
+      --quantize int4 --evaluate_perplexity --seq-len 1024
+
+``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}`` or
+a native directory (``model.npz`` + ``config.json``). Every run uses the
+deterministic synthetic token streams: the corpora and the tokenizer are not
+in the repository. Flags of parts not ported yet raise NotImplementedError
+naming the ROADMAP.md item.
+
+``run(args, model=None)`` returns a dict: perplexities, pruned blocks, kept
+width, achieved sparsity, and the wall seconds and kernel launches of each
+phase (setup, stats, stage1, candidates, materialize, search, evaluation).
+``model=(params, cfg)`` runs on a model the caller built.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+TINY_RANDOM = dict(vocab_size=512, hidden_size=64, num_layers=6, num_heads=4,
+                   num_kv_heads=4, intermediate_size=172)
+
+_TINY_VARIANTS = {
+    "tiny-random": {},
+    "tiny-random-phi": dict(model_type="phi", qkv_bias=True, rotary_dim=8),
+    "tiny-random-opt": dict(model_type="opt", qkv_bias=True, tie_embeddings=True,
+                            max_position_embeddings=512),
+    "tiny-random-gemma": dict(model_type="gemma", hidden_act="gelu_tanh",
+                              scale_embeddings=True, tie_embeddings=True),
+    "tiny-random-gemma2": dict(model_type="gemma2", hidden_act="gelu_tanh",
+                               scale_embeddings=True, tie_embeddings=True, sliding_window=64,
+                               window_layers=tuple(range(0, TINY_RANDOM["num_layers"], 2)),
+                               attn_softcap=50.0, final_softcap=30.0),
+    "tiny-random-qwen3": dict(model_type="qwen3", qk_norm=True),
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Pruning of transformer models (PyTorch/CUDA)")
+    parser.add_argument('--model', type=str, required=True,
+                        help="Native model directory (model.npz + config.json), or "
+                             "'tiny-random[-phi|-opt|-gemma|-gemma2|-qwen3]' for an offline test model")
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--cache_dir', type=str, required=False)
+    parser.add_argument('--dense', action='store_true',
+                        help="Evaluate the original dense model")
+    parser.add_argument('--pruning_method', type=str,
+                        choices=['2ssp', 'window_based', 'shortgpt', 'blockpruner',
+                                 'evopress', 'slicegpt'])
+    parser.add_argument('--sparsity_rate', type=float,
+                        help="0..1 target sparsity; -1 sweeps i/N; -2 sweeps 25/37.5/50%%")
+    parser.add_argument('--main_table_results', action='store_true')
+    parser.add_argument('--evaluate_inference', action='store_true')
+    parser.add_argument('--evaluate_downstream', action='store_true')
+    parser.add_argument('--task-pack', type=str, default=None)
+    parser.add_argument('--evaluate_perplexity', action='store_true')
+    parser.add_argument('--evaluate_qualitative', action='store_true')
+    parser.add_argument('--ablation', action='store_true')
+    parser.add_argument('--ablation-quick', action='store_true')
+    parser.add_argument('--local_datasets', action='store_true')
+    parser.add_argument('--synthetic-data', action='store_true',
+                        help="Deterministic synthetic token streams (the only data source so far)")
+    parser.add_argument('--seq-len', type=int, default=2048)
+    parser.add_argument('--num-calibration', type=int, default=256)
+    parser.add_argument('--num-calibration-2ssp', type=int, default=32)
+    parser.add_argument('--evopress-generations', type=int, default=None)
+    parser.add_argument('--quantize', type=str, default='none', choices=('none', 'int8', 'int4'),
+                        help='weight-only quantization applied to every evaluated model '
+                             '(llm/quant.py; int8 = per-channel scales on the output, '
+                             'int4 = packed nibbles through the dequant GEMM kernel)')
+    parser.add_argument('--w8a8', action='store_true',
+                        help='with --quantize int8: int8 x int8 matmuls with dynamic per-token '
+                             'activation scales; with int4 only the int8 lm_head picks it up')
+    parser.add_argument('--save-model', type=str, default=None,
+                        help='directory to persist the pruned model (materialized weights, '
+                             'no gates); sparsity sweeps write per-rate subdirectories')
+    parser.add_argument('--save-format', type=str, default='native', choices=('native', 'hf'))
+    parser.add_argument('--backend', type=str, default='cuda', choices=['cuda', 'cpu'],
+                        help="Device to run on; cuda raises when no GPU is present")
+    parser.add_argument('--logging', type=str, default='INFO',
+                        choices=['DEBUG', 'INFO', 'WARNING', 'ERROR', 'CRITICAL'])
+    return parser
+
+
+def _reject_unported(args) -> None:
+    unported = {
+        "--pruning_method evopress (llm/evopress.py, ROADMAP.md A.10)":
+            args.pruning_method == "evopress",
+        "--pruning_method slicegpt (llm/slicegpt.py, ROADMAP.md A.10)":
+            args.pruning_method == "slicegpt",
+        "--ablation (llm/ablations.py, ROADMAP.md A.10)": args.ablation or args.ablation_quick,
+        "--evaluate_downstream (llm/zeroshot.py, llm/taskpack.py, ROADMAP.md A.10)":
+            args.evaluate_downstream or args.task_pack is not None,
+        "--evaluate_qualitative (llm/generate.py, ROADMAP.md A.9)": args.evaluate_qualitative,
+        "--save-format hf (export_hf_llama, ROADMAP.md A.10)": args.save_format != "native",
+        "--local_datasets (corpus loaders and tokenizer, ROADMAP.md A.10)": args.local_datasets,
+        "--model tiny-random-deepseek* (llm/deepseek.py, ROADMAP.md A.11)":
+            args.model.startswith("tiny-random-deepseek"),
+    }
+    for flag, used in unported.items():
+        if used:
+            raise NotImplementedError(f"{flag} is not ported yet")
+
+
+def load_model(args, device):
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+
+    if os.path.isdir(args.model):
+        if not os.path.exists(os.path.join(args.model, "model.npz")):
+            raise NotImplementedError(
+                f"{args.model} is not a native model directory (model.npz + config.json); "
+                "HF checkpoint directories are not ported yet (ROADMAP.md A.10)")
+        import json
+
+        with open(os.path.join(args.model, "config.json")) as f:
+            if "kv_lora_rank" in json.load(f):
+                raise NotImplementedError("DeepSeek/MLA models are not ported yet "
+                                          "(llm/deepseek.py, ROADMAP.md A.11)")
+        return load_llm_model(args.model, device=device)
+    if args.model in _TINY_VARIANTS:
+        cfg = LlamaConfig(**TINY_RANDOM, **_TINY_VARIANTS[args.model])
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        return init_llama_params(gen, cfg, dtype=torch.float32, device=device), cfg
+    raise SystemExit("--model must be a native model directory or one of "
+                     f"{sorted(_TINY_VARIANTS)}; got {args.model}")
+
+
+def load_corpora(args, cfg):
+    """(wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids) token streams:
+    the deterministic synthetic ones (seeds 1-4), as the JAX CLI falls back to."""
+    from ssp_x_vit_tpu_torch.llm import datasets as D
+
+    if not args.synthetic_data:
+        logging.warning("Real corpora are not in the repository; using synthetic token streams")
+    logging.info("Using deterministic synthetic token streams")
+    n = args.seq_len * (args.num_calibration + 8)
+    return tuple(D.synthetic_token_stream(n, cfg.vocab_size, seed=s) for s in (1, 2, 3, 4))
+
+
+class _Phases:
+    """Wall seconds and kernel launches per named phase of a run, summed over
+    repeats of a phase; the device is synchronized where a phase ends."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seconds: Dict[str, float] = {}
+        self.launches: Dict[str, Dict[str, int]] = {}
+        self._name: Optional[str] = None
+
+    def start(self, name: Optional[str]) -> None:
+        """End the running phase, if any, and start ``name`` (None: none)."""
+        import torch
+
+        from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+        if self._name is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.seconds[self._name] = (self.seconds.get(self._name, 0.0)
+                                        + time.perf_counter() - self._t0)
+            done = self.launches.setdefault(self._name, {k: 0 for k in launch_counts})
+            for k in launch_counts:
+                done[k] += launch_counts[k] - self._before[k]
+        self._name = name
+        self._t0 = time.perf_counter()
+        self._before = dict(launch_counts)
+
+    def stop(self) -> None:
+        self.start(None)
+
+
+def run(args, model=None) -> Dict[str, Any]:
+    _reject_unported(args)
+    from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
+    from ssp_x_vit_tpu_torch.llm import datasets as D
+    from ssp_x_vit_tpu_torch.llm import pruning as P
+    from ssp_x_vit_tpu_torch.llm.checkpoints import save_llm_model
+    from ssp_x_vit_tpu_torch.llm.evaluation import (
+        evaluate_inference_time, evaluate_perplexity, evaluation_ppl,
+    )
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4, quantize_llm_params_int8
+    from ssp_x_vit_tpu_torch.ops import dispatch
+
+    device = resolve_device(args.backend)
+    phases = _Phases(device)
+    phases.start("setup")
+    set_seed(args.seed)
+    if model is None:
+        params, cfg = load_model(args, device)
+    else:
+        params, cfg = model
+        if params["embed"].device.type != device.type:
+            raise ValueError(f"the model is on {params['embed'].device}, --backend is {device.type}")
+    logging.info(f"Model: {cfg.model_type} L={cfg.num_layers} d={cfg.hidden_size} "
+                 f"f={cfg.intermediate_size}")
+
+    wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids = load_corpora(args, cfg)
+    calibration = D.get_calibration(c4_train_ids, args.num_calibration, seq_len=args.seq_len)
+    calibration_2ssp = calibration[: args.num_calibration_2ssp]
+    first_sample = calibration[0]
+    result: Dict[str, Any] = {"model_type": cfg.model_type, "quantize": args.quantize, "runs": []}
+
+    def run_evals(p, c, attn_gate=None, mlp_gate=None) -> Dict[str, Any]:
+        phases.start("evaluation")
+        out: Dict[str, Any] = {}
+        if args.quantize != 'none':
+            q = quantize_llm_params_int8 if args.quantize == 'int8' else quantize_llm_params_int4
+            p = q(p, c)
+            logging.info(f"Evaluating {args.quantize}-quantized weights")
+            if args.w8a8:
+                dispatch.set_w8a8_enabled(True)
+                if args.quantize == 'int4':
+                    logging.warning(
+                        "W8A8 with --quantize int4: activation quantization applies only to "
+                        "int8-quantized layers (lm_head); int4 matmuls stay weight-only")
+                else:
+                    logging.info("W8A8 mode: int8 x int8 matmuls")
+        if args.evaluate_inference:
+            out["inference_ms"] = evaluate_inference_time(p, c, first_sample)
+            logging.info(f"Average Inference Time: {out['inference_ms']:.3f} ms")
+        if args.main_table_results:
+            out["main_table"] = evaluation_ppl(p, c, wikitext_ids, c4_val_ids, fineweb_ids,
+                                               seq_len=args.seq_len, attn_gate=attn_gate,
+                                               mlp_gate=mlp_gate)
+        if args.evaluate_perplexity:
+            out["ppl"] = evaluate_perplexity(p, c, wikitext_ids, seq_len=args.seq_len,
+                                             attn_gate=attn_gate, mlp_gate=mlp_gate)
+            logging.info(f"Perplexity (wikitext2): {out['ppl']}")
+        phases.stop()
+        return out
+
+    def save_artifact(p, c, suffix=None):
+        out = args.save_model if not suffix else os.path.join(args.save_model, suffix)
+        path = save_llm_model(out, p, c)
+        logging.info(f"[ARTIFACT] native model -> {path}")
+        return path
+
+    def materialize_masked(p, c, attn_mask, mlp_mask):
+        """Block masks -> physical weights: whole-block removal where both
+        submodules fall, attention-only depth materialization (indices
+        remapped to the surviving layers) where only attention does."""
+        am = [bool(x) for x in np.asarray(attn_mask).reshape(-1)]
+        mm = [bool(x) for x in np.asarray(mlp_mask).reshape(-1)]
+        both = [i for i, (a, m) in enumerate(zip(am, mm)) if a and m]
+        attn_only = [i for i, (a, m) in enumerate(zip(am, mm)) if a and not m]
+        if any(m and not a for a, m in zip(am, mm)):
+            raise ValueError("MLP-only block masks have no materialized form")
+        p, c = P.materialize_llm_block_removal(p, c, both)
+        keep = [i for i in range(len(am)) if i not in set(both)]
+        remap = {old: new for new, old in enumerate(keep)}
+        if attn_only:
+            p, c = P.materialize_llm_depth_pruning(p, c, [remap[i] for i in attn_only])
+        return p, c
+
+    try:
+        if args.dense:
+            logging.info("Dense model evaluation")
+            result["dense"] = run_evals(params, cfg)
+            if args.save_model:
+                save_artifact(params, cfg)
+
+        L = cfg.num_layers
+        sr = args.sparsity_rate
+        if args.pruning_method is None:
+            pruning_rates: List[float] = []
+        elif sr is not None and int(round(sr)) == -1:
+            pruning_rates = [i / L for i in range(1, L - 1)]
+        elif sr is not None and int(round(sr)) == -2:
+            pruning_rates = [0.25, 0.375, 0.5]
+        else:
+            pruning_rates = [sr]
+        main_before = P.count_main_params(cfg)[0]
+
+        for target_sparsity in pruning_rates:
+            set_seed(args.seed)
+            start_time = time.time()
+            work_params, work_cfg = params, cfg
+            attn_mask = mlp_mask = None
+            entry: Dict[str, Any] = {"method": args.pruning_method}
+
+            if args.pruning_method in ("window_based", "shortgpt", "blockpruner"):
+                tsb = target_sparsity * L
+                if not float(tsb).is_integer():
+                    logging.warning(f"Invalid sparsity rate for {args.pruning_method}: must be a "
+                                    f"multiple of 1/{L} since model has {L} blocks.")
+                    tsb = int(math.ceil(tsb))
+                    logging.warning(f"Rounding to next valid sparsity rate: {tsb/L:.6f} ({tsb} blocks)")
+                else:
+                    tsb = int(tsb)
+                target_sparsity = tsb / L
+            logging.info(f"Pruning rate {target_sparsity*100} "
+                         f"(equivalent of {target_sparsity * L} blocks)")
+            entry["target_sparsity"] = target_sparsity
+
+            phases.start("search")
+            if args.pruning_method == "window_based":
+                attn_mask = mlp_mask = P.window_based(params, cfg, tsb, calibration)
+            elif args.pruning_method == "shortgpt":
+                attn_mask = mlp_mask = P.shortgpt(params, cfg, tsb, calibration)
+            elif args.pruning_method == "blockpruner":
+                attn_mask, mlp_mask = P.blockpruner(params, cfg, tsb, first_sample,
+                                                    seq_len=args.seq_len)
+            else:  # 2ssp: its own phases (stats, stage1, candidates, materialize)
+                out = P.two_stage_2ssp(params, cfg, calibration_2ssp, target_sparsity,
+                                       seq_len=args.seq_len, on_phase=phases.start)
+                if out is False:
+                    phases.stop()
+                    continue
+                work_params, work_cfg, info = out
+                logging.info(f"2SSP pruned attention blocks: {info['pruned_attention_blocks']}, "
+                             f"kept FFN width: {info['num_preserve_mlp']}")
+                entry["pruned_attention_blocks"] = info["pruned_attention_blocks"]
+                entry["num_preserve_mlp"] = info["num_preserve_mlp"]
+                entry["achieved_sparsity"] = 1.0 - P.count_main_params(work_cfg)[0] / main_before
+            phases.stop()
+            entry["pruning_seconds"] = time.time() - start_time
+            logging.info(f"Pruning Time: {entry['pruning_seconds']} s")
+
+            suffix = f"sparsity_{target_sparsity:g}" if len(pruning_rates) > 1 else None
+            if attn_mask is None:
+                entry.update(run_evals(work_params, work_cfg))
+                if args.save_model:
+                    entry["saved"] = save_artifact(work_params, work_cfg, suffix)
+            else:
+                logging.debug(f"Pruned blocks: attn={attn_mask} mlp={mlp_mask}")
+                entry["attn_mask"], entry["mlp_mask"] = list(attn_mask), list(mlp_mask)
+                ga = 1.0 - np.asarray(attn_mask, np.float32)
+                gm = 1.0 - np.asarray(mlp_mask, np.float32)
+                entry.update(run_evals(params, cfg, attn_gate=ga, mlp_gate=gm))
+                if args.save_model:
+                    try:
+                        mp, mc = materialize_masked(params, cfg, attn_mask, mlp_mask)
+                    except ValueError as e:
+                        logging.warning(f"--save-model skipped: {e}")
+                    else:
+                        entry["saved"] = save_artifact(mp, mc, suffix)
+            result["runs"].append(entry)
+    finally:
+        dispatch.set_w8a8_enabled(False)
+        phases.stop()
+
+    result["phase_seconds"] = phases.seconds
+    result["kernel_launches"] = phases.launches
+    return result
+
+
+def main(argv=None) -> Dict[str, Any]:
+    args = build_argparser().parse_args(argv)
+    logging.basicConfig(level=getattr(logging, args.logging.upper()),
+                        format='%(asctime)s - %(levelname)s - %(message)s', datefmt='%H:%M:%S')
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

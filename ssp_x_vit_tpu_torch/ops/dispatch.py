@@ -16,6 +16,18 @@ import torch
 
 MAX_ROWS = 65535 * 64  # GEMM grid: one 64-row tile per blockIdx.y
 _ONES: Dict[torch.device, torch.Tensor] = {}
+_W8A8 = False
+
+
+def set_w8a8_enabled(enabled: bool) -> None:
+    """Route int8-quantized projections (``mm_quant``'s ``_q`` branch) through
+    ``w8a8_matmul`` (dynamic per-token activation quantization; lossy)."""
+    global _W8A8
+    _W8A8 = bool(enabled)
+
+
+def use_w8a8() -> bool:
+    return _W8A8
 
 
 def use_kernel(x: torch.Tensor) -> bool:

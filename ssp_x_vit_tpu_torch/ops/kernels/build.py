@@ -1,5 +1,6 @@
 """Build the CUDA sources in ``csrc/`` with nvcc at first use, bind them with
-ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``).
+ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``,
+``flash_attention``, ``quant_gemm``).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<hash>/lib<name>.so`` at the
 repository root, where ``<hash>`` covers every source and header and the nvcc
@@ -25,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gemm", "attention")
+SOURCES = ("gemm", "attention", "flash_attention", "quant_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,13 @@ SIGNATURES = {
     "attention": {
         "ssp_attention": ([_I, _P, _P, _I, _I, _I, _I, _F, _P], _I),
         "ssp_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    },
+    "flash_attention": {
+        "ssp_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P], _I),
+    },
+    "quant_gemm": {
+        "ssp_quant_gemm": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+        "ssp_quant_gemm_workspace_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
     },
 }
 
@@ -178,4 +186,39 @@ def attention(qkv: torch.Tensor, out: torch.Tensor, b: int, s: int, heads: int,
     check(library("attention").ssp_attention(DTYPE_CODES[qkv.dtype], qkv.data_ptr(),
                                              out.data_ptr(), b, s, heads, head_dim, scale,
                                              _stream()), "ssp_attention")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
+                    scale: float, causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """out[b, h, s, hd] = softmax(mask(softcap(q k^T * scale))) v for contiguous
+    q [b, h, s, hd] and k, v [b, hkv, s, hd]; ``window`` and ``softcap`` <= 0 mean none."""
+    b, h, s, hd = q.shape
+    check(library("flash_attention").ssp_flash_attention(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+        k.shape[1], s, hd, scale, int(causal), window, softcap, _stream()),
+        "ssp_flash_attention")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_workspace_floats(device_index: int, dtype_code: int, m: int, n: int, k: int) -> int:
+    with torch.cuda.device(device_index):
+        return library("quant_gemm").ssp_quant_gemm_workspace_floats(dtype_code, m, n, k)
+
+
+def quant_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """out[m, n] = (x[m, k] @ dequant(w)) * scale[n]; ``w`` is int8 [k, n]
+    (bits 8) or split-half packed [k/2, n] (bits 4). Allocates the split-K
+    workspace when the shape asks for one."""
+    k = x.shape[-1]
+    n = w.shape[-1]
+    m = x.numel() // k
+    dt = DTYPE_CODES[x.dtype]
+    ws_floats = _quant_workspace_floats(x.device.index, dt, m, n, k)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device) if ws_floats else None
+    check(library("quant_gemm").ssp_quant_gemm(dt, bits, x.data_ptr(), w.data_ptr(),
+                                               scale.data_ptr(), out.data_ptr(), m, n, k,
+                                               _ptr(ws), _stream()), "ssp_quant_gemm")
     return out

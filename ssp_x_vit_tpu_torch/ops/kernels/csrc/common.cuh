@@ -1,11 +1,13 @@
-// Shared helpers for the ViT block kernels: dtype codes, float <-> storage
-// conversions and warp reductions. Every kernel computes in fp32 and stores in
-// the operand dtype (fp32 or bf16), as the Pallas kernels it replaces do.
+// Shared helpers for the kernels: dtype codes, float <-> storage conversions,
+// warp reductions, cp.async and the split-K policy of the GEMMs. Every kernel
+// computes in fp32 and stores in the operand dtype (fp32 or bf16), as the
+// Pallas kernels it replaces do.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 
 namespace ssp {
@@ -33,6 +35,17 @@ inline int sm_count() {
     cached[device].store(sms, std::memory_order_relaxed);
   }
   return sms;
+}
+
+// Split K when a GEMM's output tiles alone make less than two waves on the
+// card (small batches): aim for ~4 blocks per SM, each split keeping at least
+// 4 K tiles of depth bk, at most 16 splits.
+inline int split_count(long long tiles, int k, int bk) {
+  const int sms = sm_count();
+  if (tiles >= 2LL * sms) return 1;
+  const long long want = (4LL * sms + tiles - 1) / tiles;
+  const long long most = k / (4 * bk);
+  return static_cast<int>(std::max(1LL, std::min({want, most, 16LL})));
 }
 
 // Opts `kernel` into the device's whole per-block dynamic shared memory. The

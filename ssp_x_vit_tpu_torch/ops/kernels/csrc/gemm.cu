@@ -357,17 +357,11 @@ extern "C" int ssp_layer_norm(int dtype, const void* x, const void* g, const voi
 }
 
 namespace ssp {
-// Split K when the output tiles alone make less than two waves (small
-// batches): aim for ~4 blocks per SM, each split keeping at least 4 K tiles.
+// Split count of a GEMM of this dtype and shape (policy in common.cuh).
 int split_count(int dtype, int m, int n, int k) {
   const int bm = dtype == kF32 ? f32::BM : bf16::BM, bn = dtype == kF32 ? f32::BN : bf16::BN;
   const int bk = dtype == kF32 ? f32::BK : bf16::BK;
-  const long long tiles = (long long)((m + bm - 1) / bm) * ((n + bn - 1) / bn);
-  const int sms = sm_count();
-  if (tiles >= 2LL * sms) return 1;
-  const long long want = (4LL * sms + tiles - 1) / tiles;
-  const long long most = k / (4 * bk);
-  return static_cast<int>(std::max(1LL, std::min({want, most, 16LL})));
+  return split_count((long long)((m + bm - 1) / bm) * ((n + bn - 1) / bn), k, bk);
 }
 }  // namespace ssp
 

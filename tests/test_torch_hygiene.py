@@ -30,7 +30,7 @@ def test_port_and_chip_smoke_never_import_jax():
                      or m == "ssp_x_vit_tpu" or m.startswith("ssp_x_vit_tpu."))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 25, names
+        assert len(names) >= 36, names
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
@@ -68,6 +68,31 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     assert init_vit_params(tiny, device="cpu")["blocks"]["fc1_kernel"].device.type == "cpu"
 
 
+def test_llm_entry_points_raise_without_a_gpu(monkeypatch):
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import llm_params_from_jax, load_llm_model
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,
+                       intermediate_size=24)
+    parser = main_llm.build_argparser()
+    for call in (lambda: init_llama_params(None, tiny),
+                 lambda: load_llm_model(os.path.join(ROOT, "ckpts", "code_llm_small")),
+                 lambda: llm_params_from_jax({"embed": np.zeros((2, 2), np.float32)}),
+                 lambda: main_llm.run(parser.parse_args(["--model", "tiny-random", "--dense"])),
+                 lambda: main_llm.main(["--model", "tiny-random", "--dense"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = init_llama_params(None, tiny, device="cpu")
+    assert params["blocks"]["gate_kernel"].device.type == "cpu"
+    # a model on the CPU handed to a run that asks for the card is refused, not moved
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="--backend is cuda"):
+        main_llm.run(parser.parse_args(["--model", "tiny-random", "--dense"]), model=(params, tiny))
+
+
 def test_unported_cli_flags_name_the_roadmap_item():
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
 
@@ -77,6 +102,51 @@ def test_unported_cli_flags_name_the_roadmap_item():
         args = auto_2ssp.build_argparser().parse_args(["--backend", "cpu", *flags])
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             auto_2ssp.run(args)
+
+
+def test_unported_llm_flags_name_the_roadmap_item(tmp_path):
+    from ssp_x_vit_tpu_torch.cli import main_llm
+
+    base = ["--backend", "cpu", "--model", "tiny-random"]
+    for flags, item in ((["--pruning_method", "evopress"], "A.10"),
+                        (["--pruning_method", "slicegpt"], "A.10"),
+                        (["--ablation"], "A.10"), (["--ablation-quick"], "A.10"),
+                        (["--evaluate_downstream"], "A.10"), (["--task-pack", "x"], "A.10"),
+                        (["--evaluate_qualitative"], "A.9"), (["--save-format", "hf"], "A.10"),
+                        (["--local_datasets"], "A.10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            main_llm.run(main_llm.build_argparser().parse_args(base + flags))
+    for model in ("tiny-random-deepseek", "tiny-random-deepseek-dense"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
+            main_llm.run(main_llm.build_argparser().parse_args(["--backend", "cpu", "--model", model]))
+    (tmp_path / "mla").mkdir()
+    (tmp_path / "mla" / "model.npz").write_bytes(b"")
+    (tmp_path / "mla" / "config.json").write_text('{"kv_lora_rank": 32}')
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
+        main_llm.run(main_llm.build_argparser().parse_args(
+            ["--backend", "cpu", "--model", str(tmp_path / "mla")]))
+
+
+def test_llm_kernel_wrappers_check_their_operands():
+    """What the wrappers refuse before any launch, reachable without a card:
+    the plain versions run for CPU tensors, other devices raise."""
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    assert KERNEL_NAMES[-3:] == ("flash_attention", "quant4_matmul", "quant_matmul")
+    reset_launch_counts()
+    q = torch.zeros(1, 2, 8, 16)
+    assert tfa.flash_attention(q, q, q, causal=True).shape == q.shape
+    w = torch.zeros(8, 4, dtype=torch.int8)
+    assert tqm.quant_matmul(torch.zeros(3, 8), w, torch.ones(4)).shape == (3, 4)
+    assert tqm.quant4_matmul(torch.zeros(3, 16), w, torch.ones(4)).shape == (3, 4)
+    assert all(n == 0 for n in launch_counts.values())  # CPU tensors launch nothing
+    meta = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tfa.flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tqm.quant4_matmul(torch.zeros(3, 16, device="meta"), w, torch.ones(4))
 
 
 def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
@@ -89,8 +159,12 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libraries", {})
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.library("gemm")
+    assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "quant_gemm"}
+    assert set(build.SIGNATURES) == set(build.SOURCES)
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.library(name)
 
 
 def test_dispatch_is_decided_by_the_tensor_device():
@@ -148,3 +222,109 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
                       ffk.fused_ffn_plain(x, *w, neuron_mask=mask, collect_stats=True))):
         check(got[0], ref[0])
         assert (got[1] - ref[1]).abs().max().item() <= tol * ref[1].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
+    """flash_attention, quant4_matmul and quant_matmul against their plain
+    versions at ragged small shapes (GQA, window, softcap, head_dim 80 and 40;
+    K and N off the tile and off the 16-byte copies, M = 1 with split-K);
+    tolerance on max |diff| / max(1, max |plain|)."""
+    from ssp_x_vit_tpu_torch.ops.attention import flash_attention
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=cuda_device) * std).to(dtype)
+
+    def check(got, ref):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err / max(1.0, ref.float().abs().max().item()) <= tol, err
+
+    before = dict(launch_counts)
+    cases = [  # b, h, hkv, s, hd, causal, window, softcap
+        (2, 4, 2, 197, 64, True, None, None),
+        (1, 4, 4, 130, 32, False, None, None),
+        (1, 8, 4, 300, 80, True, 70, None),
+        (1, 4, 2, 257, 256, True, None, 50.0),
+        (2, 2, 1, 150, 40, True, 64, 30.0),
+        (1, 2, 2, 65, 20, True, 1, None),
+    ]
+    for b, h, hkv, s, hd, causal, window, softcap in cases:
+        q, k, v = rn(b, h, s, hd), rn(b, hkv, s, hd), rn(b, hkv, s, hd)
+        check(flash_attention(q, k, v, causal=causal, window=window, softcap=softcap),
+              tfa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap))
+    with pytest.raises(RuntimeError, match="backward"):
+        flash_attention(rn(1, 2, 16, 32).requires_grad_(), rn(1, 2, 16, 32), rn(1, 2, 16, 32))
+
+    for m, k, n in ((300, 512, 384), (1, 4096, 512), (70, 250, 200), (129, 1030, 136)):
+        x = rn(m, k)
+        w = rn(k, n, std=0.05).float()
+        w_p, s4 = tqm.quantize_weight_int4(w)
+        check(tqm.quant4_matmul(x, w_p, s4), tqm.quant4_matmul_plain(x, w_p, s4))
+        w_q = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device).to(torch.int8)
+        s8 = torch.rand(n, generator=gen, device=cuda_device) * 0.01 + 0.001
+        check(tqm.quant_matmul(x, w_q, s8), tqm.quant_matmul_plain(x, w_q, s8))
+    assert launch_counts["flash_attention"] - before["flash_attention"] == len(cases)
+    assert launch_counts["quant4_matmul"] - before["quant4_matmul"] == 4
+    assert launch_counts["quant_matmul"] - before["quant_matmul"] == 4
+
+
+@pytest.mark.cuda
+def test_w8a8_matmul_on_the_card_matches_the_cpu(cuda_device):
+    """The int8 x int8 product (``torch._int_mm`` on the card, rows padded
+    past 16; an int32 matmul on the host) gives the same integers, so the
+    outputs differ by fp32 rounding of the scales only."""
+    from ssp_x_vit_tpu_torch.ops.common import w8a8_matmul
+
+    gen = torch.Generator().manual_seed(0)
+    w_q = torch.randint(-127, 128, (256, 136), generator=gen).to(torch.int8)
+    scale = torch.rand(136, generator=gen) * 0.01 + 0.001
+    for rows in ((3,), (2, 40)):
+        x = torch.randn(*rows, 256, generator=gen)
+        ref = w8a8_matmul(x, w_q, scale, torch.float32)
+        got = w8a8_matmul(x.to(cuda_device), w_q.to(cuda_device), scale.to(cuda_device),
+                          torch.float32)
+        assert got.shape == ref.shape
+        assert (got.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tiny-random", "tiny-random-phi", "tiny-random-opt",
+                                   "tiny-random-gemma", "tiny-random-gemma2", "tiny-random-qwen3"])
+def test_llm_cli_on_the_card_matches_the_cpu_backend(cuda_device, model):
+    """Every family through the CLI on the card (flash kernel at head_dim 16,
+    gemma-2's windows and softcap, phi's partial rotary; then the int4 GEMM)
+    against the same run on the CPU backend: the same weights, perplexities
+    within rtol 2e-2 at the bf16 default, flash launches in every phase."""
+    from ssp_x_vit_tpu_torch.cli import main_llm
+
+    def run(backend, *flags, params=None):
+        args = main_llm.build_argparser().parse_args(
+            ["--model", model, "--backend", backend, "--synthetic-data", "--seq-len", "128",
+             "--num-calibration", "4", "--num-calibration-2ssp", "2", "--logging", "WARNING",
+             "--evaluate_perplexity", *flags])
+        return main_llm.run(args, model=params)
+
+    host = main_llm.load_model(main_llm.build_argparser().parse_args(["--model", model]),
+                               torch.device("cpu"))
+    card = ({k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.to(cuda_device)) for k, v in host[0].items()}, host[1])
+    prune = ("--dense", "--pruning_method", "blockpruner", "--sparsity_rate", "0.34",
+             "--evaluate_inference")
+    ref, got = run("cpu", *prune, params=host), run("cuda", *prune, params=card)
+    assert got["dense"]["ppl"] == pytest.approx(ref["dense"]["ppl"], rel=2e-2)
+    assert got["runs"][0]["inference_ms"] > 0.0
+    for phase in ("search", "evaluation"):
+        assert got["kernel_launches"][phase]["flash_attention"] > 0
+    for quantize, kernel in (("int4", "quant4_matmul"), ("int8", None)):
+        ref = run("cpu", "--dense", "--quantize", quantize, "--w8a8", params=host)
+        got = run("cuda", "--dense", "--quantize", quantize, "--w8a8", params=card)
+        assert got["dense"]["ppl"] == pytest.approx(ref["dense"]["ppl"], rel=2e-2)
+        if kernel:
+            assert got["kernel_launches"]["evaluation"][kernel] > 0
