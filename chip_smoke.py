@@ -800,6 +800,56 @@ def check_llm_forward(params, cfg, device) -> None:
                 raise AssertionError("the kernel forward disagrees with the CPU reference")
 
 
+def profile_llm_forward(params, cfg, device) -> None:
+    """Where one forward's time goes: ``torch.profiler`` over two dense forwards
+    (b=1) and two candidate-batch forwards (b=8) at s=2048; prints the wall time
+    per forward, the share of it the device was busy, and the kernels with the
+    most device time. Prints "not measured" if the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+
+    ids = torch.from_numpy(synthetic_token_stream(2048, cfg.vocab_size, seed=7).astype("int64"))
+    ids = ids.to(device)
+    for b in (1, 8):
+        tokens = ids.expand(b, -1)
+        gates = torch.ones(cfg.num_layers, b, 1, 1, device=device)
+        with torch.no_grad():
+            llama_forward(params, tokens, cfg, attn_gate=gates)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                llama_forward(params, tokens, cfg, attn_gate=gates)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 2  # without the profiler
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    llama_forward(params, tokens, cfg, attn_gate=gates)
+                torch.cuda.synchronize()
+
+        # rows of device activities only: the host-side operator rows repeat their kernels' time
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+        total_ms = sum(_device_us(e) for e in kernels) / 1e3 / 2
+        if total_ms <= 0:
+            log(f"[PROFILE] llm forward b={b}: the trace holds no device time: not measured")
+            continue
+        log(f"[PROFILE] llm forward b={b} s=2048 bf16: {wall_ms:.1f} ms wall per forward (host "
+            f"clock, no profiler), {total_ms:.1f} ms of device activity in the trace "
+            f"({100 * total_ms / wall_ms:.0f}% of the wall time)")
+        for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+            ms = _device_us(e) / 1e3 / 2
+            log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count // 2:<4d} {e.key[:90]}")
+
+
+def _device_us(event) -> float:
+    """Self device time of a profiler row, under its current or its older name."""
+    return getattr(event, "self_device_time_total", None) or getattr(
+        event, "self_cuda_time_total", 0)
+
+
 def phase_main_llm(device) -> dict:
     """The LLM CLI at the full width and depth of Llama-2-7B; returns launches
     per kernel summed over its two runs."""
@@ -823,6 +873,7 @@ def phase_main_llm(device) -> dict:
         f"card in {time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)")
     check_llm_forward(params, cfg, device)
+    profile_llm_forward(params, cfg, device)
 
     common = ["--model", "llama-2-7b-width", "--synthetic-data", "--seq-len", "2048",
               "--num-calibration", "16", "--num-calibration-2ssp", "8", "--backend", "cuda",
