@@ -845,9 +845,8 @@ def profile_llm_forward(params, cfg, device) -> None:
 
 
 def _device_us(event) -> float:
-    """Self device time of a profiler row, under its current or its older name."""
-    return getattr(event, "self_device_time_total", None) or getattr(
-        event, "self_cuda_time_total", 0)
+    """Self device time of a profiler row, in microseconds."""
+    return event.self_device_time_total
 
 
 def phase_main_llm(device) -> dict:
@@ -1032,27 +1031,35 @@ def main() -> int:
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
     # Driven paths, each with the counts set to 0 just before it and read just
-    # after: the op-level ffn_forward and quant_matmul drives, the two ViT CLI
-    # runs, the two LLM CLI runs.
-    launches = {name: 0 for name in KERNEL_NAMES}
-    launches["fused_ffn"] += drive_ffn_forward(device)
-    launches["quant_matmul"] += drive_quant_matmul(device)
+    # after. The CLI runs (two ViT, two LLM) are the main paths; fused_ffn and
+    # quant_matmul have no caller under the CLIs (quant_matmul has none in
+    # either package), so each is driven through its public op-level entry and
+    # its record says so.
+    direct = {"fused_ffn": ("ops.ffn.ffn_forward called directly", drive_ffn_forward(device)),
+              "quant_matmul": ("direct wrapper call, no caller in the package",
+                               drive_quant_matmul(device))}
     phase_done("kernels (phase 3)")
+    cli_launches = {name: 0 for name in KERNEL_NAMES}
     with tempfile.TemporaryDirectory() as out_root:
         for name, n in phase_main(out_root, device).items():
-            launches[name] += n
+            cli_launches[name] += n
     phase_done("main, ViT (phase 4)")
     for name, n in phase_main_llm(device).items():
-        launches[name] += n
+        cli_launches[name] += n
     phase_done("main, LLM (phase 4)")
     phase_anchor(device)
     phase_anchor_llm(device)
     phase_done("anchors (phase 5)")
 
-    missing = [name for name in KERNEL_NAMES if launches[name] <= 0]
+    missing = [name for name in KERNEL_NAMES
+               if (direct[name][1] if name in direct else cli_launches[name]) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on a driven path: {missing}")
-    kernels = [dict(records[name], launches=launches[name]) for name in KERNEL_NAMES]
+    kernels = []
+    for name in KERNEL_NAMES:
+        driven_by, n_direct = direct.get(name, ("cli runs", 0))
+        kernels.append(dict(records[name], launches=cli_launches[name] + n_direct,
+                            cli_launches=cli_launches[name], driven_by=driven_by))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -84,15 +84,20 @@ def mm_quant(x: torch.Tensor, bp: Dict[str, torch.Tensor], name: str, compute_dt
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 [m, k] @ int8 [k, n] -> int32 [m, n]: ``torch._int_mm`` on the card
-    (it takes more than 16 rows, so fewer are zero-padded, and K, N multiples
-    of 8), an int32 ``matmul`` on the host otherwise."""
+    """int8 [m, k] @ int8 [k, n] -> int32 [m, n], on the operands' device:
+    an int32 ``matmul`` for CPU tensors, ``torch._int_mm`` for CUDA tensors.
+    ``_int_mm`` takes more than 16 rows and K, N multiples of 8, so the
+    operands are zero-padded on the card up to that (a 2SSP-pruned down
+    projection has any K); zeros add nothing to the integer sums."""
     m, (k, n) = a.shape[0], b.shape
-    if a.device.type == "cuda" and k % 8 == 0 and n % 8 == 0:
-        if m <= 16:
-            a = F.pad(a, (0, 0, 0, 17 - m))
-        return torch._int_mm(a.contiguous(), b)[:m]
-    return torch.matmul(a.to(torch.int32).cpu(), b.to(torch.int32).cpu()).to(a.device)
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
 def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

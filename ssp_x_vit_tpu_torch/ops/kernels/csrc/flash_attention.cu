@@ -23,7 +23,7 @@
 // - bf16: 4 warps of 16 query rows. Q and a two-stage ring of 64-key K/V
 //   tiles sit in dynamic shared memory (16-byte cp.async when hd % 8 == 0,
 //   else element loads; the head dimension is zero-padded in shared memory to
-//   the next of 32/64/80/128/256, never in device memory). S = Q K^T and
+//   the next of 64/80/128/256, never in device memory). S = Q K^T and
 //   O += P V run on the tensor cores (WMMA 16x16x16, fp32 accumulate). The
 //   logits go through a per-warp fp32 tile for the softmax (two lanes per
 //   row); P comes back in bf16 through the same tile. O stays in accumulator
@@ -457,14 +457,12 @@ extern "C" int ssp_flash_attention(int dtype, const void* q, const void* k, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16) {
-    if (hd <= 32) err = tc::launch<32>(p, st);
-    else if (hd <= 64) err = tc::launch<64>(p, st);
+    if (hd <= 64) err = tc::launch<64>(p, st);
     else if (hd <= 80) err = tc::launch<80>(p, st);
     else if (hd <= 128) err = tc::launch<128>(p, st);
     else err = tc::launch<256>(p, st);
   } else if (dtype == kF32) {
-    if (hd <= 32) err = simt::launch<32, 64>(p, st);
-    else if (hd <= 64) err = simt::launch<64, 64>(p, st);
+    if (hd <= 64) err = simt::launch<64, 64>(p, st);
     else if (hd <= 80) err = simt::launch<80, 64>(p, st);
     else if (hd <= 128) err = simt::launch<128, 64>(p, st);
     else err = simt::launch<256, 32>(p, st);

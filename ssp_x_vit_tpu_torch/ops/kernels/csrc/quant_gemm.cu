@@ -15,9 +15,14 @@
 // The product accumulates x @ w.to(x.dtype) in fp32 (integers up to 127 are
 // exact in bf16), the epilogue multiplies each column by its scale and stores
 // in x's dtype. The dequantised weight never exists in device memory: a K
-// tile's bytes are copied to shared memory as they are (K*N bytes for int8,
-// K*N/2 for int4 over the whole product) and turned into bf16 (or fp32) there
-// on the way to the product.
+// tile's bytes are copied to shared memory as they are and turned into bf16
+// (or fp32) there on the way to the product. The K loop walks logical rows, so
+// for int4 each stored row is fetched twice, once for logical row r (low
+// nibble) and once for r + K/2 (high nibble): K*N bytes pass through L2 and
+// shared memory for either width, and int4 halves only the weight's footprint
+// in device memory (K*N/2 bytes, which a second fetch finds in L2 when the
+// weight fits there). Walking stored rows and feeding both halves from one
+// staged tile is later work.
 //
 // bf16 reuses the tile pipeline of gemm.cu: 128x128x64 tiles, 8 warps of
 // 64x32 on WMMA 16x16x16, a 3-stage cp.async ring for the activation tile and
@@ -28,10 +33,11 @@
 // rows). fp32 runs a SIMT 64x64x32 tile in exact fp32.
 //
 // What bounds it on the H100: 2*M*N*K FLOPs against M*K + M*N activations and
-// K*N (or K*N/2) weight bytes. At the perplexity path's M = 2048 and up it is
-// operations-bound (Llama-2-7B gate projection: 185 GFLOP against 22.5 MB of
-// int4 weights plus 62 MB of activations); at M = 1 it is bound by the weight
-// bytes. WMMA on mma.sync and the extra shared-memory pass of the convert
+// K*N (or K*N/2) stored weight bytes. At the perplexity path's M = 2048 and up
+// it is operations-bound (Llama-2-7B gate projection: 185 GFLOP against
+// 22.5 MB of int4 weights plus 62 MB of activations); at M = 1 it is bound by
+// the weight bytes it fetches, which for int4 is K*N as long as each stored
+// row is fetched twice. WMMA on mma.sync and the extra shared-memory pass of the convert
 // keep it below the tensor-core peak; wgmma with in-register dequant is later
 // work.
 

@@ -278,20 +278,24 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
 @pytest.mark.cuda
 def test_w8a8_matmul_on_the_card_matches_the_cpu(cuda_device):
     """The int8 x int8 product (``torch._int_mm`` on the card, rows padded
-    past 16; an int32 matmul on the host) gives the same integers, so the
+    past 16 and K, N to multiples of 8 there; an int32 matmul for CPU
+    tensors) gives the same integers, so the
     outputs differ by fp32 rounding of the scales only."""
     from ssp_x_vit_tpu_torch.ops.common import w8a8_matmul
 
     gen = torch.Generator().manual_seed(0)
-    w_q = torch.randint(-127, 128, (256, 136), generator=gen).to(torch.int8)
-    scale = torch.rand(136, generator=gen) * 0.01 + 0.001
-    for rows in ((3,), (2, 40)):
-        x = torch.randn(*rows, 256, generator=gen)
-        ref = w8a8_matmul(x, w_q, scale, torch.float32)
-        got = w8a8_matmul(x.to(cuda_device), w_q.to(cuda_device), scale.to(cuda_device),
-                          torch.float32)
-        assert got.shape == ref.shape
-        assert (got.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    # (256, 136) is what _int_mm takes as it is; (682, 250) is a pruned down
+    # projection's shape, K and N both off a multiple of 8 (padded on the card).
+    for k, n in ((256, 136), (682, 250)):
+        w_q = torch.randint(-127, 128, (k, n), generator=gen).to(torch.int8)
+        scale = torch.rand(n, generator=gen) * 0.01 + 0.001
+        for rows in ((3,), (2, 40)):
+            x = torch.randn(*rows, k, generator=gen)
+            ref = w8a8_matmul(x, w_q, scale, torch.float32)
+            got = w8a8_matmul(x.to(cuda_device), w_q.to(cuda_device), scale.to(cuda_device),
+                              torch.float32)
+            assert got.is_cuda and got.shape == ref.shape
+            assert (got.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 @pytest.mark.cuda
