@@ -540,6 +540,218 @@ def phase_llm_kernels(device) -> dict:
     return records
 
 
+def _paged_setup(gen, device, dtype, pool_kind, *, nq, nkv, hd, ps, lens, window=None,
+                 layers=None, layer=None):
+    """One decode step's operands at the given geometry: pools whose live rows
+    are random (int8 pools: quantized random rows), a page table of shuffled
+    physical pages with room for one more token per sequence, lengths, window
+    starts, the new K/V rows and the query. ``layers``/``layer``: a 5D pool
+    with only that layer filled."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import quantize_token_kv
+
+    b = len(lens)
+    need = [-(-(n + 1) // ps) for n in lens]
+    mp, num_pages = max(need), 1 + sum(need)
+    order = (1 + torch.randperm(num_pages - 1, generator=gen, device=device)).to(torch.int32)
+    table = torch.zeros(b, mp, dtype=torch.int32, device=device)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = order[at:at + n]
+        at += n
+
+    def pool():
+        shape = (nkv, num_pages, ps, hd)
+        lead = () if layers is None else (layers,)
+        if pool_kind == "int8":
+            full = {"q": torch.zeros(lead + shape, dtype=torch.int8, device=device),
+                    "s": torch.ones(lead + shape[:-1], dtype=torch.float32, device=device)}
+            one = {k: (v if layers is None else v[layer]) for k, v in full.items()}
+            for h in range(nkv):  # one head at a time bounds the fp32 temporary
+                codes, sc = quantize_token_kv(torch.randn(shape[1:], generator=gen, device=device))
+                one["q"][h], one["s"][h] = codes, sc
+            return full
+        full = torch.zeros(lead + shape, dtype=dtype, device=device)
+        one = full if layers is None else full[layer]
+        for h in range(nkv):
+            one[h] = torch.randn(shape[1:], generator=gen, device=device).to(dtype)
+        return full
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
+    starts = None
+    if window is not None:  # the query sits at position len: keys >= len + 1 - window
+        starts = (lens_t + 1 - window).clamp_min(0).to(torch.int32)
+    return dict(k=pool(), v=pool(), table=table, lens=lens_t, starts=starts,
+                k_new=rn(b, nkv, hd), v_new=rn(b, nkv, hd), q=rn(b, nq, hd), layer=layer)
+
+
+def _clone_pool(pool):
+    return {k: v.clone() for k, v in pool.items()} if isinstance(pool, dict) else pool.clone()
+
+
+def _pools_differ(a, b) -> int:
+    """Number of elements (codes and scales of an int8 pool) that differ."""
+    if isinstance(a, dict):
+        return sum(_pools_differ(a[k], b[k]) for k in a)
+    return int((a != b).sum().item())
+
+
+def phase_paged_kernels(device) -> dict:
+    """paged_attention, paged_attention_q8, paged_pool_write and
+    paged_pool_write_q8 against their plain versions, as one decode step does
+    them (write the new row at slot len, then attend len + 1 keys); returns
+    their kernels-line records, timed at the Llama-2-7B decode shape of the
+    served run (b=8, 2048 keys each, bf16 and int8 pools)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    records = {}
+    source = "ssp_x_vit_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+    cases = [  # label, geometry, softcap, timed
+        ("Llama-2-7B decode, ragged, layer 17 of an 18-layer pool (offsets past 2^31 elements)",
+         dict(nq=32, nkv=32, hd=128, ps=64, lens=[1, 63, 64, 300, 777, 1024, 1500, 2047],
+              layers=18, layer=17), None, False),
+        ("Llama-2-7B decode, 2047 cached keys each",
+         dict(nq=32, nkv=32, hd=128, ps=64, lens=[2047] * 8), None, True),
+        ("Mistral-7B, context 6000, window 4096",
+         dict(nq=32, nkv=8, hd=128, ps=64, lens=[5999, 6000, 4500, 100], window=4096), None, False),
+        ("gemma-2 head_dim 256, softcap 50",
+         dict(nq=16, nkv=8, hd=256, ps=64, lens=[5, 200, 1000, 333]), 50.0, False),
+        ("phi-2 head_dim 80", dict(nq=32, nkv=32, hd=80, ps=64, lens=[17, 400, 900]), None, False),
+        ("page size 16", dict(nq=8, nkv=2, hd=64, ps=16, lens=[250]), None, False),
+        ("page size 256", dict(nq=8, nkv=8, hd=128, ps=256, lens=[1000]), None, False),
+        ("page size 512", dict(nq=6, nkv=2, hd=128, ps=512, lens=[1300, 511]), None, False),
+        ("ragged group and page (rep 3, ps 12, head_dim 40)",
+         dict(nq=6, nkv=2, hd=40, ps=12, lens=[0, 11, 12, 100], window=30), 30.0, False),
+    ]
+    variants = [("float32", torch.float32, "float"), ("bfloat16", torch.bfloat16, "float"),
+                ("bfloat16", torch.bfloat16, "int8")]  # an int8 cache computes in bf16
+    for label, geo, softcap, timed in cases:
+        for dn, dtype, kind in variants:
+            c = _paged_setup(gen, device, dtype, kind, **geo)
+            li, lens1 = c["layer"], c["lens"] + 1
+            name = f"{label}: b={len(geo['lens'])} nq={geo['nq']} nkv={geo['nkv']} " \
+                   f"hd={geo['hd']} ps={geo['ps']} {dn}{' int8 pools' if kind == 'int8' else ''}"
+            # the write: kernel on the pools, plain version on clones; whole pools compared
+            # (codes and scales bit for bit), so a stray write anywhere shows
+            k_ref, v_ref = _clone_pool(c["k"]), _clone_pool(c["v"])
+            tpa.paged_cache_write(c["k"], c["v"], c["k_new"], c["v_new"], c["table"], c["lens"], li)
+            tpa.paged_pool_write_plain(k_ref, c["k_new"], c["table"], c["lens"], li)
+            tpa.paged_pool_write_plain(v_ref, c["v_new"], c["table"], c["lens"], li)
+            torch.cuda.synchronize()
+            differ = _pools_differ(c["k"], k_ref) + _pools_differ(c["v"], v_ref)
+            if differ:
+                raise AssertionError(f"paged_cache_write {name}: {differ} pool elements differ "
+                                     "from the plain write")
+            del k_ref, v_ref
+            got = tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
+                                      softcap, li)
+            ref = tpa.paged_attention_plain(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
+                                            softcap, li)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"paged_attention {name}: non-finite output")
+            err, rel = scaled_err(got, ref)
+            tol = TOL["bfloat16"] if kind == "int8" else TOL[dn]
+            log(f"[KERNEL] paged write (pools identical to the plain write) + attention {name}: "
+                f"max_abs_err={err:.3e} scaled={rel:.3e} tol={tol} ok")
+            if rel > tol:
+                raise AssertionError(f"paged_attention {name}: scaled error {rel:.3e} > {tol}")
+            if not (timed and dtype == torch.bfloat16):
+                del c
+                continue
+
+            # times at the served decode shape, bf16 queries
+            q8 = kind == "int8"
+            nq, nkv, hd, ps = geo["nq"], geo["nkv"], geo["hd"], geo["ps"]
+            keys = int((lens1 - (c["starts"] if c["starts"] is not None else 0)).sum().item())
+            b = len(geo["lens"])
+            row_bytes = (hd + 4) if q8 else hd * 2
+            a_bytes = 2 * nkv * row_bytes * keys + 2 * b * nq * hd * 2 + c["table"].numel() * 4 + 8 * b
+            a_flops = 4 * nq * hd * keys
+            a_bound, a_by = _bound(a_flops, a_bytes, "bfloat16")
+            a_ms = time_ms(lambda: tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1,
+                                                       None, None, li), iters=20)
+            ap_ms = time_ms(lambda: tpa.paged_attention_plain(c["q"], c["k"], c["v"], c["table"],
+                                                              lens1, None, None, li), iters=5, warmup=1)
+            table_l = c["table"].long()
+            mp = table_l.shape[1]
+            key_mask = (torch.arange(mp * ps, device=device)[None] < lens1[:, None])[:, None, None]
+
+            def gathered(pool):
+                if q8:
+                    out = pool["q"][:, table_l].to(dtype) * pool["s"][:, table_l][..., None].to(dtype)
+                else:
+                    out = pool[:, table_l]
+                return out.movedim(0, 1).reshape(b, nkv, mp * ps, hd)
+
+            def attn_library():  # the page gather and one SDPA call
+                return F.scaled_dot_product_attention(c["q"][:, :, None], gathered(c["k"]),
+                                                      gathered(c["v"]), attn_mask=key_mask,
+                                                      enable_gqa=nq != nkv)
+
+            lib_err = scaled_err(attn_library()[:, :, 0], ref)[1]
+            if lib_err > tol:
+                raise AssertionError(f"the library composition disagrees with the plain version: {lib_err}")
+            al_ms = time_ms(attn_library)
+            w_bytes = 2 * b * nkv * (hd * 2 + (hd + 4 if q8 else hd * 2)) + c["table"].numel() * 4 + 4 * b
+            w_bound, w_by = _bound(0, w_bytes, "bfloat16")
+            w_ms = time_ms(lambda: tpa.paged_cache_write(c["k"], c["v"], c["k_new"], c["v_new"],
+                                                         c["table"], c["lens"], li), iters=20)
+
+            def write_plain():
+                tpa.paged_pool_write_plain(c["k"], c["k_new"], c["table"], c["lens"], li)
+                tpa.paged_pool_write_plain(c["v"], c["v_new"], c["table"], c["lens"], li)
+
+            wp_ms = time_ms(write_plain)
+            rows = torch.arange(b, device=device)
+            phys, off = table_l[rows, c["lens"].long() // ps], c["lens"].long() % ps
+            wl_ms = None
+            if not q8:  # one index_put_ per pool; an int8 pool has no single call (quantize first)
+                k_rows, v_rows = c["k_new"].movedim(0, 1), c["v_new"].movedim(0, 1)
+                at = (torch.arange(nkv, device=device)[:, None], phys[None], off[None])
+
+                def write_library():
+                    c["k"].index_put_(at, k_rows)
+                    c["v"].index_put_(at, v_rows)
+
+                wl_ms = time_ms(write_library)
+            suffix = "_q8" if q8 else ""
+            shape = f"b={b} nq={nq} nkv={nkv} hd={hd} ps={ps}, {keys // b} keys each, bf16" + \
+                (" queries, int8 pools" if q8 else "")
+            log(f"[TIME] paged_attention{suffix} {shape}: kernel {a_ms:.4f} ms "
+                f"({a_bytes / a_ms / 1e9:.1f} TB/s of the bytes it must move), plain {ap_ms:.4f} ms, "
+                f"library page gather + SDPA {al_ms:.4f} ms, bound {a_bound:.4f} ms ({a_by})")
+            log(f"[TIME] paged_pool_write{suffix} {shape}: kernel {w_ms:.4f} ms (K and V in one "
+                f"launch), plain {wp_ms:.4f} ms, library index_put_ "
+                f"{'none for an int8 pool' if wl_ms is None else f'{wl_ms:.4f} ms'}, bound "
+                f"{w_bound:.6f} ms ({w_by}; {w_bytes} bytes, far under a launch's latency)")
+            common = dict(route="cuda", source=source, shape=shape, tol=tol)
+            records["paged_attention" + suffix] = dict(
+                common, name="paged_attention" + suffix,
+                replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("349" if q8 else "243"),
+                tpu_kernel="_paged_pallas_grouped_q8" if q8 else "paged_attention_pallas",
+                max_abs_err=err, scaled_err=rel, ms=a_ms, kernel_ms=a_ms, plain_ms=ap_ms,
+                bound_ms=a_bound, bound_by=a_by, library_ms=al_ms, flops=a_flops, bytes=a_bytes)
+            records["paged_pool_write" + suffix] = dict(
+                common, name="paged_pool_write" + suffix,
+                replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("587" if q8 else "541"),
+                tpu_kernel="_pool_write_pallas_q8" if q8 else "_pool_write_pallas_array",
+                max_abs_err=0.0, scaled_err=0.0, ms=w_ms, kernel_ms=w_ms, plain_ms=wp_ms,
+                bound_ms=w_bound, bound_by=w_by, library_ms=wl_ms, flops=0, bytes=w_bytes)
+            del c
+        torch.cuda.empty_cache()
+    return records
+
+
 def time_llm_parts(device) -> None:
     """Time each C entry point of the LLM kernels at the Llama-2-7B shapes of
     one layer call (b=1, s=2048, bf16), beside the ``torch.matmul``s that carry
@@ -753,14 +965,14 @@ LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=3
                   num_kv_heads=32, intermediate_size=11008, rms_eps=1e-5, rope_theta=10000.0)
 
 
-def _to_host(params, dtype):
-    """A copy of a parameter tree on the host CPU, float leaves cast to ``dtype``."""
+def _tree_to(params, device=None, dtype=None):
+    """A copy of a parameter tree on ``device`` with float leaves cast to ``dtype``."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
-            out[k] = _to_host(v, dtype)
+            out[k] = _tree_to(v, device, dtype)
         else:
-            out[k] = (v.to(dtype) if v.is_floating_point() else v).cpu()
+            out[k] = v.to(device=device, dtype=dtype if v.is_floating_point() else None)
     return out
 
 
@@ -781,12 +993,12 @@ def check_llm_forward(params, cfg, device) -> None:
     ids = torch.from_numpy(synthetic_token_stream(2048, cfg.vocab_size, seed=5).astype("int64"))
     t0 = time.perf_counter()
     with torch.no_grad():
-        ref, _ = llama_forward(_to_host(two, torch.float32), ids, cfg2, compute_dtype=torch.float32)
+        ref, _ = llama_forward(_tree_to(two, "cpu", torch.float32), ids, cfg2,
+                               compute_dtype=torch.float32)
         host_s = time.perf_counter() - t0
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
             before = launch_counts["flash_attention"]
-            card = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict)
-                        else v.to(dtype)) for k, v in two.items()}
+            card = _tree_to(two, dtype=dtype)
             got, _ = llama_forward(card, ids.to(device), cfg2, compute_dtype=dtype)
             got = got.cpu()
             if launch_counts["flash_attention"] - before != 2:
@@ -849,16 +1061,12 @@ def _device_us(event) -> float:
     return event.self_device_time_total
 
 
-def phase_main_llm(device) -> dict:
-    """The LLM CLI at the full width and depth of Llama-2-7B; returns launches
-    per kernel summed over its two runs."""
-    import math
-
+def make_llama_7b(device):
+    """(params, cfg) at the full width and depth of Llama-2-7B: random bf16
+    weights made on the card from a seed."""
     import torch
 
-    from ssp_x_vit_tpu_torch.cli import main_llm
     from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
-    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
     cfg = LlamaConfig(**LLAMA_2_7B)
     gen = torch.Generator(device=device)
@@ -871,6 +1079,19 @@ def phase_main_llm(device) -> dict:
     log(f"[MAIN] Llama-2-7B width model: {n_params / 1e9:.3f} B parameters in bf16 made on the "
         f"card in {time.perf_counter() - t0:.2f} s "
         f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)")
+    return params, cfg
+
+
+def phase_main_llm(device, params, cfg) -> dict:
+    """The LLM CLI at the full width and depth of Llama-2-7B; returns launches
+    per kernel summed over its two runs."""
+    import math
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
     check_llm_forward(params, cfg, device)
     profile_llm_forward(params, cfg, device)
 
@@ -926,6 +1147,404 @@ def phase_main_llm(device) -> dict:
     return totals
 
 
+PAGE = 64  # page size of the served runs
+
+
+def check_paged_against_host(params, cfg, device) -> None:
+    """Two layers of the full-width model, two prompts, prefill + 8 decode
+    steps through the paged path: every step's logits on the card (kernels)
+    against the same calls on CPU copies (plain versions), fed the same tokens.
+    fp32 pools: scaled error <= 1e-4; bf16 pools: <= 5e-2."""
+    import dataclasses
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.paged import init_paged_pools, paged_decode_step, paged_prefill
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    two = dict(params, blocks={k: v[:2] for k, v in params["blocks"].items()})
+    stream = synthetic_token_stream(200, cfg.vocab_size, seed=9).reshape(-1).astype("int64")
+    prompts = [stream[:70], stream[70:103]]
+    steps, mp = 8, 3
+    tables = torch.arange(1, 1 + 2 * mp, dtype=torch.int32).reshape(2, mp)
+
+    def run(tree, dev, dtype, feed=None):
+        """Logits of both prefills and of every decode step; ``feed``: the
+        tokens to decode with (the host's), else this run's own argmax."""
+        kp, vp = init_paged_pools(cfg2, 1 + 2 * mp, PAGE, dtype, dev)
+        out, toks = [], []
+        for i, p in enumerate(prompts):
+            lg, _, _ = paged_prefill(tree, torch.as_tensor(p[None], device=dev), kp, vp, cfg2,
+                                     tables[i].to(dev), len(p))
+            out.append(lg.float().cpu())
+        lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+        tok = torch.stack([o.argmax() for o in out]) if feed is None else feed[0]
+        for t in range(steps):
+            toks.append(tok.cpu())
+            lg, _, _ = paged_decode_step(tree, tok.to(dev), kp, vp, cfg2, tables.to(dev), lens + t)
+            out.append(lg.float().cpu())
+            tok = lg.argmax(-1) if feed is None else feed[min(t + 1, steps - 1)]
+        return out, toks
+
+    t0 = time.perf_counter()
+    ref, feed = run(_tree_to(two, "cpu", torch.float32), torch.device("cpu"), torch.float32)
+    host_s = time.perf_counter() - t0
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        reset_launch_counts()
+        got, _ = run(_tree_to(two, device, dtype), device, dtype, feed)
+        worst = max(scaled_err(g, r)[1] for g, r in zip(got, ref))
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"paged path {dtype}: non-finite logits")
+        n_attn, n_write = launch_counts["paged_attention"], launch_counts["paged_pool_write"]
+        log(f"[SERVE] Llama-2-7B width, 2 layers, prompts of 70 and 33 tokens, prefill + {steps} "
+            f"decode steps: card kernels {dtype} vs host CPU plain fp32 ({host_s:.1f} s), worst "
+            f"scaled logit error over {len(got)} logit rows {worst:.3e} tol={tol}; launches "
+            f"paged_attention {n_attn}, paged_pool_write {n_write}, flash_attention "
+            f"{launch_counts['flash_attention']}")
+        if worst > tol:
+            raise AssertionError("the paged path on the card disagrees with the CPU plain path")
+        if n_attn != 2 * steps or n_write != 2 * steps or launch_counts["flash_attention"] != 4:
+            raise AssertionError("unexpected kernel launch counts on the paged path")
+
+
+def _post(port: int, body: dict) -> dict:
+    """POST /v1/completions; returns finish_reason, token ids, seconds to the
+    first streamed token (None unless streaming) and to the end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/completions", json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"HTTP {resp.status}: {resp.read()[:300]!r}")
+    first, tokens, finish = None, [], None
+    if body.get("stream"):
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            event = json.loads(line[len(b"data: "):])
+            if "error" in event:
+                raise AssertionError(f"stream error: {event['error']}")
+            choice = event["choices"][0]
+            if choice["finish_reason"] is None:
+                if first is None:
+                    first = time.perf_counter() - t0
+                tokens.extend(choice["token_ids"])
+            else:
+                finish = choice["finish_reason"]
+    else:
+        choice = json.loads(resp.read())["choices"][0]
+        tokens, finish = choice["token_ids"], choice["finish_reason"]
+    conn.close()
+    return dict(finish=finish, tokens=tokens, first_s=first, total_s=time.perf_counter() - t0)
+
+
+def _alone_gaps(params, cfg, prompt, tokens, cache_dtype, device) -> tuple:
+    """The request run alone through the paged path (whole-prompt prefill, then
+    one-sequence decode steps) and fed the served tokens: at every step, how far
+    the served token's logit lies below the alone run's best logit. Returns
+    (steps where the served token is the alone argmax, worst gap, largest |logit|).
+    All gaps 0 means ``paged_generate`` on this prompt alone emits these tokens."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.paged import init_paged_pools, paged_decode_step, paged_prefill
+
+    n = len(prompt)
+    pages = -(-(n + len(tokens) + 1) // PAGE)
+    kp, vp = init_paged_pools(cfg, 1 + pages, PAGE, cache_dtype, device)
+    table = torch.arange(1, 1 + pages, dtype=torch.int32, device=device)
+    toks = torch.as_tensor(tokens, dtype=torch.int64, device=device)
+    logits, _, _ = paged_prefill(params, torch.as_tensor([prompt], dtype=torch.int64, device=device),
+                                 kp, vp, cfg, table, n)
+    gaps, peaks = [], []
+    for t in range(len(tokens)):
+        gaps.append(logits.max() - logits[toks[t]])
+        peaks.append(logits.abs().max())
+        if t + 1 < len(tokens):
+            lens = torch.full((1,), n + t, dtype=torch.int32, device=device)
+            logits = paged_decode_step(params, toks[t:t + 1], kp, vp, cfg, table[None], lens)[0][0]
+    gaps = torch.stack(gaps)
+    return int((gaps == 0).sum()), float(gaps.max()), float(torch.stack(peaks).max())
+
+
+def _serve(params, cfg, device, flags, requests, label) -> dict:
+    """Start the HTTP server the CLI builds (``cli.serve_http.build_engine`` +
+    ``llm.server_http.create_server``) on 127.0.0.1 port 0 with the model handed
+    in, post ``requests`` from one thread each, stop everything; returns the
+    responses, the kernel launches of the run and its counters."""
+    import threading
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import serve_http
+    from ssp_x_vit_tpu_torch.llm.server_http import create_server
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    argv = ["--model", "llama-2-7b-width", "--backend", device.type, "--port", "0", "--max-batch", "8",
+            "--page-size", str(PAGE), "--num-pages", "512", "--max-context", "2048", *flags]
+    log(f"[SERVE] {label}: serve_http {' '.join(argv)}")
+    args = serve_http.build_argparser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    engine, eos = serve_http.build_engine(args, model=(params, cfg))
+    srv = create_server(engine, **serve_http.server_kwargs(args, eos))
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    port = srv.server_address[1]
+    responses = [None] * len(requests)
+    errors = []
+
+    def client(i):
+        try:
+            responses[i] = _post(port, requests[i])
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append((i, e))
+
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        stats = dict(decode_steps=engine.decode_steps, prefix_hit_pages=engine.prefix_hit_pages)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.shutdown()
+        server_thread.join(timeout=30)
+    if errors:
+        raise AssertionError(f"{label}: request {errors[0][0]} failed: {errors[0][1]!r}")
+    if any(r is None for r in responses):
+        raise AssertionError(f"{label}: a request did not return")
+    n_tokens = sum(len(r["tokens"]) for r in responses)
+    log(f"[SERVE] {label}: {len(requests)} requests, {n_tokens} tokens in {seconds:.2f} s = "
+        f"{n_tokens / seconds:.1f} tokens/s over the run (prefills included); "
+        f"{stats['decode_steps']} batched decode steps; request latency "
+        f"{min(r['total_s'] for r in responses):.2f}-{max(r['total_s'] for r in responses):.2f} s; "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    firsts = [r["first_s"] for r in responses if r["first_s"] is not None]
+    if firsts:
+        log(f"[SERVE] {label}: time to first token of the streamed requests (client clock, "
+            f"queueing and prefill included): {', '.join(f'{x:.3f}' for x in firsts)} s")
+    shown = {k: v for k, v in launches.items() if v}
+    log(f"[SERVE] {label}: launches {json.dumps(shown)}; prefix_hit_pages {stats['prefix_hit_pages']}")
+    for i, (req, r) in enumerate(zip(requests, responses)):
+        if r["finish"] != "length" or len(r["tokens"]) != req["max_tokens"]:
+            raise AssertionError(f"{label}: request {i} ended with {r['finish']} after "
+                                 f"{len(r['tokens'])} of {req['max_tokens']} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+            raise AssertionError(f"{label}: request {i} returned a token outside the vocabulary")
+    return dict(responses=responses, launches=launches, seconds=seconds, **stats)
+
+
+def _check_greedy_alone(params, cfg, device, requests, responses, cache_dtype, label) -> None:
+    """Every greedy request against the same prompt run alone (see
+    ``_alone_gaps``). The served batch multiplies 8 rows at a time and the
+    alone run 1, so bf16 GEMMs round differently and a near-tie may flip:
+    the served token must lie within 5e-2 of max(1, max |logit|) of the alone
+    run's best logit at every step; the count of exact agreements is printed."""
+    exact = total = 0
+    worst_rel = 0.0
+    for req, r in zip(requests, responses):
+        if req.get("temperature", 1.0) != 0:
+            continue
+        same, gap, peak = _alone_gaps(params, cfg, req["prompt"], r["tokens"], cache_dtype, device)
+        exact, total = exact + same, total + len(r["tokens"])
+        worst_rel = max(worst_rel, gap / max(1.0, peak))
+    log(f"[SERVE] {label}: greedy tokens against each prompt run alone: {exact} of {total} are the "
+        f"alone run's argmax; worst logit gap {worst_rel:.3e} of max(1, max |logit|), tol 5e-2")
+    if worst_rel > 5e-2:
+        raise AssertionError(f"{label}: a served greedy token is not the alone run's best token")
+
+
+def _expect_decode_launches(label, run, cfg, names) -> None:
+    """Each named kernel launched once per layer and batched decode step of the
+    run, and the kernels of the other pool kind not at all: the decode phase
+    went through them and through nothing else."""
+    want = run["decode_steps"] * cfg.num_layers
+    paged = ("paged_attention", "paged_pool_write", "paged_attention_q8", "paged_pool_write_q8")
+    for name in paged:
+        expect = want if name in names else 0
+        if run["launches"][name] != expect or want <= 0:
+            raise AssertionError(f"{label}: {name} launched {run['launches'][name]} times over "
+                                 f"{run['decode_steps']} decode steps of {cfg.num_layers} layers, "
+                                 f"expected {expect}")
+
+
+def measure_decode(params, cfg, device) -> None:
+    """Eight live slots with 512-token prompts on a ``PagedServer`` of the
+    served geometry: ms per decode step over blocks of 8 (host clock around a
+    synchronized block), launches per step, and a ``torch.profiler`` split of
+    one block."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.paged import PagedServer
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    server = PagedServer(params, cfg, max_batch=8, num_pages=512, page_size=PAGE,
+                         max_context=2048)
+    stream = synthetic_token_stream(8 * 512, cfg.vocab_size, seed=21).reshape(-1)
+    for i in range(8):
+        server.add_request(np.asarray(stream[i * 512:(i + 1) * 512]), max_new_tokens=400)
+    server.step_many(8)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    blocks = 4
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        server.step_many(8)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (blocks * 8)
+    ours = {k: v / (blocks * 8) for k, v in launch_counts.items() if v}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.step_many(8)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    total_ms = sum(_device_us(e) for e in kernels) / 1e3 / 8
+    n_launch = sum(e.count for e in kernels) / 8
+    weights_ms = sum(v.numel() * v.element_size() for v in params["blocks"].values()) / PEAK_BYTES * 1e3
+    log(f"[SERVE] decode at 8 live slots (~520 cached tokens each), bf16 pools: {step_ms:.2f} ms "
+        f"per step over {blocks} blocks of 8 (host clock, no profiler) = {8e3 / step_ms:.0f} "
+        f"tokens/s; hand-written kernel launches per step {json.dumps(ours)}; reading the block "
+        f"weights once takes {weights_ms:.2f} ms at the data-sheet rate")
+    if total_ms <= 0:
+        log("[PROFILE] decode block: the trace holds no device time: not measured")
+        return
+    log(f"[PROFILE] decode block of 8 steps: {n_launch:.0f} device kernels and {total_ms:.2f} ms "
+        f"of device activity per step ({100 * total_ms / step_ms:.0f}% of the step's wall time; "
+        f"the rest is the host dispatching)")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        ms = _device_us(e) / 1e3 / 8
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count // 8:<4d} {e.key[:90]}")
+
+
+def phase_serving(device, params, cfg) -> dict:
+    """The served path at the full width and depth of Llama-2-7B: the host
+    comparison, 12 requests over HTTP with bf16 pools and the prefix cache,
+    4 with int8 pools and chunked prefill, and the decode-step measurement.
+    Returns the paged kernels' launches on the two served runs."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.paged import paged_generate
+
+    check_paged_against_host(params, cfg, device)
+    stream = [int(t) for t in synthetic_token_stream(8192, cfg.vocab_size, seed=11).reshape(-1)]
+
+    def prompt(start, n):
+        return stream[start:start + n]
+
+    greedy = dict(temperature=0)
+    sampled = dict(temperature=0.8, top_p=0.9, seed=11)
+    shared = prompt(0, 256)
+    requests = [  # twins are one page or less, so neither takes the prefix cache's chunked path
+        dict(prompt=prompt(300, 64), max_tokens=48, stream=True, **greedy),
+        dict(prompt=prompt(300, 64), max_tokens=48, **greedy),
+        dict(prompt=prompt(400, 64), max_tokens=32, stream=True, **greedy),
+        dict(prompt=prompt(400, 64), max_tokens=32, **greedy),
+        dict(prompt=shared + prompt(500, 144), max_tokens=40, **greedy),
+        dict(prompt=shared + prompt(700, 344), max_tokens=40, **greedy),
+        dict(prompt=prompt(1100, 64), max_tokens=48, **sampled),
+        dict(prompt=prompt(1100, 64), max_tokens=48, **sampled),
+        dict(prompt=prompt(1200, 128), max_tokens=64, **greedy),
+        dict(prompt=prompt(1400, 512), max_tokens=56, **greedy),
+        dict(prompt=prompt(2000, 1024), max_tokens=48, **greedy),
+        dict(prompt=prompt(3100, 1536), max_tokens=32, **greedy),
+    ]
+    run1 = _serve(params, cfg, device, ["--prefix-cache"], requests, "run 1 (bf16 pools)")
+    r = run1["responses"]
+    for a, b, what in ((0, 1, "streamed vs not"), (2, 3, "streamed vs not"),
+                       (6, 7, "sampled, same seed")):
+        if r[a]["tokens"] != r[b]["tokens"]:
+            raise AssertionError(f"run 1: requests {a} and {b} ({what}) returned different tokens")
+    if run1["prefix_hit_pages"] <= 0:
+        raise AssertionError("run 1: the shared 256-token prefix hit no cached page")
+    _expect_decode_launches("run 1", run1, cfg, ("paged_attention", "paged_pool_write"))
+    _check_greedy_alone(params, cfg, device, requests, r, torch.bfloat16, "run 1")
+    alone = paged_generate(params, cfg, [requests[8]["prompt"]], max_new_tokens=64, page_size=PAGE)
+    same = sum(1 for x, y in zip(alone[0][128:].tolist(), r[8]["tokens"]) if x == y)
+    log(f"[SERVE] run 1: paged_generate on request 8's prompt alone emits {same} of 64 tokens "
+        "identical to the served ones (position by position)")
+
+    requests2 = [dict(prompt=prompt(4700, 100), max_tokens=40, **greedy),
+                 dict(prompt=prompt(4900, 300), max_tokens=32, **greedy),
+                 dict(prompt=prompt(5300, 700), max_tokens=48, stream=True, **greedy),
+                 dict(prompt=prompt(6100, 64), max_tokens=64, **greedy)]
+    run2 = _serve(params, cfg, device, ["--kv-dtype", "int8", "--chunked-prefill", "64"], requests2,
+                  "run 2 (int8 pools, chunked prefill)")
+    _expect_decode_launches("run 2", run2, cfg, ("paged_attention_q8", "paged_pool_write_q8"))
+    _check_greedy_alone(params, cfg, device, requests2, run2["responses"], torch.int8, "run 2")
+    measure_decode(params, cfg, device)
+    return {"paged_attention": run1["launches"]["paged_attention"],
+            "paged_pool_write": run1["launches"]["paged_pool_write"],
+            "paged_attention_q8": run2["launches"]["paged_attention_q8"],
+            "paged_pool_write_q8": run2["launches"]["paged_pool_write_q8"]}
+
+
+def phase_anchor_serving(device) -> None:
+    """The trained ``ckpts/code_llm_small`` with fp32 pools: four prompts cut
+    from the committed val tokens, 32 greedy tokens each, served together by a
+    ``PagedServer`` on the card == each alone on the card == the plain path on
+    the host CPU, token for token. fp32 differences are ~1e-6, so a token may
+    differ only where the host's own top-2 logit margin is below 1e-3."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+    from ssp_x_vit_tpu_torch.llm.paged import PagedServer, paged_generate
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:4096],
+                     np.int32)
+    prompts = [val[a:a + n].tolist() for a, n in ((0, 48), (500, 100), (1000, 160), (2000, 200))]
+    new, kw = 32, dict(page_size=16, cache_dtype=torch.float32)
+    server = PagedServer(params, cfg, max_batch=4, num_pages=96, max_context=512, **kw)
+    ids = [server.add_request(p, max_new_tokens=new) for p in prompts]
+    done = server.run(8)
+    together = [done[i].tolist() for i in ids]
+    alone = [paged_generate(params, cfg, [p], max_new_tokens=new, **kw)[0].tolist() for p in prompts]
+    cpu = [paged_generate(host, cfg, [p], max_new_tokens=new, **kw)[0].tolist() for p in prompts]
+    checked = 0
+    for p, ref, *others in zip(prompts, cpu, together, alone):
+        for what, got in zip(("served together", "alone on the card"), others):
+            if got == ref:
+                checked += new
+                continue
+            at = next(i for i, (x, y) in enumerate(zip(got, ref)) if x != y)
+            with torch.no_grad():
+                logits, _ = llama_forward(host, torch.tensor([ref[:at]]), cfg,
+                                          compute_dtype=torch.float32)
+            top2 = logits[0, -1].topk(2).values
+            margin = float(top2[0] - top2[1])
+            log(f"[ANCHOR] code_llm_small {what}: token {at - len(p)} differs from the host's "
+                f"where the host's top-2 margin is {margin:.2e}")
+            if margin > 1e-3:
+                raise AssertionError(f"code_llm_small {what}: tokens differ from the host CPU's")
+            checked += at - len(p)
+    log(f"[ANCHOR] code_llm_small served (4 prompts of 48-200 val tokens, {new} greedy tokens each, "
+        f"fp32 pools): PagedServer on the card == each alone == host CPU plain path on "
+        f"{checked} of {2 * 4 * new} compared tokens (the rest follow a near-tie)")
+
+
 def phase_anchor_llm(device) -> None:
     """The trained ``ckpts/code_llm_small``: perplexity on the card against the
     pinned value (5%) and the port's plain path on the host CPU (1e-2), int8
@@ -951,7 +1570,7 @@ def phase_anchor_llm(device) -> None:
     train = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16,
                                  "r")[:8 * 1024], np.int32)
     kw = dict(seq_len=1024, batch_size=2)
-    host = _to_host(params, torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
     dense = evaluate_perplexity(params, cfg, val, **kw)
     dense_host = evaluate_perplexity(host, cfg, val, **kw)
     int8 = evaluate_perplexity(quantize_llm_params_int8(params, cfg), cfg, val, **kw)
@@ -1027,6 +1646,7 @@ def main() -> int:
 
     records = phase_kernels(device)
     records.update(phase_llm_kernels(device))
+    records.update(phase_paged_kernels(device))
     for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
@@ -1044,11 +1664,18 @@ def main() -> int:
         for name, n in phase_main(out_root, device).items():
             cli_launches[name] += n
     phase_done("main, ViT (phase 4)")
-    for name, n in phase_main_llm(device).items():
+    llama = make_llama_7b(device)
+    for name, n in phase_main_llm(device, *llama).items():
         cli_launches[name] += n
     phase_done("main, LLM (phase 4)")
+    for name, n in phase_serving(device, *llama).items():
+        cli_launches[name] += n
+    del llama
+    torch.cuda.empty_cache()
+    phase_done("main, serving (phase 4)")
     phase_anchor(device)
     phase_anchor_llm(device)
+    phase_anchor_serving(device)
     phase_done("anchors (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
@@ -1057,7 +1684,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on a driven path: {missing}")
     kernels = []
     for name in KERNEL_NAMES:
-        driven_by, n_direct = direct.get(name, ("cli runs", 0))
+        driven_by, n_direct = direct.get(
+            name, ("served runs over HTTP" if name.startswith("paged_") else "cli runs", 0))
         kernels.append(dict(records[name], launches=cli_launches[name] + n_direct,
                             cli_launches=cli_launches[name], driven_by=driven_by))
     print(json.dumps({"kernels": kernels}))

@@ -51,6 +51,16 @@ def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
     return convert(tree)
 
 
+def pools_from_jax(pool, *, device: DeviceLike = None):
+    """A paged KV pool of the JAX package (an array, or the int8 pool
+    ``{"q": int8 codes, "s": fp32 scales}``) -> the port's pool on ``device``,
+    every leaf in its own dtype (fp32, bf16, int8)."""
+    dev = resolve_device(device)
+    if isinstance(pool, dict):
+        return {k: _to_tensor(np.asarray(v), dev, None) for k, v in pool.items()}
+    return _to_tensor(np.asarray(pool), dev, None)
+
+
 def config_to_dict(cfg: LlamaConfig) -> Dict[str, Any]:
     return dataclasses.asdict(cfg)
 

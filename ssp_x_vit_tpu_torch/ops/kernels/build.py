@@ -1,6 +1,6 @@
 """Build the CUDA sources in ``csrc/`` with nvcc at first use, bind them with
 ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``,
-``flash_attention``, ``quant_gemm``).
+``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<hash>/lib<name>.so`` at the
 repository root, where ``<hash>`` covers every source and header and the nvcc
@@ -26,14 +26,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gemm", "attention", "flash_attention", "quant_gemm")
+SOURCES = ("gemm", "attention", "flash_attention", "quant_gemm", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Must match enum DType in csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Must match enum PoolType in csrc/paged_attention.cu.
+POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "gemm": {
         "ssp_layer_norm": ([_I, _P, _P, _P, _P, _I, _I, _F, _P], _I),
@@ -51,6 +53,12 @@ SIGNATURES = {
     "quant_gemm": {
         "ssp_quant_gemm": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
         "ssp_quant_gemm_workspace_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
+    },
+    "paged_attention": {
+        "ssp_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _L, _I, _F, _F, _I, _P], _I),
+        "ssp_paged_pool_write": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _L, _I, _P], _I),
     },
 }
 
@@ -222,3 +230,42 @@ def quant_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, out: torch
                                                scale.data_ptr(), out.data_ptr(), m, n, k,
                                                _ptr(ws), _stream()), "ssp_quant_gemm")
     return out
+
+
+def _aligned(*tensors: Optional[torch.Tensor]) -> bool:
+    return all(t is None or t.data_ptr() % 32 == 0 for t in tensors)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                    page_table: torch.Tensor, seq_lens: torch.Tensor,
+                    start_lens: Optional[torch.Tensor], out: torch.Tensor, *, layer: int,
+                    scale: float, softcap: float) -> torch.Tensor:
+    """out[b, nq, hd] = decode attention of q [b, nq, hd] over layer ``layer`` of the 5D
+    pools [A, nkv, P, ps, hd] (int8 pools with fp32 scales [A, nkv, P, ps]) through
+    ``page_table`` [b, mp], keys ``start_lens <= pos < seq_lens``; ``softcap`` <= 0: none."""
+    b, nq, hd = q.shape
+    _, nkv, num_pages, ps, _ = k_pool.shape
+    check(library("paged_attention").ssp_paged_attention(
+        DTYPE_CODES[q.dtype], POOL_CODES[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+        seq_lens.data_ptr(), _ptr(start_lens), out.data_ptr(), b, nq, nkv, hd, ps,
+        page_table.shape[1], num_pages, layer, scale, softcap,
+        int(_aligned(q, k_pool, v_pool, out)), _stream()), "ssp_paged_attention")
+    return out
+
+
+def paged_pool_write(k_new: torch.Tensor, v_new: Optional[torch.Tensor], k_pool: torch.Tensor,
+                     v_pool: Optional[torch.Tensor], k_scale: Optional[torch.Tensor],
+                     v_scale: Optional[torch.Tensor], page_table: torch.Tensor,
+                     positions: torch.Tensor, *, layer: int) -> None:
+    """In place: row ``positions[i]`` of sequence i in layer ``layer`` of the 5D pools
+    becomes ``k_new[i]`` / ``v_new[i]`` ([b, nkv, hd]; int8 pools quantize per token and
+    KV head and take the fp32 scale pools). ``v_new`` None writes one pool only."""
+    b, nkv, hd = k_new.shape
+    _, _, num_pages, ps, _ = k_pool.shape
+    check(library("paged_attention").ssp_paged_pool_write(
+        DTYPE_CODES[k_new.dtype], POOL_CODES[k_pool.dtype], k_new.data_ptr(), _ptr(v_new),
+        k_pool.data_ptr(), _ptr(v_pool), _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+        positions.data_ptr(), b, nkv, hd, ps, page_table.shape[1], num_pages, layer, _stream()),
+        "ssp_paged_pool_write")

@@ -30,7 +30,7 @@ def test_port_and_chip_smoke_never_import_jax():
                      or m == "ssp_x_vit_tpu" or m.startswith("ssp_x_vit_tpu."))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 36, names
+        assert len(names) >= 42, names
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
@@ -93,6 +93,45 @@ def test_llm_entry_points_raise_without_a_gpu(monkeypatch):
         main_llm.run(parser.parse_args(["--model", "tiny-random", "--dense"]), model=(params, tiny))
 
 
+def test_serving_entry_points_raise_without_a_gpu(monkeypatch):
+    from ssp_x_vit_tpu_torch.cli import serve_http
+    from ssp_x_vit_tpu_torch.llm.checkpoints import pools_from_jax
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parser = serve_http.build_argparser()
+    assert parser.parse_args(["--model", "tiny-random"]).backend == "cuda"
+    for call in (lambda: serve_http.build_engine(parser.parse_args(["--model", "tiny-random"])),
+                 lambda: serve_http.main(["--model", "tiny-random", "--port", "0"]),
+                 lambda: pools_from_jax(np.zeros((1, 2, 2, 2), np.float32))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # a model on the CPU handed to an engine that asks for the card is refused, not moved
+    tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,
+                       intermediate_size=24)
+    params = init_llama_params(None, tiny, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="--backend is cuda"):
+        serve_http.build_engine(parser.parse_args(["--model", "x"]), model=(params, tiny))
+
+
+def test_unported_serving_parts_name_the_roadmap_item():
+    from ssp_x_vit_tpu_torch.cli import serve_http
+    from ssp_x_vit_tpu_torch.llm import serve
+    from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+        serve_http.build_engine(serve_http.build_argparser().parse_args(
+            ["--model", "tiny-random", "--backend", "cpu", "--tokenizer", "dir"]))
+    for name in ("init_cache", "init_rolling_cache", "prefill", "decode_step", "decode_scan",
+                 "generate_kv_scan", "greedy_generate_kv"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
+            getattr(serve, name)()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):   # the MLA config class
+        ServingEngine({}, object())
+
+
 def test_unported_cli_flags_name_the_roadmap_item():
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
 
@@ -134,7 +173,7 @@ def test_llm_kernel_wrappers_check_their_operands():
     from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
     from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
 
-    assert KERNEL_NAMES[-3:] == ("flash_attention", "quant4_matmul", "quant_matmul")
+    assert KERNEL_NAMES[4:7] == ("flash_attention", "quant4_matmul", "quant_matmul")
     reset_launch_counts()
     q = torch.zeros(1, 2, 8, 16)
     assert tfa.flash_attention(q, q, q, causal=True).shape == q.shape
@@ -149,6 +188,83 @@ def test_llm_kernel_wrappers_check_their_operands():
         tqm.quant4_matmul(torch.zeros(3, 16, device="meta"), w, torch.ones(4))
 
 
+def test_paged_kernel_wrappers_check_their_operands(monkeypatch):
+    """CPU tensors take the plain versions and launch nothing; other devices
+    raise; and what the wrappers refuse before a launch (dtype, contiguity,
+    int32 tables, pool rank, host layer index) raises for tensors that claim
+    to be on the card (``dispatch.use_kernel`` patched: no launch is reached)."""
+    from ssp_x_vit_tpu_torch.ops import dispatch
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    assert KERNEL_NAMES[-4:] == ("paged_attention", "paged_attention_q8", "paged_pool_write",
+                                 "paged_pool_write_q8")
+    reset_launch_counts()
+    b, nq, nkv, hd, ps, P, mp = 2, 4, 2, 8, 4, 5, 2
+    q, new = torch.zeros(b, nq, hd), torch.ones(b, nkv, hd)
+    pool = torch.zeros(nkv, P, ps, hd)
+    pool8 = {"q": torch.zeros(nkv, P, ps, hd, dtype=torch.int8), "s": torch.ones(nkv, P, ps)}
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lens = torch.tensor([3, 5], dtype=torch.int32)
+    assert tpa.paged_attention(q, pool, pool, table, lens).shape == q.shape
+    assert tpa.paged_attention(q, pool8, pool8, table, lens).shape == q.shape
+    assert tpa.paged_cache_write(pool, pool.clone(), new, new, table, lens)[0] is pool
+    assert pool[:, 1, 3].eq(1).all() and pool[:, 4, 1].eq(1).all() and pool.sum() == 2 * nkv * hd
+    tpa.paged_pool_write(pool8, new, table, lens)
+    assert pool8["q"][:, 1, 3].eq(127).all() and pool8["s"][0, 1, 3].item() == np.float32(1) / np.float32(127)
+    assert all(n == 0 for n in launch_counts.values())
+    meta = torch.zeros(b, nq, hd, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tpa.paged_attention(meta, pool, pool, table, lens)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tpa.paged_cache_write(pool, pool, meta[:, :nkv], meta[:, :nkv], table, lens)
+
+    monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+
+    def attend(**kw):
+        return tpa.paged_attention(**{**dict(q=q, k_pages=pool, v_pages=pool, page_table=table,
+                                             seq_lens=lens), **kw})
+
+    def write(**kw):
+        return tpa.paged_cache_write(**{**dict(k_pages=pool, v_pages=pool, k_new=new, v_new=new,
+                                               page_table=table, positions=lens), **kw})
+
+    pool5 = pool[None]
+    for call, kw, exc, match in (
+            (attend, dict(q=q.double()), TypeError, "float32 or bfloat16"),
+            (attend, dict(q=q.transpose(0, 1)), ValueError, "contiguous"),
+            (attend, dict(page_table=table.long()), TypeError, "page_table must be int32"),
+            (attend, dict(seq_lens=lens.long()), TypeError, "seq_lens must be int32"),
+            (attend, dict(start_lens=lens[:1]), ValueError, "start_lens has shape"),
+            (attend, dict(page_table=table.t()), ValueError, "page_table"),
+            (attend, dict(k_pages=pool5), ValueError, "4D pool"),
+            (attend, dict(layer_idx=0), ValueError, "5D pool"),
+            (attend, dict(k_pages=pool5, v_pages=pool5, layer_idx=1), ValueError, "host integer"),
+            (attend, dict(k_pages=pool5, v_pages=pool5, layer_idx=torch.tensor(0)), ValueError,
+             "host integer"),
+            (attend, dict(k_pages=pool.bfloat16(), v_pages=pool.bfloat16()), TypeError,
+             "a float pool has q's dtype"),
+            (attend, dict(k_pages=pool8, v_pages=pool8), TypeError, "computes in bfloat16"),
+            (attend, dict(k_pages=pool8), TypeError, "both be float pools or both int8"),
+            (attend, dict(k_pages={"q": pool8["q"], "s": pool8["s"].double()}, v_pages=pool8),
+             TypeError, "int8 codes and float32 scales"),
+            (attend, dict(k_pages=pool[..., :4], v_pages=pool[..., :4]), ValueError, "contiguous"),
+            (attend, dict(q=torch.zeros(b, 3, hd)), ValueError, "multiple of nkv"),
+            (attend, dict(q=torch.zeros(b, 18, hd)), ValueError, "at most 8"),
+            (write, dict(k_new=new.double()), TypeError, "float32 or bfloat16"),
+            (write, dict(v_new=new.transpose(1, 2).contiguous().transpose(1, 2)), ValueError,
+             "contiguous"),
+            (write, dict(positions=lens.long()), TypeError, "positions must be int32"),
+            (write, dict(page_table=table.long()), TypeError, "page_table must be int32"),
+            (write, dict(k_new=torch.ones(b, nkv, hd + 1), v_new=torch.ones(b, nkv, hd + 1)),
+             ValueError, "do not fit"),
+            (write, dict(v_pages=pool8), TypeError, "both be float pools or both int8"),
+            (write, dict(layer_idx=0), ValueError, "5D pool")):
+        with pytest.raises(exc, match=match):
+            call(**kw)
+    assert all(n == 0 for n in launch_counts.values())
+
+
 def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     """The kernel modules import without nvcc; building without it raises."""
     from ssp_x_vit_tpu_torch.ops.kernels import build
@@ -159,7 +275,8 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libraries", {})
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
-    assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "quant_gemm"}
+    assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "quant_gemm",
+                                  "paged_attention"}
     assert set(build.SIGNATURES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
@@ -273,6 +390,112 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
     assert launch_counts["flash_attention"] - before["flash_attention"] == len(cases)
     assert launch_counts["quant4_matmul"] - before["quant4_matmul"] == 4
     assert launch_counts["quant_matmul"] - before["quant_matmul"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tol", [("float32", 1e-4), ("bfloat16", 3e-2), ("int8", 3e-2)])
+def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
+    """Rows 7-9 at small ragged shapes (4D and 5D pools, GQA groups of 1, 3
+    and 8, head_dim 20 to 256, page sizes off a power of two, windows,
+    softcap, one-key rows): the write leaves pools identical to the plain
+    write (int8 codes and scales bit for bit), the attention stays within
+    ``tol`` of max(1, max |plain|); one launch per wrapper call."""
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    suffix = "_q8" if kind == "int8" else ""
+    before = dict(launch_counts)
+    cases = [  # b, nq, nkv, hd, ps, mp, layers, softcap, window
+        (3, 4, 4, 64, 16, 4, None, None, None),
+        (2, 6, 2, 40, 12, 5, 3, 30.0, 17),
+        (4, 8, 1, 128, 8, 6, 2, None, None),
+        (1, 4, 2, 256, 5, 7, None, 50.0, 9),
+        (5, 2, 2, 20, 3, 9, None, None, 1),
+        (2, 32, 8, 80, 64, 2, 2, None, 100),
+    ]
+
+    def clone(p):
+        return {k: v.clone() for k, v in p.items()} if isinstance(p, dict) else p.clone()
+
+    for b, nq, nkv, hd, ps, mp, layers, softcap, window in cases:
+        lead = () if layers is None else (layers,)
+        layer = None if layers is None else layers - 1
+        P = 1 + b * mp
+        shape = lead + (nkv, P, ps, hd)
+
+        def pool():
+            vals = torch.randn(shape, generator=gen, device=cuda_device)
+            if kind == "int8":
+                codes, sc = tpa.quantize_token_kv(vals)
+                return {"q": codes, "s": sc}
+            return vals.to(dtype)
+
+        kp, vp = pool(), pool()
+        table = (1 + torch.randperm(P - 1, generator=gen, device=cuda_device)[: b * mp]
+                 ).reshape(b, mp).to(torch.int32)
+        lens = torch.randint(0, mp * ps - 1, (b,), generator=gen, device=cuda_device).to(torch.int32)
+        lens[0] = 0
+        starts = None if window is None else (lens + 1 - window).clamp_min(0).to(torch.int32)
+        q = torch.randn(b, nq, hd, generator=gen, device=cuda_device).to(dtype)
+        k_new = torch.randn(b, nkv, hd, generator=gen, device=cuda_device).to(dtype)
+        v_new = torch.randn(b, nkv, hd, generator=gen, device=cuda_device).to(dtype)
+        k_new[0, 0] = 0  # a zero row: scale 1, codes 0
+        k_ref, v_ref = clone(kp), clone(vp)
+        tpa.paged_cache_write(kp, vp, k_new, v_new, table, lens, layer)
+        tpa.paged_pool_write_plain(k_ref, k_new, table, lens, layer)
+        tpa.paged_pool_write_plain(v_ref, v_new, table, lens, layer)
+        for got, ref in ((kp, k_ref), (vp, v_ref)):
+            leaves = zip(got.values(), ref.values()) if isinstance(got, dict) else [(got, ref)]
+            assert all(torch.equal(g, r) for g, r in leaves)
+        got = tpa.paged_attention(q, kp, vp, table, lens + 1, starts, softcap, layer)
+        ref = tpa.paged_attention_plain(q, kp, vp, table, lens + 1, starts, softcap, layer)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err / max(1.0, ref.float().abs().max().item()) <= tol, (err, hd, ps)
+    for name in ("paged_attention", "paged_pool_write"):
+        assert launch_counts[name + suffix] - before[name + suffix] == len(cases)
+    # one pool alone (the single-pool form); an fp32 query against int8 pools is refused
+    single = torch.zeros(2, 3, 4, 8, device=cuda_device, dtype=dtype)
+    tpa.paged_pool_write(single, torch.ones(1, 2, 8, device=cuda_device, dtype=dtype),
+                         torch.tensor([[2]], dtype=torch.int32, device=cuda_device),
+                         torch.tensor([1], dtype=torch.int32, device=cuda_device))
+    assert single[:, 2, 1].eq(1).all() and single.sum().item() == 16
+    if kind == "int8":
+        with pytest.raises(TypeError, match="computes in bfloat16"):
+            tpa.paged_attention(q.float(), kp, vp, table, lens + 1, None, None, layer)
+
+
+@pytest.mark.cuda
+def test_paged_server_on_the_card_matches_the_cpu_backend(cuda_device):
+    """A tiny model served with fp32 pools on the card (kernels) and on the
+    CPU (plain versions), with a sliding window and the prefix cache: the same
+    greedy tokens (weights N(0, 0.02): fp32 differences are ~1e-6)."""
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.llm.paged import PagedServer
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                      intermediate_size=96, sliding_window=9)
+    host = init_llama_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
+                else v.to(cuda_device)) for k, v in host.items()}
+    prompts = [[5, 6, 7, 8, 9, 10, 11], [3], list(range(20, 45))]
+    before = launch_counts["paged_attention"]
+    outs = []
+    for params in (host, card):
+        srv = PagedServer(params, cfg, max_batch=2, num_pages=40, page_size=4, max_context=64,
+                          cache_dtype=torch.float32, prefix_cache=True)
+        ids = [srv.add_request(p, max_new_tokens=12) for p in prompts[:2]]
+        srv.step_many(5)
+        srv.run(1)
+        ids.append(srv.add_request(prompts[2], max_new_tokens=12))
+        done = srv.run(8)
+        outs.append([done[i].tolist() for i in ids])
+    assert outs[0] == outs[1]
+    assert launch_counts["paged_attention"] > before
 
 
 @pytest.mark.cuda
