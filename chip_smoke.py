@@ -12,23 +12,31 @@ Phases, in order; any failure raises and the script exits non-zero:
             pruned FFN width and the ``vit_procgen`` shapes, gates {0, 0.5, 1},
             with and without a neuron mask; ``flash_attention`` at the
             Llama-2-7B, Mistral-7B (GQA + window), ``code_llm_small`` and ragged
-            shapes (head_dim 32 to 256, softcap); ``quant4_matmul`` and
-            ``quant_matmul`` at the Llama-2-7B projections, a ragged pruned K,
-            one row and 16384 rows. Times kernel, plain version and a PyTorch
-            library call with CUDA events, beside the data-sheet bound; then
-            times each launch inside the wrappers ([PART] lines) beside
-            ``torch.mm`` and SDPA. The op-level ``ops.ffn.ffn_forward`` is
-            driven on the card against the same call on CPU copies.
+            shapes (head_dim 32 to 256, softcap); its lse output and the
+            backward kernels (``flash_attention_bwd_dq``, ``_dkv``) at the
+            Llama-2-7B, Mistral-7B, ``code_llm_small`` and ragged shapes;
+            ``quant4_matmul`` and ``quant_matmul`` at the Llama-2-7B
+            projections, a ragged pruned K, one row and 16384 rows; the paged
+            decode kernels. Times kernel, plain version and a PyTorch library
+            call with CUDA events, beside the data-sheet bound; then times each
+            launch inside the wrappers ([PART] lines) beside ``torch.mm`` and
+            SDPA. The op-level ``ops.ffn.ffn_forward`` is driven on the card
+            against the same call on CPU copies.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, then on ViT-Ti/16 (odd
             head count); then the LLM CLI (``cli.main_llm.run``) on a
             Llama-2-7B-width model (32 layers, random bf16 weights made on the
             card): 25% 2SSP with dense and pruned perplexity at s=2048, and a
-            dense ``--quantize int4`` evaluation; kernel launches per phase.
+            dense ``--quantize int4`` evaluation; the same model served over
+            HTTP on 127.0.0.1; then the training CLI (``cli.train_llm.run``)
+            on a fresh bf16 model of the same shape, 4 updates at b=1, s=2048
+            with remat, and a profiler split of one update. Kernel launches
+            per run, each driven path with the counts set to 0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1
             and top-1 after 25% 2SSP) and ``ckpts/code_llm_small`` (perplexity
             against the pinned value and the host CPU's plain path; int8, int4,
-            25% 2SSP).
+            25% 2SSP; served tokens; fp32 training on the card against the
+            host CPU, a bit-exact resume and gradient accumulation).
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -537,6 +545,137 @@ def phase_llm_kernels(device) -> dict:
                         ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=l_ms, library_with_dequant_ms=l_in_ms,
                         flops=flops, bytes=nbytes)
+    return records
+
+
+def _masked_logits(q, k, causal, window, softcap):
+    """fp32 [b, h, s, s] logits of the plain version, masked entries -inf."""
+    import torch
+
+    rep = q.shape[1] // k.shape[1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float().repeat_interleave(rep, 1))
+    logits = logits * q.shape[-1] ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if causal:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask = mask & (i[:, None] - i[None, :] < window)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return logits
+
+
+def phase_flash_backward(device) -> dict:
+    """The training path's flash kernels: the forward with its lse output and
+    the backward (dq kernel, then dk/dv kernel) against the plain versions at
+    the Llama-2-7B, Mistral-7B, ``code_llm_small`` and ragged shapes, fp32 and
+    bf16 (dq, dk, dv each: scaled error <= TOL). Timed in bf16 at the
+    Llama-2-7B and Mistral-7B shapes: each kernel, the whole backward, the
+    plain backward, SDPA forward + backward through autograd (on repeated K/V
+    for GQA), and the data-sheet bound. Returns the kernels-line records of
+    both backward kernels (Llama-2-7B shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    records = {}
+    cases = [  # (label, b, h, hkv, s, hd, window, softcap, timed); all causal
+        ("Llama-2-7B", 1, 32, 32, 2048, 128, None, None, True),
+        ("Mistral-7B", 1, 32, 8, 4096, 128, 1024, None, True),
+        ("code_llm_small", 2, 6, 2, 1024, 64, None, None, False),
+        # windows of 16 / 40 leave whole key tiles, and the padded rows of the
+        # last query tile, with no key
+        ("ragged hd 80", 1, 4, 2, 197, 80, 16, 50.0, False),
+        ("ragged hd 256", 1, 4, 2, 300, 256, 40, 50.0, False),
+    ]
+    for label, b, h, hkv, s, hd, window, softcap, timed in cases:
+        kw = dict(causal=True, window=window, softcap=softcap)
+        shape = (f"b={b} h={h} hkv={hkv} s={s} hd={hd} causal" + (f" window={window}" if window else "")
+                 + (f" softcap={softcap}" if softcap else ""))
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+
+            def rn(*shp):
+                return torch.randn(*shp, generator=gen, device=device).to(dtype)
+
+            q, k, v, g = rn(b, h, s, hd), rn(b, hkv, s, hd), rn(b, hkv, s, hd), rn(b, h, s, hd)
+            out, lse = tfa.flash_attention_forward(q, k, v, with_lse=True, **kw)
+            out_nolse, _ = tfa.flash_attention_forward(q, k, v, **kw)
+            lse_ref = torch.logsumexp(_masked_logits(q, k, True, window, softcap), dim=-1)
+            lse_err, lse_rel = scaled_err(lse, lse_ref)
+            if not torch.equal(out, out_nolse) or lse_rel > TOL["float32"]:
+                raise AssertionError(f"flash forward with lse {shape} {dn}: out changed or lse "
+                                     f"off by {lse_rel:.3e}")
+            got = tfa.flash_attention_backward(q, k, v, out, lse, g, **kw)
+            ref = tfa.flash_attention_backward_plain(q, k, v, g, **kw)
+            torch.cuda.synchronize()
+            line = []
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                if not torch.isfinite(a.float()).all():
+                    raise AssertionError(f"flash backward {shape} {dn}: non-finite {name}")
+                err, rel = scaled_err(a, r)
+                errs[(name, dn)] = (err, rel)
+                line.append(f"{name} {err:.3e}/{rel:.3e}")
+                if rel > TOL[dn]:
+                    raise AssertionError(f"flash backward {shape} {dn}: {name} scaled error {rel:.3e}")
+            log(f"[KERNEL] flash_attention backward {label} {shape} {dn}: max_abs_err/scaled "
+                f"{', '.join(line)} tol={TOL[dn]}; lse {lse_err:.3e}; ok")
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            delta = torch.empty(b, h, s, dtype=torch.float32, device=device)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            bkw = dict(scale=hd ** -0.5, causal=True, window=window or 0, softcap=softcap or 0.0)
+            fwd_ms = time_ms(lambda: tfa.flash_attention_forward(q, k, v, **kw))
+            fwd_lse_ms = time_ms(lambda: tfa.flash_attention_forward(q, k, v, with_lse=True, **kw))
+            bwd_ms = time_ms(lambda: tfa.flash_attention_backward(q, k, v, out, lse, g, **kw))
+            dq_ms = time_ms(lambda: build.flash_attention_bwd_dq(q, k, v, out, g, lse, delta, dq, **bkw))
+            dkv_ms = time_ms(lambda: build.flash_attention_bwd_dkv(q, k, v, g, lse, delta, dk, dv,
+                                                                   **bkw))
+            p_ms = time_ms(lambda: tfa.flash_attention_backward_plain(q, k, v, g, **kw), iters=3,
+                           warmup=1)
+            rep = h // hkv
+            lq = q.detach().clone().requires_grad_()
+            lk = k.repeat_interleave(rep, 1).requires_grad_()
+            lv = v.repeat_interleave(rep, 1).requires_grad_()
+            sdpa = _sdpa_library(lq, lk, lv, True, window)
+            l_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), g))
+            pairs = _attended_pairs(s, True, window) * b * h
+            q_bytes, kv_bytes, stat_bytes = 2 * b * h * s * hd, 2 * b * hkv * s * hd, 4 * b * h * s
+            bound_ms, bound_by = _bound(10 * hd * pairs, 4 * q_bytes + 4 * kv_bytes + stat_bytes, dn)
+            dq_bound = _bound(6 * hd * pairs, 4 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, dn)
+            dkv_bound = _bound(8 * hd * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, dn)
+            log(f"[TIME] flash_attention backward {label} {shape} bf16: dq kernel {dq_ms:.4f} ms "
+                f"(bound {dq_bound[0]:.4f}), dk/dv kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}), "
+                f"backward wrapper {bwd_ms:.4f} ms ({10 * hd * pairs / bwd_ms / 1e9:.1f} TFLOP/s of "
+                f"10*hd per pair), bound {bound_ms:.4f} ms ({bound_by}), plain {p_ms:.4f} ms, "
+                f"library SDPA forward + backward {l_ms:.4f} ms; forward {fwd_ms:.4f} ms, "
+                f"with lse {fwd_lse_ms:.4f} ms")
+            if label != "Llama-2-7B":
+                continue
+            common = dict(route="cuda",
+                          source="ssp_x_vit_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+                          shape=shape + " bf16", tol=TOL["bfloat16"], tol_fp32=TOL["float32"],
+                          plain_ms=p_ms, plain_covers="dq, dk and dv", library_ms=l_ms,
+                          library="SDPA forward + backward through autograd",
+                          backward_ms=bwd_ms, backward_bound_ms=bound_ms)
+            for name, grads, ms, (kb_ms, kb_by), flops, line_no in (
+                    ("flash_attention_bwd_dq", ("dq",), dq_ms, dq_bound, 6 * hd * pairs, 845),
+                    ("flash_attention_bwd_dkv", ("dk", "dv"), dkv_ms, dkv_bound, 8 * hd * pairs, 879)):
+                worst = max((errs[(gname, "bfloat16")] for gname in grads), key=lambda e: e[1])
+                worst32 = max((errs[(gname, "float32")] for gname in grads), key=lambda e: e[1])
+                records[name] = dict(
+                    common, name=name, replaces=f"ssp_x_vit_tpu/ops/pallas/flash_attention.py:{line_no}",
+                    tpu_kernel=("_flash_backward_streaming " + ("dq pass" if line_no == 845 else "dk/dv pass")
+                                + " and _flash_backward_pallas (:608)"),
+                    max_abs_err=worst[0], scaled_err=worst[1], max_abs_err_fp32=worst32[0],
+                    scaled_err_fp32=worst32[1], ms=ms, kernel_ms=ms, bound_ms=kb_ms,
+                    bound_by=kb_by, flops=flops)
     return records
 
 
@@ -1598,6 +1737,207 @@ def phase_anchor_llm(device) -> None:
         raise AssertionError(f"ppl after 25% 2SSP {pruned} vs dense {dense}")
 
 
+TRAIN_UPDATES = 4
+
+
+def profile_train_step(params, cfg, device) -> None:
+    """Where one update's time goes at the main path's shape (remat on, b=1,
+    s=2048, clip, AdamW with bf16 moments): a warm-up update, one timed on the
+    host clock, then ``torch.profiler`` over one more; prints the wall time,
+    the device activity's share of it and the device time by kind: the port's
+    flash forward and backward kernels, GEMMs, the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.train import make_llama_train_step
+    from ssp_x_vit_tpu_torch.llm.trainer import TrainConfig, make_optimizer
+
+    tc = TrainConfig(total_steps=TRAIN_UPDATES)
+    optimizer = make_optimizer(tc)
+    step = make_llama_train_step(cfg, optimizer)
+    state = optimizer.init(params)
+    tokens = synthetic_token_stream(2049, cfg.vocab_size, seed=9).reshape(1, 2049)
+    step(params, state, tokens)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, state, tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3  # without the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(params, state, tokens)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    total_ms = sum(_device_us(e) for e in kernels) / 1e3
+    if total_ms <= 0:
+        log("[PROFILE] train update: the trace holds no device time: not measured")
+        return
+    kinds = {"flash forward (ssp::flash::)": 0.0, "flash backward (ssp::flash_bwd::)": 0.0,
+             "GEMMs (gemm / nvjet / sm90 / cutlass)": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        if "flash_bwd" in name:
+            kind = "flash backward (ssp::flash_bwd::)"
+        elif "ssp::flash" in name:
+            kind = "flash forward (ssp::flash::)"
+        elif any(t in name for t in ("gemm", "nvjet", "sm90", "cutlass")):
+            kind = "GEMMs (gemm / nvjet / sm90 / cutlass)"
+        else:
+            kind = "other"
+        kinds[kind] += _device_us(e) / 1e3
+    log(f"[PROFILE] train update b=1 s=2048 bf16 remat: {wall_ms:.1f} ms wall (host clock, no "
+        f"profiler), {total_ms:.1f} ms of device activity in the trace "
+        f"({100 * total_ms / wall_ms:.0f}% of the wall time); by kind: "
+        + ", ".join(f"{k} {v:.1f} ms ({100 * v / total_ms:.1f}%)" for k, v in kinds.items()))
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        ms = _device_us(e) / 1e3
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_main_train(device) -> dict:
+    """The training CLI (``cli.train_llm``) on a fresh bf16 model of Llama-2-7B
+    width and depth (``--init-json``): b=1, s=2048, remat on, the synthetic
+    stream, ``TRAIN_UPDATES`` updates. Losses finite at every update; flash
+    forward launches = layers x updates x 2 (forward and remat recompute),
+    each backward kernel = layers x updates. Returns the run's launches."""
+    import math
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import train_llm
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    argv = ["--init-json", json.dumps(LLAMA_2_7B), "--steps", str(TRAIN_UPDATES),
+            "--batch-size", "1", "--seq-len", "2048", "--synthetic-data", "--log-every", "1",
+            "--backend", "cuda"]
+    log(f"[MAIN] train_llm {' '.join(argv)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_llm.run(train_llm.build_argparser().parse_args(argv))
+    seconds = time.perf_counter() - t0
+    counts = {name: launch_counts[name] for name in KERNEL_NAMES}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = [h for h in out["history"] if "loss" in h]
+    elapsed = [h["tokens_seen"] / h["tok_per_s"] for h in hist]
+    per_update = [b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)]
+    n_params = sum(v.numel() for v in out["params"]["blocks"].values()) + sum(
+        v.numel() for k, v in out["params"].items() if k != "blocks")
+    log(f"[MAIN] train_llm Llama-2-7B width ({n_params / 1e9:.3f} B bf16 parameters, bf16 AdamW "
+        f"moments): {seconds:.1f} s for the CLI run, {out['seconds']:.1f} s in fit; s/update "
+        f"{', '.join(f'{t:.3f}' for t in per_update)}; {hist[-1]['tok_per_s']} tokens/s over the "
+        f"run ({2048 / per_update[-1]:.0f} at the last update); peak {peak:.1f} GiB")
+    log(f"[MAIN] train_llm launches {json.dumps({k: n for k, n in counts.items() if n})}")
+    if len(hist) != TRAIN_UPDATES or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"train_llm: losses {[h['loss'] for h in hist]}")
+    layers = LLAMA_2_7B["num_layers"]
+    want = {"flash_attention": layers * TRAIN_UPDATES * 2,
+            "flash_attention_bwd_dq": layers * TRAIN_UPDATES,
+            "flash_attention_bwd_dkv": layers * TRAIN_UPDATES}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"train_llm launches {counts} != {want}")
+    profile_train_step(out["params"], out["cfg"], device)
+    return counts
+
+
+def phase_anchor_train(device) -> None:
+    """``ckpts/code_llm_small`` in fp32 on ``corpus_slice/train.bin``: the first
+    update's gradients and three updates' losses on the card (kernels) against
+    the host CPU (plain path) from the same batches (1e-4 of max(1, |grad|),
+    1e-4 relative); four updates killed after the checkpoint at update 2 and
+    resumed end bit-identical to the uninterrupted run; accumulation of two
+    b=4 microbatches equals one b=8 batch (loss after two updates, 1e-5)."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.optim import tree_leaves
+    from ssp_x_vit_tpu_torch.llm.train import next_token_loss, trainable_tree
+    from ssp_x_vit_tpu_torch.llm.trainer import TrainConfig, Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    s = 512
+    ids = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16, "r")
+                     [:20 * (s + 1)], np.int32).reshape(20, s + 1)
+    batches4 = [ids[4 * i:4 * i + 4] for i in range(4)]
+    kw = dict(learning_rate=3e-4, total_steps=4, warmup_steps=1, compute_dtype="float32",
+              log_every=1)
+
+    def copy(tree, dev):
+        return {k: copy(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+                for k, v in tree.items()}
+
+    # the first update's gradients, card against host
+    places = (("card", device), ("host", torch.device("cpu")))
+    grads, losses = {}, {}
+    for place, dev in places:
+        tree, leaves = trainable_tree(copy(params, dev))
+        next_token_loss(tree, torch.from_numpy(batches4[0]).long().to(dev), cfg,
+                        compute_dtype=torch.float32).backward()
+        grads[place] = [leaf.grad.cpu() for leaf in leaves]
+    scale = max(1.0, max(g.abs().max().item() for g in grads["host"]))
+    gerr = max((a - b).abs().max().item() for a, b in zip(grads["card"], grads["host"])) / scale
+    t0 = time.perf_counter()
+    for place, dev in places:
+        _, hist = Trainer(cfg, TrainConfig(**dict(kw, total_steps=3))).fit(
+            copy(params, dev), batches4[:3], verbose=False)
+        losses[place] = [h["loss"] for h in hist]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["host"]))
+    log(f"[ANCHOR] code_llm_small train fp32 b=4 s={s}: first-update grads card vs host CPU "
+        f"scaled {gerr:.3e} (tol 1e-4); losses card {losses['card']} host {losses['host']} "
+        f"(max rel {lerr:.3e}, tol 1e-4; {time.perf_counter() - t0:.1f} s)")
+    if gerr > 1e-4 or lerr > 1e-4 or len(losses["card"]) != 3:
+        raise AssertionError("code_llm_small training on the card disagrees with the host")
+
+    class Killed(Exception):
+        pass
+
+    def dies_after_three():
+        yield from batches4[:3]
+        raise Killed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = copy(params, device)
+        Trainer(cfg, TrainConfig(checkpoint_dir=os.path.join(tmp, "a"), checkpoint_every=2,
+                                 **kw)).fit(whole, batches4, verbose=False)
+        resumed = copy(params, device)
+        tc = TrainConfig(checkpoint_dir=os.path.join(tmp, "b"), checkpoint_every=2, **kw)
+        try:
+            Trainer(cfg, tc).fit(resumed, dies_after_three(), verbose=False)
+            raise AssertionError("the killed run did not stop")
+        except Killed:
+            pass
+        _, hist = Trainer(cfg, tc).fit(resumed, batches4, verbose=False)
+        a = torch.load(os.path.join(tmp, "a", "step_4.pt"), weights_only=True)
+        b = torch.load(os.path.join(tmp, "b", "step_4.pt"), weights_only=True)
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(whole), tree_leaves(resumed)))
+    same_state = all(torch.equal(x, y) for key in ("mu", "nu") for x, y in
+                     zip(tree_leaves(a["opt_state"][key]), tree_leaves(b["opt_state"][key])))
+    log(f"[ANCHOR] code_llm_small resume on the card: killed after update 2's checkpoint, resumed "
+        f"at update {hist[0]['update']}: parameters bit-identical {same}, moments {same_state}")
+    if not (same and same_state and hist[0]["update"] == 3):
+        raise AssertionError("the resumed run is not bit-identical to the uninterrupted one")
+
+    eval_tokens = torch.from_numpy(ids[16:20]).long().to(device)
+    after = {}
+    for accum, bsz in ((2, 4), (1, 8)):
+        run_batches = [ids[bsz * i:bsz * i + bsz] for i in range(16 // bsz)]
+        trained = copy(params, device)
+        Trainer(cfg, TrainConfig(**dict(kw, total_steps=2, accum_steps=accum))).fit(
+            trained, run_batches, verbose=False)
+        with torch.no_grad():
+            after[accum] = next_token_loss(trained, eval_tokens, cfg,
+                                           compute_dtype=torch.float32, remat=False).item()
+    rel = abs(after[2] - after[1]) / abs(after[1])
+    log(f"[ANCHOR] code_llm_small accumulation: 2 updates of --accum 2 at b=4 vs b=8, loss on "
+        f"held-out rows {after[2]:.7f} vs {after[1]:.7f} (rel {rel:.3e}, tol 1e-5)")
+    if rel > 1e-5:
+        raise AssertionError("accumulated microbatches differ from the large batch")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (takes no arguments)", file=sys.stderr)
@@ -1646,6 +1986,7 @@ def main() -> int:
 
     records = phase_kernels(device)
     records.update(phase_llm_kernels(device))
+    records.update(phase_flash_backward(device))
     records.update(phase_paged_kernels(device))
     for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
         time_kernel_parts(device, b, dtype)
@@ -1673,9 +2014,14 @@ def main() -> int:
     del llama
     torch.cuda.empty_cache()
     phase_done("main, serving (phase 4)")
+    for name, n in phase_main_train(device).items():
+        cli_launches[name] += n
+    torch.cuda.empty_cache()
+    phase_done("main, training (phase 4)")
     phase_anchor(device)
     phase_anchor_llm(device)
     phase_anchor_serving(device)
+    phase_anchor_train(device)
     phase_done("anchors (phase 5)")
 
     missing = [name for name in KERNEL_NAMES

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.rope import RopeScaling, rope_freqs
@@ -155,7 +156,8 @@ def _glu_act(cfg: LlamaConfig):
 def _embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig, compute_dtype):
     """Token embedding lookup; gemma scales by sqrt(hidden_size) with the
     normalizer rounded to the compute dtype (as HF GemmaModel does)."""
-    x = params["embed"][input_ids].to(compute_dtype)
+    # F.embedding: its backward on the card sums rows deterministically
+    x = F.embedding(input_ids, params["embed"]).to(compute_dtype)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=compute_dtype, device=x.device)
     return x
@@ -397,7 +399,7 @@ def _embed(params, input_ids, cfg, compute_dtype):
     if cfg.is_opt:
         # learned absolute positions, HF offset of 2 (OPTLearnedPositionalEmbedding)
         pos = 2 + torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = x + params["pos_embed"][pos].to(compute_dtype)[None]
+        x = x + F.embedding(pos, params["pos_embed"]).to(compute_dtype)[None]
     return x
 
 
@@ -409,6 +411,37 @@ def _gate(gates: Optional[torch.Tensor], i: int, x: torch.Tensor):
 
 def _gated(branch: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
     return branch if gate is None else branch * gate
+
+
+def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
+                 collect_mlp_stats: bool, mlp_stats_kind: str):
+    """One block of ``llama_forward``: (x out, MLP stats or None, MLP input, MLP
+    output before gemma-2's post-norm)."""
+    if cfg.is_phi:
+        # phi-2 parallel residual: one LayerNorm feeds both branches
+        h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
+        attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
+        mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind)
+        return x + _gated(attn_out, ga) + _gated(mlp_out, gm), stats, h, mlp_out
+    if cfg.is_opt:
+        h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
+    else:
+        h = rms_norm(x, bp["ln1"], cfg.rms_eps)
+    attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
+    if cfg.is_gemma2:
+        # gemma-2 post-norms: the residual deltas are RMS-normalized before the adds
+        attn_out = rms_norm(attn_out, bp["ln1_post"], cfg.rms_eps)
+    x = x + _gated(attn_out, ga)
+    if cfg.is_opt:
+        mlp_in = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
+        mlp_out, stats = _phi_mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
+                                  mlp_stats_kind, act="relu")
+    else:
+        mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
+        mlp_out, stats = _mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
+                              mlp_stats_kind, act=_glu_act(cfg))
+    post = rms_norm(mlp_out, bp["ln2_post"], cfg.rms_eps) if cfg.is_gemma2 else mlp_out
+    return x + _gated(post, gm), stats, mlp_in, mlp_out
 
 
 def llama_forward(
@@ -424,6 +457,7 @@ def llama_forward(
     collect_mlp_io_stats: bool = False,
     return_block_outputs: bool = False,
     compute_dtype=torch.bfloat16,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """input_ids [b, s] -> (logits [b, s, V] fp32, aux).
 
@@ -435,11 +469,20 @@ def llama_forward(
     ``[L, b, f]`` fp32: the 2SSP stage-1 statistic. ``collect_mlp_io_stats``
     adds the sums of squares of the MLP's input and output hidden dims;
     ``return_block_outputs`` each block's output hidden states ``[L, b, s, d]``.
+
+    ``params["blocks"]`` leaves are stacked ``[L, ...]`` tensors or lists of
+    per-layer tensors (the train step's per-layer leaves). ``remat=True``
+    (training under autograd) checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes the
+    layer's forward, flash kernel included, instead of keeping its
+    activations; it takes no aux outputs.
     """
     if cfg.pruned_attention_blocks:
         raise ValueError("use llama_forward_materialized for depth-materialized configs")
     if cfg.num_experts:
         raise NotImplementedError(_MOE_NOT_PORTED)
+    if remat and (collect_mlp_stats or collect_mlp_io_stats or return_block_outputs):
+        raise ValueError("remat=True takes no aux outputs")
     x = _embed(params, input_ids, cfg, compute_dtype)
     rope = rope_tables(input_ids.shape[1], cfg, x.device)
     blocks = params["blocks"]
@@ -452,41 +495,20 @@ def llama_forward(
         bp = {k: v[i] for k, v in blocks.items()}
         ga, gm = _gate(attn_gate, i, x), _gate(mlp_gate, i, x)
         nm = None if neuron_mask is None else neuron_mask[i]
-        if cfg.is_phi:
-            # phi-2 parallel residual: one LayerNorm feeds both branches
-            h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
-            attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
-            mlp_in = h
-            mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind)
-            x = x + _gated(attn_out, ga) + _gated(mlp_out, gm)
-        else:
-            if cfg.is_opt:
-                h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
-            else:
-                h = rms_norm(x, bp["ln1"], cfg.rms_eps)
-            attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
-            if cfg.is_gemma2:
-                # gemma-2 post-norms: the residual deltas are RMS-normalized before the adds
-                attn_out = rms_norm(attn_out, bp["ln1_post"], cfg.rms_eps)
-            x = x + _gated(attn_out, ga)
-            if cfg.is_opt:
-                mlp_in = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
-                mlp_out, stats = _phi_mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
-                                          mlp_stats_kind, act="relu")
-            else:
-                mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
-                mlp_out, stats = _mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
-                                      mlp_stats_kind, act=_glu_act(cfg))
+        if remat:
+            x = checkpoint(
+                lambda x_, bp=bp, i=i, ga=ga, gm=gm, nm=nm: _llama_layer(
+                    x_, bp, i, cfg, compute_dtype, rope, ga, gm, nm, False, mlp_stats_kind)[0],
+                x, use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, stats, mlp_in, mlp_out = _llama_layer(x, bp, i, cfg, compute_dtype, rope, ga, gm, nm,
+                                                 collect_mlp_stats, mlp_stats_kind)
         if collect_mlp_stats:
             record("mlp_stats", stats)
         if collect_mlp_io_stats:
             # taken before gemma-2's post-norm, as the JAX package takes them
             record("mlp_in_stats", mlp_in.float().square().sum(dim=1))
             record("mlp_out_stats", mlp_out.float().square().sum(dim=1))
-        if not cfg.is_phi:
-            if cfg.is_gemma2:
-                mlp_out = rms_norm(mlp_out, bp["ln2_post"], cfg.rms_eps)
-            x = x + _gated(mlp_out, gm)
         if return_block_outputs:
             record("block_outputs", x)
 

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gemm", "attention", "flash_attention", "quant_gemm", "paged_attention")
+SOURCES = ("gemm", "attention", "flash_attention", "flash_attention_bwd", "quant_gemm",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +49,14 @@ SIGNATURES = {
         "ssp_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
     "flash_attention": {
-        "ssp_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P], _I),
+        "ssp_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P],
+                                _I),
+    },
+    "flash_attention_bwd": {
+        "ssp_flash_attention_bwd_dq": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _F, _I, _I, _F, _P], _I),
+        "ssp_flash_attention_bwd_dkv": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                         _F, _I, _I, _F, _P], _I),
     },
     "quant_gemm": {
         "ssp_quant_gemm": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
@@ -198,15 +206,40 @@ def attention(qkv: torch.Tensor, out: torch.Tensor, b: int, s: int, heads: int,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
-                    scale: float, causal: bool, window: int, softcap: float) -> torch.Tensor:
+                    scale: float, causal: bool, window: int, softcap: float,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[b, h, s, hd] = softmax(mask(softcap(q k^T * scale))) v for contiguous
-    q [b, h, s, hd] and k, v [b, hkv, s, hd]; ``window`` and ``softcap`` <= 0 mean none."""
+    q [b, h, s, hd] and k, v [b, hkv, s, hd]; ``window`` and ``softcap`` <= 0 mean none.
+    ``lse`` (fp32 [b, h, s]), when given, receives each row's log-sum-exp."""
     b, h, s, hd = q.shape
     check(library("flash_attention").ssp_flash_attention(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        k.shape[1], s, hd, scale, int(causal), window, softcap, _stream()),
+        k.shape[1], s, hd, scale, int(causal), window, softcap, _ptr(lse), _stream()),
         "ssp_flash_attention")
     return out
+
+
+def flash_attention_bwd_dq(q, k, v, o, dout, lse, delta, dq, *, scale: float, causal: bool,
+                           window: int, softcap: float) -> torch.Tensor:
+    """dq[b, h, s, hd] of the flash forward, and delta = rowsum(dout * o) (fp32
+    [b, h, s]) for ``flash_attention_bwd_dkv``, from the forward's ``lse``."""
+    b, h, s, hd = q.shape
+    check(library("flash_attention_bwd").ssp_flash_attention_bwd_dq(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, k.shape[1], s,
+        hd, scale, int(causal), window, softcap, _stream()), "ssp_flash_attention_bwd_dq")
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, *, scale: float, causal: bool,
+                            window: int, softcap: float) -> None:
+    """dk, dv [b, hkv, s, hd] of the flash forward (summed over each query group)
+    from the forward's ``lse`` and the ``delta`` the dq kernel wrote."""
+    b, h, s, hd = q.shape
+    check(library("flash_attention_bwd").ssp_flash_attention_bwd_dkv(
+        DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1], s, hd,
+        scale, int(causal), window, softcap, _stream()), "ssp_flash_attention_bwd_dkv")
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,6 +33,10 @@
 // - fp32: SIMT in exact fp32 (no TF32): 128 threads, thread (ty, tx) owns
 //   query rows ty*4.. and strided columns tx + 8c of the logits tile and of O.
 //
+// With a non-null lse pointer (the training path) each row also stores
+// m + log(l), its log-sum-exp, which the backward kernels
+// (csrc/flash_attention_bwd.cu) use to recompute the probabilities.
+//
 // What bounds it on the H100: 4*hd FLOPs per unmasked (query, key) pair
 // against q, k, v and o read or written once: operations-bound at every LLM
 // shape (Llama-2-7B b=1 s=2048: 34 GFLOP against 67 MB). WMMA on mma.sync
@@ -56,6 +60,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // [b, h, s] log-sum-exp of each row's logits, or null
   int b, h, hkv, s, hd;
   float scale;
   int causal;     // 0 / 1
@@ -254,6 +259,8 @@ __global__ void __launch_bounds__(THREADS) kernel(Args p) {
   cp_async_wait<0>();
   __syncthreads();  // the K ring is free: stage the fp32 output there
   const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
+  if (p.lse != nullptr && half == 0 && grow < p.s)
+    p.lse[((size_t)batch * p.h + head) * p.s + grow] = l_run > 0.f ? m_run + logf(l_run) : -INFINITY;
 #pragma unroll
   for (int c = 0; c < 8; ++c) fs[row * 16 + half * 8 + c] = inv;
   __syncwarp();
@@ -413,6 +420,9 @@ __global__ void __launch_bounds__(THREADS) kernel(Args p) {
   }
   __syncthreads();
   if (phalf == 0) fac[prow] = l_run > 0.f ? 1.f / l_run : 0.f;
+  if (p.lse != nullptr && phalf == 0 && q0 + prow < p.s)
+    p.lse[((size_t)batch * p.h + head) * p.s + q0 + prow] =
+        l_run > 0.f ? m_run + logf(l_run) : -INFINITY;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -442,10 +452,13 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 }  // namespace ssp
 
 // q [b, h, s, hd], k/v [b, hkv, s, hd], o [b, h, s, hd], all contiguous and of
-// one dtype. window <= 0 and softcap <= 0 mean none. hd up to 256.
+// one dtype. window <= 0 and softcap <= 0 mean none. hd up to 256. lse, when
+// not null, receives the fp32 [b, h, s] log-sum-exp of each row's logits (-inf
+// for a row with no key) for the backward kernels; the no-grad callers pass null.
 extern "C" int ssp_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int b, int h, int hkv, int s, int hd, float scale,
-                                   int causal, int window, float softcap, void* stream) {
+                                   int causal, int window, float softcap, float* lse,
+                                   void* stream) {
   using namespace ssp;
   using namespace ssp::flash;
   if (b <= 0 || h <= 0 || hkv <= 0 || s <= 0 || hd <= 0 || hd > 256 || h % hkv != 0 ||
@@ -453,7 +466,7 @@ extern "C" int ssp_flash_attention(int dtype, const void* q, const void* k, cons
     return static_cast<int>(cudaErrorInvalidValue);
   const auto is16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const int aligned = hd % 8 == 0 && is16(q) && is16(k) && is16(v);
-  const Args p{q, k, v, o, b, h, hkv, s, hd, scale, causal, window, softcap, aligned};
+  const Args p{q, k, v, o, lse, b, h, hkv, s, hd, scale, causal, window, softcap, aligned};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16) {

@@ -1,6 +1,7 @@
-"""Flash attention forward (replaces ``ssp_x_vit_tpu/ops/pallas/
-flash_attention.py:flash_attention``: ``_flash_forward``,
-``_flash_forward_multihead`` and ``_flash_forward_streaming``).
+"""Flash attention forward and backward (replaces ``ssp_x_vit_tpu/ops/pallas/
+flash_attention.py``: the forwards ``_flash_forward``,
+``_flash_forward_multihead``, ``_flash_forward_streaming`` and the backwards
+``_flash_backward_pallas`` and ``_flash_backward_streaming``).
 
     out = softmax(mask(softcap(q k^T / sqrt(hd)))) v
 
@@ -11,29 +12,33 @@ memory. ``causal`` masks ``col > row``; ``window`` (needs ``causal``) keeps
 the scaled logits before the mask. fp32 logits and softmax, ``p`` rounded to
 ``v``'s dtype before the second product.
 
-On the card the wrapper launches ``csrc/flash_attention.cu`` (one kernel
+On the card the forward launches ``csrc/flash_attention.cu`` (one kernel
 walking 64-key tiles with an online softmax; bf16 on the tensor cores, fp32
 in exact fp32). What bounds it: ``4 * hd`` operations per unmasked (query,
 key) pair against q, k, v and o moved once, so it is operations-bound at
-every LLM shape. The kernel has no backward: a tensor that requires grad
-raises (the backward kernels, row 6 of the kernel table in PERF.md, come with
-the training slice).
+every LLM shape. Under autograd (a tensor that requires grad, grad mode on)
+the call goes through ``_FlashAttention``: the forward also stores each row's
+fp32 log-sum-exp, and the backward launches the two kernels of
+``csrc/flash_attention_bwd.cu`` (dq with delta = rowsum(dout * out), then dk
+and dv summed over each query group in-kernel; ``10 * hd`` operations per
+pair). Without grad the forward passes no lse pointer and runs as before.
 
-On a CPU tensor the wrapper runs ``flash_attention_plain`` (``sdpa_reference``
-on repeated K/V); a CUDA tensor always launches the kernel or raises.
+On a CPU tensor the forward runs ``flash_attention_plain`` (``sdpa_reference``
+on repeated K/V) and the backward ``flash_attention_backward_plain``; a CUDA
+tensor always launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
 
-MAX_HEAD_DIM = 256  # the largest head_dim tile the kernel is built for
+MAX_HEAD_DIM = 256  # the largest head_dim tile the kernels are built for
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,17 +55,46 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return sdpa_reference(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q [b, h, s, hd], k/v [b, hkv, s, hd] -> [b, h, s, hd] (arguments already
-    validated by ``ops.attention.flash_attention``, the public entry)."""
-    if not dispatch.use_kernel(q):
-        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "flash_attention has no backward kernel yet (row 6 of the kernel table in "
-            "PERF.md, ROADMAP.md B.3 backward): call it under torch.no_grad() or detach")
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   dout: torch.Tensor, *, causal: bool = False,
+                                   window: Optional[int] = None, softcap: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward: the explicit formula in fp32 over the whole
+    [s, s] logits, dk and dv summed over each query group. A row that no key
+    reaches gets p = 0 (the Pallas kernel's denominator guard). Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    b, h, s, hd = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf, gf = q.float(), dout.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if softcap is not None:
+        tcap = torch.tanh(logits / softcap)
+        logits = softcap * tcap
+    if causal:
+        i = torch.arange(s, device=q.device)
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask = mask & (i[:, None] - i[None, :] < window)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    if softcap is not None:
+        ds = ds * (1.0 - tcap * tcap)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = (torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale).reshape(b, hkv, rep, s, hd).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf).reshape(b, hkv, rep, s, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, h, s, hd = q.shape
     hkv = k.shape[1]
     if hd > MAX_HEAD_DIM:
@@ -77,10 +111,92 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be contiguous in the [b, h, s, hd] layout")
     if h > 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and batch rows, got {h}, {b}")
+
+
+def _options(window: Optional[int], softcap: Optional[float]) -> dict:
+    return dict(window=0 if window is None else int(window),
+                softcap=0.0 if softcap is None else float(softcap))
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = False, window: Optional[int] = None,
+                            softcap: Optional[float] = None, with_lse: bool = False
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the forward kernel on CUDA tensors: (out, lse), lse the
+    fp32 [b, h, s] row log-sum-exp when ``with_lse``, else None."""
+    _check(q, k, v)
+    b, h, s, hd = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
-        build.flash_attention(q, k, v, out, scale=1.0 / math.sqrt(hd), causal=causal,
-                              window=0 if window is None else int(window),
-                              softcap=0.0 if softcap is None else float(softcap))
+        build.flash_attention(q, k, v, out, scale=1.0 / math.sqrt(hd), causal=causal, lse=lse,
+                              **_options(window, softcap))
     launch_counts["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = False, window: Optional[int] = None,
+                             softcap: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two backward kernels on CUDA tensors: (dq, dk, dv) from the forward's
+    ``out`` and ``lse``; ``dout`` like ``out``."""
+    _check(q, k, v)
+    b, h, s, hd = q.shape
+    for name, t, dtype in (("out", out, q.dtype), ("dout", dout, q.dtype),
+                           ("lse", lse, torch.float32)):
+        shape = (b, h, s) if name == "lse" else (b, h, s, hd)
+        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    kw = dict(scale=1.0 / math.sqrt(hd), causal=causal, **_options(window, softcap))
+    with torch.cuda.device(q.device):
+        build.flash_attention_bwd_dq(q, k, v, out, dout, lse, delta, dq, **kw)
+        launch_counts["flash_attention_bwd_dq"] += 1
+        build.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, **kw)
+        launch_counts["flash_attention_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward saves (q, k, v, out, lse),
+    the backward runs the kernels (CUDA) or the plain backward (CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if dispatch.use_kernel(q):
+            out, lse = flash_attention_forward(q, k, v, causal=causal, window=window,
+                                               softcap=softcap, with_lse=True)
+        else:
+            out, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                             softcap=softcap), None
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dispatch.use_kernel(q):
+            grads = flash_attention_backward(q, k, v, out, lse, dout.contiguous(), **ctx.options)
+        else:
+            grads = flash_attention_backward_plain(q, k, v, dout, **ctx.options)
+        return (*grads, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q [b, h, s, hd], k/v [b, hkv, s, hd] -> [b, h, s, hd] (arguments already
+    validated by ``ops.attention.flash_attention``, the public entry)."""
+    use_kernel = dispatch.use_kernel(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    if not use_kernel:
+        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    return flash_attention_forward(q, k, v, causal=causal, window=window, softcap=softcap)[0]

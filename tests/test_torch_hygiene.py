@@ -275,8 +275,8 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libraries", {})
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
-    assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "quant_gemm",
-                                  "paged_attention"}
+    assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "flash_attention_bwd",
+                                  "quant_gemm", "paged_attention"}
     assert set(build.SIGNATURES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
@@ -344,8 +344,9 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
-    """flash_attention, quant4_matmul and quant_matmul against their plain
-    versions at ragged small shapes (GQA, window, softcap, head_dim 80 and 40;
+    """flash_attention (forward, and backward under autograd), quant4_matmul
+    and quant_matmul against their plain versions at ragged small shapes
+    (GQA, window, softcap, head_dim 80 and 40;
     K and N off the tile and off the 16-byte copies, M = 1 with split-K);
     tolerance on max |diff| / max(1, max |plain|)."""
     from ssp_x_vit_tpu_torch.ops.attention import flash_attention
@@ -373,11 +374,15 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
         (1, 2, 2, 65, 20, True, 1, None),
     ]
     for b, h, hkv, s, hd, causal, window, softcap in cases:
+        kw = dict(causal=causal, window=window, softcap=softcap)
         q, k, v = rn(b, h, s, hd), rn(b, hkv, s, hd), rn(b, hkv, s, hd)
-        check(flash_attention(q, k, v, causal=causal, window=window, softcap=softcap),
-              tfa.flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap))
-    with pytest.raises(RuntimeError, match="backward"):
-        flash_attention(rn(1, 2, 16, 32).requires_grad_(), rn(1, 2, 16, 32), rn(1, 2, 16, 32))
+        check(flash_attention(q, k, v, **kw), tfa.flash_attention_plain(q, k, v, **kw))
+        # under autograd: the forward with lse, then the dq and dk/dv kernels
+        g = rn(b, h, s, hd)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_attention(*leaves, **kw), leaves, g)
+        for a, r in zip(got, tfa.flash_attention_backward_plain(q, k, v, g, **kw)):
+            check(a, r)
 
     for m, k, n in ((300, 512, 384), (1, 4096, 512), (70, 250, 200), (129, 1030, 136)):
         x = rn(m, k)
@@ -387,7 +392,9 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
         w_q = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device).to(torch.int8)
         s8 = torch.rand(n, generator=gen, device=cuda_device) * 0.01 + 0.001
         check(tqm.quant_matmul(x, w_q, s8), tqm.quant_matmul_plain(x, w_q, s8))
-    assert launch_counts["flash_attention"] - before["flash_attention"] == len(cases)
+    assert launch_counts["flash_attention"] - before["flash_attention"] == 2 * len(cases)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert launch_counts[name] - before[name] == len(cases)
     assert launch_counts["quant4_matmul"] - before["quant4_matmul"] == 4
     assert launch_counts["quant_matmul"] - before["quant_matmul"] == 4
 
@@ -555,3 +562,35 @@ def test_llm_cli_on_the_card_matches_the_cpu_backend(cuda_device, model):
         assert got["dense"]["ppl"] == pytest.approx(ref["dense"]["ppl"], rel=2e-2)
         if kernel:
             assert got["kernel_launches"]["evaluation"][kernel] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tiny-random", "tiny-random-gemma2"])
+def test_train_cli_on_the_card_matches_the_cpu_backend(cuda_device, model, tmp_path):
+    """The training CLI on the card (forward with lse, dq and dk/dv kernels,
+    remat; gemma-2's windows and softcap) against the CPU backend: the same
+    tiny model (made on the CPU, saved, loaded by both as bf16) and batches,
+    fp32 compute, losses within 1e-4 relative; the flash forward runs twice
+    per layer and update (remat), each backward kernel once."""
+    from ssp_x_vit_tpu_torch.cli import main_llm, train_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import save_llm_model
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    save_llm_model(str(tmp_path), *main_llm.load_model(
+        main_llm.build_argparser().parse_args(["--model", model]), torch.device("cpu")))
+
+    def run(backend):
+        return train_llm.run(train_llm.build_argparser().parse_args(
+            ["--model", str(tmp_path), "--backend", backend, "--steps", "3", "--batch-size",
+             "2", "--seq-len", "96", "--compute-dtype", "float32", "--log-every", "1",
+             "--lr", "1e-3", "--synthetic-data"]))
+
+    ref = run("cpu")
+    reset_launch_counts()
+    got = run("cuda")
+    for a, b in zip(got["history"], ref["history"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+    layers = got["cfg"].num_layers
+    assert launch_counts["flash_attention"] == 2 * 3 * layers
+    assert launch_counts["flash_attention_bwd_dq"] == launch_counts["flash_attention_bwd_dkv"] \
+        == 3 * layers
