@@ -536,7 +536,7 @@ def phase_llm_kernels(device) -> dict:
                         f"timed call: {l_in_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
                     records[name] = dict(
                         name=name, route="cuda",
-                        source="ssp_x_vit_tpu_torch/ops/kernels/csrc/quant_gemm.cu",
+                        source="ssp_x_vit_tpu_torch/ops/kernels/csrc/quant_gemm.cu + csrc/qgemm_tile.cuh",
                         replaces="ssp_x_vit_tpu/ops/pallas/quant_matmul.py:111",
                         tpu_kernel=name, shape=shape + " bf16",
                         max_abs_err=err, scaled_err=rel, tol=TOL[dn],
@@ -888,6 +888,111 @@ def phase_paged_kernels(device) -> dict:
                 bound_ms=w_bound, bound_by=w_by, library_ms=wl_ms, flops=0, bytes=w_bytes)
             del c
         torch.cuda.empty_cache()
+    return records
+
+
+def _fused_mlp_bound(m, d, f, elem, dtype_name):
+    """(bound ms, bound_by, flops, bytes) of one fused int8 MLP call: each input
+    read once (x, three int8 matrices, their scales), the output written once."""
+    flops = 6 * m * d * f
+    nbytes = 3 * d * f + 4 * (2 * f + d) + 2 * m * d * elem
+    return (*_bound(flops, nbytes, dtype_name), flops, nbytes)
+
+
+def phase_fused_mlp(device) -> dict:
+    """fused_mlp_int8 against its plain version, fp32 and bf16, at the
+    Llama-2-7B shapes (m=1 and m=8 decode rows, m=4096 prefill rows), a
+    2SSP-pruned f=8253 and the code_llm_small width; times the bf16 calls
+    beside the composition the port runs for bf16 trees (three ``torch.matmul``
+    over int8 -> bf16 converts with the scales), ``torch.mm`` over
+    pre-dequantised bf16 copies, and the bound; returns its kernels-line record
+    (the m=8 decode shape of contiguous serving)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_weight_int8
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_fused_mlp as tfm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    cases = [  # label, m, d, f, timed
+        ("Llama-2-7B decode b=1", 1, 4096, 11008, True),
+        ("Llama-2-7B decode b=8", 8, 4096, 11008, True),
+        ("Llama-2-7B, 2SSP-pruned f", 8, 4096, 8253, False),
+        ("Llama-2-7B, 2SSP-pruned f, prefill rows", 300, 4096, 8253, False),
+        ("Llama-2-7B prefill b=8 x 512", 4096, 4096, 11008, True),
+        ("code_llm_small decode", 4, 384, 1024, False),
+        ("code_llm_small prefill", 1024, 384, 1024, False),
+        ("ragged rows", 13, 200, 72, False),
+    ]
+    records = {}
+    for label, m, d, f, timed in cases:
+        ws = [quantize_weight_int8(torch.randn(*shape, generator=gen, device=device) * 0.02)
+              for shape in ((d, f), (d, f), (f, d))]
+        args = [t for pair in ws for t in pair]        # gq, gs, uq, us, dq, ds
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            x = torch.randn(m, d, generator=gen, device=device).to(dtype)
+            got, ref = tfm.fused_mlp_int8(x, *args), tfm.fused_mlp_int8_plain(x, *args)
+            again = tfm.fused_mlp_int8(x, *args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: two runs differ")
+            err, rel = scaled_err(got, ref)
+            errs[dn] = (err, rel)
+            peak = ref.float().abs().max().item()
+            differ = int((got != ref).sum())
+            log(f"[KERNEL] fused_mlp_int8 {label} m={m} d={d} f={f} {dn}: max_abs_err={err:.3e} "
+                f"scaled={rel:.3e} tol={TOL[dn]} ok (max |plain| {peak:.3e}, {differ} of "
+                f"{ref.numel()} elements differ; same bits on a second run)")
+            if peak == 0:
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: the plain version is all zero")
+            if rel > TOL[dn]:
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: scaled error {rel:.3e}")
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            gq, gs, uq, us, dq, ds = args
+            k_ms = time_ms(lambda: tfm.fused_mlp_int8(x, *args), iters=20)
+            p_ms = time_ms(lambda: tfm.fused_mlp_int8_plain(x, *args), iters=5, warmup=1)
+            sc = [s.to(dtype) for s in (gs, us, ds)]
+
+            def composition():  # ops.common.mm_quant's int8 branch, three times
+                g = (x @ gq.to(dtype)) * sc[0]
+                u = (x @ uq.to(dtype)) * sc[1]
+                return (F.silu(g) * u) @ dq.to(dtype) * sc[2]
+
+            deq = [w.to(dtype) for w in (gq, uq, dq)]
+
+            def dequantised():  # torch.mm over pre-dequantised copies, scales on the outputs
+                g = torch.mm(x, deq[0]) * sc[0]
+                u = torch.mm(x, deq[1]) * sc[1]
+                return torch.mm(F.silu(g) * u, deq[2]) * sc[2]
+
+            c_ms = time_ms(composition, iters=20)
+            l_ms = time_ms(dequantised, iters=20)
+            bound_ms, bound_by, flops, nbytes = _fused_mlp_bound(m, d, f, 2, dn)
+            rate = (f"{nbytes / k_ms / 1e9:.2f} TB/s of the bytes it must move" if bound_by == "bytes"
+                    else f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+            log(f"[TIME] fused_mlp_int8 {label} m={m} d={d} f={f} bf16: kernel {k_ms:.4f} ms "
+                f"({rate}), plain {p_ms:.4f} ms, the port's bf16 composition (3 torch.matmul over "
+                f"int8 -> bf16 converts) {c_ms:.4f} ms, library torch.mm over dequantised copies "
+                f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if m == 8:
+                records["fused_mlp_int8"] = dict(
+                    name="fused_mlp_int8", route="cuda",
+                    source="ssp_x_vit_tpu_torch/ops/kernels/csrc/quant_fused_mlp.cu + csrc/qgemm_tile.cuh",
+                    replaces="ssp_x_vit_tpu/ops/pallas/quant_fused_mlp.py:68",
+                    tpu_kernel="fused_mlp_int8", shape=f"m={m} d={d} f={f} bf16",
+                    max_abs_err=err, scaled_err=rel, tol=TOL[dn],
+                    max_abs_err_fp32=errs["float32"][0], scaled_err_fp32=errs["float32"][1],
+                    tol_fp32=TOL["float32"], ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=l_ms, composition_ms=c_ms,
+                    flops=flops, bytes=nbytes)
+        del ws, args
+    torch.cuda.empty_cache()
     return records
 
 
@@ -1635,6 +1740,303 @@ def phase_serving(device, params, cfg) -> dict:
             "paged_pool_write_q8": run2["launches"]["paged_pool_write_q8"]}
 
 
+GEN_MAX_LENGTH = 640  # prompt + generation of the contiguous-serving runs
+GEN_PROMPTS = (64, 512)  # shortest and longest prompt of the b=8 runs
+
+
+def _extend_gaps(params, cfg, seqs, starts, cache_dtype, device) -> tuple:
+    """Each sequence alone at b=1 (no padding) through one cached forward over
+    prompt + generated tokens (``speculative._extend_body``: the serving
+    layers, logits at every position): at every generated position, how far
+    the token's logit lies below the alone run's best logit. Returns (tokens
+    that are the alone argmax, tokens checked, worst gap over max(1, max
+    |logit|))."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.serve import init_cache
+    from ssp_x_vit_tpu_torch.llm.speculative import _extend_body
+
+    same = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for seq, start in zip(seqs, starts):
+            toks = torch.as_tensor(seq[None].astype("int64"), device=device)
+            ck, cv = init_cache(cfg, 1, len(seq), cache_dtype, device)
+            logits = _extend_body(params, toks, ck, cv, cfg, 0)[0][0, start - 1:len(seq) - 1]
+            chosen = logits.gather(1, toks[0, start:, None])[:, 0]
+            gaps = logits.max(dim=-1).values - chosen
+            same += int((gaps == 0).sum())
+            total += len(seq) - start
+            worst = max(worst, float(gaps.max()) / max(1.0, float(logits.abs().max())))
+            del ck, cv, logits
+    return same, total, worst
+
+
+def _profile_decode(params, cfg, device, cache_dtype, prompts) -> dict:
+    """The contiguous path split in its parts at b=8: prefill seconds, ms per
+    decode step over 16 steps (host clock around synchronized work), and a
+    ``torch.profiler`` split of 4 more steps."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm import serve
+
+    tokens, pad_lens, _, p_pad = serve._prepare_prompts(prompts, GEN_MAX_LENGTH)
+    b = tokens.shape[0]
+    layers = serve.split_layers(params, cfg)
+    ck, cv = serve.init_cache(cfg, b, GEN_MAX_LENGTH + 1, cache_dtype, device)
+    pads = torch.as_tensor(pad_lens.astype(np.int64), device=device)
+    toks = torch.as_tensor(tokens.astype(np.int64), device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, ck, cv = serve.prefill(params, toks, ck, cv, cfg, pads, layers=layers)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok, pos = logits.argmax(-1), p_pad
+    for _ in range(2):  # warm-up
+        logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+        tok, pos = logits.argmax(-1), pos + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+        tok, pos = logits.argmax(-1), pos + 1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 16
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+            tok, pos = logits.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / 4
+    top = [(e.key[:80], _device_us(e) / 1e3 / 4, e.count // 4)
+           for e in sorted(kernels, key=_device_us, reverse=True)[:6]]
+    n_launch = sum(e.count for e in kernels) / 4
+    return dict(prefill_s=prefill_s, step_ms=step_ms, busy_ms=busy_ms, top=top, n_launch=n_launch)
+
+
+def phase_contiguous(device, params, cfg) -> dict:
+    """Contiguous KV serving at the full width and depth of Llama-2-7B: the
+    model quantized to int8 on the card, ``generate_kv_scan`` at b=8 on
+    left-padded prompts of 64-512 tokens (max_length 640, greedy) with a bf16
+    cache and then an int8 cache, each MLP through ``fused_mlp_int8`` (exactly
+    32 launches per forward); every batch token held to the same prompt run
+    alone at b=1; b=1 on the bf16 tree (no kernel of this package on its
+    path); the prefill / decode-step split and a profiler split of decode
+    steps. Returns the launches of the two int8 runs."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int8, quantized_param_bytes
+    from ssp_x_vit_tpu_torch.llm.serve import generate_kv_scan
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    q8 = quantize_llm_params_int8(params, cfg)
+    torch.cuda.synchronize()
+    log(f"[GEN] Llama-2-7B width quantized to int8 on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{quantized_param_bytes(q8) / 2 ** 30:.2f} GiB ({torch.cuda.memory_allocated() / 2 ** 30:.1f} "
+        f"GiB allocated with the bf16 tree)")
+    rng = np.random.default_rng(31)
+    lo, hi = GEN_PROMPTS
+    lens = [lo, hi] + sorted(rng.integers(lo + 1, hi, 6).tolist())
+    stream = synthetic_token_stream(sum(lens), cfg.vocab_size, seed=33).reshape(-1)
+    cuts = np.cumsum([0] + lens)
+    prompts = [stream[cuts[i]:cuts[i + 1]].astype(np.int64) for i in range(len(lens))]
+    steps = GEN_MAX_LENGTH - min(lens) - 1
+    launches = {}
+    for label, tree, cache_dtype in (("int8 tree, bf16 cache", q8, torch.bfloat16),
+                                     ("int8 tree, int8 cache", q8, torch.int8)):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = generate_kv_scan(tree, cfg, prompts, max_length=GEN_MAX_LENGTH,
+                                cache_dtype=cache_dtype)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_gen = sum(len(o) - n for o, n in zip(outs, lens))
+        run = {k: v for k, v in launch_counts.items() if v}
+        for name, n in run.items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"[GEN] b=8 {label}: generate_kv_scan on prompts of {lo}-{hi} tokens (left-padded), "
+            f"max_length {GEN_MAX_LENGTH}: {steps} decode steps, {n_gen} tokens "
+            f"kept in {seconds:.2f} s = {n_gen / seconds:.1f} tokens/s (prefill included; "
+            f"{8 * (steps + 1) / seconds:.1f} tokens/s counting every row's step); peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; launches {json.dumps(run)}")
+        want = cfg.num_layers * (1 + steps)
+        if run.get("fused_mlp_int8", 0) != want:
+            raise AssertionError(f"{label}: fused_mlp_int8 launched {run.get('fused_mlp_int8')} "
+                                 f"times, expected {cfg.num_layers} x (1 + {steps}) = {want}")
+        for o, p in zip(outs, prompts):
+            if len(o) != GEN_MAX_LENGTH or not (o[:len(p)] == p).all() or \
+                    not ((0 <= o) & (o < cfg.vocab_size)).all():
+                raise AssertionError(f"{label}: a row is not its prompt + tokens of the vocabulary "
+                                     f"up to {GEN_MAX_LENGTH}")
+        same, total, worst = _extend_gaps(q8, cfg, outs, lens, cache_dtype, device)
+        log(f"[GEN] b=8 {label}: every batch token against the same prompt run alone at b=1: "
+            f"{same} of {total} are the alone run's argmax; worst logit gap {worst:.3e} of "
+            f"max(1, max |logit|), tol 5e-2")
+        if worst > 5e-2:
+            raise AssertionError(f"{label}: a batch token is not the alone run's best token")
+        part = _profile_decode(tree, cfg, device, cache_dtype, prompts)
+        log(f"[GEN] b=8 {label}: prefill of 8 x {hi} tokens {part['prefill_s']:.3f} s; decode "
+            f"{part['step_ms']:.2f} ms per step (host clock, 16 steps after the prefill) = "
+            f"{8e3 / part['step_ms']:.0f} tokens/s")
+        if part["busy_ms"] > 0:
+            log(f"[PROFILE] contiguous decode step, {label}: {part['n_launch']:.0f} device kernels "
+                f"and {part['busy_ms']:.2f} ms of device activity per step "
+                f"({100 * part['busy_ms'] / part['step_ms']:.0f}% of the step's wall time)")
+            for key, ms, count in part["top"]:
+                log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / part['busy_ms']:5.1f}%  x{count:<4d} {key}")
+        else:
+            log("[PROFILE] contiguous decode step: the trace holds no device time: not measured")
+        del outs
+        torch.cuda.empty_cache()
+    del q8
+    torch.cuda.empty_cache()
+
+    reset_launch_counts()
+    one = prompts[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate_kv_scan(params, cfg, one, max_length=GEN_MAX_LENGTH, cache_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n_gen = len(out) - len(one)
+    log(f"[GEN] b=1 bf16 tree, bf16 cache, prompt of {len(one)} tokens: {n_gen} tokens in "
+        f"{seconds:.2f} s = {n_gen / seconds:.1f} tokens/s (prefill included); launches of this "
+        f"package's kernels {sum(launch_counts.values())}")
+    if any(launch_counts.values()) or len(out) != GEN_MAX_LENGTH:
+        raise AssertionError("the bf16 tree launched a kernel of this package or stopped early")
+    return launches
+
+
+def _first_divergence(got, ref, start, host, cfg, compute_dtype, tol) -> int:
+    """Tokens of ``got`` from ``start`` that equal ``ref`` before the first
+    difference; at a difference the host's own top-2 logit margin there must
+    be under ``tol`` of max(1, max |logit|) (a near-tie), else it raises."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+
+    if list(got) == list(ref):
+        return len(ref) - start
+    at = next(i for i, (x, y) in enumerate(zip(got, ref)) if x != y)
+    with torch.no_grad():
+        logits, _ = llama_forward(host, torch.tensor([list(ref[:at])]), cfg,
+                                  compute_dtype=compute_dtype)
+    top2 = logits[0, -1].topk(2).values
+    margin = float(top2[0] - top2[1]) / max(1.0, float(logits[0, -1].abs().max()))
+    if margin > tol:
+        raise AssertionError(f"token {at - start} differs where the host's top-2 margin is "
+                             f"{margin:.2e} > {tol}")
+    return at - start
+
+
+def phase_anchor_contiguous(device) -> None:
+    """``ckpts/code_llm_small`` through contiguous serving on the card against
+    the host CPU: fp32 ``generate_kv_scan`` on 4 val prompts x 32 greedy
+    tokens, then the int8 tree (``fused_mlp_int8``), then an int8 cache; a
+    speculative run with a 25%-2SSP draft equal to dense greedy decoding on
+    the card, token for token;
+    ``beam_generate_kv`` equal to ``beam_generate``; a rolling cache on a
+    uniform-window tiny model. fp32 runs may differ only where the host's
+    top-2 margin is under 1e-3, the int8 cache (bf16 compute) where it is
+    under 5e-2 of max(1, max |logit|)."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.generate import beam_generate, beam_generate_kv
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.llm.pruning import two_stage_2ssp
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int8
+    from ssp_x_vit_tpu_torch.llm.serve import generate_kv_scan
+    from ssp_x_vit_tpu_torch.llm.speculative import speculative_generate
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:4096],
+                     np.int32)
+    prompts = [val[a:a + n].tolist() for a, n in ((0, 48), (500, 100), (1000, 160), (2000, 200))]
+    new = 32
+    runs = [("fp32 tree, fp32 cache", params, host, torch.float32, torch.float32, 1e-3),
+            ("int8 tree (fused_mlp_int8), fp32 cache", quantize_llm_params_int8(params, cfg),
+             quantize_llm_params_int8(host, cfg), torch.float32, torch.float32, 1e-3),
+            ("fp32 tree, int8 cache", params, host, torch.int8, torch.bfloat16, 5e-2)]
+    for label, card_tree, host_tree, cache_dtype, compute, tol in runs:
+        before = launch_counts["fused_mlp_int8"]
+        kw = dict(max_length=max(len(p) for p in prompts) + new, cache_dtype=cache_dtype)
+        got = [generate_kv_scan(card_tree, cfg, p, **dict(kw, max_length=len(p) + new))
+               for p in prompts]
+        together = generate_kv_scan(card_tree, cfg, prompts, **kw)
+        ref = [generate_kv_scan(host_tree, cfg, p, **dict(kw, max_length=len(p) + new))
+               for p in prompts]
+        fused = launch_counts["fused_mlp_int8"] - before
+        checked = 0
+        for p, g, t, r in zip(prompts, got, together, ref):
+            checked += _first_divergence(g.tolist(), r.tolist(), len(p), host_tree, cfg, compute,
+                                         tol)
+            checked += _first_divergence(t[:len(p) + new].tolist(), r.tolist(), len(p), host_tree,
+                                         cfg, compute, tol)
+        log(f"[ANCHOR] code_llm_small generate_kv_scan, {label}: card (each prompt alone and the 4 "
+            f"batched) == host CPU on {checked} of {2 * 4 * new} tokens (the rest follow a "
+            f"near-tie); fused_mlp_int8 launches {fused}")
+        if ("int8 tree" in label) != (fused > 0):
+            raise AssertionError(f"{label}: fused_mlp_int8 launched {fused} times")
+
+    calib = [np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16,
+                                  "r")[i * 1024:(i + 1) * 1024], np.int32).reshape(1, 1024)
+             for i in range(8)]
+    draft, dcfg, _ = two_stage_2ssp(params, cfg, calib, 0.25, seq_len=1024)
+    rates, equal = [], 0
+    for p in prompts[:2]:
+        dense = generate_kv_scan(params, cfg, p, max_length=len(p) + 48,
+                                 cache_dtype=torch.float32).tolist()
+        spec, stats = speculative_generate(params, cfg, draft, dcfg, p, max_length=len(p) + 48,
+                                           k=4, cache_dtype=torch.float32)
+        spec = spec.tolist()
+        rates.append(stats["acceptance_rate"])
+        equal += sum(x == y for x, y in zip(spec[len(p):], dense[len(p):]))
+        if spec != dense:
+            raise AssertionError(f"speculative_generate differs from dense greedy "
+                                 f"generate_kv_scan at fp32 (prompt of {len(p)} tokens)")
+    log(f"[ANCHOR] code_llm_small speculative_generate (k=4, 25% 2SSP draft, fp32): {equal} of "
+        f"{2 * 48} tokens equal to dense generate_kv_scan, held exactly; acceptance rate "
+        f"{', '.join(f'{r:.3f}' for r in rates)}")
+
+    p = prompts[0][:24]
+    beams = beam_generate(params, cfg, np.asarray(p), max_length=len(p) + 12, num_beams=5,
+                          compute_dtype=torch.float32)
+    beams_kv = beam_generate_kv(params, cfg, np.asarray(p), max_length=len(p) + 12, num_beams=5,
+                                cache_dtype=torch.float32)
+    log(f"[ANCHOR] code_llm_small 5-beam search, 12 tokens, fp32: beam_generate_kv "
+        f"{'==' if beams.tolist() == beams_kv.tolist() else '!='} beam_generate")
+    if beams.tolist() != beams_kv.tolist():
+        raise AssertionError("beam_generate_kv differs from beam_generate at fp32")
+
+    wcfg = LlamaConfig(vocab_size=512, hidden_size=128, num_layers=3, num_heads=4, num_kv_heads=2,
+                       intermediate_size=256, sliding_window=16)
+    gen = torch.Generator().manual_seed(0)
+    whost = init_llama_params(gen, wcfg, device="cpu")
+    wcard = _tree_to(whost, device)
+    wp = [[int(t) for t in val[3000:3000 + n] % 512] for n in (40, 7, 25)]
+    got = generate_kv_scan(wcard, wcfg, wp, max_length=72, rolling=True, cache_dtype=torch.float32)
+    ref = generate_kv_scan(whost, wcfg, wp, max_length=72, rolling=True, cache_dtype=torch.float32)
+    checked = sum(_first_divergence(g.tolist(), r.tolist(), len(q), whost, wcfg, torch.float32,
+                                    1e-3) for g, r, q in zip(got, ref, wp))
+    log(f"[ANCHOR] rolling cache (window 16, 16 slots, tiny random model): card == host CPU on "
+        f"{checked} of {sum(72 - len(q) for q in wp)} tokens")
+
+
 def phase_anchor_serving(device) -> None:
     """The trained ``ckpts/code_llm_small`` with fp32 pools: four prompts cut
     from the committed val tokens, 32 greedy tokens each, served together by a
@@ -1988,6 +2390,7 @@ def main() -> int:
     records.update(phase_llm_kernels(device))
     records.update(phase_flash_backward(device))
     records.update(phase_paged_kernels(device))
+    records.update(phase_fused_mlp(device))
     for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
@@ -2011,9 +2414,12 @@ def main() -> int:
     phase_done("main, LLM (phase 4)")
     for name, n in phase_serving(device, *llama).items():
         cli_launches[name] += n
+    phase_done("main, serving (phase 4)")
+    for name, n in phase_contiguous(device, *llama).items():
+        cli_launches[name] += n
     del llama
     torch.cuda.empty_cache()
-    phase_done("main, serving (phase 4)")
+    phase_done("main, contiguous serving (phase 4)")
     for name, n in phase_main_train(device).items():
         cli_launches[name] += n
     torch.cuda.empty_cache()
@@ -2021,6 +2427,7 @@ def main() -> int:
     phase_anchor(device)
     phase_anchor_llm(device)
     phase_anchor_serving(device)
+    phase_anchor_contiguous(device)
     phase_anchor_train(device)
     phase_done("anchors (phase 5)")
 
@@ -2030,8 +2437,10 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on a driven path: {missing}")
     kernels = []
     for name in KERNEL_NAMES:
-        driven_by, n_direct = direct.get(
-            name, ("served runs over HTTP" if name.startswith("paged_") else "cli runs", 0))
+        driven_by, n_direct = direct.get(name, (
+            "served runs over HTTP" if name.startswith("paged_")
+            else "generate_kv_scan (contiguous serving)" if name == "fused_mlp_int8"
+            else "cli runs", 0))
         kernels.append(dict(records[name], launches=cli_launches[name] + n_direct,
                             cli_launches=cli_launches[name], driven_by=driven_by))
     print(json.dumps({"kernels": kernels}))

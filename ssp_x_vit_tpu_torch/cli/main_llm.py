@@ -106,7 +106,8 @@ def _reject_unported(args) -> None:
         "--ablation (llm/ablations.py, ROADMAP.md A.10)": args.ablation or args.ablation_quick,
         "--evaluate_downstream (llm/zeroshot.py, llm/taskpack.py, ROADMAP.md A.10)":
             args.evaluate_downstream or args.task_pack is not None,
-        "--evaluate_qualitative (llm/generate.py, ROADMAP.md A.9)": args.evaluate_qualitative,
+        "--evaluate_qualitative (the tokenizer, llm/tokenizer.py, ROADMAP.md A.10)":
+            args.evaluate_qualitative,
         "--save-format hf (export_hf_llama, ROADMAP.md A.10)": args.save_format != "native",
         "--local_datasets (corpus loaders and tokenizer, ROADMAP.md A.10)": args.local_datasets,
         "--model tiny-random-deepseek* (llm/deepseek.py, ROADMAP.md A.11)":

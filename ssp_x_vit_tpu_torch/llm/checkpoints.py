@@ -61,6 +61,14 @@ def pools_from_jax(pool, *, device: DeviceLike = None):
     return _to_tensor(np.asarray(pool), dev, None)
 
 
+def caches_from_jax(cache_k, cache_v, *, device: DeviceLike = None):
+    """A contiguous KV cache pair of the JAX package (``serve.init_cache``:
+    arrays ``[A, b, max_len, nkv, hd]``, or the int8 caches ``{"q": int8
+    codes, "s": fp32 scales}``) -> the port's caches on ``device``, every leaf
+    in its own dtype."""
+    return pools_from_jax(cache_k, device=device), pools_from_jax(cache_v, device=device)
+
+
 def config_to_dict(cfg: LlamaConfig) -> Dict[str, Any]:
     return dataclasses.asdict(cfg)
 

@@ -44,8 +44,8 @@ from ssp_x_vit_tpu_torch.llm.sampling import (
     SamplerState, SamplingParams, init_sampler_state, slot_state_row, vectorized_sample,
 )
 from ssp_x_vit_tpu_torch.llm.serve import (
-    _LLAMA_ATTN_KEYS, _base_key, _block_qkv, _final_logits, cache_compute_dtype,
-    num_attn_layers, rope_tables_at,
+    Layer, _block_qkv, _final_logits, cache_compute_dtype, num_attn_layers, rope_tables_at,
+    split_layers,
 )
 from ssp_x_vit_tpu_torch.ops.attention import flash_attention
 from ssp_x_vit_tpu_torch.ops.common import gelu
@@ -54,11 +54,6 @@ from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import (
 )
 
 _NEG_INF = torch.finfo(torch.float32).min
-
-# One layer's parameters and the row of the pools its attention owns (None:
-# the attention of this block was pruned away).
-Layer = Tuple[Params, Optional[int]]
-
 
 def _check_servable(cfg) -> None:
     require_llama_config(cfg)
@@ -82,27 +77,6 @@ def init_paged_pools(cfg: LlamaConfig, num_pages: int, page_size: int,
         return mk(), mk()
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
-
-
-def split_layers(params: Params, cfg: LlamaConfig) -> List[Layer]:
-    """Per-layer views of the stacked block parameters, made once per model:
-    attention leaves are indexed by the compacted attention index
-    (``attn_store_index``), the rest by the layer index. phi's ``ln1`` feeds
-    both branches and stays with the layer."""
-    attn_keys = set(_LLAMA_ATTN_KEYS) - ({"ln1", "ln1_bias"} if cfg.is_phi else set())
-    store = cfg.attn_store_index
-    layers: List[Layer] = []
-    for i in range(cfg.num_layers):
-        j = store[i]
-        bp = {}
-        for name, val in params["blocks"].items():
-            if _base_key(name) in attn_keys:
-                if j is not None:
-                    bp[name] = val[j]
-            else:
-                bp[name] = val[i]
-        layers.append((bp, j))
-    return layers
 
 
 def _mlp_branch(h2, bp, cfg: LlamaConfig, compute_dtype):

@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``csrc/`` with nvcc at first use, bind them with
 ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``,
-``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``).
+``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``;
+``quant_fused_mlp`` is launched by ``ops/kernels/quant_fused_mlp.py``).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<hash>/lib<name>.so`` at the
 repository root, where ``<hash>`` covers every source and header and the nvcc
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gemm", "attention", "flash_attention", "flash_attention_bwd", "quant_gemm",
-           "paged_attention")
+           "paged_attention", "quant_fused_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,6 +68,10 @@ SIGNATURES = {
                                  _I, _L, _I, _F, _F, _I, _P], _I),
         "ssp_paged_pool_write": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _L, _I, _P], _I),
+    },
+    "quant_fused_mlp": {
+        "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+        "ssp_fused_mlp_int8_workspace_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
     },
 }
 

@@ -48,6 +48,14 @@ inline int split_count(long long tiles, int k, int bk) {
   return static_cast<int>(std::max(1LL, std::min({want, most, 16LL})));
 }
 
+// K chunk of each split under that policy (a multiple of bk) and the splits it makes.
+inline void split_k(long long tiles, int k, int bk, int& splits, int& chunk) {
+  const int want = split_count(tiles, k, bk);
+  const int k_tiles = (k + bk - 1) / bk;
+  chunk = std::max(1, (k_tiles + want - 1) / want) * bk;
+  splits = std::max(1, (k + chunk - 1) / chunk);
+}
+
 // Opts `kernel` into the device's whole per-block dynamic shared memory. The
 // attribute persists, so the call is made once per (kernel, device) and later
 // launches skip it; `done` keeps one bit per device for this kernel.

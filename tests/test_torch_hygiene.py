@@ -117,17 +117,24 @@ def test_serving_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_serving_parts_name_the_roadmap_item():
+    """What stays unported on the serving paths raises naming its item: the
+    tokenizer (A.10: ``--tokenizer``, ``generate_response``), multi-LoRA
+    (A.10: ``lora_ids``) and the MLA engine (A.11)."""
     from ssp_x_vit_tpu_torch.cli import serve_http
-    from ssp_x_vit_tpu_torch.llm import serve
+    from ssp_x_vit_tpu_torch.llm import generate, serve
     from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         serve_http.build_engine(serve_http.build_argparser().parse_args(
             ["--model", "tiny-random", "--backend", "cpu", "--tokenizer", "dir"]))
-    for name in ("init_cache", "init_rolling_cache", "prefill", "decode_step", "decode_scan",
-                 "generate_kv_scan", "greedy_generate_kv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
-            getattr(serve, name)()
+    tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,
+                       intermediate_size=24)
+    params = init_llama_params(None, tiny, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+        serve.generate_kv_scan(params, tiny, [[1, 2, 3]], max_length=8, lora_ids=[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+        generate.generate_response("Who is Albert Einstein?", params, tiny, tokenizer=None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):   # the MLA config class
         ServingEngine({}, object())
 
@@ -151,7 +158,7 @@ def test_unported_llm_flags_name_the_roadmap_item(tmp_path):
                         (["--pruning_method", "slicegpt"], "A.10"),
                         (["--ablation"], "A.10"), (["--ablation-quick"], "A.10"),
                         (["--evaluate_downstream"], "A.10"), (["--task-pack", "x"], "A.10"),
-                        (["--evaluate_qualitative"], "A.9"), (["--save-format", "hf"], "A.10"),
+                        (["--evaluate_qualitative"], "A.10"), (["--save-format", "hf"], "A.10"),
                         (["--local_datasets"], "A.10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             main_llm.run(main_llm.build_argparser().parse_args(base + flags))
@@ -197,8 +204,8 @@ def test_paged_kernel_wrappers_check_their_operands(monkeypatch):
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
     from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
 
-    assert KERNEL_NAMES[-4:] == ("paged_attention", "paged_attention_q8", "paged_pool_write",
-                                 "paged_pool_write_q8")
+    assert KERNEL_NAMES[-5:-1] == ("paged_attention", "paged_attention_q8", "paged_pool_write",
+                                   "paged_pool_write_q8")
     reset_launch_counts()
     b, nq, nkv, hd, ps, P, mp = 2, 4, 2, 8, 4, 5, 2
     q, new = torch.zeros(b, nq, hd), torch.ones(b, nkv, hd)
@@ -276,7 +283,7 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
     assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "flash_attention_bwd",
-                                  "quant_gemm", "paged_attention"}
+                                  "quant_gemm", "paged_attention", "quant_fused_mlp"}
     assert set(build.SIGNATURES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()

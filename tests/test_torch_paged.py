@@ -78,9 +78,10 @@ def test_prompt_buckets_and_helpers_match_jax():
         assert tserve._base_key(key) == jserve._base_key(key)
     _, jcfg, _, tcfg = make_model(pruned_attention_blocks=(1,))
     assert tserve.num_attn_layers(tcfg) == jserve.num_attn_layers(jcfg) == 1
-    for name in ("init_cache", "generate_kv_scan", "prefill", "decode_step", "init_rolling_cache"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
-            getattr(tserve, name)()
+    # the contiguous cache has one row per surviving attention layer, as the JAX package's
+    for t, j in zip(tserve.init_cache(tcfg, 2, 5, torch.float32, device="cpu"),
+                    jserve.init_cache(jcfg, 2, 5, jnp.float32)):
+        assert tuple(t.shape) == j.shape == (1, 2, 5, 2, 8)
 
 
 @pytest.mark.parametrize("family", ["tiny-random", "tiny-random-phi", "tiny-random-qwen3"])
