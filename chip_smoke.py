@@ -16,7 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             backward kernels (``flash_attention_bwd_dq``, ``_dkv``) at the
             Llama-2-7B, Mistral-7B, ``code_llm_small`` and ragged shapes;
             ``quant4_matmul`` and ``quant_matmul`` at the Llama-2-7B
-            projections, a ragged pruned K, one row and 16384 rows; the paged
+            projections, a ragged pruned K, the tile pipeline's edges (1-300
+            rows, K = 682 and 8190, N = 250, an x one element off 16 bytes)
+            and 16384 rows, the same bits on a second run; ``fused_mlp_int8``
+            at decode and prefill rows and the same edges; ``fused_ffn_block``
+            under autograd (a grad_fn, gradients against the host CPU's) and
+            the attention blocks raising under autograd; the paged
             decode kernels. Times kernel, plain version and a PyTorch library
             call with CUDA events, beside the data-sheet bound; then times each
             launch inside the wrappers ([PART] lines) beside ``torch.mm`` and
@@ -327,6 +332,71 @@ def phase_kernels(device) -> dict:
     return records
 
 
+def check_vit_block_gradients(device) -> None:
+    """Under autograd, fused_ffn_block runs its kernel inside an autograd
+    Function: the output has a grad_fn and the gradients of every input (the
+    gate a tensor) match the host CPU's fp32 autodiff of the plain version,
+    fp32 and bf16, at ViT-B/16 width (b=2); the fused attention blocks, which
+    have no backward, raise under autograd."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ffk
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    gen = torch.Generator().manual_seed(13)
+    b, s, d, f = 2, 197, 768, 3072
+    host = [torch.randn(b, s, d, generator=gen), 1 + 0.1 * torch.randn(d, generator=gen),
+            0.1 * torch.randn(d, generator=gen), torch.randn(d, f, generator=gen) * d ** -0.5,
+            0.1 * torch.randn(f, generator=gen), torch.randn(f, d, generator=gen) * f ** -0.5,
+            0.1 * torch.randn(d, generator=gen), torch.full((), 0.7)]
+    mask = (torch.rand(f, generator=gen) > 0.3).float()
+    g_out = torch.randn(b, s, d, generator=gen)
+    names = ("x", "ln_scale", "ln_bias", "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias", "gate")
+
+    def grads(dev, dtype):
+        leaves = [t.to(dev, dtype if t.dim() else torch.float32, copy=True).requires_grad_()
+                  for t in host]
+        out, stats = ffk.fused_ffn_block(*leaves[:7], neuron_mask=mask.to(dev), gate=leaves[7],
+                                         collect_stats=True)
+        if out.grad_fn is None or stats.grad_fn is not None:
+            raise AssertionError("fused_ffn_block under autograd: no grad_fn on the output")
+        out.backward(g_out.to(dev, dtype))
+        return [t.grad.float().cpu() for t in leaves]
+
+    ref = grads("cpu", torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        before = launch_counts["fused_ffn_block"]
+        got = grads(device, dtype)
+        torch.cuda.synchronize()
+        if launch_counts["fused_ffn_block"] - before != 1:
+            raise AssertionError("fused_ffn_block under autograd did not launch its kernel once")
+        worst = 0.0
+        for name, a, r in zip(names, got, ref):
+            rel = (a - r).abs().max().item() / max(1.0, r.abs().max().item())
+            if rel > TOL[dn]:
+                raise AssertionError(f"fused_ffn_block gradient of {name} {dn}: scaled error "
+                                     f"{rel:.3e} > {TOL[dn]}")
+            worst = max(worst, rel)
+        log(f"[KERNEL] fused_ffn_block under autograd b={b} s={s} d={d} f={f} {dn}: grad_fn set, "
+            f"gradients of {len(names)} inputs vs the host CPU's fp32 autodiff: worst scaled "
+            f"error {worst:.3e} tol={TOL[dn]} ok")
+    x = host[0].to(device, torch.bfloat16).requires_grad_()
+    attn = [t.to(device, torch.bfloat16) for t in (
+        torch.ones(d), torch.zeros(d), torch.randn(d, 3 * d, generator=gen) * 0.03,
+        torch.zeros(3 * d), torch.randn(d, d, generator=gen) * 0.03, torch.zeros(d))]
+    for name, heads in (("fused_attn_block_v2", 12), ("fused_attn_block", 3)):
+        try:
+            getattr(fab, name)(x, *attn, heads)
+        except RuntimeError as e:
+            if "allow_fused_attn=False" not in str(e):
+                raise
+            log(f"[KERNEL] {name} under autograd raises as it should: {e}")
+        else:
+            raise AssertionError(f"{name} under autograd returned instead of raising")
+
+
 def drive_ffn_forward(device) -> int:
     """The op-level FFN entry (``ops.ffn.ffn_forward``, the counterpart of the
     JAX package's dispatching ``ffn_forward``) on CUDA tensors at the ViT-B/16
@@ -490,12 +560,17 @@ def phase_llm_kernels(device) -> dict:
                         ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=l_ms, flops=flops, bytes=nbytes)
 
-    quant_cases = [  # (m, k, n, timed)
+    quant_cases = [  # (m, k, n, timed); the tiles take 16/32/64/128 activation rows
         (2048, 4096, 11008, True),
+        (8, 4096, 11008, True),      # decode rows: split-K, bound by the weight bytes
         (2048, 11008, 4096, False),
-        (2048, 8190, 4096, False),   # a 2SSP-pruned down projection: ragged K, unaligned rows
+        (2048, 8190, 4096, False),   # a 2SSP-pruned down projection: ragged K, element loads
         (1, 4096, 4096, False),      # split-K
         (16384, 384, 1024, False),   # 8 candidates x 2048 tokens at the code_llm_small width
+        (17, 4096, 4096, False),
+        (64, 682, 4096, False),      # K = 682: element loads
+        (136, 4096, 250, False),     # N = 250: element loads
+        (300, 4096, 4096, False),
     ]
     for name, bits in (("quant4_matmul", 4), ("quant_matmul", 8)):
         wrapper, plain = getattr(tqm, name), getattr(tqm, name + "_plain")
@@ -510,16 +585,27 @@ def phase_llm_kernels(device) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[1]
                 x = rn((m, k), dtype)
+                # the same rows one element off 16 bytes: the element-load producer
+                x_off = rn((m * k + 1,), dtype)[1:].view(m, k)
+                x_off.copy_(x)
                 got, ref = wrapper(x, w, scale), plain(x, w, scale)
+                again, off = wrapper(x, w, scale), wrapper(x_off, w, scale)
                 torch.cuda.synchronize()
                 if not torch.isfinite(got.float()).all():
                     raise AssertionError(f"{name} {shape} {dn}: non-finite output")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {shape} {dn}: two runs differ")
                 err, rel = scaled_err(got, ref)
+                off_rel = scaled_err(off, ref)[1]
+                if ref.float().abs().max().item() < 1.0:
+                    raise AssertionError(f"{name} {shape} {dn}: max |plain| is under 1")
                 log(f"[KERNEL] {name} {shape} {dn}: max_abs_err={err:.3e} scaled={rel:.3e} "
-                    f"tol={TOL[dn]} ok")
-                if rel > TOL[dn]:
-                    raise AssertionError(f"{name} {shape} {dn}: scaled error {rel:.3e}")
-                errs[(name, dn)] = (err, rel)
+                    f"(x one element off 16 bytes: scaled={off_rel:.3e}) tol={TOL[dn]} ok "
+                    f"(same bits on a second run)")
+                if max(rel, off_rel) > TOL[dn]:
+                    raise AssertionError(f"{name} {shape} {dn}: scaled error {rel:.3e} / "
+                                         f"{off_rel:.3e} (offset x)")
+                errs[(name, dn, m)] = (err, rel)
                 if timed and dtype == torch.bfloat16:
                     k_ms = time_ms(lambda: wrapper(x, w, scale))
                     p_ms = time_ms(lambda: plain(x, w, scale))
@@ -530,18 +616,22 @@ def phase_llm_kernels(device) -> dict:
                     flops = 2 * m * n * k
                     nbytes = 2 * (m * k + m * n) + k * n * bits // 8 + 4 * n
                     bound_ms, bound_by = _bound(flops, nbytes, dn)
+                    rate = (f"{nbytes / k_ms / 1e9:.2f} TB/s of the bytes it must move"
+                            if bound_by == "bytes" else f"{flops / k_ms / 1e9:.1f} TFLOP/s")
                     log(f"[TIME] {name} {shape} bf16: kernel {k_ms:.4f} ms "
-                        f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, library "
+                        f"({rate}), plain {p_ms:.4f} ms, library "
                         f"torch.mm on a dequantised copy {l_ms:.4f} ms (dequantising inside the "
                         f"timed call: {l_in_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
+                    if m != 2048:
+                        continue
                     records[name] = dict(
                         name=name, route="cuda",
                         source="ssp_x_vit_tpu_torch/ops/kernels/csrc/quant_gemm.cu + csrc/qgemm_tile.cuh",
                         replaces="ssp_x_vit_tpu/ops/pallas/quant_matmul.py:111",
                         tpu_kernel=name, shape=shape + " bf16",
                         max_abs_err=err, scaled_err=rel, tol=TOL[dn],
-                        max_abs_err_fp32=errs[(name, "float32")][0],
-                        scaled_err_fp32=errs[(name, "float32")][1], tol_fp32=TOL["float32"],
+                        max_abs_err_fp32=errs[(name, "float32", m)][0],
+                        scaled_err_fp32=errs[(name, "float32", m)][1], tol_fp32=TOL["float32"],
                         ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=l_ms, library_with_dequant_ms=l_in_ms,
                         flops=flops, bytes=nbytes)
@@ -920,14 +1010,21 @@ def phase_fused_mlp(device) -> dict:
         ("Llama-2-7B decode b=8", 8, 4096, 11008, True),
         ("Llama-2-7B, 2SSP-pruned f", 8, 4096, 8253, False),
         ("Llama-2-7B, 2SSP-pruned f, prefill rows", 300, 4096, 8253, False),
+        ("Llama-2-7B prefill chunk", 300, 4096, 11008, True),
         ("Llama-2-7B prefill b=8 x 512", 4096, 4096, 11008, True),
+        ("tile edge: 17 rows", 17, 1024, 2048, False),
+        ("tile edge: 64 rows, d=682", 64, 682, 1024, False),
+        ("tile edge: 136 rows, f=250", 136, 768, 250, False),
         ("code_llm_small decode", 4, 384, 1024, False),
         ("code_llm_small prefill", 1024, 384, 1024, False),
         ("ragged rows", 13, 200, 72, False),
     ]
     records = {}
     for label, m, d, f, timed in cases:
-        ws = [quantize_weight_int8(torch.randn(*shape, generator=gen, device=device) * 0.02)
+        # weights N(0, 1/fan_in) as in _ffn_inputs: max |plain| >= 1 at every shape, so
+        # the limit is 3e-2 (1e-5) of the output's own peak, never a flat one
+        ws = [quantize_weight_int8(torch.randn(*shape, generator=gen, device=device)
+                                   * shape[0] ** -0.5)
               for shape in ((d, f), (d, f), (f, d))]
         args = [t for pair in ws for t in pair]        # gq, gs, uq, us, dq, ds
         errs = {}
@@ -936,6 +1033,13 @@ def phase_fused_mlp(device) -> dict:
             x = torch.randn(m, d, generator=gen, device=device).to(dtype)
             got, ref = tfm.fused_mlp_int8(x, *args), tfm.fused_mlp_int8_plain(x, *args)
             again = tfm.fused_mlp_int8(x, *args)
+            # the same rows one element off 16 bytes (element loads in the wide tiles)
+            x_off = torch.empty(m * d + 1, device=device, dtype=dtype)[1:].view(m, d)
+            x_off.copy_(x)
+            off_rel = scaled_err(tfm.fused_mlp_int8(x_off, *args), ref)[1]
+            # m <= 16: the wgmma tiles forced at these rows, the skinny product's yardstick
+            wide_rel = (scaled_err(tfm.fused_mlp_int8_cuda(x, *args, wide=True), ref)[1]
+                        if m <= 16 else 0.0)
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"fused_mlp_int8 {label} {dn}: non-finite output")
@@ -944,14 +1048,18 @@ def phase_fused_mlp(device) -> dict:
             err, rel = scaled_err(got, ref)
             errs[dn] = (err, rel)
             peak = ref.float().abs().max().item()
+            if peak < 1.0:
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: max |plain| {peak:.3e} is "
+                                     f"under 1, so the scaled limit would not follow the output")
             differ = int((got != ref).sum())
             log(f"[KERNEL] fused_mlp_int8 {label} m={m} d={d} f={f} {dn}: max_abs_err={err:.3e} "
-                f"scaled={rel:.3e} tol={TOL[dn]} ok (max |plain| {peak:.3e}, {differ} of "
+                f"scaled={rel:.3e} (x off 16 bytes: {off_rel:.3e}"
+                + (f"; wgmma tiles forced: {wide_rel:.3e}" if m <= 16 else "")
+                + f") tol={TOL[dn]} ok (max |plain| {peak:.3e}, {differ} of "
                 f"{ref.numel()} elements differ; same bits on a second run)")
-            if peak == 0:
-                raise AssertionError(f"fused_mlp_int8 {label} {dn}: the plain version is all zero")
-            if rel > TOL[dn]:
-                raise AssertionError(f"fused_mlp_int8 {label} {dn}: scaled error {rel:.3e}")
+            if max(rel, off_rel, wide_rel) > TOL[dn]:
+                raise AssertionError(f"fused_mlp_int8 {label} {dn}: scaled error {rel:.3e} / "
+                                     f"{off_rel:.3e} (offset x) / {wide_rel:.3e} (wgmma tiles)")
             if not (timed and dtype == torch.bfloat16):
                 continue
             gq, gs, uq, us, dq, ds = args
@@ -980,6 +1088,10 @@ def phase_fused_mlp(device) -> dict:
                 f"({rate}), plain {p_ms:.4f} ms, the port's bf16 composition (3 torch.matmul over "
                 f"int8 -> bf16 converts) {c_ms:.4f} ms, library torch.mm over dequantised copies "
                 f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if m <= 16:
+                w_ms = time_ms(lambda: tfm.fused_mlp_int8_cuda(x, *args, wide=True), iters=20)
+                log(f"[TIME] fused_mlp_int8 {label} m={m} bf16, the wgmma tiles forced at these "
+                    f"rows: {w_ms:.4f} ms against the skinny product's {k_ms:.4f} ms")
             if m == 8:
                 records["fused_mlp_int8"] = dict(
                     name="fused_mlp_int8", route="cuda",
@@ -2372,9 +2484,12 @@ def main() -> int:
     log(f"[BUILD] {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s, "
         f"parallel over {len(build.SOURCES)} sources)")
     for name, text in build.build_log.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[BUILD] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line or "wgmma" in line:
+                log(f"[BUILD] {name} {entry}: {line.strip()}")
 
     phase_t0 = time.perf_counter()
 
@@ -2387,6 +2502,7 @@ def main() -> int:
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
 
     records = phase_kernels(device)
+    check_vit_block_gradients(device)
     records.update(phase_llm_kernels(device))
     records.update(phase_flash_backward(device))
     records.update(phase_paged_kernels(device))

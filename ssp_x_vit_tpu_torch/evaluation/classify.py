@@ -42,8 +42,15 @@ def evaluate_top1(
     batches: Iterable[dict],
     *,
     max_batches: Optional[int] = None,
+    token_keep_schedule: tuple = (),
 ) -> float:
-    """Top-1 accuracy over (up to max_batches of) a batch iterator."""
+    """Top-1 accuracy over (up to max_batches of) a batch iterator.
+
+    ``token_keep_schedule`` (the JAX package's EViT-style token pruning,
+    ((layer, kept_seq_len), ...)) is not ported: a non-empty one raises."""
+    if token_keep_schedule:
+        raise NotImplementedError("token pruning (token_keep_schedule) is not ported yet "
+                                  "(ROADMAP.md A.7)")
     dtype = _eval_dtype(_params_device(params))
     params = cast_params(params, dtype)
     correct = None

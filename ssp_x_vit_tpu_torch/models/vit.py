@@ -14,7 +14,11 @@
 - A Python loop over the blocks replaces ``lax.scan``. Every block runs the
   ``fused_attn_block_v2`` (even head count) or ``fused_attn_block`` kernel and
   the ``fused_ffn_block`` kernel on a CUDA tensor, their plain versions on a
-  CPU tensor.
+  CPU tensor. ``allow_fused_attn=False`` turns both fused blocks off, as in
+  the JAX package: the attention branch runs the block's plain version (its
+  attention core is ``flash_attention`` on the card) and the FFN goes through
+  ``ops.ffn.ffn_forward``; both differentiate on any device (the fused
+  attention kernels have no backward).
 
 Model semantics match HF ``ViTForImageClassification``: patch embedding as
 patchify + matmul, CLS token, learned position embeddings, pre-LN blocks with
@@ -30,8 +34,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
+from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.common import layer_norm, patchify, pick_param_variants
-from ssp_x_vit_tpu_torch.ops.kernels.fused_attn_block import fused_attn_block, fused_attn_block_v2
+from ssp_x_vit_tpu_torch.ops.ffn import ffn_forward
+from ssp_x_vit_tpu_torch.ops.kernels.fused_attn_block import (
+    fused_attn_block, fused_attn_block_plain, fused_attn_block_v2,
+)
 from ssp_x_vit_tpu_torch.ops.kernels.fused_ffn import fused_ffn_block
 
 Params = Dict[str, Any]
@@ -201,17 +209,29 @@ def _block_apply(
     neuron_mask: Optional[torch.Tensor],
     collect_ffn_stats: bool,
     skip_attention_statically: bool = False,
+    allow_fused_attn: bool = True,
 ):
-    """One pre-LN encoder block; gates are scalars (None = dense)."""
+    """One pre-LN encoder block; gates are scalars (None = dense).
+    ``allow_fused_attn=False``: both branches without the fused block kernels."""
+    eps = cfg.layernorm_eps
+    if not allow_fused_attn:
+        if not skip_attention_statically:
+            x = fused_attn_block_plain(x, bp["ln1_scale"], bp["ln1_bias"], bp["qkv_kernel"],
+                                       bp.get("qkv_bias"), bp["proj_kernel"], bp.get("proj_bias"),
+                                       cfg.num_heads, eps=eps, gate=attn_gate)
+        mlp, stats = ffn_forward(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], eps),
+                                 bp["fc1_kernel"], bp.get("fc1_bias"), bp["fc2_kernel"],
+                                 bp.get("fc2_bias"), neuron_mask=neuron_mask,
+                                 collect_stats=collect_ffn_stats)
+        return x + dispatch.apply_gate(mlp, mlp_gate), stats
     if not skip_attention_statically:
         attn = fused_attn_block_v2 if cfg.num_heads % 2 == 0 else fused_attn_block
         x = attn(x, bp["ln1_scale"], bp["ln1_bias"], bp["qkv_kernel"], bp.get("qkv_bias"),
-                 bp["proj_kernel"], bp.get("proj_bias"), cfg.num_heads,
-                 eps=cfg.layernorm_eps, gate=attn_gate)
+                 bp["proj_kernel"], bp.get("proj_bias"), cfg.num_heads, eps=eps, gate=attn_gate)
     return fused_ffn_block(x, bp["ln2_scale"], bp["ln2_bias"], bp["fc1_kernel"],
                            bp.get("fc1_bias"), bp["fc2_kernel"], bp.get("fc2_bias"),
                            neuron_mask=neuron_mask, gate=mlp_gate,
-                           collect_stats=collect_ffn_stats, eps=cfg.layernorm_eps)
+                           collect_stats=collect_ffn_stats, eps=eps)
 
 
 def _block_params(blocks: Params, i: int) -> Params:
@@ -229,6 +249,7 @@ def vit_forward(
     collect_ffn_stats: bool = False,
     return_block_outputs: bool = False,
     compute_dtype=torch.float32,
+    allow_fused_attn: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked (search-phase) forward over the stacked dense parameters.
 
@@ -239,6 +260,8 @@ def vit_forward(
         collect_ffn_stats: also return per-block, per-sample token-sum of the
             squared FFN activation, "ffn_stats" [num_layers, batch, intermediate] fp32.
         return_block_outputs: also return "block_outputs" [num_layers, batch, seq, hidden].
+        allow_fused_attn: False runs every block without the fused block
+            kernels (the path to differentiate on the card).
 
     Returns:
         (logits [batch, num_classes], aux dict with "cls_repr" and the optional outputs)
@@ -255,7 +278,7 @@ def vit_forward(
             attn_gate=None if attn_gate is None else attn_gate[i],
             mlp_gate=None if mlp_gate is None else mlp_gate[i],
             neuron_mask=None if neuron_mask is None else neuron_mask[i],
-            collect_ffn_stats=collect_ffn_stats)
+            collect_ffn_stats=collect_ffn_stats, allow_fused_attn=allow_fused_attn)
         if collect_ffn_stats:
             stats.append(st)
         if return_block_outputs:
@@ -278,9 +301,11 @@ def vit_forward_materialized(
     cfg: ViTConfig,
     *,
     compute_dtype=torch.float32,
+    allow_fused_attn: bool = True,
 ) -> torch.Tensor:
     """Forward for a materialized-pruned model: skips the attention of
-    depth-pruned blocks and runs each FFN at the padded kept width."""
+    depth-pruned blocks and runs each FFN at the padded kept width
+    (``allow_fused_attn`` as in :func:`vit_forward`)."""
     params = cast_params(params, compute_dtype)
     x = embed(params, cfg, pixel_values, compute_dtype)
     blocks = params["blocks"]
@@ -297,6 +322,7 @@ def vit_forward_materialized(
                       proj_bias=blocks["proj_bias"][j] if "proj_bias" in blocks else None)
             bp.update(pick_param_variants(blocks, ("qkv_kernel", "proj_kernel"), j))
         x, _ = _block_apply(x, bp, cfg, attn_gate=None, mlp_gate=None, neuron_mask=None,
-                            collect_ffn_stats=False, skip_attention_statically=(j is None))
+                            collect_ffn_stats=False, skip_attention_statically=(j is None),
+                            allow_fused_attn=allow_fused_attn)
     x = layer_norm(x, params["ln_final_scale"], params["ln_final_bias"], cfg.layernorm_eps)
     return apply_head(params["head"], cfg, x[:, 0])

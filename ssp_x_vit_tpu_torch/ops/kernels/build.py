@@ -61,7 +61,7 @@ SIGNATURES = {
     },
     "quant_gemm": {
         "ssp_quant_gemm": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-        "ssp_quant_gemm_workspace_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "ssp_quant_gemm_workspace_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     },
     "paged_attention": {
         "ssp_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -70,8 +70,9 @@ SIGNATURES = {
                                   _L, _I, _P], _I),
     },
     "quant_fused_mlp": {
-        "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
-        "ssp_fused_mlp_int8_workspace_floats": ([_I, _I, _I, _I], ctypes.c_longlong),
+        "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+                               _I),
+        "ssp_fused_mlp_int8_workspace_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     },
 }
 
@@ -248,9 +249,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, *, scale: float, 
 
 
 @functools.lru_cache(maxsize=None)
-def _quant_workspace_floats(device_index: int, dtype_code: int, m: int, n: int, k: int) -> int:
+def _quant_workspace_floats(device_index: int, dtype_code: int, bits: int, m: int, n: int,
+                            k: int) -> int:
     with torch.cuda.device(device_index):
-        return library("quant_gemm").ssp_quant_gemm_workspace_floats(dtype_code, m, n, k)
+        return library("quant_gemm").ssp_quant_gemm_workspace_floats(dtype_code, bits, m, n, k)
 
 
 def quant_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, out: torch.Tensor,
@@ -262,7 +264,7 @@ def quant_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, out: torch
     n = w.shape[-1]
     m = x.numel() // k
     dt = DTYPE_CODES[x.dtype]
-    ws_floats = _quant_workspace_floats(x.device.index, dt, m, n, k)
+    ws_floats = _quant_workspace_floats(x.device.index, dt, bits, m, n, k)
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device) if ws_floats else None
     check(library("quant_gemm").ssp_quant_gemm(dt, bits, x.data_ptr(), w.data_ptr(),
                                                scale.data_ptr(), out.data_ptr(), m, n, k,

@@ -6,27 +6,53 @@
 // x and out are fp32 or bf16 (one dtype). The weight source is either
 //   - one matrix: int8 [k, n] (bits 8), or split-half packed int4 [k/2, n]
 //     (bits 4; the layout is described in quant_gemm.cu), or
-//   - a pair (w1 set, bits 8): tile columns [0, BN/2) come from w and
-//     [BN/2, BN) from w1 at the same output columns, so one fp32 tile holds
-//     the gate and up products of those columns and the epilogue stores
-//     out = silu(g * scale) * (u * scale1) (the SwiGLU of quant_fused_mlp.cu).
+//   - a pair (w1 set, bits 8): gate and up weights of the same output columns,
+//     and the epilogue stores out = silu(g * scale) * (u * scale1) (the
+//     SwiGLU of quant_fused_mlp.cu).
 //
-// bf16 uses the tile pipeline of gemm.cu: 128x128x64 tiles, 8 warps of 64x32
-// on WMMA 16x16x16, a 3-stage cp.async ring for the activation tile and the
-// raw weight bytes (16-byte copies when k % 8 == 0 resp. n % 16 == 0 and the
-// rows start on 16 bytes, else element loads), one bf16 weight tile converted
-// per K step (integers up to 127 are exact in bf16), the fp32 epilogue tile in
-// the ring's memory. fp32 runs a SIMT 64x64x32 tile in exact fp32. A single
-// matrix splits K (the policy of common.cuh) when the output tiles make less
-// than two waves; the splits' fp32 partial sums are added in order by a
-// second pass, so the result is the same bits on every run. A pair never
-// splits: its epilogue needs the whole sums. The weight source is a template
-// parameter (PAIR) of the kernels, so the single-matrix tiles carry no code of
-// the pair's.
+// bf16 (namespace wg) runs on Hopper's wgmma with TMA loads, "swap AB":
+// out^T = w^T x^T, so the weight is wgmma's A operand (64 output columns per
+// instruction) and the activation rows are its N (16, 32, 64 or 128 per tile,
+// whichever first holds m, so a few rows no longer pad to 128).
+//   - A block is one producer warpgroup and two consumer warpgroups
+//     (setmaxnreg moves registers from the first to the others). One producer
+//     thread keeps a ring of 4-6 stages full with TMA, each stage a 64-deep K
+//     step: the activation tile [rows, 64] lands 128-byte swizzled as wgmma
+//     reads it from shared memory, the raw weight bytes land as two
+//     128-column boxes, 128-byte swizzled so the consumers' reads below are
+//     free of bank conflicts. Full/empty mbarrier pairs order the ring.
+//   - A consumer warpgroup owns 128 output columns (a pair: 64 columns of
+//     gate and the same 64 of up) as two 64-row wgmma blocks. Each thread
+//     reads its weight bytes with four 32-bit loads per 16-deep K step (a
+//     pair: eight 16-bit loads),
+//     turns them into bf16 A fragments in registers (int8 codes through the
+//     fp32 magic-number trick, int4 nibbles through the bf16 one; both exact),
+//     and issues wgmma with fp32 accumulators in registers; the convert of
+//     step j+1 overlaps the products of step j. No bf16 weight tile exists
+//     in shared memory.
+//   - int4 walks stored rows: one staged byte tile feeds both K halves, its
+//     low nibbles against activation columns [k0, k0+64), its high nibbles
+//     against [K/2+k0, ...), so each packed byte passes through L2 and shared
+//     memory once.
+//   - The epilogue works on the registers: with swap AB a thread holds whole
+//     output columns, so the column scale (and for a pair silu(g) * u, g and u
+//     in the same thread) needs no shared-memory round trip.
+//   - TMA needs 16-byte aligned bases and row strides (x: k % 8 == 0, int4
+//     k % 16 == 0; w: n % 16 == 0). Other shapes (2SSP-pruned k = 8190 or
+//     682, n = 250, f = 8253, an x that starts off 16 bytes) run the same
+//     kernel with the producer warpgroup filling the same swizzled stages by
+//     element loads. Shapes that meet the rules always take TMA: if the tensor
+//     maps cannot be encoded the launch returns cudaErrorNotSupported.
+// fp32 (namespace f32) runs a SIMT 64x64x32 tile in exact fp32.
+//
+// A single matrix splits K (plan() below) when the output tiles alone leave
+// SMs idle; the splits' fp32 partial sums are added in order by a second
+// pass, so the result is the same bits on every run (no atomics). A pair
+// never splits: its epilogue needs the whole sums.
 
 #pragma once
 
-#include <mma.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 
 #include <cstdint>
 
@@ -35,7 +61,7 @@
 namespace ssp {
 namespace qtile {
 // Internal linkage: each library that includes this header owns its kernels
-// and the once-per-device shared-memory opt-in of launch_tiles() (a static of a
+// and the once-per-device attribute calls of the launchers (a static of a
 // template function with external linkage would be one object across every
 // loaded library, and the second library would skip its own opt-in).
 namespace {
@@ -50,9 +76,8 @@ struct Args {
   int m, n, k;
   int bits;               // 8 or 4
   float* partial;         // split-K: [splits, m, n] fp32 partial sums, null = no split
-  int k_chunk;            // split-K: K range of blockIdx.z, a multiple of the K tile
-  int x_aligned;          // 16-byte copies of x rows are safe
-  int w_aligned;          // 16-byte copies of weight rows are safe
+  int k_chunk;            // split-K: rows of the K loop per blockIdx.z (bf16 int4: stored rows)
+  int tma;                // bf16: the producer loads by TMA (else by elements)
 };
 
 // Stored row that holds logical weight row gr.
@@ -184,149 +209,565 @@ __global__ void __launch_bounds__(THREADS) kernel(Args p) {
   __syncthreads();
   epilogue<float, BM, BN, THREADS, PAIR>(p, &cs[0][0], BN + 4, m0, n0);
 }
+
+template <bool PAIR>
+cudaError_t launch(const Args& p, int splits, cudaStream_t s) {
+  constexpr int cols = tile_cols<PAIR>(BN);
+  const dim3 grid((p.n + cols - 1) / cols, (p.m + BM - 1) / BM, splits);
+  kernel<PAIR><<<grid, THREADS, 0, s>>>(p);
+  return cudaGetLastError();
+}
 }  // namespace f32
 
 // ---------------------------------------------------------------- bf16 ----
-namespace bf16 {
+namespace wg {
 using T = __nv_bfloat16;
-constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256, STAGES = 3;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-constexpr int A_STAGE = BM * LDA;  // bf16 elements
-constexpr int W_STAGE = BK * BN;   // raw weight bytes
-constexpr size_t W_OFF = sizeof(T) * STAGES * A_STAGE;
-constexpr size_t B_OFF = W_OFF + (size_t)STAGES * W_STAGE;
-constexpr size_t PIPE_BYTES = B_OFF + sizeof(T) * BK * LDB;
-constexpr size_t EPI_BYTES = sizeof(float) * BM * LDC;
-constexpr size_t SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
-static_assert(W_OFF % 128 == 0 && B_OFF % 128 == 0, "tile regions must stay 128-byte aligned");
-static_assert((BN / 2) % 16 == 0, "a 16-byte weight copy must not straddle a pair's matrices");
+constexpr int BK = 64;                  // K rows per stage (stored rows for int4)
+constexpr int W_BOX = BK * 128;         // one weight box: 64 rows x 128 bytes
+constexpr int THREADS = 384;            // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_THREADS = 128;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+// Registers per thread at launch that let setmaxnreg move CONSUMER_REGS to
+// both consumer warpgroups from what the producer gives up.
+constexpr int LAUNCH_REGS = (PRODUCER_THREADS * PRODUCER_REGS + 256 * CONSUMER_REGS + THREADS - 1) / THREADS;
+constexpr long long WAIT_LIMIT_CYCLES = 1LL << 35;  // ~18 s: a stuck pipeline traps, never hangs
 
-// Stage K tile kt: the activation tile into `as`, the stored weight bytes of
-// its 64 logical rows into `ws`. Out-of-range elements become zeros.
+template <int BITS, int BN>
+struct Cfg {
+  static constexpr int NX = BITS == 4 ? 2 : 1;  // activation tiles per stage (int4: both K halves)
+  static constexpr int X_TILE = BN * 128;       // BN rows x 64 bf16
+  static constexpr int STAGE = NX * X_TILE + 2 * W_BOX;
+  static constexpr int STAGES = 200 * 1024 / STAGE < 6 ? 200 * 1024 / STAGE : 6;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t) + 1024;
+  static_assert(STAGES >= 4, "the ring needs at least 4 stages");
+};
+
+// Output columns of one block: two consumer warpgroups of 128 (a pair: 64 of each matrix).
 template <bool PAIR>
-__device__ void load_tiles(const Args& p, T* as, signed char* ws, int m0, int n0, int kt) {
-  const T* A = static_cast<const T*>(p.x);
-  const int k0 = kt * BK, tid = threadIdx.x;
-  if (p.x_aligned) {
-    for (int e = tid; e < BM * BK / 8; e += THREADS) {
-      const int r = e / (BK / 8), c = (e % (BK / 8)) * 8, gr = m0 + r, gc = k0 + c;
-      const bool ok = gr < p.m && gc < p.k;
-      cp_async16(as + r * LDA + c, ok ? A + (size_t)gr * p.k + gc : A, ok);
-    }
-  } else {
-    const T zero = __float2bfloat16(0.f);
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK, gr = m0 + r, gc = k0 + c;
-      as[r * LDA + c] = (gr < p.m && gc < p.k) ? A[(size_t)gr * p.k + gc] : zero;
-    }
-  }
-  if (p.w_aligned) {
-    for (int e = tid; e < BK * BN / 16; e += THREADS) {
-      const int r = e / (BN / 16), c = (e % (BN / 16)) * 16;
-      const signed char* src = weight_at<PAIR, BN>(p, k0 + r, n0, c);
-      cp_async16(ws + r * BN + c, src ? src : p.w, src != nullptr);
-    }
-  } else {
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      const signed char* src = weight_at<PAIR, BN>(p, k0 + r, n0, c);
-      ws[r * BN + c] = src ? *src : static_cast<signed char>(0);
-    }
+__host__ __device__ constexpr int block_cols() {
+  return PAIR ? 128 : 256;
+}
+
+// Activation rows of one tile (wgmma's N) for m rows.
+inline int act_tile(int m) { return m <= 16 ? 16 : m <= 32 ? 32 : m <= 64 ? 64 : 128; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of (row, byte col) in a tile of 128-byte rows, 128-byte swizzled
+// as TMA writes it (16-byte chunk index XOR row % 8; tiles are 1024-aligned).
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ (row & 7)) << 4) | (col & 15));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait for the completion of the barrier's phase with this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > WAIT_LIMIT_CYCLES)
+      __trap();
   }
 }
 
-// Raw bytes of K tile kt -> the bf16 weight tile the products read.
-template <bool PAIR>
-__device__ void convert_tile(const Args& p, const signed char* ws, T* bs, int kt) {
-  const int k0 = kt * BK;
-  for (int e = threadIdx.x; e < BK * BN / 4; e += THREADS) {
-    const int r = e / (BN / 4), c = (e % (BN / 4)) * 4, gr = k0 + r;
-    const char4 raw = *reinterpret_cast<const char4*>(ws + r * BN + c);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(bs + r * LDB + c);
-    const float w0 = weight_code<PAIR>(p, raw.x, gr), w1 = weight_code<PAIR>(p, raw.y, gr);
-    const float w2 = weight_code<PAIR>(p, raw.z, gr), w3 = weight_code<PAIR>(p, raw.w, gr);
-    dst[0] = __floats2bfloat162_rn(w0, w1);
-    dst[1] = __floats2bfloat162_rn(w2, w3);
-  }
+// 2D TMA load of the box at (c0 inner, c1 outer) into dst; completes on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
-template <bool PAIR>
-__global__ void __launch_bounds__(THREADS, 2) kernel(Args p) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* as = reinterpret_cast<T*>(smem);
-  signed char* ws = reinterpret_cast<signed char*>(smem + W_OFF);
-  T* bs = reinterpret_cast<T*>(smem + B_OFF);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * tile_cols<PAIR>(BN);
-  const int warp = threadIdx.x / 32, wm = warp / 4, wn = warp % 4;
-  const int kt_lo = static_cast<int>(blockIdx.z) * p.k_chunk / BK;
-  const int k_hi = min(p.k, static_cast<int>(blockIdx.z + 1) * p.k_chunk);
-  const int kt_count = (k_hi - kt_lo * BK + BK - 1) / BK;
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator register across
+// the wgmma fences and waits around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// Shared-memory descriptor of a K-major bf16 tile of 128-byte rows, 128-byte
+// swizzle: 8-row groups 1024 bytes apart. Advancing K by 16 inside the
+// swizzle atom adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
 
+// D[64, N] += A[64, 16] (bf16 fragments in registers) * B[16, N] (shared memory).
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (BN == 16) wgmma_n16(d, a, desc);
+  if constexpr (BN == 32) wgmma_n32(d, a, desc);
+  if constexpr (BN == 64) wgmma_n64(d, a, desc);
+  if constexpr (BN == 128) wgmma_n128(d, a, desc);
+}
+
+// bf16x2 of two int8 codes: byte j of qa (low half) and of qb, where q = raw ^ 0x80808080.
+// 0x4B000000 | u is the float 2^23 + u, so subtracting 2^23 + 128 leaves u - 128.
+__device__ __forceinline__ uint32_t int8_pair(uint32_t qa, uint32_t qb, int j) {
+  const float fa = __uint_as_float(__byte_perm(qa, 0x4B000000u, 0x7540u | j)) - 8388736.f;
+  const float fb = __uint_as_float(__byte_perm(qb, 0x4B000000u, 0x7540u | j)) - 8388736.f;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(fa, fb);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two bf16x2 of byte j of qa and qb (q = raw ^ 0x80808080) as packed int4:
+// lo from the low nibbles (biased +8), hi from the high nibbles (flipped to
+// biased +8 by the xor). 0x4300 | u is the bf16 128 + u; 136 = 128 + 8.
+__device__ __forceinline__ void int4_pairs(uint32_t qa, uint32_t qb, int j, uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t q = __byte_perm(qa, qb, j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12));
+  const uint32_t l = (q & 0x000F000Fu) | 0x43004300u, h = ((q >> 4) & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+  const __nv_bfloat162 vl = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&l), bias);
+  const __nv_bfloat162 vh = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&h), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&vl);
+  hi = *reinterpret_cast<const uint32_t*>(&vh);
+}
+
+// A fragments of one 16-deep K step at stage row kr = 16 * step + 2 * (lane % 4).
+// Thread (warp w, lane g*4+t) supplies rows g and g+8 of warp w's 16 rows in
+// both 64-row blocks: for a single matrix the four consecutive output columns
+// 32w + 4g .. +3 of its warpgroup's box (block b, row half h = column 2b + h),
+// for a pair columns 16w + 2g + h of the gate (block 0) and up (block 1)
+// boxes. Each K row is one 32-bit word, byte 2b + h.
+template <int BITS, bool PAIR>
+__device__ __forceinline__ void load_frags(const unsigned char* wst, int box, int col, int kr,
+                                           uint32_t (&fr)[BITS == 4 ? 2 : 1][2][4]) {
+  uint32_t q[4];
+  const int rows[4] = {kr, kr + 1, kr + 8, kr + 9};
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < kt_count) load_tiles<PAIR>(p, as + s * A_STAGE, ws + s * W_STAGE, m0, n0, kt_lo + s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_count; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt landed; every warp is past the products of tile kt-1
-    const int next = kt + STAGES - 1;
-    if (next < kt_count)
-      load_tiles<PAIR>(p, as + (next % STAGES) * A_STAGE, ws + (next % STAGES) * W_STAGE, m0, n0,
-                 kt_lo + next);
-    cp_async_commit();
-    convert_tile<PAIR>(p, ws + (kt % STAGES) * W_STAGE, bs, kt_lo + kt);
-    __syncthreads();  // the bf16 weight tile is complete
-    const T* a_t = as + (kt % STAGES) * A_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> af[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(af[i], a_t + (wm * 64 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+  for (int i = 0; i < 4; ++i) {
+    uint32_t word;
+    if constexpr (PAIR) {
+      const uint32_t g = *reinterpret_cast<const uint16_t*>(wst + swz(rows[i], col));
+      const uint32_t u = *reinterpret_cast<const uint16_t*>(wst + W_BOX + swz(rows[i], col));
+      word = g | (u << 16);
+    } else {
+      word = *reinterpret_cast<const uint32_t*>(wst + box * W_BOX + swz(rows[i], col));
     }
+    q[i] = word ^ 0x80808080u;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the fp32 epilogue tile
-  float* cs = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int b = 0; b < 2; ++b)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 64 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
+    for (int h = 0; h < 2; ++h) {
+      // reg h: K rows kr, kr+1 (q0, q1); reg 2 + h: K rows kr+8, kr+9 (q2, q3)
+      if constexpr (BITS == 4) {
+        int4_pairs(q[0], q[1], 2 * b + h, fr[0][b][h], fr[1][b][h]);
+        int4_pairs(q[2], q[3], 2 * b + h, fr[0][b][2 + h], fr[1][b][2 + h]);
+      } else {
+        fr[0][b][h] = int8_pair(q[0], q[1], 2 * b + h);
+        fr[0][b][2 + h] = int8_pair(q[2], q[3], 2 * b + h);
+      }
+    }
+}
+
+// The producer warpgroup without TMA: the same swizzled stage, filled by
+// element loads (zeros outside the matrices), then made visible to wgmma.
+// Thread tid loads K column tid % 64 of the activation rows and column tid
+// of both weight boxes, so neighbouring threads read neighbouring bytes.
+template <int BITS, bool PAIR, int BN>
+__device__ void fill_stage(const Args& p, unsigned char* st, int m0, int n0, int r) {
+  using C = Cfg<BITS, BN>;
+  static_assert(PRODUCER_THREADS == 128 && PRODUCER_THREADS % BK == 0, "one thread per box column");
+  const int tid = threadIdx.x, k_rows = BITS == 4 ? p.k / 2 : p.k, c = tid % BK;
+  const T zero = __float2bfloat16(0.f);
+#pragma unroll
+  for (int half = 0; half < C::NX; ++half) {
+    // int4: the high nibbles' activation columns start at K/2
+    const T* src = static_cast<const T*>(p.x) + half * (p.k / 2) + r + c;
+    const bool k_in = r + c < k_rows;
+    for (int row = tid / BK; row < BN; row += PRODUCER_THREADS / BK)
+      *reinterpret_cast<T*>(st + half * C::X_TILE + swz(row, 2 * c)) =
+          k_in && m0 + row < p.m ? src[(size_t)(m0 + row) * p.k] : zero;
+  }
+  unsigned char* wst = st + C::NX * C::X_TILE;
+#pragma unroll
+  for (int box = 0; box < 2; ++box) {
+    const int gc = n0 + (PAIR ? 0 : box * 128) + tid;
+    const signed char* src = (PAIR && box ? p.w1 : p.w) + gc;
+    for (int row = 0; row < BK; ++row)
+      wst[box * W_BOX + swz(row, tid)] =
+          r + row < k_rows && gc < p.n ? static_cast<unsigned char>(src[(size_t)(r + row) * p.n]) : 0;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Store the columns this thread holds: the pair's SwiGLU, the scaled output
+// or this split's partial sums. acc[b][4j + 2h + e] is output column (b, h)
+// at activation row 8j + 2t + e.
+template <bool PAIR, int BN>
+__device__ __forceinline__ void store_tile(const Args& p, float (&acc)[2][BN / 2], int m0, int nb,
+                                           int t) {
+  T* out = static_cast<T*>(p.out);
+  if constexpr (PAIR) {
+    float gs[2], us[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      gs[h] = nb + h < p.n ? p.scale[nb + h] : 0.f;
+      us[h] = nb + h < p.n ? p.scale1[nb + h] : 0.f;
+    }
+    const bool vec = p.n % 2 == 0 && nb + 1 < p.n;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gm = m0 + 8 * j + 2 * t + e;
+        if (gm >= p.m) continue;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          v[h] = silu(acc[0][4 * j + 2 * h + e] * gs[h]) * (acc[1][4 * j + 2 * h + e] * us[h]);
+        T* dst = out + (size_t)gm * p.n + nb;
+        if (vec) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v[0], v[1]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (nb + h < p.n) dst[h] = __float2bfloat16(v[h]);
+        }
+      }
+    return;
+  }
+  float* part = p.partial ? p.partial + (size_t)blockIdx.z * p.m * p.n : nullptr;
+  float sc[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) sc[c] = nb + c < p.n ? p.scale[nb + c] : 0.f;
+  const bool vec = p.n % 4 == 0 && nb + 3 < p.n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int gm = m0 + 8 * j + 2 * t + e;
+      if (gm >= p.m) continue;
+      const float v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
+                          acc[1][4 * j + 2 + e]};
+      const size_t o = (size_t)gm * p.n + nb;
+      if (part) {
+        if (vec) {
+          *reinterpret_cast<float4*>(part + o) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (nb + c < p.n) part[o + c] = v[c];
+        }
+      } else if (vec) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0] * sc[0], v[1] * sc[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2] * sc[2], v[3] * sc[3]);
+        uint2 pack;
+        pack.x = *reinterpret_cast<const uint32_t*>(&lo);
+        pack.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(out + o) = pack;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (nb + c < p.n) out[o + c] = __float2bfloat16(v[c] * sc[c]);
+      }
+    }
+}
+
+// grid (activation row tiles, column blocks, K splits).
+template <int BITS, bool PAIR, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    kernel(const __grid_constant__ CUtensorMap map_x0, const __grid_constant__ CUtensorMap map_x1,
+           const __grid_constant__ CUtensorMap map_w0, const __grid_constant__ CUtensorMap map_w1,
+           const Args p) {
+  using C = Cfg<BITS, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  const int m0 = blockIdx.x * BN, n0 = blockIdx.y * block_cols<PAIR>();
+  const int k_rows = BITS == 4 ? p.k / 2 : p.k;
+  const int r_lo = blockIdx.z * p.k_chunk, r_hi = min(k_rows, r_lo + p.k_chunk);
+  const int kt_count = (r_hi - r_lo + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], p.tma ? 1 : PRODUCER_THREADS);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  epilogue<T, BM, BN, THREADS, PAIR>(p, cs, LDC, m0, n0);
+
+  if (threadIdx.x < PRODUCER_THREADS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (p.tma && threadIdx.x != 0) return;
+    for (int kt = 0; kt < kt_count; ++kt) {
+      const int s = kt % C::STAGES, r = r_lo + kt * BK;
+      if (kt >= C::STAGES) mbar_wait(&empty[s], ((kt / C::STAGES) + 1) & 1);
+      unsigned char* st = smem + s * C::STAGE;
+      if (!p.tma) {
+        fill_stage<BITS, PAIR, BN>(p, st, m0, n0, r);
+        mbar_arrive(&full[s]);
+        continue;
+      }
+      mbar_expect_tx(&full[s], C::STAGE);
+      tma_load(st, &map_x0, r, m0, &full[s]);
+      if constexpr (BITS == 4) tma_load(st + C::X_TILE, &map_x1, r, m0, &full[s]);
+      unsigned char* wst = st + C::NX * C::X_TILE;
+      tma_load(wst, &map_w0, n0, r, &full[s]);
+      tma_load(wst + W_BOX, PAIR ? &map_w1 : &map_w0, PAIR ? n0 : n0 + 128, r, &full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col = PAIR ? 64 * wgi + 16 * warp + 2 * g : 32 * warp + 4 * g;  // byte column in a box
+  float acc[2][BN / 2];
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0.f;
+  uint32_t frag[2][C::NX][2][4];
+  for (int kt = 0; kt < kt_count; ++kt) {
+    const int s = kt % C::STAGES;
+    mbar_wait(&full[s], (kt / C::STAGES) & 1);
+    const unsigned char* st = smem + s * C::STAGE;
+    const uint32_t xs = smem_u32(st);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // the buffer written here was read by step kk-2, complete since step kk-1's wait
+      load_frags<BITS, PAIR>(st + C::NX * C::X_TILE, wgi, col, kk * 16 + 2 * t, frag[kk & 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int half = 0; half < C::NX; ++half) {
+        const uint64_t desc = smem_desc(xs + half * C::X_TILE + kk * 32);
+        wgmma<BN>(acc[0], frag[kk & 1][half][0], desc);
+        wgmma<BN>(acc[1], frag[kk & 1][half][1], desc);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      // every product of the previous stage is complete: hand its slot back
+      if (kk == 0 && kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % C::STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  const int nb = n0 + (PAIR ? 64 * wgi + 16 * warp + 2 * g : 128 * wgi + 32 * warp + 4 * g);
+  store_tile<PAIR, BN>(p, acc, m0, nb, t);
 }
-}  // namespace bf16
+
+// ------------------------------------------------------------------ host ----
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda link).
+inline EncodeTiled encode_tiled() {
+  static std::atomic<EncodeTiled> cached{nullptr};
+  EncodeTiled fn = cached.load(std::memory_order_acquire);
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+    cached.store(fn, std::memory_order_release);
+  }
+  return fn;
+}
+
+// A 2D tensor map [outer, inner] with rows row_bytes apart, boxes of
+// box_inner x box_outer elements landing 128-byte swizzled, zeros outside.
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+                   uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer}, elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// True when every operand meets TMA's alignment (16-byte bases and row strides).
+inline bool tma_ok(const Args& p) {
+  const auto is16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  return is16(p.x) && p.k % (p.bits == 4 ? 16 : 8) == 0 && is16(p.w) && p.n % 16 == 0 &&
+         (p.w1 == nullptr || is16(p.w1));
+}
+
+template <int BITS, bool PAIR, int BN>
+cudaError_t launch_bn(Args p, int splits, cudaStream_t s) {
+  using C = Cfg<BITS, BN>;
+  const auto kern = kernel<BITS, PAIR, BN>;
+  static std::atomic<unsigned long long> smem_allowed{0};
+  cudaError_t err = allow_max_dynamic_smem(kern, smem_allowed);
+  if (err != cudaSuccess) return err;
+  // setmaxnreg only redistributes the registers the block was launched with:
+  // fewer than LAUNCH_REGS per thread and the consumers would wait forever.
+  static std::atomic<int> regs_checked{0};
+  if (regs_checked.load(std::memory_order_acquire) == 0) {
+    cudaFuncAttributes attr{};
+    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return err;
+    if (attr.numRegs < LAUNCH_REGS) return cudaErrorInvalidConfiguration;
+    regs_checked.store(1, std::memory_order_release);
+  }
+  CUtensorMap mx0{}, mx1{}, mw0{}, mw1{};
+  if (p.tma) {
+    const int kx = BITS == 4 ? p.k / 2 : p.k, k_rows = kx;
+    const T* x = static_cast<const T*>(p.x);
+    bool ok = encode(&mx0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, kx, p.m, 2ull * p.k, BK, BN) &&
+              (BITS == 8 || encode(&mx1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x + p.k / 2, kx, p.m,
+                                   2ull * p.k, BK, BN)) &&
+              encode(&mw0, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.n, k_rows, p.n, 128, BK) &&
+              (!PAIR || encode(&mw1, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w1, p.n, k_rows, p.n, 128, BK));
+    // The shapes passed tma_ok: an encoder that cannot be found or refuses them
+    // is an error, never a quiet switch to the element-load producer.
+    if (!ok) return cudaErrorNotSupported;
+  }
+  const dim3 grid((p.m + BN - 1) / BN, (p.n + block_cols<PAIR>() - 1) / block_cols<PAIR>(), splits);
+  kern<<<grid, THREADS, C::SMEM, s>>>(mx0, mx1, mw0, mw1, p);
+  return cudaGetLastError();
+}
+
+template <int BITS, bool PAIR>
+cudaError_t launch(const Args& p, int splits, cudaStream_t s) {
+  switch (act_tile(p.m)) {
+    case 16: return launch_bn<BITS, PAIR, 16>(p, splits, s);
+    case 32: return launch_bn<BITS, PAIR, 32>(p, splits, s);
+    case 64: return launch_bn<BITS, PAIR, 64>(p, splits, s);
+    default: return launch_bn<BITS, PAIR, 128>(p, splits, s);
+  }
+}
+}  // namespace wg
 
 // ---------------------------------------------------------------- host ----
 struct Plan {
-  int splits, chunk;  // K splits and the K range of each
+  int splits, chunk;  // K splits and the rows of the K loop in each
 };
 
 // The split plan of a single matrix: a pure function of the shapes and the SM
-// count, so a workspace query and the launch agree.
-inline Plan plan(int dtype, int m, int n, int k) {
-  const int bm = dtype == kF32 ? f32::BM : bf16::BM, bn = dtype == kF32 ? f32::BN : bf16::BN;
-  const int bk = dtype == kF32 ? f32::BK : bf16::BK;
+// count, so a workspace query and the launch agree. bf16 splits the rows its
+// K loop walks (int4: stored rows) into at most one wave of blocks.
+inline Plan plan(int dtype, int bits, int m, int n, int k) {
   Plan pl{};
-  split_k((long long)((m + bm - 1) / bm) * ((n + bn - 1) / bn), k, bk, pl.splits, pl.chunk);
+  if (dtype == kF32) {
+    split_k((long long)((m + f32::BM - 1) / f32::BM) * ((n + f32::BN - 1) / f32::BN), k, f32::BK,
+            pl.splits, pl.chunk);
+    return pl;
+  }
+  const int bn = wg::act_tile(m), rows = bits == 4 ? k / 2 : k;
+  const long long tiles = (long long)((m + bn - 1) / bn) * ((n + wg::block_cols<false>() - 1) / wg::block_cols<false>());
+  const int k_tiles = (rows + wg::BK - 1) / wg::BK;
+  const long long want = tiles >= sm_count() ? 1 : sm_count() / tiles;
+  const int splits = static_cast<int>(std::max(1LL, std::min({want, (long long)k_tiles / 2, 16LL})));
+  pl.chunk = (k_tiles + splits - 1) / splits * wg::BK;
+  pl.splits = (rows + pl.chunk - 1) / pl.chunk;
   return pl;
 }
 
@@ -337,44 +778,45 @@ inline long long workspace_floats(const Plan& pl, int m, int n) {
   return pl.splits > 1 ? (long long)pl.splits * m * n : 0;
 }
 
-// Launch the tiles of p with its weight source fixed at compile time.
-template <typename T, bool PAIR>
-cudaError_t launch_tiles(const Args& p, int splits, cudaStream_t s) {
-  constexpr bool kF32Tile = sizeof(T) == 4;
-  constexpr int bm = kF32Tile ? f32::BM : bf16::BM;
-  constexpr int cols = tile_cols<PAIR>(kF32Tile ? f32::BN : bf16::BN);
-  const dim3 grid((p.n + cols - 1) / cols, (p.m + bm - 1) / bm, splits);
-  if constexpr (kF32Tile) {
-    f32::kernel<PAIR><<<grid, f32::THREADS, 0, s>>>(p);
-  } else {
-    static std::atomic<unsigned long long> smem_allowed{0};
-    const cudaError_t err = allow_max_dynamic_smem(bf16::kernel<PAIR>, smem_allowed);
-    if (err != cudaSuccess) return err;
-    bf16::kernel<PAIR><<<grid, bf16::THREADS, bf16::SMEM_BYTES, s>>>(p);
-  }
-  return cudaGetLastError();
-}
-
-// Launch the tiles of p (T = float or __nv_bfloat16) with plan pl, and the
-// pass that sums the splits when there are several. `workspace` holds
-// workspace_floats(pl, m, n) floats. A pair takes no_split.
+// The pass that sums the splits' partials in order and scales them.
 template <typename T>
-cudaError_t launch(Args p, const Plan& pl, float* workspace, cudaStream_t s) {
-  const bool split = pl.splits > 1;
-  if ((split && (workspace == nullptr || p.w1)) || (p.w1 && p.bits != 8))
-    return cudaErrorInvalidValue;
-  const auto is16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  p.partial = split ? workspace : nullptr;
-  p.k_chunk = pl.chunk;
-  p.x_aligned = p.k % 8 == 0 && is16(p.x);
-  p.w_aligned = p.n % 16 == 0 && is16(p.w) && (p.w1 == nullptr || is16(p.w1));
-  const cudaError_t err = p.w1 ? launch_tiles<T, true>(p, pl.splits, s)
-                               : launch_tiles<T, false>(p, pl.splits, s);
-  if (err != cudaSuccess || !split) return err;
+cudaError_t reduce_splits(const Args& p, const Plan& pl, const float* workspace, cudaStream_t s) {
   const size_t mn = (size_t)p.m * p.n;
   scale_reduce_kernel<T><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, s>>>(
       workspace, p.scale, static_cast<T*>(p.out), p.m, p.n, pl.splits);
   return cudaGetLastError();
+}
+
+// Launch the tiles of a single matrix p (T = float or __nv_bfloat16, BITS =
+// p.bits) with plan pl, and the pass that sums the splits when there are
+// several. `workspace` holds workspace_floats(pl, m, n) floats.
+template <typename T, int BITS>
+cudaError_t launch(Args p, const Plan& pl, float* workspace, cudaStream_t s) {
+  const bool split = pl.splits > 1;
+  if ((split && workspace == nullptr) || p.w1 || p.bits != BITS) return cudaErrorInvalidValue;
+  p.partial = split ? workspace : nullptr;
+  p.k_chunk = pl.chunk;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    err = f32::launch<false>(p, pl.splits, s);
+  } else {
+    p.tma = wg::tma_ok(p) ? 1 : 0;
+    err = wg::launch<BITS, false>(p, pl.splits, s);
+  }
+  if (err != cudaSuccess || !split) return err;
+  return reduce_splits<T>(p, pl, workspace, s);
+}
+
+// Launch the tiles of a pair (int8 w and w1, whole K: the SwiGLU epilogue
+// needs the whole sums).
+template <typename T>
+cudaError_t launch_pair(Args p, cudaStream_t s) {
+  if (p.w1 == nullptr || p.bits != 8) return cudaErrorInvalidValue;
+  p.partial = nullptr;
+  p.k_chunk = p.k;
+  if constexpr (sizeof(T) == 4) return f32::launch<true>(p, 1, s);
+  p.tma = wg::tma_ok(p) ? 1 : 0;
+  return wg::launch<8, true>(p, 1, s);
 }
 
 }  // namespace

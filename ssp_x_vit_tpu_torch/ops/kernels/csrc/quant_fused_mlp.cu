@@ -37,16 +37,16 @@
 //   the epilogue pass applies the scales (phase 1: and silu * u) and rounds.
 //   Weight bytes are read once for m <= 8 (rows 9-16 read them a second time).
 // - m > 16 (prefill): the tile pipeline of qgemm_tile.cuh, which quant_gemm.cu
-//   runs too (bf16: 128x128x64 on WMMA 16x16x16, a 3-stage cp.async ring, the
-//   int8 bytes converted to bf16 in shared memory; fp32: a 64x64x32 SIMT tile).
-//   Phase 1 gives it gq and uq as a pair: a tile's first half of columns comes
-//   from gq and the second half from uq at the same f columns, so the epilogue
-//   computes h straight from the fp32 tile. Phase 2 is the int8 dequant GEMM
-//   of quant_gemm.cu, with its split-K plan.
+//   runs too (bf16: wgmma with the int8 weight converted to bf16 in registers
+//   as the A operand, TMA loads into a 4-6 stage ring; fp32: a 64x64x32 SIMT
+//   tile). Phase 1 gives it gq and uq as a pair: each consumer warpgroup
+//   multiplies the gate and the up columns of the same f columns, so g and u
+//   of an output sit in one thread and the epilogue computes h from the
+//   registers. Phase 2 is the int8 dequant GEMM of quant_gemm.cu, with its
+//   split-K plan.
 //
-// Not yet: wgmma and TMA, in-register dequant for the wide tiles, one launch
-// for the skinny phase 1 epilogue (4 launches per call at decode, 2-3 at
-// prefill).
+// Not yet: one launch for the skinny phase 1 epilogue (4 launches per call at
+// decode, 2-3 at prefill).
 
 #include <algorithm>
 #include <cstdint>
@@ -195,9 +195,9 @@ struct Plan {
   long long ws_floats;
 };
 
-inline Plan plan_for(int dtype, int m, int d, int f) {
+inline Plan plan_for(int dtype, int m, int d, int f, int wide) {
   Plan pl{};
-  pl.skinny = m <= kSkinnyMaxM;
+  pl.skinny = m <= kSkinnyMaxM && !wide;
   if (pl.skinny) {
     pl.row_groups = (m + sk::ROWS - 1) / sk::ROWS;
     split_k(2LL * pl.row_groups * ((f + sk::NT - 1) / sk::NT), d, sk::PASS, pl.splits1, pl.chunk1);
@@ -206,7 +206,7 @@ inline Plan plan_for(int dtype, int m, int d, int f) {
     pl.ws_floats = std::max(2LL * pl.splits1 * m * f, (long long)pl.splits2 * m * d);
     return pl;
   }
-  pl.wide2 = qtile::plan(dtype, m, d, f);
+  pl.wide2 = qtile::plan(dtype, 8, m, d, f);
   pl.ws_floats = qtile::workspace_floats(pl.wide2, m, d);
   return pl;
 }
@@ -243,30 +243,33 @@ cudaError_t run_wide(const Plan& pl, const void* x, const signed char* gq, const
                      const float* ds, T* h, T* out, int m, int d, int f, float* ws,
                      cudaStream_t s) {
   const qtile::Args a1{x, gq, uq, gs, us, h, m, f, d, 8};
-  const cudaError_t err = qtile::launch<T>(a1, qtile::no_split(d), nullptr, s);
+  const cudaError_t err = qtile::launch_pair<T>(a1, s);
   if (err != cudaSuccess) return err;
   const qtile::Args a2{h, dq, nullptr, ds, nullptr, out, m, d, f, 8};
-  return qtile::launch<T>(a2, pl.wide2, ws, s);
+  return qtile::launch<T, 8>(a2, pl.wide2, ws, s);
 }
 
 }  // namespace fm
 }  // namespace ssp
 
 // fp32 workspace (in floats) that ssp_fused_mlp_int8 needs for these shapes; 0 = none.
-extern "C" long long ssp_fused_mlp_int8_workspace_floats(int dtype, int m, int d, int f) {
-  return ssp::fm::plan_for(dtype, m, d, f).ws_floats;
+extern "C" long long ssp_fused_mlp_int8_workspace_floats(int dtype, int m, int d, int f, int wide) {
+  return ssp::fm::plan_for(dtype, m, d, f, wide).ws_floats;
 }
 
 // out[m, d] = (silu((x @ gq) * gs) * ((x @ uq) * us)) @ dq * ds, through h [m, f].
+// wide = 1 takes the tile pipeline at any m. It is a measurement hook only: the
+// skinny product's yardstick at m <= 16 (ROADMAP B.7.2, which replaces it with
+// a size-based route). The serving path never sets it.
 extern "C" int ssp_fused_mlp_int8(int dtype, const void* x, const void* gq, const float* gs,
                                   const void* uq, const float* us, const void* dq,
                                   const float* ds, void* h, void* out, int m, int d, int f,
-                                  float* workspace, void* stream) {
+                                  int wide, float* workspace, void* stream) {
   using namespace ssp;
   using namespace ssp::fm;
   if (m <= 0 || d <= 0 || f <= 0 || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = plan_for(dtype, m, d, f);
+  const Plan pl = plan_for(dtype, m, d, f, wide);
   if (pl.ws_floats > 0 && workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const auto* g = static_cast<const signed char*>(gq);
   const auto* u = static_cast<const signed char*>(uq);

@@ -31,6 +31,11 @@ at that shape in bf16), which a later fused kernel can remove.
 
 On a CPU tensor each wrapper runs its plain version below (the XLA-branch math
 of ``models/vit.py:_block_apply``); a CUDA tensor always launches or raises.
+The kernels have no backward, as the Pallas kernels have no JVP rule: on a
+CUDA tensor under autograd (grad mode on and an input that requires a
+gradient) the wrappers raise; differentiate through
+``vit_forward(..., allow_fused_attn=False)``, as the JAX package's finetune
+steps do.
 """
 
 from __future__ import annotations
@@ -73,6 +78,12 @@ def fused_attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kern
 
 def _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
                      num_heads, eps, gate):
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias, gate)):
+        raise RuntimeError("the fused attention block kernels have no backward (as in the JAX "
+                           "package); differentiate through vit_forward(..., "
+                           "allow_fused_attn=False)")
     b, s, d = x.shape
     if d % num_heads:
         raise ValueError(f"hidden size {d} is not divisible by {num_heads} heads")

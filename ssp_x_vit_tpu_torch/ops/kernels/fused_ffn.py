@@ -25,6 +25,15 @@ host sync per block.
 
 On a CPU tensor each wrapper runs its plain version below (the jnp reference
 math of ``ops/ffn.py``); a CUDA tensor always launches the kernel or raises.
+
+Gradients, as the JAX ``custom_vjp`` of both kernels: under autograd (grad
+mode on and an input that requires a gradient) a wrapper runs as a
+``torch.autograd.Function`` whose forward is the kernel (the plain version on
+a CPU tensor) and whose backward recomputes the plain version from the saved
+inputs and takes its autodiff. No gradient flows through the stats side
+output or to ``neuron_mask``; a gate given as a tensor gets its gradient, as
+the JAX block's does. Otherwise the wrapper launches as before and saves
+nothing.
 """
 
 from __future__ import annotations
@@ -99,6 +108,91 @@ def _ffn_cuda(x, ln, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
     return out, stats
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _plain_vjp(ctx, plain, g_out):
+    """Gradients of ``plain(*saved)[0]`` for the inputs that need them, by
+    autodiff of the plain version recomputed from the saved inputs."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        out, _ = plain(*leaves)
+        wrt = [t for t, need in zip(leaves, ctx.needs_input_grad) if t is not None and need]
+        grads = iter(torch.autograd.grad(out, wrt, g_out))
+    return tuple(next(grads) if t is not None and need else None
+                 for t, need in zip(saved, ctx.needs_input_grad))
+
+
+def _ffn_forward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask, collect_stats):
+    if not dispatch.use_kernel(x):
+        return fused_ffn_plain(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                               neuron_mask=neuron_mask, collect_stats=collect_stats)
+    out = _ffn_cuda(x, None, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
+                    None, collect_stats, 0.0)
+    launch_counts["fused_ffn"] += 1
+    return out
+
+
+def _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                       neuron_mask, gate, collect_stats, eps):
+    if not dispatch.use_kernel(x):
+        return fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
+                                     fc2_bias, neuron_mask=neuron_mask, gate=gate,
+                                     collect_stats=collect_stats, eps=eps)
+    out = _ffn_cuda(x, (ln_scale, ln_bias), fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                    neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps)
+    launch_counts["fused_ffn_block"] += 1
+    return out
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask, collect_stats):
+        out, stats = _ffn_forward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
+                                  collect_stats)
+        ctx.save_for_backward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask)
+        if stats is not None:
+            ctx.mark_non_differentiable(stats)
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g_out, g_stats):
+        def plain(x, w1, b1, w2, b2, mask):
+            return fused_ffn_plain(x, w1, b1, w2, b2, neuron_mask=mask)
+
+        *grads, _ = _plain_vjp(ctx, plain, g_out)
+        return (*grads, None, None)  # neuron_mask, collect_stats
+
+
+class _FusedFFNBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                neuron_mask, gate, collect_stats, eps):
+        out, stats = _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
+                                        fc2_bias, neuron_mask, gate, collect_stats, eps)
+        ctx.save_for_backward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                              neuron_mask, gate if isinstance(gate, torch.Tensor) else None)
+        ctx.gate_value = None if isinstance(gate, torch.Tensor) else gate
+        ctx.eps = eps
+        if stats is not None:
+            ctx.mark_non_differentiable(stats)
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, g_out, g_stats):
+        def plain(x, lns, lnb, w1, b1, w2, b2, mask, gate):
+            return fused_ffn_block_plain(x, lns, lnb, w1, b1, w2, b2, neuron_mask=mask,
+                                         gate=ctx.gate_value if gate is None else gate,
+                                         eps=ctx.eps)
+
+        *grads, g_mask, g_gate = _plain_vjp(ctx, plain, g_out)
+        return (*grads, None, g_gate, None, None)  # neuron_mask, gate, collect_stats, eps
+
+
 def fused_ffn(
     x: torch.Tensor,
     fc1_kernel: torch.Tensor,
@@ -110,13 +204,11 @@ def fused_ffn(
     collect_stats: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``fc2(mask * GELU(fc1 x + b1)) + b2`` and optional stats [b, f] fp32."""
-    if not dispatch.use_kernel(x):
-        return fused_ffn_plain(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                               neuron_mask=neuron_mask, collect_stats=collect_stats)
-    out = _ffn_cuda(x, None, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
-                    None, collect_stats, 0.0)
-    launch_counts["fused_ffn"] += 1
-    return out
+    if _needs_grad(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias):
+        return _FusedFFN.apply(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
+                               collect_stats)
+    return _ffn_forward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
+                        collect_stats)
 
 
 def fused_ffn_block(
@@ -134,11 +226,8 @@ def fused_ffn_block(
     eps: float = 1e-12,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``x + gate * fc2(mask * GELU(fc1(LN(x))))`` and optional stats [b, f] fp32."""
-    if not dispatch.use_kernel(x):
-        return fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
-                                     fc2_bias, neuron_mask=neuron_mask, gate=gate,
-                                     collect_stats=collect_stats, eps=eps)
-    out = _ffn_cuda(x, (ln_scale, ln_bias), fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                    neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps)
-    launch_counts["fused_ffn_block"] += 1
-    return out
+    if _needs_grad(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, gate):
+        return _FusedFFNBlock.apply(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
+                                    fc2_bias, neuron_mask, gate, collect_stats, eps)
+    return _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                              neuron_mask, gate, collect_stats, eps)

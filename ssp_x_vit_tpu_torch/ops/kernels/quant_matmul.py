@@ -9,15 +9,15 @@ int4 packing (``pack_int4``): one int8 byte holds logical rows ``k`` (low
 nibble, biased by +8 into [0, 15]) and ``k + K/2`` (high nibble, two's
 complement), so the byte value is ``16*hi + (lo + 8)`` and K must be even.
 
-On the card both wrappers launch ``csrc/quant_gemm.cu``: the weight bytes go
-to shared memory as stored and become bf16 (or fp32) there, so no dequantised
-copy of the weight exists in device memory; the scale is applied per output
-column in the epilogue. What bounds it: ``2*M*N*K`` operations against the
+On the card both wrappers launch ``csrc/quant_gemm.cu`` (tiles:
+``csrc/qgemm_tile.cuh``, wgmma with TMA loads in bf16): the weight bytes go to
+shared memory as stored and become bf16 in registers, so no dequantised copy
+of the weight exists in device memory; the scale is applied per output column
+in the epilogue. What bounds it: ``2*M*N*K`` operations against the
 activations plus ``K*N`` (int8) or ``K*N/2`` (int4) stored weight bytes, so
 operations at the perplexity path's thousands of rows and weight bytes at a
-handful of rows. The kernel fetches each stored int4 row twice (once per
-nibble half), so int4 halves the weight's footprint in device memory, not yet
-the bytes that pass through L2 and shared memory.
+handful of rows. bf16 int4 walks stored rows, so each packed byte is fetched
+once and feeds both of its logical rows.
 
 On a CPU tensor each wrapper runs its plain version (unpack, cast, matmul,
 scale); a CUDA tensor always launches the kernel or raises.

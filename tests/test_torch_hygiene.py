@@ -601,3 +601,90 @@ def test_train_cli_on_the_card_matches_the_cpu_backend(cuda_device, model, tmp_p
     assert launch_counts["flash_attention"] == 2 * 3 * layers
     assert launch_counts["flash_attention_bwd_dq"] == launch_counts["flash_attention_bwd_dkv"] \
         == 3 * layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_fused_ffn_block_gradients_on_the_card_match_the_cpu(cuda_device, dtype, tol):
+    """Under autograd the FFN block kernel runs inside its autograd Function:
+    the output has a grad_fn, and the gradients of every input (the gate a
+    tensor) match the CPU's within tol of max(1, max |cpu|); the attention
+    block kernels raise under autograd."""
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ffk
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    gen = torch.Generator().manual_seed(1)
+    b, s, d, f = 2, 65, 96, 384
+    host = [torch.randn(b, s, d, generator=gen), 1 + 0.1 * torch.randn(d, generator=gen),
+            0.1 * torch.randn(d, generator=gen), torch.randn(d, f, generator=gen) * d ** -0.5,
+            0.1 * torch.randn(f, generator=gen), torch.randn(f, d, generator=gen) * f ** -0.5,
+            0.1 * torch.randn(d, generator=gen), torch.full((), 0.7)]
+    mask = (torch.rand(f, generator=gen) > 0.3).float()
+    g_out = torch.randn(b, s, d, generator=gen)
+
+    def grads(device, compute_dtype):
+        leaves = [t.to(device=device, dtype=compute_dtype if t.dim() else torch.float32,
+                       copy=True).requires_grad_() for t in host]
+        out, stats = ffk.fused_ffn_block(*leaves[:7], neuron_mask=mask.to(device), gate=leaves[7],
+                                         collect_stats=True)
+        assert out.grad_fn is not None and stats.grad_fn is None
+        out.backward(g_out.to(device=device, dtype=compute_dtype))
+        return [t.grad.float().cpu() for t in leaves]
+
+    before = launch_counts["fused_ffn_block"]
+    got = grads(cuda_device, dtype)
+    assert launch_counts["fused_ffn_block"] - before == 1
+    for a, r in zip(got, grads("cpu", torch.float32)):
+        err = (a - r).abs().max().item()
+        assert err / max(1.0, r.abs().max().item()) <= tol, err
+    x = host[0].to(cuda_device, dtype).requires_grad_()
+    attn = [t.to(cuda_device, dtype) for t in (torch.ones(d), torch.zeros(d),
+                                               torch.randn(d, 3 * d) * 0.05, torch.zeros(3 * d),
+                                               torch.randn(d, d) * 0.05, torch.zeros(d))]
+    for name, heads in (("fused_attn_block_v2", 4), ("fused_attn_block", 3)):
+        with pytest.raises(RuntimeError, match="allow_fused_attn=False"):
+            getattr(fab, name)(x, *attn, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_dequant_gemm_tiles_at_their_edge_shapes_on_the_card(cuda_device, dtype, tol):
+    """quant_matmul, quant4_matmul and fused_mlp_int8 against their plain
+    versions where the tile pipeline changes course: activation rows 1, 8,
+    17, 64, 136, 300 (tiles of 16-128 rows, split-K), K = 682 and 8190 and
+    N = 250 (element loads instead of TMA), an x whose base is one element
+    off 16 bytes; the same bits on a second run."""
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_weight_int8
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_fused_mlp as tfm
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_matmul as tqm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def check(fn, plain, *args):
+        got, again, ref = fn(*args), fn(*args), plain(*args)
+        assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+        err, peak = (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+        assert peak >= 1.0, peak  # the limit follows the output's own peak
+        assert err / peak <= tol, err
+
+    def rows(m, k, offset=False):
+        x = torch.randn(m * k + offset, generator=gen, device=cuda_device).to(dtype)
+        return x[offset:].view(m, k)
+
+    for m, k, n in ((1, 1024, 512), (8, 4096, 768), (17, 682, 512), (64, 8190, 256),
+                    (136, 1024, 250), (300, 2048, 1024)):
+        w4 = torch.randint(-128, 128, (k // 2, n), generator=gen, device=cuda_device).to(torch.int8)
+        w8 = torch.randint(-127, 128, (k, n), generator=gen, device=cuda_device).to(torch.int8)
+        sc = torch.rand(n, generator=gen, device=cuda_device) * 0.01 + 0.001
+        for offset in (False, True):
+            x = rows(m, k, offset)
+            check(tqm.quant_matmul, tqm.quant_matmul_plain, x, w8, sc)
+            check(tqm.quant4_matmul, tqm.quant4_matmul_plain, x, w4, sc)
+    for m, d, f in ((17, 512, 1024), (64, 682, 250), (136, 1024, 1030), (300, 768, 2048)):
+        ws = [quantize_weight_int8(torch.randn(*shape, generator=gen, device=cuda_device)
+                                   * shape[0] ** -0.5)  # N(0, 1/fan_in): max |plain| >= 1
+              for shape in ((d, f), (d, f), (f, d))]
+        args = [t for pair in ws for t in pair]
+        for offset in (False, True):
+            check(tfm.fused_mlp_int8, tfm.fused_mlp_int8_plain, rows(m, d, offset), *args)
