@@ -6,15 +6,23 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions; TF32 off.
-2. build    nvcc-builds every kernel source of the port in parallel.
+2. build    nvcc-builds every kernel source of the port in parallel; ptxas's
+            registers and spills per kernel ([BUILD] lines, one per bf16
+            flash instantiation).
 3. kernels  every hand-written kernel against its plain PyTorch version on the
             card, fp32 and bf16: the ViT block kernels at ViT-B/16, ViT-Ti/16, a
             pruned FFN width and the ``vit_procgen`` shapes, gates {0, 0.5, 1},
             with and without a neuron mask; ``flash_attention`` at the
-            Llama-2-7B, Mistral-7B (GQA + window), ``code_llm_small`` and ragged
-            shapes (head_dim 32 to 256, softcap); its lse output and the
-            backward kernels (``flash_attention_bwd_dq``, ``_dkv``) at the
+            Llama-2-7B (b=1, and b=8 as the 2SSP candidate search runs it),
+            Mistral-7B (GQA + window), ``code_llm_small`` and ragged shapes
+            (head_dim 32 to 256, softcap); its lse output and the backward
+            kernels (``flash_attention_bwd_dq``, ``_dkv``) at the same
             Llama-2-7B, Mistral-7B, ``code_llm_small`` and ragged shapes;
+            every flash case also by ``flash_errors`` (the RMS error of the
+            whole tensor and of its worst 64-row tile), whose teeth are
+            shown on copies of the plain result with a late tile zeroed or
+            two heads swapped; bf16 flash again with q one element off 16
+            bytes (the element-load producer) and a second run's bits;
             ``quant4_matmul`` and ``quant_matmul`` at the Llama-2-7B
             projections, a ragged pruned K, the tile pipeline's edges (1-300
             rows, K = 682 and 8190, N = 250, an x one element off 16 bytes)
@@ -466,6 +474,50 @@ def drive_quant_matmul(device) -> int:
     return launch_counts["quant_matmul"]
 
 
+def flash_check(label, got, ref, dn) -> tuple:
+    """The flash criteria beside the scaled error: ``flash_errors`` (RMS error
+    of the whole tensor and of its worst 64-row tile, relative to the plain
+    version's with an absolute allowance), each within ``FLASH_LIMITS``;
+    raises otherwise. Returns (whole, tile)."""
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import FLASH_LIMITS, flash_errors
+
+    rel, tile = flash_errors(got, ref)
+    rel_lim, tile_lim, _ = FLASH_LIMITS[got.dtype]
+    if rel > rel_lim or tile > tile_lim:
+        raise AssertionError(f"{label} {dn}: relative error {rel:.3e} (limit {rel_lim}), worst "
+                             f"64-row tile {tile:.3e} (limit {tile_lim})")
+    return rel, tile
+
+
+def check_flash_teeth(label, ref, dn) -> None:
+    """The flash criteria reject a copy of the plain result ``ref`` [b, h, s, hd]
+    with one late 64-row query tile zeroed, and one with two heads swapped;
+    logs what the scaled error alone says of the same copies."""
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import flash_agrees
+
+    s = ref.shape[2]
+    start = max(0, (s // 64 - 2) * 64)
+    zeroed = ref.clone()
+    zeroed[:, :, start:start + 64] = 0
+    swapped = ref.clone()
+    swapped[:, [0, 1]] = ref[:, [1, 0]]
+    for what, bad in ((f"query rows {start}-{start + 63} zeroed", zeroed), ("heads 0 and 1 swapped", swapped)):
+        if flash_agrees(bad, ref):
+            raise AssertionError(f"flash criteria accept {label} {dn} with {what}")
+        log(f"[KERNEL] flash criteria reject {label} {dn} with {what} (scaled error alone: "
+            f"{scaled_err(bad, ref)[1]:.3e}, tol {TOL[dn]})")
+
+
+def _off16(t):
+    """A copy of t whose data starts one element off 16 bytes."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
 def _attended_pairs(s: int, causal: bool, window) -> int:
     """Unmasked (query, key) pairs of one head."""
     if not causal:
@@ -512,6 +564,7 @@ def phase_llm_kernels(device) -> dict:
 
     flash_cases = [  # (label, b, h, hkv, s, hd, causal, window, softcap, timed)
         ("Llama-2-7B", 1, 32, 32, 2048, 128, True, None, None, True),
+        ("Llama-2-7B search", 8, 32, 32, 2048, 128, True, None, None, True),  # the candidate batch
         ("Mistral-7B", 1, 32, 8, 4096, 128, True, 1024, None, True),
         ("code_llm_small", 2, 6, 2, 1024, 64, True, None, None, False),
         ("ViT", 2, 4, 4, 197, 64, False, None, None, False),
@@ -533,10 +586,24 @@ def phase_llm_kernels(device) -> dict:
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"flash_attention {shape} {dn}: non-finite output")
             err, rel = scaled_err(got, ref)
-            log(f"[KERNEL] flash_attention {label} {shape} {dn}: max_abs_err={err:.3e} "
-                f"scaled={rel:.3e} tol={TOL[dn]} ok")
             if rel > TOL[dn]:
                 raise AssertionError(f"flash_attention {shape} {dn}: scaled error {rel:.3e}")
+            frob, tile = flash_check(f"flash_attention {label} {shape}", got, ref, dn)
+            extra = ""
+            if dtype == torch.bfloat16:
+                again = flash_attention(q, k, v, **kw)
+                off = flash_attention(_off16(q), k, v, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"flash_attention {shape} {dn}: two runs differ")
+                off_frob, off_tile = flash_check(f"flash_attention {label} {shape} q off 16 bytes",
+                                                 off, ref, dn)
+                extra = (f"; q one element off 16 bytes (element loads): relative {off_frob:.3e}, "
+                         f"worst tile {off_tile:.3e}; same bits on a second run")
+            log(f"[KERNEL] flash_attention {label} {shape} {dn}: max_abs_err={err:.3e} "
+                f"scaled={rel:.3e} tol={TOL[dn]}; relative {frob:.3e}, worst tile {tile:.3e}{extra} ok")
+            if label == "Llama-2-7B":
+                check_flash_teeth(f"flash_attention {label}", ref, dn)
             errs[(label, dn)] = (err, rel)
             if timed and dtype == torch.bfloat16:
                 k_ms = time_ms(lambda: flash_attention(q, k, v, **kw))
@@ -548,6 +615,10 @@ def phase_llm_kernels(device) -> dict:
                 log(f"[TIME] flash_attention {label} {shape} bf16: kernel {k_ms:.4f} ms "
                     f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, library SDPA "
                     f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                if label == "Llama-2-7B search":
+                    records["flash_attention"].update(
+                        ms_b8=k_ms, plain_ms_b8=p_ms, library_ms_b8=l_ms, bound_ms_b8=bound_ms,
+                        shape_b8=shape + " bf16")
                 if label == "Llama-2-7B":
                     records["flash_attention"] = dict(
                         name="flash_attention", route="cuda",
@@ -676,6 +747,7 @@ def phase_flash_backward(device) -> dict:
     records = {}
     cases = [  # (label, b, h, hkv, s, hd, window, softcap, timed); all causal
         ("Llama-2-7B", 1, 32, 32, 2048, 128, None, None, True),
+        ("Llama-2-7B search", 8, 32, 32, 2048, 128, None, None, True),  # the candidate batch
         ("Mistral-7B", 1, 32, 8, 4096, 128, 1024, None, True),
         ("code_llm_small", 2, 6, 2, 1024, 64, None, None, False),
         # windows of 16 / 40 leave whole key tiles, and the padded rows of the
@@ -705,7 +777,7 @@ def phase_flash_backward(device) -> dict:
             got = tfa.flash_attention_backward(q, k, v, out, lse, g, **kw)
             ref = tfa.flash_attention_backward_plain(q, k, v, g, **kw)
             torch.cuda.synchronize()
-            line = []
+            line, crit = [], []
             for name, a, r in zip(("dq", "dk", "dv"), got, ref):
                 if not torch.isfinite(a.float()).all():
                     raise AssertionError(f"flash backward {shape} {dn}: non-finite {name}")
@@ -714,8 +786,28 @@ def phase_flash_backward(device) -> dict:
                 line.append(f"{name} {err:.3e}/{rel:.3e}")
                 if rel > TOL[dn]:
                     raise AssertionError(f"flash backward {shape} {dn}: {name} scaled error {rel:.3e}")
+                frob, tile = flash_check(f"flash backward {label} {shape} {name}", a, r, dn)
+                crit.append(f"{name} {frob:.3e}/{tile:.3e}")
+            extra = ""
+            if dtype == torch.bfloat16:
+                again = tfa.flash_attention_backward(q, k, v, out, lse, g, **kw)
+                off = tfa.flash_attention_backward(_off16(q), k, v, out, lse, g, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                    raise AssertionError(f"flash backward {shape} {dn}: two runs differ")
+                off_crit = []
+                for name, a, r in zip(("dq", "dk", "dv"), off, ref):
+                    frob, tile = flash_check(f"flash backward {label} {shape} q off 16 bytes {name}",
+                                             a, r, dn)
+                    off_crit.append(f"{name} {frob:.3e}/{tile:.3e}")
+                extra = (f"; q one element off 16 bytes (element loads): relative/worst tile "
+                         f"{', '.join(off_crit)}; same bits on a second run")
             log(f"[KERNEL] flash_attention backward {label} {shape} {dn}: max_abs_err/scaled "
-                f"{', '.join(line)} tol={TOL[dn]}; lse {lse_err:.3e}; ok")
+                f"{', '.join(line)} tol={TOL[dn]}; relative/worst tile {', '.join(crit)}; lse "
+                f"{lse_err:.3e}{extra}; ok")
+            if label == "Llama-2-7B":
+                for name, r in zip(("dq", "dk", "dv"), ref):
+                    check_flash_teeth(f"flash backward {label} {name}", r, dn)
             if not (timed and dtype == torch.bfloat16):
                 continue
             delta = torch.empty(b, h, s, dtype=torch.float32, device=device)
@@ -746,6 +838,12 @@ def phase_flash_backward(device) -> dict:
                 f"10*hd per pair), bound {bound_ms:.4f} ms ({bound_by}), plain {p_ms:.4f} ms, "
                 f"library SDPA forward + backward {l_ms:.4f} ms; forward {fwd_ms:.4f} ms, "
                 f"with lse {fwd_lse_ms:.4f} ms")
+            if label == "Llama-2-7B search":
+                for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                    records[name].update(
+                        ms_b8=dq_ms if name.endswith("dq") else dkv_ms, backward_ms_b8=bwd_ms,
+                        backward_bound_ms_b8=bound_ms, plain_ms_b8=p_ms, library_ms_b8=l_ms,
+                        bound_ms_b8=(dq_bound if name.endswith("dq") else dkv_bound)[0])
             if label != "Llama-2-7B":
                 continue
             common = dict(route="cuda",
@@ -2452,6 +2550,29 @@ def phase_anchor_train(device) -> None:
         raise AssertionError("accumulated microbatches differ from the large batch")
 
 
+def flash_build_summary(build_log) -> list:
+    """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
+    kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
+    registers and spill bytes."""
+    import re
+
+    lines = []
+    for source in ("flash_attention", "flash_attention_bwd"):
+        entry, spill = "", ""
+        for line in build_log.get(source, "").splitlines():
+            if "Compiling entry function" in line:
+                entry, spill = (line.split("'")[1] if "'" in line else ""), ""
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                kind = re.search(r"2wg\d*(fwd_kernel|dq_kernel|dkv_kernel)ILi(\d+)E", entry)
+                regs = re.search(r"Used (\d+) registers", line)
+                if kind and regs:
+                    lines.append(f"[BUILD] flash bf16 {kind.group(1)} head_dim tile {kind.group(2)}: "
+                                 f"{regs.group(1)} registers; {spill}")
+    return lines
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (takes no arguments)", file=sys.stderr)
@@ -2490,6 +2611,8 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else ""
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[BUILD] {name} {entry}: {line.strip()}")
+    for line in flash_build_summary(build.build_log):
+        log(line)
 
     phase_t0 = time.perf_counter()
 

@@ -6,7 +6,7 @@
 //   ssp_x_vit_tpu/ops/pallas/flash_attention.py : flash_attention
 //     (_flash_forward, _flash_forward_multihead, _flash_forward_streaming)
 // which are one function in three on-chip-memory regimes. Here it is one
-// kernel: a block owns one (batch, query head, 64-row query tile), walks the
+// kernel per dtype: a block owns query rows of one (batch, head), walks the
 // key/value tiles it needs and keeps an online softmax per query row (running
 // max and sum in fp32, fp32 output accumulator, one divide per row at the
 // end, as the Pallas kernel divides after P V). Numerics follow the Pallas
@@ -20,16 +20,33 @@
 // oldest tile of a window): its running max stays -inf and the update is
 // guarded, so no NaN arises.
 //
-// - bf16: 4 warps of 16 query rows. Q and a two-stage ring of 64-key K/V
-//   tiles sit in dynamic shared memory (16-byte cp.async when hd % 8 == 0,
-//   else element loads; the head dimension is zero-padded in shared memory to
-//   the next of 64/80/128/256, never in device memory). S = Q K^T and
-//   O += P V run on the tensor cores (WMMA 16x16x16, fp32 accumulate). The
-//   logits go through a per-warp fp32 tile for the softmax (two lanes per
-//   row); P comes back in bf16 through the same tile. O stays in accumulator
-//   fragments; the per-row rescale and the final 1/l are applied by
-//   multiplying with a fragment loaded from a 16x16 tile whose row r holds
-//   the factor of row r (all accumulator fragments share one layout).
+// - bf16 (namespace wg): Hopper's wgmma with TMA loads. A block is one
+//   producer warpgroup and two consumer warpgroups of 64 query rows each
+//   (128 rows; setmaxnreg moves registers from the producer to the
+//   consumers). One producer thread loads the Q tile once and keeps a ring of
+//   4 K/V stages of 64 keys full by TMA through 3-D tensor maps over
+//   [b*heads, s, hd] (64-column boxes, 128-byte swizzled as wgmma reads them;
+//   rows past s and columns past hd arrive as zeros, and a box never reads
+//   the next head). Full/empty mbarrier pairs order the ring. A consumer
+//   warpgroup computes S = Q K^T with both operands in shared memory into
+//   fp32 registers and runs the softmax on those registers: a thread holds
+//   rows g and g+8 of its warp's 16, so the row max and sum are quad
+//   shuffles and no logits tile exists in shared memory; the max is taken on
+//   the raw products and p = 2^(raw * scale * log2(e) - m) is one FFMA and
+//   one SFU op. O is rescaled in registers, P is rounded to bf16 in registers
+//   (the accumulator layout of S is wgmma's A-fragment layout) and
+//   O += P V takes P as the register A operand and V MN-major from the same
+//   staged tile (no transpose copy). S of tile i+1 is issued before P V of
+//   tile i (csrc/hopper.cuh two_product_pipeline), so the softmax of one tile
+//   runs while the tensor cores do the other's P V. The elementwise mask runs
+//   only on diagonal, window-edge and ragged tiles. The grid's slowest index
+//   walks the query tiles from the last, so the heaviest causal tiles start
+//   first. Head dims pad to 64 / 128 / 256 in shared memory only (80 runs the
+//   128 tile); at 256 a stage holds 32 keys so O (128 registers) fits.
+//   Shapes TMA cannot take (hd % 8 != 0, a base off 16 bytes) run the same
+//   kernel with the producer warpgroup filling the same swizzled stages by
+//   element loads; shapes that meet TMA's rules always take TMA, and a
+//   tensor map that cannot be encoded fails the launch (no second path).
 // - fp32: SIMT in exact fp32 (no TF32): 128 threads, thread (ty, tx) owns
 //   query rows ty*4.. and strided columns tx + 8c of the logits tile and of O.
 //
@@ -39,16 +56,18 @@
 //
 // What bounds it on the H100: 4*hd FLOPs per unmasked (query, key) pair
 // against q, k, v and o read or written once: operations-bound at every LLM
-// shape (Llama-2-7B b=1 s=2048: 34 GFLOP against 67 MB). WMMA on mma.sync
-// and a softmax that round-trips shared memory keep it well below the
-// tensor-core peak; wgmma, TMA and register-resident softmax are later work.
+// shape (Llama-2-7B b=1 s=2048: 34 GFLOP against 67 MB). The design keeps the
+// tensor cores fed from shared memory that TMA fills without thread
+// instructions and keeps every elementwise step in registers, overlapped with
+// the other product. Left for later: the softmax's SFU and FP32 work is
+// close to the products' time per tile (an exp per product of 64 x 64 x
+// 128), and the block is not persistent (one wave per ~132 query tiles).
 
 #include <cmath>
 #include <cstdint>
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ssp {
 namespace flash {
@@ -66,229 +85,299 @@ struct Args {
   int causal;     // 0 / 1
   int window;     // <= 0: none
   float softcap;  // <= 0: none
-  int aligned;    // 16-byte row starts (bf16 cp.async path)
+  int tma;        // bf16: the producer loads by TMA (else by elements)
 };
 
-// Key tiles [lo, hi) of width bk that the query rows [q0, q0 + BQ) need.
-__device__ __forceinline__ void tile_range(const Args& p, int q0, int bk, int& lo, int& hi) {
+// Key tiles [lo, hi) of width bk that query rows [r_lo, r_end) need.
+__device__ __forceinline__ void key_tiles(const Args& p, int r_lo, int r_end, int bk, int& lo, int& hi) {
   const int n_tiles = (p.s + bk - 1) / bk;
-  hi = p.causal ? min(n_tiles, (min(q0 + BQ, p.s) - 1) / bk + 1) : n_tiles;
-  lo = (p.causal && p.window > 0) ? max(0, q0 - p.window + 1) / bk : 0;
+  hi = p.causal ? min(n_tiles, (r_end - 1) / bk + 1) : n_tiles;
+  lo = (p.causal && p.window > 0) ? max(0, r_lo - p.window + 1) / bk : 0;
+}
+
+// Key tiles of width bk that the query rows [q0, q0 + BQ) need.
+__device__ __forceinline__ void tile_range(const Args& p, int q0, int bk, int& lo, int& hi) {
+  key_tiles(p, q0, min(q0 + BQ, p.s), bk, lo, hi);
+}
+
+// False where the mask removes (row, col).
+__device__ __forceinline__ bool keep(const Args& p, int row, int col) {
+  bool ok = col < p.s;
+  if (p.causal) {
+    ok = ok && col <= row;
+    if (p.window > 0) ok = ok && (row - col < p.window);
+  }
+  return ok;
+}
+
+// True when the mask removes some pair of rows [r0, r0 + nr) x columns [c0, c0 + nc).
+__device__ __forceinline__ bool tile_masked(const Args& p, int r0, int nr, int c0, int nc) {
+  if (c0 + nc > p.s) return true;
+  if (!p.causal) return false;
+  if (c0 + nc - 1 > r0) return true;
+  return p.window > 0 && r0 + nr - 1 - c0 >= p.window;
 }
 
 // Scaled, soft-capped logit of (row, col), or -inf where the mask removes it.
 __device__ __forceinline__ float logit(const Args& p, float raw, int row, int col) {
   float x = raw * p.scale;
   if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-  bool ok = col < p.s;
-  if (p.causal) {
-    ok = ok && col <= row;
-    if (p.window > 0) ok = ok && (row - col < p.window);
-  }
-  return ok ? x : -INFINITY;
+  return keep(p, row, col) ? x : -INFINITY;
 }
 
-// ------------------------------------------------ bf16 tensor-core path ---
-namespace tc {
+// ------------------------------------------------ bf16: wgmma + TMA -------
+namespace wg {
+using namespace ::ssp::hopper;
 using T = __nv_bfloat16;
-constexpr int BK = 64;
-constexpr int LDS = BK + 4;  // fp32 logits row stride
-constexpr int LDP = BK + 8;  // bf16 P row stride
-// Per-warp scratch: the 16 x 64 fp32 logits; once every lane has read its
-// logits, the same bytes hold P (bf16) followed by the 16x16 row-factor tile.
-constexpr size_t WARP_REGION = sizeof(float) * 16 * LDS;
-constexpr size_t FACTOR_OFF = sizeof(T) * 16 * LDP;
-static_assert(FACTOR_OFF + sizeof(float) * 256 <= WARP_REGION, "P and the factor tile must fit");
+constexpr int BLOCK_Q = 128;  // query rows of a block: two consumer warpgroups of 64
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_THREADS = 128;
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+// Registers per thread at launch that let setmaxnreg move CONSUMER_REGS to
+// both consumer warpgroups from what the producer gives up.
+constexpr int LAUNCH_REGS = (PRODUCER_THREADS * PRODUCER_REGS + 256 * CONSUMER_REGS + THREADS - 1) / THREADS;
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+constexpr int SMEM_LIMIT = 227 * 1024;  // shared memory a block may opt into
 
 template <int HDP>
-struct Layout {
-  static constexpr int LD = HDP + 8;
-  static constexpr size_t Q_BYTES = sizeof(T) * BQ * LD;
-  static constexpr size_t KV_STAGE = sizeof(T) * BK * LD;
-  static constexpr size_t K_OFF = Q_BYTES;
-  static constexpr size_t V_OFF = K_OFF + 2 * KV_STAGE;
-  static constexpr size_t W_OFF = V_OFF + 2 * KV_STAGE;
-  static constexpr size_t BYTES = W_OFF + WARPS * WARP_REGION;
-  // the fp32 output staging of all four warps reuses the K ring at the end
-  static_assert(2 * KV_STAGE >= sizeof(float) * BQ * HDP, "output staging must fit the K ring");
+struct Cfg {
+  static constexpr int NB = HDP / 64;               // 64-column boxes of a row
+  static constexpr int BK = HDP == 256 ? 32 : 64;  // keys per stage (256: O takes 128 registers)
+  static constexpr int Q_BOX = BLOCK_Q * 128;       // one box of the block's query rows
+  static constexpr int KV_BOX = BK * 128;
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int STAGE = 2 * NB * KV_BOX;     // K boxes, then V boxes
+  static constexpr int FIT = (SMEM_LIMIT - Q_BYTES - 2048) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr size_t SMEM = (size_t)Q_BYTES + STAGES * STAGE + (2 * STAGES + 1) * sizeof(uint64_t) + 1024;
+  // the consumers hold two stages at a time: a third lets the next load run
+  static_assert(STAGES >= 3 && SMEM <= SMEM_LIMIT, "the ring needs three stages");
 };
 
-// Stage `nrows` rows of one head, starting at row0, into dst (row stride
-// HDP + 8): zeros past s and past hd.
+// grid (heads, batch, query tiles from the last).
 template <int HDP>
-__device__ __forceinline__ void load_rows(const Args& p, T* dst, const T* src, int row0,
-                                          int nrows) {
-  constexpr int LD = HDP + 8;
-  if (p.aligned) {
-    constexpr int CH = HDP / 8;
-    for (int e = threadIdx.x; e < nrows * CH; e += THREADS) {
-      const int r = e / CH, c = (e % CH) * 8, gr = row0 + r;
-      const bool ok = gr < p.s && c < p.hd;
-      cp_async16(dst + r * LD + c, ok ? src + (size_t)gr * p.hd + c : src, ok);
-    }
-  } else {
-    const T zero = __float2bfloat16(0.f);
-    for (int e = threadIdx.x; e < nrows * HDP; e += THREADS) {
-      const int r = e / HDP, c = e % HDP, gr = row0 + r;
-      dst[r * LD + c] = (gr < p.s && c < p.hd) ? src[(size_t)gr * p.hd + c] : zero;
-    }
-  }
-}
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const Args p) {
+  using C = Cfg<HDP>;
+  constexpr int BK = C::BK, NB = C::NB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* ring = smem + C::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* q_full = empty + C::STAGES;
 
-template <int HDP>
-__global__ void __launch_bounds__(THREADS) kernel(Args p) {
-  using namespace nvcuda;
-  using L = Layout<HDP>;
-  constexpr int LD = L::LD, NF = HDP / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = reinterpret_cast<T*>(smem + L::K_OFF);
-  T* vs = reinterpret_cast<T*>(smem + L::V_OFF);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  unsigned char* region = smem + L::W_OFF + warp * WARP_REGION;
-  float* ss = reinterpret_cast<float*>(region);
-  T* ps = reinterpret_cast<T*>(region);
-  float* fs = reinterpret_cast<float*>(region + FACTOR_OFF);
-
-  // the last query tiles of a causal head have the most key tiles: start them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, head = blockIdx.y, batch = blockIdx.z;
-  const int kvh = head / (p.h / p.hkv);
-  const size_t q_off = ((size_t)batch * p.h + head) * p.s * p.hd;
-  const size_t kv_off = ((size_t)batch * p.hkv + kvh) * p.s * p.hd;
-  const T* Q = static_cast<const T*>(p.q) + q_off;
-  const T* K = static_cast<const T*>(p.k) + kv_off;
-  const T* V = static_cast<const T*>(p.v) + kv_off;
-  T* O = static_cast<T*>(p.o) + q_off;
+  const int head = blockIdx.x, batch = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BLOCK_Q;
+  const int bh = batch * p.h + head, bkv = batch * p.hkv + head / (p.h / p.hkv);
   int kt_lo, kt_hi;
-  tile_range(p, q0, BK, kt_lo, kt_hi);
-
-  load_rows<HDP>(p, qs, Q, q0, BQ);
-  load_rows<HDP>(p, ks, K, kt_lo * BK, BK);
-  load_rows<HDP>(p, vs, V, kt_lo * BK, BK);
-  cp_async_commit();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[NF], factor;
-#pragma unroll
-  for (int n = 0; n < NF; ++n) wmma::fill_fragment(o[n], 0.f);
-  // lanes 2r and 2r+1 share query row r of this warp; columns interleave
-  const int row = lane / 2, half = lane % 2, grow = q0 + r0 + row;
-  float m_run = -INFINITY, l_run = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int st = (kt - kt_lo) & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile kt landed; every warp is done with the other stage
-    if (kt + 1 < kt_hi) {
-      load_rows<HDP>(p, ks + (st ^ 1) * BK * LD, K, (kt + 1) * BK, BK);
-      load_rows<HDP>(p, vs + (st ^ 1) * BK * LD, V, (kt + 1) * BK, BK);
+  key_tiles(p, q0, min(q0 + BLOCK_Q, p.s), BK, kt_lo, kt_hi);
+  const int n_it = kt_hi - kt_lo;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], p.tma ? 1 : PRODUCER_THREADS);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    cp_async_commit();
-    const T* k_t = ks + st * BK * LD;
-    const T* v_t = vs + st * BK * LD;
+    mbar_init(q_full, p.tma ? 1 : PRODUCER_THREADS);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows (K row-major is K^T column-major)
+  if (threadIdx.x < PRODUCER_THREADS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (p.tma && threadIdx.x != 0) return;
+    if (p.tma) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < NF; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bfr;
-        wmma::load_matrix_sync(a, qs + r0 * LD + kk * 16, LD);
-        wmma::load_matrix_sync(bfr, k_t + n * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, a, bfr, acc);
-      }
-      wmma::store_matrix_sync(ss + n * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax update of row `row`, 32 interleaved columns per lane
-    float sv[BK / 2];
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      const int c = 2 * j + half;
-      sv[j] = logit(p, ss[row * LDS + c], grow, kt * BK + c);
-      mt = fmaxf(mt, sv[j]);
-    }
-    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-    const float m_new = fmaxf(m_run, mt);
-    float alpha = 1.f, sum = 0.f;
-    if (m_new == -INFINITY) {  // every key of this row masked so far
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sv[j] = 0.f;
+      for (int b = 0; b < NB; ++b) tma_load_3d(qs + b * C::Q_BOX, &map_q, 64 * b, q0, bh, q_full);
     } else {
-      alpha = expf(m_run - m_new);  // 0 while m_run is still -inf
+      fill_rows<BLOCK_Q, HDP, PRODUCER_THREADS>(p.q, qs, bh, q0, p.s, p.hd);
+      fence_proxy_async();
+      mbar_arrive(q_full);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % C::STAGES, k0 = (kt_lo + it) * BK;
+      if (it >= C::STAGES) mbar_wait(&empty[s], ((it / C::STAGES) + 1) & 1);
+      unsigned char* st = ring + s * C::STAGE;
+      if (p.tma) {
+        mbar_expect_tx(&full[s], C::STAGE);
 #pragma unroll
-      for (int j = 0; j < BK / 2; ++j) {
-        sv[j] = expf(sv[j] - m_new);  // 0 for masked keys
-        sum += sv[j];
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(st + b * C::KV_BOX, &map_k, 64 * b, k0, bkv, &full[s]);
+          tma_load_3d(st + (NB + b) * C::KV_BOX, &map_v, 64 * b, k0, bkv, &full[s]);
+        }
+      } else {
+        fill_rows<BK, HDP, PRODUCER_THREADS>(p.k, st, bkv, k0, p.s, p.hd);
+        fill_rows<BK, HDP, PRODUCER_THREADS>(p.v, st + NB * C::KV_BOX, bkv, k0, p.s, p.hd);
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
       }
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    __syncwarp();  // every lane holds its logits in registers: reuse the tile
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) ps[row * LDP + 2 * j + half] = from_f<T>(sv[j]);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) fs[row * 16 + half * 8 + c] = alpha;
-    __syncwarp();
+    return;
+  }
 
-    // O = alpha * O + P V
-    wmma::load_matrix_sync(factor, fs, 16, wmma::mem_row_major);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wgi;  // this warpgroup's first query row
+  const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+  int my_lo = kt_lo, my_hi = kt_lo;  // a warpgroup wholly past s computes nothing
+  if (r0 < p.s) key_tiles(p, r0, min(r0 + 64, p.s), BK, my_lo, my_hi);
+  const float sl2 = p.scale * LOG2E;
+  float o[HDP / 2], sacc[BK / 2];
 #pragma unroll
-    for (int n = 0; n < NF; ++n)
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < factor.num_elements; ++e) o[n].x[e] *= factor.x[e];
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+  uint32_t pf[BK / 16][4];
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // max in log2 units
+  float alpha_a = 1.f, alpha_b = 1.f;
+  const uint32_t q_addr = smem_u32(qs) + wgi * 64 * 128;
+  const auto k_addr = [&](int s) { return smem_u32(ring + s * C::STAGE); };
+  const auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  };
+  // S = Q K^T of stage s into sacc (issued, not waited for)
+  const auto issue_s = [&](int s) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ps + kk * 16, LDP);
-#pragma unroll
-      for (int n = 0; n < NF; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, v_t + kk * 16 * LD + n * 16, LD);
-        wmma::mma_sync(o[n], a, bfr, o[n]);
-      }
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const int off = (kk % 4) * 32;  // 16 columns further inside the 128-byte row
+      wgmma_ss(sacc, smem_desc(q_addr + (kk / 4) * C::Q_BOX + off),
+               smem_desc(k_addr(s) + (kk / 4) * C::KV_BOX + off), kk > 0);
     }
-    __syncwarp();  // P and the factor tile are read: the next logits may overwrite them
-  }
+  };
+  // O += P V of stage s, P from pf (issued, not waited for)
+  const auto issue_pv = [&](int s) {
+    const uint32_t v_addr = k_addr(s) + NB * C::KV_BOX;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<1>(o, pf[kk], smem_desc_mn(v_addr + kk * 2048, C::KV_BOX), 1);
+  };
+  // Online softmax of key tile kt in sacc: updates m, l (log2 units) and the
+  // factors alpha that O must take before this tile's P V; sacc becomes p.
+  // Without a softcap the max is taken on the raw products (the scale is
+  // positive) and p = 2^(raw * scale * log2(e) - m) is one FFMA and one SFU op.
+  const auto softmax = [&](int kt) {
+    const int c0 = kt * BK;
+    if (tile_masked(p, r0, 64, c0, BK)) {  // the mask only where the tile needs one
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * j + 2 * t + e;
+          if (!keep(p, row_a, col)) sacc[4 * j + e] = -INFINITY;
+          if (!keep(p, row_b, col)) sacc[4 * j + 2 + e] = -INFINITY;
+        }
+    }
+    float mul = sl2;
+    if (p.softcap > 0.f) {  // log2-unit logits in place; tanh keeps -inf at -cap
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        sacc[i] = sacc[i] == -INFINITY ? -INFINITY
+                                       : p.softcap * LOG2E * tanhf(sacc[i] * p.scale / p.softcap);
+      mul = 1.f;
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx_a = fmaxf(mx_a, sacc[4 * j + e]);
+        mx_b = fmaxf(mx_b, sacc[4 * j + 2 + e]);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a) * mul), mn_b = fmaxf(m_b, quad_max(mx_b) * mul);
+    // a row whose keys are all masked so far keeps max -inf: base 0 gives p = 0
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a, base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    alpha_a = fast_exp2(m_a - base_a);  // 0 while m is -inf
+    alpha_b = fast_exp2(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sacc[4 * j + e] = fast_exp2(fmaf(sacc[4 * j + e], mul, -base_a));
+        sacc[4 * j + 2 + e] = fast_exp2(fmaf(sacc[4 * j + 2 + e], mul, -base_b));
+        sum_a += sacc[4 * j + e];
+        sum_b += sacc[4 * j + 2 + e];
+      }
+    l_a = l_a * alpha_a + sum_a;  // this thread's columns; the quad's sum at the end
+    l_b = l_b * alpha_b + sum_b;
+  };
+  const auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      o[4 * j] *= alpha_a;
+      o[4 * j + 1] *= alpha_a;
+      o[4 * j + 2] *= alpha_b;
+      o[4 * j + 3] *= alpha_b;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+  };
 
-  cp_async_wait<0>();
-  __syncthreads();  // the K ring is free: stage the fp32 output there
-  const float inv = l_run > 0.f ? 1.f / l_run : 0.f;
-  if (p.lse != nullptr && half == 0 && grow < p.s)
-    p.lse[((size_t)batch * p.h + head) * p.s + grow] = l_run > 0.f ? m_run + logf(l_run) : -INFINITY;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) fs[row * 16 + half * 8 + c] = inv;
-  __syncwarp();
-  wmma::load_matrix_sync(factor, fs, 16, wmma::mem_row_major);
-  float* os = reinterpret_cast<float*>(smem + L::K_OFF) + warp * 16 * HDP;
-#pragma unroll
-  for (int n = 0; n < NF; ++n) {
-#pragma unroll
-    for (int e = 0; e < factor.num_elements; ++e) o[n].x[e] *= factor.x[e];
-    wmma::store_matrix_sync(os + n * 16, o[n], HDP, wmma::mem_row_major);
+  mbar_wait(q_full, 0);
+  // Tiles outside this warpgroup's range go back at once; in the range the
+  // softmax of tile i+1 runs while the tensor cores do P V of tile i.
+  const auto skip = [&](int it) {  // a tile outside the range: hand it back
+    mbar_wait(&full[it % C::STAGES], (it / C::STAGES) & 1);
+    release(it % C::STAGES);
+  };
+  const int first = my_lo - kt_lo, mine = my_hi - my_lo;
+  for (int it = 0; it < first; ++it) skip(it);
+  two_product_pipeline(
+      mine,
+      [&](int i) {
+        const int it = first + i;
+        mbar_wait(&full[it % C::STAGES], (it / C::STAGES) & 1);
+        return it % C::STAGES;
+      },
+      [&] { fence_regs(sacc); }, [&] { fence_regs(o); }, issue_s,
+      [&](int i) { softmax(my_lo + i); }, issue_pv, [&](int) { rescale_and_pack(); }, release);
+  for (int it = first + max(mine, 0); it < n_it; ++it) skip(it);
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (p.lse != nullptr && t == 0) {
+    if (row_a < p.s) p.lse[(size_t)bh * p.s + row_a] = l_a > 0.f ? m_a * LN2 + logf(l_a) : -INFINITY;
+    if (row_b < p.s) p.lse[(size_t)bh * p.s + row_b] = l_b > 0.f ? m_b * LN2 + logf(l_b) : -INFINITY;
   }
-  __syncwarp();
-  for (int e = lane; e < 16 * HDP; e += 32) {
-    const int r = e / HDP, c = e % HDP, gr = q0 + r0 + r;
-    if (gr < p.s && c < p.hd) O[(size_t)gr * p.hd + c] = from_f<T>(os[r * HDP + c]);
-  }
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f, inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+  store_acc_rows(static_cast<T*>(p.o) + (size_t)bh * p.s * p.hd, o, inv_a, inv_b, row_a, p.s,
+                 p.hd, 0, t);
 }
 
 template <int HDP>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
+  using C = Cfg<HDP>;
+  const auto kern = fwd_kernel<HDP>;
   static std::atomic<unsigned long long> smem_allowed{0};
-  const cudaError_t err = allow_max_dynamic_smem(kernel<HDP>, smem_allowed);
+  cudaError_t err = allow_max_dynamic_smem(kern, smem_allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.s + BQ - 1) / BQ, p.h, p.b);
-  kernel<HDP><<<grid, THREADS, Layout<HDP>::BYTES, stream>>>(p);
+  static std::atomic<int> regs_checked{0};
+  if ((err = check_launch_regs(kern, LAUNCH_REGS, regs_checked)) != cudaSuccess) return err;
+  CUtensorMap mq{}, mk{}, mv{};
+  if (p.tma) {
+    const uint64_t bq = (uint64_t)p.b * p.h, bkv = (uint64_t)p.b * p.hkv;
+    const bool ok = encode_3d_bf16(&mq, p.q, bq, p.s, p.hd, BLOCK_Q) &&
+                    encode_3d_bf16(&mk, p.k, bkv, p.s, p.hd, C::BK) &&
+                    encode_3d_bf16(&mv, p.v, bkv, p.s, p.hd, C::BK);
+    // The shapes meet TMA's rules: an encoder that cannot be found or refuses
+    // them is an error, never a quiet switch to the element-load producer.
+    if (!ok) return cudaErrorNotSupported;
+  }
+  const dim3 grid(p.h, p.b, (p.s + BLOCK_Q - 1) / BLOCK_Q);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
-}  // namespace tc
+}  // namespace wg
 
 // ------------------------------------------------------- fp32 SIMT path ---
 namespace simt {
@@ -465,15 +554,14 @@ extern "C" int ssp_flash_attention(int dtype, const void* q, const void* k, cons
       h > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto is16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
-  const int aligned = hd % 8 == 0 && is16(q) && is16(k) && is16(v);
-  const Args p{q, k, v, o, lse, b, h, hkv, s, hd, scale, causal, window, softcap, aligned};
+  const int tma = hd % 8 == 0 && is16(q) && is16(k) && is16(v);
+  const Args p{q, k, v, o, lse, b, h, hkv, s, hd, scale, causal, window, softcap, tma};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16) {
-    if (hd <= 64) err = tc::launch<64>(p, st);
-    else if (hd <= 80) err = tc::launch<80>(p, st);
-    else if (hd <= 128) err = tc::launch<128>(p, st);
-    else err = tc::launch<256>(p, st);
+    if (hd <= 64) err = wg::launch<64>(p, st);
+    else if (hd <= 128) err = wg::launch<128>(p, st);
+    else err = wg::launch<256>(p, st);
   } else if (dtype == kF32) {
     if (hd <= 64) err = simt::launch<64, 64>(p, st);
     else if (hd <= 80) err = simt::launch<80, 64>(p, st);

@@ -52,11 +52,10 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
-
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ssp {
 namespace qtile {
@@ -221,6 +220,7 @@ cudaError_t launch(const Args& p, int splits, cudaStream_t s) {
 
 // ---------------------------------------------------------------- bf16 ----
 namespace wg {
+using namespace ::ssp::hopper;
 using T = __nv_bfloat16;
 constexpr int BK = 64;                  // K rows per stage (stored rows for int4)
 constexpr int W_BOX = BK * 128;         // one weight box: 64 rows x 128 bytes
@@ -231,7 +231,6 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 // Registers per thread at launch that let setmaxnreg move CONSUMER_REGS to
 // both consumer warpgroups from what the producer gives up.
 constexpr int LAUNCH_REGS = (PRODUCER_THREADS * PRODUCER_REGS + 256 * CONSUMER_REGS + THREADS - 1) / THREADS;
-constexpr long long WAIT_LIMIT_CYCLES = 1LL << 35;  // ~18 s: a stuck pipeline traps, never hangs
 
 template <int BITS, int BN>
 struct Cfg {
@@ -251,159 +250,6 @@ __host__ __device__ constexpr int block_cols() {
 
 // Activation rows of one tile (wgmma's N) for m rows.
 inline int act_tile(int m) { return m <= 16 ? 16 : m <= 32 ? 32 : m <= 64 ? 64 : 128; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of (row, byte col) in a tile of 128-byte rows, 128-byte swizzled
-// as TMA writes it (16-byte chunk index XOR row % 8; tiles are 1024-aligned).
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * 128 + ((((col >> 4) ^ (row & 7)) << 4) | (col & 15));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait for the completion of the barrier's phase with this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = clock64();
-    else if (clock64() - start > WAIT_LIMIT_CYCLES)
-      __trap();
-  }
-}
-
-// 2D TMA load of the box at (c0 inner, c1 outer) into dst; completes on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accesses of an accumulator register across
-// the wgmma fences and waits around it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory descriptor of a K-major bf16 tile of 128-byte rows, 128-byte
-// swizzle: 8-row groups 1024 bytes apart. Advancing K by 16 inside the
-// swizzle atom adds 32 bytes to the start address.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// D[64, N] += A[64, 16] (bf16 fragments in registers) * B[16, N] (shared memory).
-__device__ __forceinline__ void wgmma_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma(float (&d)[BN / 2], const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (BN == 16) wgmma_n16(d, a, desc);
-  if constexpr (BN == 32) wgmma_n32(d, a, desc);
-  if constexpr (BN == 64) wgmma_n64(d, a, desc);
-  if constexpr (BN == 128) wgmma_n128(d, a, desc);
-}
 
 // bf16x2 of two int8 codes: byte j of qa (low half) and of qb, where q = raw ^ 0x80808080.
 // 0x4B000000 | u is the float 2^23 + u, so subtracting 2^23 + 128 leaves u - 128.
@@ -494,7 +340,7 @@ __device__ void fill_stage(const Args& p, unsigned char* st, int m0, int n0, int
       wst[box * W_BOX + swz(row, tid)] =
           r + row < k_rows && gc < p.n ? static_cast<unsigned char>(src[(size_t)(r + row) * p.n]) : 0;
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
 }
 
 // Store the columns this thread holds: the pair's SwiGLU, the scaled output
@@ -590,7 +436,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&full[s], p.tma ? 1 : PRODUCER_THREADS);
       mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -639,8 +485,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int half = 0; half < C::NX; ++half) {
         const uint64_t desc = smem_desc(xs + half * C::X_TILE + kk * 32);
-        wgmma<BN>(acc[0], frag[kk & 1][half][0], desc);
-        wgmma<BN>(acc[1], frag[kk & 1][half][1], desc);
+        wgmma_rs<0>(acc[0], frag[kk & 1][half][0], desc, 1);
+        wgmma_rs<0>(acc[1], frag[kk & 1][half][1], desc, 1);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -653,45 +499,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   fence_regs(acc[1]);
   const int nb = n0 + (PAIR ? 64 * wgi + 16 * warp + 2 * g : 128 * wgi + 32 * warp + 4 * g);
   store_tile<PAIR, BN>(p, acc, m0, nb, t);
-}
-
-// ------------------------------------------------------------------ host ----
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda link).
-inline EncodeTiled encode_tiled() {
-  static std::atomic<EncodeTiled> cached{nullptr};
-  EncodeTiled fn = cached.load(std::memory_order_acquire);
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-    cached.store(fn, std::memory_order_release);
-  }
-  return fn;
-}
-
-// A 2D tensor map [outer, inner] with rows row_bytes apart, boxes of
-// box_inner x box_outer elements landing 128-byte swizzled, zeros outside.
-inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-                   uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer}, elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // True when every operand meets TMA's alignment (16-byte bases and row strides).
@@ -708,24 +515,17 @@ cudaError_t launch_bn(Args p, int splits, cudaStream_t s) {
   static std::atomic<unsigned long long> smem_allowed{0};
   cudaError_t err = allow_max_dynamic_smem(kern, smem_allowed);
   if (err != cudaSuccess) return err;
-  // setmaxnreg only redistributes the registers the block was launched with:
-  // fewer than LAUNCH_REGS per thread and the consumers would wait forever.
   static std::atomic<int> regs_checked{0};
-  if (regs_checked.load(std::memory_order_acquire) == 0) {
-    cudaFuncAttributes attr{};
-    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return err;
-    if (attr.numRegs < LAUNCH_REGS) return cudaErrorInvalidConfiguration;
-    regs_checked.store(1, std::memory_order_release);
-  }
+  if ((err = check_launch_regs(kern, LAUNCH_REGS, regs_checked)) != cudaSuccess) return err;
   CUtensorMap mx0{}, mx1{}, mw0{}, mw1{};
   if (p.tma) {
     const int kx = BITS == 4 ? p.k / 2 : p.k, k_rows = kx;
     const T* x = static_cast<const T*>(p.x);
-    bool ok = encode(&mx0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, kx, p.m, 2ull * p.k, BK, BN) &&
-              (BITS == 8 || encode(&mx1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x + p.k / 2, kx, p.m,
+    bool ok = encode_2d(&mx0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, kx, p.m, 2ull * p.k, BK, BN) &&
+              (BITS == 8 || encode_2d(&mx1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x + p.k / 2, kx, p.m,
                                    2ull * p.k, BK, BN)) &&
-              encode(&mw0, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.n, k_rows, p.n, 128, BK) &&
-              (!PAIR || encode(&mw1, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w1, p.n, k_rows, p.n, 128, BK));
+              encode_2d(&mw0, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, p.n, k_rows, p.n, 128, BK) &&
+              (!PAIR || encode_2d(&mw1, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w1, p.n, k_rows, p.n, 128, BK));
     // The shapes passed tma_ok: an encoder that cannot be found or refuses them
     // is an error, never a quiet switch to the element-load producer.
     if (!ok) return cudaErrorNotSupported;

@@ -13,15 +13,16 @@ the scaled logits before the mask. fp32 logits and softmax, ``p`` rounded to
 ``v``'s dtype before the second product.
 
 On the card the forward launches ``csrc/flash_attention.cu`` (one kernel
-walking 64-key tiles with an online softmax; bf16 on the tensor cores, fp32
-in exact fp32). What bounds it: ``4 * hd`` operations per unmasked (query,
-key) pair against q, k, v and o moved once, so it is operations-bound at
-every LLM shape. Under autograd (a tensor that requires grad, grad mode on)
-the call goes through ``_FlashAttention``: the forward also stores each row's
-fp32 log-sum-exp, and the backward launches the two kernels of
-``csrc/flash_attention_bwd.cu`` (dq with delta = rowsum(dout * out), then dk
-and dv summed over each query group in-kernel; ``10 * hd`` operations per
-pair). Without grad the forward passes no lse pointer and runs as before.
+walking 64-key tiles with an online softmax; bf16 on Hopper's wgmma with TMA
+loads and the softmax in registers, fp32 in exact fp32 on SIMT). What bounds
+it: ``4 * hd`` operations per unmasked (query, key) pair against q, k, v and
+o moved once, so it is operations-bound at every LLM shape. Under autograd
+(a tensor that requires grad, grad mode on) the call goes through
+``_FlashAttention``: the forward also stores each row's fp32 log-sum-exp, and
+the backward launches the two kernels of ``csrc/flash_attention_bwd.cu`` (dq
+with delta = rowsum(dout * out), then dk and dv summed over each query group
+in-kernel; ``10 * hd`` operations per pair). Without grad the forward passes
+no lse pointer and runs as before.
 
 On a CPU tensor the forward runs ``flash_attention_plain`` (``sdpa_reference``
 on repeated K/V) and the backward ``flash_attention_backward_plain``; a CUDA
@@ -39,6 +40,51 @@ from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
 
 MAX_HEAD_DIM = 256  # the largest head_dim tile the kernels are built for
+
+# Limits of ``flash_errors`` per dtype: relative RMS error of the whole
+# tensor, of the worst 64-row tile, and the absolute RMS error allowed beside
+# both (values that cancel to about 0, such as early rows of dq, or all of dq
+# under a window of 1). Set 3.4x or more above the largest errors that the
+# bf16 kernels on wgmma and the WMMA ones before them reach
+# (scripts/torch_flash_errors.py; PERF.md, flash findings).
+FLASH_LIMITS = {torch.float32: (1e-5, 1e-4, 3e-6), torch.bfloat16: (1e-2, 3e-2, 1e-4)}
+FLASH_TILE = 64  # rows of a tile: a query tile of q, out and dq, a key tile of dk and dv
+
+
+def flash_errors(got: torch.Tensor, plain: torch.Tensor) -> Tuple[float, float]:
+    """(whole-tensor, worst-tile) error of a flash kernel's output or gradient
+    [..., s, hd] against its plain version: rms(got - plain) over
+    rms(plain) + atol / rtol (``FLASH_LIMITS`` of got's dtype), for the whole
+    tensor and for every tile of ``FLASH_TILE`` rows of every leading index.
+    Each passes at <= its rtol, which is allclose(rms(diff), rms(plain)).
+
+    The scaled error every kernel check uses, max |diff| / max(1, max |plain|),
+    is blind here: with random q, k, v at head_dim 128 a causal row i's outputs
+    are about sqrt(e / (i + 1)) while row 0 (= v[0]) sets the scale, so a late
+    query tile written as zeros, or another head's rows, would pass it. The
+    tile error sees every tile."""
+    rtol, tile_rtol, atol = FLASH_LIMITS[got.dtype]
+    ref = plain.float()
+    diff = got.float() - ref
+    rel = (diff.pow(2).mean().sqrt() / (ref.pow(2).mean().sqrt() + atol / rtol)).item()
+    s = ref.shape[-2]
+    pad = (-s) % FLASH_TILE
+    tiles = ref.shape[:-2] + ((s + pad) // FLASH_TILE, FLASH_TILE * ref.shape[-1])
+    rows = torch.nn.functional.pad(torch.ones(s, device=ref.device), (0, pad))
+    count = rows.view(-1, FLASH_TILE).sum(-1) * ref.shape[-1]
+
+    def tile_ms(x):  # mean square of each tile's real rows
+        return torch.nn.functional.pad(x.pow(2), (0, 0, 0, pad)).reshape(tiles).sum(-1) / count
+
+    tile = (tile_ms(diff).sqrt() / (tile_ms(ref).sqrt() + atol / tile_rtol)).max().item()
+    return rel, tile
+
+
+def flash_agrees(got: torch.Tensor, plain: torch.Tensor) -> bool:
+    """Both ``flash_errors`` within their ``FLASH_LIMITS``."""
+    rtol, tile_rtol, _ = FLASH_LIMITS[got.dtype]
+    rel, tile = flash_errors(got, plain)
+    return rel <= rtol and tile <= tile_rtol
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -407,6 +407,86 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_hold_every_row_on_the_card(cuda_device, dtype):
+    """The flash forward, and its backward under autograd, against the plain
+    versions by both ``flash_errors`` criteria (and the scaled error) at head
+    dims 20-256, s = 1 to 257, query groups of 1, 4 and 8, windows that empty
+    whole key tiles, softcap and q one element off 16 bytes (the element-load
+    producer); the same bits on a second run and one launch per call. Then the
+    criteria's teeth at the Llama-2-7B shape: a copy of the plain output with
+    a late query tile zeroed, and one with two heads swapped, is rejected, and
+    so are such copies of dq, dk and dv."""
+    from ssp_x_vit_tpu_torch.ops.attention import flash_attention
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+
+    def off16(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view_as(t)
+        out.copy_(t)
+        return out
+
+    def check(got, ref):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err / max(1.0, ref.float().abs().max().item()) <= tol, err
+        assert tfa.flash_agrees(got, ref), tfa.flash_errors(got, ref)
+
+    cases = [  # b, h, hkv, s, hd, causal, window, softcap
+        (1, 8, 1, 63, 20, True, None, None),
+        (2, 4, 1, 65, 32, True, 16, None),
+        (1, 4, 4, 129, 40, False, None, 30.0),
+        (1, 8, 2, 257, 64, True, 100, None),
+        (1, 4, 4, 1, 80, True, None, None),
+        (2, 8, 8, 257, 128, True, None, 50.0),
+        (1, 4, 1, 129, 256, True, 64, 50.0),
+        (1, 2, 2, 65, 128, False, None, None),
+    ]
+    for b, h, hkv, s, hd, causal, window, softcap in cases:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        q, k, v, g = rn(b, h, s, hd), rn(b, hkv, s, hd), rn(b, hkv, s, hd), rn(b, h, s, hd)
+        ref = tfa.flash_attention_plain(q, k, v, **kw)
+        before = dict(launch_counts)
+        got = flash_attention(q, k, v, **kw)
+        assert launch_counts["flash_attention"] - before["flash_attention"] == 1
+        check(got, ref)
+        assert torch.equal(flash_attention(q, k, v, **kw), got)
+        check(flash_attention(off16(q), k, v, **kw), ref)
+        refs = tfa.flash_attention_backward_plain(q, k, v, g, **kw)
+        runs = []
+        for make_q in (q.clone, q.clone, lambda: off16(q)):
+            leaves = [make_q().requires_grad_(), k.clone().requires_grad_(), v.clone().requires_grad_()]
+            before = dict(launch_counts)
+            runs.append(torch.autograd.grad(flash_attention(*leaves, **kw), leaves, g))
+            for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+                assert launch_counts[name] - before[name] == 1, name
+        for grads in runs:  # twice aligned, then q off 16 bytes
+            for a, r in zip(grads, refs):
+                check(a, r)
+        for a, again in zip(runs[0], runs[1]):
+            assert torch.equal(a, again)
+
+    # the criteria's teeth at the Llama-2-7B shape (also phase_flash_backward's first)
+    q, k, v, g = (rn(1, 32, 2048, 128) for _ in range(4))
+    plain = [tfa.flash_attention_plain(q, k, v, causal=True),
+             *tfa.flash_attention_backward_plain(q, k, v, g, causal=True)]
+    for ref in plain:
+        zeroed, swapped = ref.clone(), ref.clone()
+        zeroed[:, :, 1920:1984] = 0
+        swapped[:, [0, 1]] = ref[:, [1, 0]]
+        assert tfa.flash_agrees(ref.clone(), ref)
+        assert not tfa.flash_agrees(zeroed, ref)
+        assert not tfa.flash_agrees(swapped, ref)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,tol", [("float32", 1e-4), ("bfloat16", 3e-2), ("int8", 3e-2)])
 def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
     """Rows 7-9 at small ragged shapes (4D and 5D pools, GQA groups of 1, 3
