@@ -8,11 +8,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions; TF32 off.
 2. build    nvcc-builds every kernel source of the port in parallel; ptxas's
             registers and spills per kernel ([BUILD] lines, one per bf16
-            flash instantiation).
+            flash instantiation and per bf16 ViT GEMM and attention-core
+            instantiation).
 3. kernels  every hand-written kernel against its plain PyTorch version on the
             card, fp32 and bf16: the ViT block kernels at ViT-B/16, ViT-Ti/16, a
             pruned FFN width and the ``vit_procgen`` shapes, gates {0, 0.5, 1},
-            with and without a neuron mask; ``flash_attention`` at the
+            with and without a neuron mask (their plain versions launch no
+            kernel); the attention core alone against ``sdpa_reference`` by
+            ``flash_errors`` at the ViT-B/16, ViT-Ti/16, ``vit_procgen`` and
+            s=257 shapes, with the criteria's teeth (the ragged last query
+            tile zeroed, two heads swapped); the ViT GEMM at its edge shapes
+            (1-12608 rows, K 682, N 250 and 2305, A off 16 bytes, each
+            epilogue with the stats, the same bits twice); ``flash_attention`` at the
             Llama-2-7B (b=1, and b=8 as the 2SSP candidate search runs it),
             Mistral-7B (GQA + window), ``code_llm_small`` and ragged shapes
             (head_dim 32 to 256, softcap); its lse output and the backward
@@ -182,6 +189,7 @@ def phase_kernels(device) -> dict:
 
     from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
     from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ffk
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -207,8 +215,12 @@ def phase_kernels(device) -> dict:
             for gate_val in (0.0, 0.5, 1.0):
                 gate = torch.full((), gate_val, dtype=torch.float32, device=device)
                 got = wrapper(*args, heads, gate=gate)
+                flash_before = launch_counts["flash_attention"]
                 ref = plain(*args, heads, gate=gate)
                 torch.cuda.synchronize()
+                if launch_counts["flash_attention"] != flash_before:
+                    raise AssertionError(f"{name}_plain launched the flash kernel: the plain "
+                                         f"version must be plain PyTorch")
                 if gate_val == 0.0:
                     if not torch.equal(got, inp["x"]):
                         raise AssertionError(f"{name} gate=0 is not the identity residual")
@@ -405,6 +417,99 @@ def check_vit_block_gradients(device) -> None:
             raise AssertionError(f"{name} under autograd returned instead of raising")
 
 
+def check_vit_core(device) -> None:
+    """The attention core alone (``build.attention``, csrc/attention.cu) against
+    ``attention_core_plain`` (``sdpa_reference`` per head) on the same fused
+    QKV buffer, by ``flash_errors`` on the [b, h, s, hd] views and the scaled
+    error, at the ViT-B/16, ViT-Ti/16 and ``vit_procgen`` shapes (b=64) and at
+    s=257 (two passes over the keys), fp32 and bf16; the criteria must reject
+    a copy of the plain output with the ragged last query tile of each image
+    zeroed and one with two heads swapped."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    for label, b, s, heads, hd in (("ViT-B/16", 64, 197, 12, 64), ("ViT-Ti/16", 64, 197, 3, 64),
+                                   ("vit_procgen", 64, 65, 4, 64), ("s=257", 4, 257, 12, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            d = heads * hd
+            qkv = torch.randn(b * s, 3 * d, generator=gen, device=device).to(dtype)
+            got = build.attention(qkv, torch.empty(b * s, d, device=device, dtype=dtype), b, s,
+                                  heads, hd, hd ** -0.5)
+            ref = fab.attention_core_plain(qkv, b, s, heads)
+            torch.cuda.synchronize()
+            what = f"attention core {label} b={b} s={s} heads={heads} hd={hd}"
+            err, rel = scaled_err(got, ref)
+            if rel > TOL[dn]:
+                raise AssertionError(f"{what} {dn}: scaled error {rel:.3e} > {TOL[dn]}")
+            got_v, ref_v = fab.head_view(got, b, s, heads), fab.head_view(ref, b, s, heads)
+            whole, tile = flash_check(what, got_v, ref_v, dn)
+            log(f"[KERNEL] {what} {dn} vs sdpa_reference: max_abs_err={err:.3e} scaled={rel:.3e} "
+                f"whole={whole:.3e} tile={tile:.3e} ok")
+            check_flash_teeth(what, ref_v, dn, start=(s - 1) // 64 * 64)  # the ragged last tile
+
+
+def check_vit_gemm_edges(device) -> None:
+    """The ViT block GEMM (``build.gemm``, csrc/gemm.cu) against ``gemm_plain``
+    where its tiles change course: M = 1, 197, 300, 12608 (split-K at the
+    small ones), (K, N) = (192, 576), (768, 2305), (682, 250) (element loads
+    where K or N is not a multiple of 8), A one element off 16 bytes; each
+    epilogue, GELU with the mask and the stats; the output's bits equal on a
+    second launch without stats. fp32 and bf16."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+    from ssp_x_vit_tpu_torch.ops.kernels.fused_ffn import gemm_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+
+        def rn(*shape, std=1.0, offset=0):
+            numel = 1
+            for n_ in shape:
+                numel *= n_
+            t = (torch.randn(numel + offset, generator=gen, device=device) * std).to(dtype)
+            return t[offset:].view(*shape)
+
+        worst, worst_stats = 0.0, 0.0
+        for m in (1, 197, 300, 12608):
+            seq = 197 if m % 197 == 0 else 25 if m % 25 == 0 else m
+            for k, n in ((192, 576), (768, 2305), (682, 250)):
+                w, bias = rn(k, n, std=k ** -0.5), rn(n, std=0.1)
+                resid, gate = rn(m, n), torch.full((), 0.5, device=device)
+                mask = (torch.rand(n, generator=gen, device=device) > 0.3).float()
+                for offset in (0, 1):
+                    a = rn(m, k, offset=offset)
+                    for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_GELU, dict(mask=mask)),
+                                    (build.EPI_RESIDUAL, dict(resid=resid, gate=gate))):
+                        stats = (torch.empty(m // seq, n, device=device)
+                                 if epi == build.EPI_GELU else None)
+                        got = build.gemm(a, w, torch.empty(m, n, device=device, dtype=dtype), epi,
+                                         bias=bias, stats=stats, seq=seq, **kw)
+                        again = build.gemm(a, w, torch.empty_like(got), epi, bias=bias, seq=seq, **kw)
+                        ref, ref_stats = gemm_plain(a, w, epi, bias=bias, seq=seq,
+                                                    collect_stats=stats is not None, **kw)
+                        torch.cuda.synchronize()
+                        what = f"gemm m={m} k={k} n={n} epi={epi} off16={offset} {dn}"
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{what}: a second launch gave other bits")
+                        rel = scaled_err(got, ref)[1]
+                        s_rel = 0.0 if stats is None else (
+                            (stats - ref_stats).abs().max().item() / ref_stats.abs().max().item())
+                        if rel > TOL[dn] or s_rel > TOL[dn]:
+                            raise AssertionError(f"{what}: scaled error {rel:.3e}, stats {s_rel:.3e}")
+                        worst, worst_stats = max(worst, rel), max(worst_stats, s_rel)
+        log(f"[KERNEL] gemm edges {dn} (M 1/197/300/12608, (K, N) (192, 576) / (768, 2305) / "
+            f"(682, 250), A off 16 bytes, bias / gelu+mask+stats / residual, same bits twice): "
+            f"scaled={worst:.3e} stats_rel={worst_stats:.3e} tol={TOL[dn]} ok")
+
+
 def drive_ffn_forward(device) -> int:
     """The op-level FFN entry (``ops.ffn.ffn_forward``, the counterpart of the
     JAX package's dispatching ``ffn_forward``) on CUDA tensors at the ViT-B/16
@@ -489,19 +594,22 @@ def flash_check(label, got, ref, dn) -> tuple:
     return rel, tile
 
 
-def check_flash_teeth(label, ref, dn) -> None:
+def check_flash_teeth(label, ref, dn, start=None) -> None:
     """The flash criteria reject a copy of the plain result ``ref`` [b, h, s, hd]
-    with one late 64-row query tile zeroed, and one with two heads swapped;
-    logs what the scaled error alone says of the same copies."""
+    with one 64-row query tile zeroed (a late one, or the one from row
+    ``start``), and one with two heads swapped; logs what the scaled error
+    alone says of the same copies."""
     from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import flash_agrees
 
     s = ref.shape[2]
-    start = max(0, (s // 64 - 2) * 64)
+    if start is None:
+        start = max(0, (s // 64 - 2) * 64)
     zeroed = ref.clone()
     zeroed[:, :, start:start + 64] = 0
     swapped = ref.clone()
     swapped[:, [0, 1]] = ref[:, [1, 0]]
-    for what, bad in ((f"query rows {start}-{start + 63} zeroed", zeroed), ("heads 0 and 1 swapped", swapped)):
+    for what, bad in ((f"query rows {start}-{min(s, start + 64) - 1} zeroed", zeroed),
+                      ("heads 0 and 1 swapped", swapped)):
         if flash_agrees(bad, ref):
             raise AssertionError(f"flash criteria accept {label} {dn} with {what}")
         log(f"[KERNEL] flash criteria reject {label} {dn} with {what} (scaled error alone: "
@@ -1257,7 +1365,8 @@ def time_llm_parts(device) -> None:
 def time_kernel_parts(device, b: int, dtype) -> None:
     """Time each C entry point the block wrappers launch (LayerNorm, the four
     GEMMs with their epilogues, the attention core) at ViT-B/16 shapes, on the
-    inputs of phase 3's kind, beside ``torch.mm`` (fc1) and SDPA (the core)."""
+    inputs of phase 3's kind, beside ``torch.mm`` at each GEMM's shape and SDPA
+    (the core)."""
     import torch
     import torch.nn.functional as F
 
@@ -1295,7 +1404,10 @@ def time_kernel_parts(device, b: int, dtype) -> None:
         ("fc2 gemm (+gated residual)", 2 * m * d * f,
          lambda: build.gemm(h, ffn["fc2_kernel"], out, build.EPI_RESIDUAL,
                             bias=ffn["fc2_bias"], resid=x, gate=gate)),
+        ("library torch.mm qkv", 2 * m * d * 3 * d, lambda: torch.mm(y.view(m, d), att["qkv_kernel"])),
+        ("library torch.mm proj", 2 * m * d * d, lambda: torch.mm(o, att["proj_kernel"])),
         ("library torch.mm fc1", 2 * m * d * f, lambda: torch.mm(y.view(m, d), ffn["fc1_kernel"])),
+        ("library torch.mm fc2", 2 * m * d * f, lambda: torch.mm(h, ffn["fc2_kernel"])),
         ("library sdpa core", 4 * b * heads * s * s * hd,
          lambda: F.scaled_dot_product_attention(*qkv.view(b, s, 3, heads, hd).permute(2, 0, 3, 1, 4))),
     ]
@@ -2573,6 +2685,36 @@ def flash_build_summary(build_log) -> list:
     return lines
 
 
+def vit_build_summary(build_log) -> list:
+    """One [BUILD] line per bf16 wgmma instantiation of the ViT block kernels:
+    the GEMM (tile width, TMA or element loads, epilogue kind) and the
+    attention core (head_dim tile, key chunks in registers, 0 = two passes):
+    ptxas's registers and spill bytes."""
+    import re
+
+    kinds = {"0": "bias", "1": "gelu", "2": "gelu+stats", "3": "residual", "4": "any"}
+    lines = []
+    for source in ("gemm", "attention"):
+        entry, spill = "", ""
+        for line in build_log.get(source, "").splitlines():
+            if "Compiling entry function" in line:
+                entry, spill = (line.split("'")[1] if "'" in line else ""), ""
+            elif "spill stores" in line:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                g = re.search(r"gemm_kernelILi(\d+)ELb(\d)ELi(\d)E", entry)
+                c = re.search(r"core_kernelILi(\d+)ELi(\d)E", entry)
+                if g and regs:
+                    lines.append(f"[BUILD] vit gemm bf16 128x{g.group(1)} "
+                                 f"{'tma' if g.group(2) == '1' else 'element loads'} "
+                                 f"{kinds[g.group(3)]}: {regs.group(1)} registers; {spill}")
+                elif c and regs:
+                    lines.append(f"[BUILD] vit attention core bf16 head_dim tile {c.group(1)} "
+                                 f"key chunks {c.group(2)}: {regs.group(1)} registers; {spill}")
+    return lines
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (takes no arguments)", file=sys.stderr)
@@ -2611,7 +2753,7 @@ def main() -> int:
                 entry = line.split("'")[1] if "'" in line else ""
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[BUILD] {name} {entry}: {line.strip()}")
-    for line in flash_build_summary(build.build_log):
+    for line in flash_build_summary(build.build_log) + vit_build_summary(build.build_log):
         log(line)
 
     phase_t0 = time.perf_counter()
@@ -2625,6 +2767,8 @@ def main() -> int:
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
 
     records = phase_kernels(device)
+    check_vit_core(device)
+    check_vit_gemm_edges(device)
     check_vit_block_gradients(device)
     records.update(phase_llm_kernels(device))
     records.update(phase_flash_backward(device))

@@ -73,6 +73,19 @@ cudaError_t allow_max_dynamic_smem(Kernel kernel, std::atomic<unsigned long long
   return err;
 }
 
+// allow_max_dynamic_smem, and the largest shared-memory carveout: a kernel
+// whose blocks share an SM needs it, since the carveout the driver picks by
+// default may hold only one of them.
+template <typename Kernel>
+cudaError_t allow_shared_blocks(Kernel kernel, std::atomic<unsigned long long>& done) {
+  const int device = current_device();
+  if (device >= 0 && (done.load(std::memory_order_acquire) & (1ull << device))) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  return err != cudaSuccess ? err : allow_max_dynamic_smem(kernel, done);
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

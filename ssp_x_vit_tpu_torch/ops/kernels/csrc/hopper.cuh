@@ -1,15 +1,19 @@
 // Hopper (sm_90a) building blocks of the wgmma + TMA pipelines:
 // csrc/qgemm_tile.cuh (the dequant GEMM tiles) and the bf16 kernels of
-// csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.
+// csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, csrc/gemm.cu and
+// csrc/attention.cu.
 //
 //   - shared-memory addresses, the 128-byte swizzle as TMA writes it;
 //   - mbarriers: init, arrive, arrive with an expected byte count, and a
 //     wait that traps after ~2^35 cycles (~18 s) instead of hanging the card;
 //   - TMA tile loads (2D and 3D) that complete on an mbarrier;
+//   - the 4 x 4 exchange of 32-bit values within a quad (16-byte stores
+//     and loads of an accumulator's rows);
 //   - wgmma: fence / commit / wait, shared-memory descriptors (K-major, and
 //     MN-major for a B operand read transposed), the products
 //     m64nNk16 bf16 -> fp32 with A in registers (wgmma_rs, N = 16..256) or in
-//     shared memory (wgmma_ss, N = 32 and 64);
+//     shared memory (wgmma_ss, N = 32 and 64; N = 128 and 256 with B K- or
+//     MN-major);
 //   - on the host: cuTensorMapEncodeTiled looked up from the driver (no
 //     -lcuda link), 2D and 3D tensor maps with a 128-byte swizzle, and the
 //     launch-register check that setmaxnreg needs.
@@ -184,6 +188,29 @@ __device__ __forceinline__ void fill_rows(const void* src, unsigned char* dst, i
       *reinterpret_cast<__nv_bfloat16*>(col + swz(r, (c % 64) * 2)) = v;
     }
   }
+}
+
+// Lane t of a quad holds v[k] = (pair k) of its own; afterwards it holds pair
+// t of quad lane k in v[k] (a 4 x 4 transpose of 32-bit values by shuffles).
+// Every index is a constant or a select: a register array indexed by the
+// lane would live in local memory.
+__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[4], int k) {
+  return k == 0 ? v[0] : k == 1 ? v[1] : k == 2 ? v[2] : v[3];
+}
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  const int base = (threadIdx.x & 31) & ~3;
+  uint32_t out[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = v[k];  // out[t] = v[t] stays; the rest is replaced
+#pragma unroll
+  for (int r = 1; r < 4; ++r) {
+    const int from = (t + r) & 3;
+    const uint32_t got = __shfl_sync(0xffffffffu, pick(v, (t - r) & 3), base | from);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = k == from ? got : out[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = out[k];
 }
 
 // Store a warpgroup's fp32 accumulator (64 rows x 2N columns, this thread's
@@ -432,6 +459,91 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64, 128] (+)= A[64, 16] B[16, 128] with A and B in shared memory: A
+// K-major, B K-major (TRANS_B = 0) or MN-major (1, e.g. a tile of a row-major
+// [K, N] weight read as it lies; smem_desc_mn).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same at N = 256.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, "
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // ------------------------------------------------------------------ host ----

@@ -24,13 +24,15 @@ What bounds it: at ViT-B (b=64, s=197, d=768, 12 heads) the block is ~67 GFLOP
 (QKV and projection 89%, attention core 11%) over ~40 MB of activations,
 compute-bound on the tensor cores in bf16 (~68 us at 989 TFLOP/s). The design
 keeps weights and activations in the operand dtype, runs the two projections
-as pipelined tensor-core GEMMs and the core with tensor-core QK^T and PV,
-staging each head's K/V once per 64-query tile in shared memory. The LN
+as wgmma GEMMs fed by TMA, and the core with wgmma QK^T and PV, each head's
+K and V read from device memory once and the softmax in registers. The LN
 output, q/k/v and the attention output each make one HBM round trip (~155 MB
 at that shape in bf16), which a later fused kernel can remove.
 
 On a CPU tensor each wrapper runs its plain version below (the XLA-branch math
-of ``models/vit.py:_block_apply``); a CUDA tensor always launches or raises.
+of ``models/vit.py:_block_apply``, with the plain core ``sdpa_reference`` on
+every device, so the plain version launches no kernel); a CUDA tensor always
+launches or raises.
 The kernels have no backward, as the Pallas kernels have no JVP rule: on a
 CUDA tensor under autograd (grad mode on and an input that requires a
 gradient) the wrappers raise; differentiate through
@@ -46,7 +48,7 @@ from typing import Union
 import torch
 
 from ssp_x_vit_tpu_torch.ops import dispatch
-from ssp_x_vit_tpu_torch.ops.attention import multi_head_attention
+from ssp_x_vit_tpu_torch.ops.attention import multi_head_attention, sdpa_reference
 from ssp_x_vit_tpu_torch.ops.common import layer_norm
 from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
 
@@ -57,9 +59,27 @@ SMEM_LIMIT_BYTES = 232_448  # per-block dynamic shared memory on the H100 (227 K
 
 def _attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
                       num_heads, eps, gate):
+    # The plain core on every device (``sdpa_reference``: fp32 logits and
+    # softmax, P rounded to the operand dtype before P @ V, as the Pallas
+    # kernels round it), so the plain version launches no kernel of this
+    # package and a card check holds the kernels against plain PyTorch.
     attn = multi_head_attention(layer_norm(x, ln_scale, ln_bias, eps), qkv_kernel, qkv_bias,
-                                proj_kernel, proj_bias, num_heads)
+                                proj_kernel, proj_bias, num_heads, use_flash=False)
     return x + dispatch.apply_gate(attn, gate)
+
+
+def head_view(t: torch.Tensor, b: int, s: int, num_heads: int) -> torch.Tensor:
+    """[b*s, d] (heads side by side on the last axis) -> the [b, h, s, hd] view."""
+    return t.reshape(b, s, num_heads, -1).permute(0, 2, 1, 3)
+
+
+def attention_core_plain(qkv: torch.Tensor, b: int, s: int, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the attention core (``build.attention``) on the
+    fused QKV buffer [b*s, 3d]: ``sdpa_reference`` per head (fp32 logits and
+    full-row softmax, P rounded to the operand dtype before P @ V); [b*s, d]."""
+    d = qkv.shape[-1] // 3
+    q, k, v = (head_view(t, b, s, num_heads) for t in qkv.split(d, dim=-1))
+    return sdpa_reference(q, k, v).permute(0, 2, 1, 3).reshape(b * s, d)
 
 
 def fused_attn_block_v2_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,

@@ -49,6 +49,29 @@ from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
 Gate = Union[None, float, torch.Tensor]
 
 
+def gemm_plain(a, w, epi, *, bias=None, resid=None, gate=None, mask=None, seq=1,
+               collect_stats=False):
+    """Plain PyTorch version of one ``build.gemm`` launch: ``epilogue(a[m, k] @
+    w[k, n])`` in fp32, rounded to a's dtype once, as the kernel stores it.
+    ``epi`` is ``build.EPI_BIAS`` (+ bias), ``EPI_GELU`` (GELU of the biased sum,
+    stats = the sum of its squares over each image's ``seq`` rows in fp32
+    [m / seq, n] when ``collect_stats``, then times ``mask``) or ``EPI_RESIDUAL``
+    (``resid + gate * (sum + bias)``). Returns (out, stats or None)."""
+    v = a.float() @ w.float()
+    if bias is not None:
+        v = v + bias.float()
+    stats = None
+    if epi == build.EPI_GELU:
+        v = gelu(v)
+        if collect_stats:
+            stats = v.square().reshape(-1, seq, v.shape[-1]).sum(dim=1)
+        if mask is not None:
+            v = v * mask.float()
+    elif epi == build.EPI_RESIDUAL:
+        v = resid.float() + (1.0 if gate is None else gate.float()) * v
+    return v.to(a.dtype), stats
+
+
 def fused_ffn_plain(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, *,
                     neuron_mask=None, collect_stats=False):
     """Plain PyTorch version of :func:`fused_ffn` (the jnp ``ffn_forward`` math)."""

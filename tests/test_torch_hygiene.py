@@ -3,6 +3,7 @@ its entry points refuse to run without a GPU unless asked for the CPU, its
 kernel modules import without nvcc, and on a card the kernels agree with
 their plain versions (the ``cuda`` tests, skipped without one)."""
 
+import math
 import os
 import subprocess
 import sys
@@ -346,6 +347,73 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
                       ffk.fused_ffn_plain(x, *w, neuron_mask=mask, collect_stats=True))):
         check(got[0], ref[0])
         assert (got[1] - ref[1]).abs().max().item() <= tol * ref[1].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_vit_gemm_and_core_at_their_edges_on_the_card(cuda_device, dtype, tol):
+    """The ViT block GEMM (csrc/gemm.cu) against gemm_plain where its tiles
+    change course: M = 1, 197, 300 and 12608 rows (split-K at the small ones),
+    (K, N) = (192, 576), (768, 2305) and (682, 250) (element loads where K or
+    N is not a multiple of 8), an A one element off 16 bytes; each epilogue,
+    GELU with the mask and the stats over images of 197, 25 or 1 rows; the
+    same bits on a second launch without stats. The attention core
+    (csrc/attention.cu) against attention_core_plain at s = 1, 65, 197, 257
+    and 300 and head_dim 32, 64, 128 (fp32: where a head's K and V fit in
+    shared memory), by the scaled error and by flash_agrees on the
+    [b, h, s, hd] views. Tolerance on max |diff| /
+    max(1, max |plain|); stats on their own max."""
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import flash_agrees, flash_errors
+    from ssp_x_vit_tpu_torch.ops.kernels.fused_ffn import gemm_plain
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def rn(*shape, std=1.0, offset=False):
+        t = (torch.randn(math.prod(shape) + offset, generator=gen, device=cuda_device) * std).to(dtype)
+        return t[offset:].view(*shape)
+
+    def scaled(got, ref):
+        return (got.float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max().item())
+
+    for m in (1, 197, 300, 12608):
+        seq = 197 if m % 197 == 0 else 25 if m % 25 == 0 else m
+        for k, n in ((192, 576), (768, 2305), (682, 250)):
+            w, bias = rn(k, n, std=k ** -0.5), rn(n, std=0.1)
+            resid, gate = rn(m, n), torch.full((), 0.5, device=cuda_device)
+            mask = (torch.rand(n, generator=gen, device=cuda_device) > 0.3).float()
+            for offset in (False, True):
+                a = rn(m, k, offset=offset)
+                for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_GELU, dict(mask=mask)),
+                                (build.EPI_RESIDUAL, dict(resid=resid, gate=gate))):
+                    got = torch.empty(m, n, device=cuda_device, dtype=dtype)
+                    stats = torch.empty(m // seq, n, device=cuda_device) if epi == build.EPI_GELU else None
+                    build.gemm(a, w, got, epi, bias=bias, stats=stats, seq=seq, **kw)
+                    again = build.gemm(a, w, torch.empty_like(got), epi, bias=bias, seq=seq, **kw)
+                    ref, ref_stats = gemm_plain(a, w, epi, bias=bias, seq=seq,
+                                                collect_stats=stats is not None, **kw)
+                    what = f"m={m} k={k} n={n} epi={epi} off16={offset}"
+                    assert torch.equal(got, again), what
+                    assert scaled(got, ref) <= tol, (what, scaled(got, ref))
+                    if stats is not None:
+                        s_err = (stats - ref_stats).abs().max().item() / ref_stats.abs().max().item()
+                        assert s_err <= tol, (what, s_err)
+    b, heads = 2, 3
+    for s in (1, 65, 197, 257, 300):
+        for hd in (32, 64, 128):
+            if build.attention_smem_bytes(dtype, s, hd) > fab.SMEM_LIMIT_BYTES:
+                # the fp32 kernel holds a head's K and V in shared memory: past
+                # 227 KB (s >= 257 at head_dim 128) the wrappers refuse the shape
+                assert dtype == torch.float32 and hd == 128 and s >= 257, (s, hd)
+                continue
+            qkv = rn(b * s, 3 * heads * hd)
+            got = build.attention(qkv, torch.empty(b * s, heads * hd, device=cuda_device, dtype=dtype),
+                                  b, s, heads, hd, hd ** -0.5)
+            ref = fab.attention_core_plain(qkv, b, s, heads)
+            assert scaled(got, ref) <= tol, (s, hd, scaled(got, ref))
+            got_v, ref_v = (fab.head_view(t, b, s, heads) for t in (got, ref))
+            assert flash_agrees(got_v, ref_v), (s, hd, flash_errors(got_v, ref_v))
 
 
 @pytest.mark.cuda
