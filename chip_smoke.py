@@ -34,10 +34,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             projections, a ragged pruned K, the tile pipeline's edges (1-300
             rows, K = 682 and 8190, N = 250, an x one element off 16 bytes)
             and 16384 rows, the same bits on a second run; ``fused_mlp_int8``
-            at decode and prefill rows and the same edges; ``fused_ffn_block``
+            at decode and prefill rows and the same edges, and its bf16 weight
+            stream at every m from 1 to 16 at three widths; ``fused_ffn_block``
             under autograd (a grad_fn, gradients against the host CPU's) and
             the attention blocks raising under autograd; the paged
-            decode kernels. Times kernel, plain version and a PyTorch library
+            decode kernels (with the key-run edges of the split plan, the
+            same bits twice). Times kernel, plain version and a PyTorch library
             call with CUDA events, beside the data-sheet bound; then times each
             launch inside the wrappers ([PART] lines) beside ``torch.mm`` and
             SDPA. The op-level ``ops.ffn.ffn_forward`` is driven on the card
@@ -976,19 +978,19 @@ def phase_flash_backward(device) -> dict:
 
 
 def _paged_setup(gen, device, dtype, pool_kind, *, nq, nkv, hd, ps, lens, window=None,
-                 layers=None, layer=None):
+                 layers=None, layer=None, mp=None):
     """One decode step's operands at the given geometry: pools whose live rows
     are random (int8 pools: quantized random rows), a page table of shuffled
-    physical pages with room for one more token per sequence, lengths, window
-    starts, the new K/V rows and the query. ``layers``/``layer``: a 5D pool
-    with only that layer filled."""
+    physical pages with room for one more token per sequence (``mp`` columns
+    at least, the rest 0), lengths, window starts, the new K/V rows and the
+    query. ``layers``/``layer``: a 5D pool with only that layer filled."""
     import torch
 
     from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import quantize_token_kv
 
     b = len(lens)
     need = [-(-(n + 1) // ps) for n in lens]
-    mp, num_pages = max(need), 1 + sum(need)
+    mp, num_pages = max(need + [mp or 0]), 1 + sum(need)
     order = (1 + torch.randperm(num_pages - 1, generator=gen, device=device)).to(torch.int32)
     table = torch.zeros(b, mp, dtype=torch.int32, device=device)
     at = 0
@@ -1050,6 +1052,9 @@ def phase_paged_kernels(device) -> dict:
     gen.manual_seed(8)
     records = {}
     source = "ssp_x_vit_tpu_torch/ops/kernels/csrc/paged_attention.cu"
+    run = tpa.split_plan(8, 32, 32, 128, 64, 32, tpa._sm_count(device)).pages_per_split * 64
+    if 4 * run > 32 * 64:
+        raise AssertionError(f"runs of {run} keys leave no empty run after the window case")
     cases = [  # label, geometry, softcap, timed
         ("Llama-2-7B decode, ragged, layer 17 of an 18-layer pool (offsets past 2^31 elements)",
          dict(nq=32, nkv=32, hd=128, ps=64, lens=[1, 63, 64, 300, 777, 1024, 1500, 2047],
@@ -1066,6 +1071,14 @@ def phase_paged_kernels(device) -> dict:
         ("page size 512", dict(nq=6, nkv=2, hd=128, ps=512, lens=[1300, 511]), None, False),
         ("ragged group and page (rep 3, ps 12, head_dim 40)",
          dict(nq=6, nkv=2, hd=40, ps=12, lens=[0, 11, 12, 100], window=30), 30.0, False),
+        # the served table width (32 pages of 64) at b=8: 1, ps - 1, ps, ps + 1, a run - 1,
+        # a run, a run + 1 keys (a run: the split plan's pages of one block), and 2.5 runs
+        # of keys under a window of one run, which starts inside the second run: the
+        # first run is empty, and so is the fourth
+        ("split edges, served table width",
+         dict(nq=32, nkv=32, hd=128, ps=64, lens=[0, 62, 63, 64, run - 2, run - 1, run,
+                                                   2 * run + run // 2 - 1], mp=32, window=run),
+         None, False),
     ]
     variants = [("float32", torch.float32, "float"), ("bfloat16", torch.bfloat16, "float"),
                 ("bfloat16", torch.bfloat16, "int8")]  # an int8 cache computes in bf16
@@ -1089,15 +1102,22 @@ def phase_paged_kernels(device) -> dict:
             del k_ref, v_ref
             got = tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
                                       softcap, li)
+            again = tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
+                                        softcap, li)
             ref = tpa.paged_attention_plain(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
                                             softcap, li)
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"paged_attention {name}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged_attention {name}: two runs differ")
             err, rel = scaled_err(got, ref)
             tol = TOL["bfloat16"] if kind == "int8" else TOL[dn]
+            plan = tpa.split_plan(len(geo["lens"]), geo["nkv"], geo["nq"], geo["hd"], geo["ps"],
+                                  c["table"].shape[1], tpa._sm_count(device))
             log(f"[KERNEL] paged write (pools identical to the plain write) + attention {name}: "
-                f"max_abs_err={err:.3e} scaled={rel:.3e} tol={tol} ok")
+                f"max_abs_err={err:.3e} scaled={rel:.3e} tol={tol} ok (runs of "
+                f"{plan.pages_per_split} pages x {plan.splits}; same bits on a second run)")
             if rel > tol:
                 raise AssertionError(f"paged_attention {name}: scaled error {rel:.3e} > {tol}")
             if not (timed and dtype == torch.bfloat16):
@@ -1214,6 +1234,7 @@ def phase_fused_mlp(device) -> dict:
     cases = [  # label, m, d, f, timed
         ("Llama-2-7B decode b=1", 1, 4096, 11008, True),
         ("Llama-2-7B decode b=8", 8, 4096, 11008, True),
+        ("Llama-2-7B decode b=16", 16, 4096, 11008, True),
         ("Llama-2-7B, 2SSP-pruned f", 8, 4096, 8253, False),
         ("Llama-2-7B, 2SSP-pruned f, prefill rows", 300, 4096, 8253, False),
         ("Llama-2-7B prefill chunk", 300, 4096, 11008, True),
@@ -1311,7 +1332,46 @@ def phase_fused_mlp(device) -> dict:
                     flops=flops, bytes=nbytes)
         del ws, args
     torch.cuda.empty_cache()
+    check_fused_mlp_rows(device, gen)
     return records
+
+
+def check_fused_mlp_rows(device, gen) -> None:
+    """The bf16 weight stream (m <= 16) at every row count from 1 to 16, at the
+    Llama-2-7B MLP (the TMA producer), a 2SSP-pruned f = 8253 and the
+    ``code_llm_small`` width, x also one element off 16 bytes (the element-load
+    producer): within the bf16 limit of the plain version, the same bits twice."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_weight_int8
+    from ssp_x_vit_tpu_torch.ops.kernels import quant_fused_mlp as tfm
+
+    for label, d, f in (("Llama-2-7B", 4096, 11008), ("Llama-2-7B, 2SSP-pruned f", 4096, 8253),
+                        ("code_llm_small", 384, 1024)):
+        ws = [quantize_weight_int8(torch.randn(*shape, generator=gen, device=device)
+                                   * shape[0] ** -0.5)
+              for shape in ((d, f), (d, f), (f, d))]
+        args = [t for pair in ws for t in pair]
+        worst = 0.0
+        for m in range(1, 17):
+            x = torch.randn(m, d, generator=gen, device=device).bfloat16()
+            x_off = torch.empty(m * d + 1, device=device, dtype=torch.bfloat16)[1:].view(m, d)
+            x_off.copy_(x)
+            got, again = tfm.fused_mlp_int8(x, *args), tfm.fused_mlp_int8(x, *args)
+            off = tfm.fused_mlp_int8(x_off, *args)
+            ref = tfm.fused_mlp_int8_plain(x, *args)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(got.float()).all() and torch.equal(got, again)):
+                raise AssertionError(f"fused_mlp_int8 {label} m={m}: non-finite or two runs differ")
+            rel = max(scaled_err(got, ref)[1], scaled_err(off, ref)[1])
+            if rel > TOL["bfloat16"]:
+                raise AssertionError(f"fused_mlp_int8 {label} m={m} bf16: scaled error {rel:.3e}")
+            worst = max(worst, rel)
+        log(f"[KERNEL] fused_mlp_int8 weight stream {label} d={d} f={f} bf16, every m from 1 to 16 "
+            f"(x aligned and off 16 bytes): worst scaled error {worst:.3e} tol {TOL['bfloat16']} ok "
+            f"(same bits on a second run)")
+        del ws, args
+    torch.cuda.empty_cache()
 
 
 def time_llm_parts(device) -> None:

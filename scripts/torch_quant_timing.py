@@ -4,8 +4,8 @@ their bounds and PyTorch's ``torch.mm`` on dequantised copies:
 
 - ``quant_matmul`` (int8) and ``quant4_matmul`` at M = 1, 8, 2048 with K=4096,
   N=11008 (the Llama-2-7B gate projection) and at M=16384, K=1024, N=384;
-- ``fused_mlp_int8`` at the Llama-2-7B MLP (d=4096, f=11008) with m = 8
-  (decode: the skinny product, and, where the checkout has it, the
+- ``fused_mlp_int8`` at the Llama-2-7B MLP (d=4096, f=11008) with m = 1, 8
+  and 16 (decode: the skinny path, and, where the checkout has it, the
   tensor-core tiles forced at the same rows), 300 and 4096 (prefill).
 
     python3 scripts/torch_quant_timing.py [--root CHECKOUT] [--reps 3]
@@ -15,7 +15,8 @@ builds only the sources it times, so two checkouts can be timed in turns
 within one machine (A, B, B, A). Prints one JSON line: the card's name and
 power limit, the shapes with their bounds (max of FLOPs at 989 TFLOP/s and
 bytes at 3.35 TB/s) and library times, and per repetition the ms of each
-kernel (CUDA events over 50 launches after 10 warm-up launches).
+kernel (CUDA events over 50 launches after 10 warm-up launches) and, for
+``fused_mlp_int8``, the host's microseconds per call to enqueue 50 calls.
 """
 
 from __future__ import annotations
@@ -28,7 +29,23 @@ import sys
 
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 QUANT_SHAPES = [(1, 4096, 11008), (8, 4096, 11008), (2048, 4096, 11008), (16384, 1024, 384)]
-MLP_ROWS = (8, 300, 4096)
+MLP_ROWS = (1, 8, 16, 300, 4096)
+
+
+def _host_us(fn, iters: int = 50) -> float:
+    """Microseconds of the host's clock per call to enqueue ``iters`` calls
+    (the card finishes them afterwards): what a host-bound loop pays."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e6 / iters
 
 
 def _ms(fn, iters: int = 50, warmup: int = 10) -> float:
@@ -115,6 +132,8 @@ def main() -> int:
             rec[f"quant4 M={m} K={k} N={n}"] = _ms(lambda: tqm.quant4_matmul(x, w4, s4))
         for m, xm in rows.items():
             rec[f"fused_mlp_int8 m={m} d={d} f={f}"] = _ms(lambda: tfm.fused_mlp_int8(xm, *mlp))
+            rec[f"fused_mlp_int8 m={m} d={d} f={f}, host us per call"] = _host_us(
+                lambda: tfm.fused_mlp_int8(xm, *mlp))
             if m <= 16 and wide is not None:
                 rec[f"fused_mlp_int8 m={m} d={d} f={f}, tensor-core tiles"] = _ms(
                     lambda: wide(xm, *mlp, wide=True))

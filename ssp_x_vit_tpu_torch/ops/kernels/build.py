@@ -65,18 +65,20 @@ SIGNATURES = {
     },
     "paged_attention": {
         "ssp_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _L, _I, _F, _F, _I, _P], _I),
+                                 _I, _L, _I, _F, _F, _I, _I, _P, _P, _P], _I),
         "ssp_paged_pool_write": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _L, _I, _P], _I),
     },
     "quant_fused_mlp": {
-        "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-                               _I),
+        "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                _P], _I),
         "ssp_fused_mlp_int8_workspace_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+        "ssp_fused_mlp_int8_tickets": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
     },
 }
 
 _libraries: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[int, torch.Tensor] = {}
 build_log: Dict[str, str] = {}  # nvcc output (ptxas register/smem report) per source
 build_seconds: float = 0.0
 
@@ -161,6 +163,18 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters on ``device``, all 0. A kernel that
+    sums K or key splits inside its launch takes one ticket per output tile
+    (the last split to arrive sums them all in order) and sets each counter
+    back to 0, so one buffer per device serves every call in stream order."""
+    buf = _tickets.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device.index] = buf
+    return buf
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -272,26 +286,26 @@ def quant_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, out: torch
     return out
 
 
-def _aligned(*tensors: Optional[torch.Tensor]) -> bool:
-    return all(t is None or t.data_ptr() % 32 == 0 for t in tensors)
-
-
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                     k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
                     page_table: torch.Tensor, seq_lens: torch.Tensor,
                     start_lens: Optional[torch.Tensor], out: torch.Tensor, *, layer: int,
-                    scale: float, softcap: float) -> torch.Tensor:
+                    scale: float, softcap: float, pages_per_split: int, splits: int,
+                    workspace: Optional[torch.Tensor], tickets: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
     """out[b, nq, hd] = decode attention of q [b, nq, hd] over layer ``layer`` of the 5D
     pools [A, nkv, P, ps, hd] (int8 pools with fp32 scales [A, nkv, P, ps]) through
-    ``page_table`` [b, mp], keys ``start_lens <= pos < seq_lens``; ``softcap`` <= 0: none."""
+    ``page_table`` [b, mp], keys ``start_lens <= pos < seq_lens``; ``softcap`` <= 0: none.
+    The keys run in ``splits`` blocks of ``pages_per_split`` pages; more than one
+    split takes the fp32 ``workspace`` and the zeroed int32 ``tickets`` of the plan."""
     b, nq, hd = q.shape
     _, nkv, num_pages, ps, _ = k_pool.shape
     check(library("paged_attention").ssp_paged_attention(
         DTYPE_CODES[q.dtype], POOL_CODES[k_pool.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
         seq_lens.data_ptr(), _ptr(start_lens), out.data_ptr(), b, nq, nkv, hd, ps,
-        page_table.shape[1], num_pages, layer, scale, softcap,
-        int(_aligned(q, k_pool, v_pool, out)), _stream()), "ssp_paged_attention")
+        page_table.shape[1], num_pages, layer, scale, softcap, pages_per_split, splits,
+        _ptr(workspace), _ptr(tickets), _stream()), "ssp_paged_attention")
     return out
 
 

@@ -56,9 +56,10 @@ inline void split_k(long long tiles, int k, int bk, int& splits, int& chunk) {
   splits = std::max(1, (k + chunk - 1) / chunk);
 }
 
-// Opts `kernel` into the device's whole per-block dynamic shared memory. The
-// attribute persists, so the call is made once per (kernel, device) and later
-// launches skip it; `done` keeps one bit per device for this kernel.
+// Opts `kernel` into the device's whole per-block dynamic shared memory (what
+// its static shared memory leaves of it). The attribute persists, so the call
+// is made once per (kernel, device) and later launches skip it; `done` keeps
+// one bit per device for this kernel.
 template <typename Kernel>
 cudaError_t allow_max_dynamic_smem(Kernel kernel, std::atomic<unsigned long long>& done) {
   const int device = current_device();
@@ -66,9 +67,12 @@ cudaError_t allow_max_dynamic_smem(Kernel kernel, std::atomic<unsigned long long
   const unsigned long long bit = 1ull << device;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   int optin = 0;
+  cudaFuncAttributes attr{};
   cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - static_cast<int>(attr.sharedSizeBytes));
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }

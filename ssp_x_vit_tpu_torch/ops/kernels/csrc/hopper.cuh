@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks of the wgmma + TMA pipelines:
 // csrc/qgemm_tile.cuh (the dequant GEMM tiles) and the bf16 kernels of
-// csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, csrc/gemm.cu and
-// csrc/attention.cu.
+// csrc/flash_attention.cu, csrc/flash_attention_bwd.cu, csrc/gemm.cu,
+// csrc/attention.cu and csrc/quant_fused_mlp.cu, and the bulk copies of
+// csrc/paged_attention.cu.
 //
 //   - shared-memory addresses, the 128-byte swizzle as TMA writes it;
 //   - mbarriers: init, arrive, arrive with an expected byte count, and a
 //     wait that traps after ~2^35 cycles (~18 s) instead of hanging the card;
-//   - TMA tile loads (2D and 3D) that complete on an mbarrier;
+//   - TMA tile loads (2D and 3D) and plain bulk copies of contiguous bytes
+//     that complete on an mbarrier;
 //   - the 4 x 4 exchange of 32-bit values within a quad (16-byte stores
 //     and loads of an accumulator's rows);
 //   - wgmma: fence / commit / wait, shared-memory descriptors (K-major, and
@@ -104,6 +106,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bulk copy of `bytes` contiguous bytes (a multiple of 16, both addresses
+// 16-byte aligned) from global to shared memory; completes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -3,27 +3,51 @@
 // _paged_pallas_perhead, _paged_pallas_grouped_q8, _pool_write_pallas_array,
 // _pool_write_pallas_q8).
 //
-// Attention: one query token per sequence against the keys
-// [start, seq_len) of that sequence, which live in fixed-size pages of a pool
+// Attention: one query token per sequence against the keys [start, seq_len)
+// of that sequence, which live in fixed-size pages of a pool
 // [A, nkv, P, ps, hd] named by the sequence's row of the page table. What
 // bounds it: every K and V row of the live range is read once and used for
-// 4 * rep * hd operations, about 1 operation per byte at rep = 1, so it is
-// bytes-bound at every GQA ratio the models use. The design therefore keeps
-// many row loads in flight and nothing else: one block per (sequence, KV
-// head) holds the whole query group (the TPU's grouped / per-head split was a
-// VMEM budget and has no counterpart), its 8 warps take keys in groups of 4,
-// each lane owning EPL contiguous head dims of every row (one 4..16-byte load
-// per row and lane), so a warp has 8 row loads in flight per step. Each warp
-// runs its own online softmax in fp32 registers; the warps' states are merged
-// through shared memory in warp order, so the result does not depend on
-// scheduling. Offsets into the pool are 64-bit (a Llama-2-7B pool of 512
-// pages of 64 has 4.29e9 elements). int8 pools fold the key scale into the
-// score before the softcap and the value scale into the weights.
+// 4 * rep * hd operations, about 1 operation per byte at rep = 1, so bytes,
+// at every GQA ratio the models use (Llama-2-7B, b=8, 2048 keys: 268 MB in
+// bf16, 0.080 ms at 3.35 TB/s). The design keeps the bytes in flight with few
+// threads and no per-key round trip:
+//   - the key range is split across blocks (flash-decoding): grid (KV head,
+//     sequence, run), a run a fixed number of whole pages (about 512 keys).
+//     The plan comes from the shapes alone (paged_attention.py split_plan: b,
+//     nkv, nq, hd, ps, the table width and the SM count): lengths are device
+//     tensors and a decode step never syncs with the host. A run past the
+//     live range or below the window start stores an empty state (m =
+//     finfo.min, l = 0) and leaves at once;
+//   - a page of one KV head is contiguous ([ps, hd] rows), so one producer
+//     thread copies runs of whole K and V rows (8 KB each, and the fp32 scales
+//     of int8 pools) with cp.async.bulk, addressed through the page table,
+//     into a 4-stage mbarrier ring; a block holds ~64 KB, three blocks an SM
+//     (a register bound keeps them at a query group of one). Rows whose bytes
+//     break the 16-byte rules of a bulk copy (fp32 hd = 20 at ps = 12, int8
+//     hd = 40, odd pages of int8 scales) are loaded by the producer warp's 32
+//     lanes into the same stages, rows padded to 16 bytes;
+//   - eight consumer warps score and accumulate from shared memory: `group`
+//     lanes hold one key row as 8- or 16-byte vectors (so a warp reads whole
+//     rows and no bank twice), the query group (up to 8 heads, which share one
+//     read of K and V) in registers; a warp takes up to four steps of 32 / group
+//     keys a batch: their dots, one shuffle tree for all of them, one max and
+//     one rescale of its online softmax. Warps merge in warp order, runs in
+//     run order: the last block of a (sequence, head) to finish (a ticket
+//     counter, set back to 0) combines the runs' fp32 partial states. So the
+//     result is the same bits on every run. What holds it back now: bf16 pools
+//     stream at most of the card's rate; int8 pools spend more on converting
+//     codes (two instructions a value) and scoring than on bytes.
+// Rounding as the TPU kernel: fp32 scores of q / sqrt(hd) (times the key
+// scale for int8 pools), then the softcap; p rounded to V's dtype for float
+// pools, fp32 with the value scale folded in for int8 pools; the row sum
+// takes p before either. Pool offsets are 64-bit (a Llama-2-7B pool of 512
+// pages of 64 has 4.29e9 elements). A row with no key in range is 0.
 //
 // Write: one warp per (sequence, KV head) row writes hd elements (and, for
 // int8 pools, the row's scale) at (layer, page_table[i, pos / ps], pos % ps),
 // K and V in one launch, in place; nothing else of the pool is touched.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cfloat>
 #include <cstdint>
@@ -31,10 +55,8 @@
 
 namespace ssp {
 namespace {
+using namespace ::ssp::hopper;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kGroup = 4;          // keys a warp scores before one softmax update
 constexpr float kMin = -FLT_MAX;   // finfo(float32).min, the reference's mask value
 constexpr int kWriteWarps = 4;
 
@@ -46,9 +68,6 @@ template <> __device__ __forceinline__ float as_float<float>(float v) { return v
 template <> __device__ __forceinline__ float as_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <> __device__ __forceinline__ float as_float<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
 
 // p as the second product sees it: rounded to V's dtype for float pools (the
 // TPU kernel casts p to V's dtype), untouched fp32 for int8 pools.
@@ -57,151 +76,392 @@ template <> __device__ __forceinline__ float round_like<__nv_bfloat16>(float p) 
   return __bfloat162float(__float2bfloat16(p));
 }
 
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
+namespace pa {
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;  // and one producer warp
+constexpr int kStages = 4;
+constexpr int kStageRowBytes = 8192;   // K (and V) bytes of one stage
+constexpr int kMaxPagesPerSplit = 256;  // must match MAX_PAGES_PER_SPLIT in paged_attention.py
+
+struct Params {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int* page_table;
+  const int* seq_lens;
+  const int* start_lens;  // or null
+  void* out;
+  float* partial;         // [b, nkv, splits, rep * (hd + 2)] when splits > 1
+  int* tickets;           // [b, nkv] when splits > 1, 0 on entry and on exit
+  int nq, nkv, rep, hd, ps, mp;
+  long long num_pages;
+  int layer;
+  float scale, softcap;
+  int pps, splits;        // pages per split, splits
+  int rows;               // key rows of one stage (a page in ceil(ps / rows) stages)
+  int rs;                 // bytes of one K / V row in a stage (a multiple of 16)
+  int group;              // lanes that hold one key row (a power of two)
+  int stage_bytes;
+  int bulk;               // the producer copies with cp.async.bulk (else element loads)
 };
 
-// out[e] = row[d0 + e] as fp32, zero past hd. `vec`: hd is a multiple of N and
-// the base pointers are 32-byte aligned, so a lane's N elements are one
-// aligned vector that lies wholly inside or outside the row.
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* __restrict__ row, int hd, int d0, bool vec,
-                                         float (&out)[N]) {
-  if (vec) {
-    if (d0 < hd) {
-      const Vec<T, N> raw = *reinterpret_cast<const Vec<T, N>*>(row + d0);
+// A lane's vector of a row: 8 elements (bf16, int8) or 4 (fp32), read from
+// shared memory as W 32-bit words and turned into floats (exactly).
+template <typename TP> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4, BYTES = 16, W = 4;
+  __device__ static void to_float(const uint32_t (&w)[W], float (&out)[N]) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) out[e] = as_float<T>(raw.v[e]);
-    } else {
+    for (int i = 0; i < 4; ++i) out[i] = __uint_as_float(w[i]);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8, BYTES = 16, W = 4;
+  __device__ static void to_float(const uint32_t (&w)[W], float (&out)[N]) {
 #pragma unroll
-      for (int e = 0; e < N; ++e) out[e] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
     }
-  } else {
+  }
+};
+template <> struct Vec<int8_t> {
+  static constexpr int N = 8, BYTES = 8, W = 2;
+  // 0x4B000000 | u is the float 2^23 + u: with u = code + 128 (the xor), subtracting
+  // 2^23 + 128 leaves the code
+  __device__ static void to_float(const uint32_t (&w)[W], float (&out)[N]) {
 #pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = d0 + e < hd ? as_float<T>(row[d0 + e]) : 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | j)) - 8388736.f;
+    }
+  }
+};
+
+template <int W>
+__device__ __forceinline__ void load_words(const unsigned char* src, uint32_t (&w)[W]) {
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    w[0] = v.x; w[1] = v.y;
   }
 }
 
-template <typename TQ, typename TP, int EPL, int REP>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
-                       const TP* __restrict__ v_pool, const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale, const int* __restrict__ page_table,
-                       const int* __restrict__ seq_lens, const int* __restrict__ start_lens,
-                       TQ* __restrict__ out, int nq, int nkv, int rep, int hd, int ps, int mp,
-                       long long num_pages, int layer, float scale, float softcap, int vec) {
-  constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sm_o = reinterpret_cast<float*>(smem_raw);  // [REP * hd] merged accumulator
-  int* sm_pt = reinterpret_cast<int*>(sm_o + REP * hd);  // [mp] this sequence's pages
-  __shared__ float sm_m[kWarps][REP];
-  __shared__ float sm_l[kWarps][REP];
-  __shared__ float sm_inv[REP];
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerWarps * 32) : "memory");
+}
 
-  const int h = blockIdx.x, i = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d0 = lane * EPL;
-  const int seq_len = min(seq_lens[i], mp * ps);
-  const int start = start_lens != nullptr ? max(start_lens[i], 0) : 0;
-  const int n_keys = seq_len - start;
+// Stage layout: K rows [rows][rs], V rows [rows][rs], then for int8 pools the
+// K and V scales [rows] fp32 (each 16-byte aligned).
+__host__ __device__ inline int scale_bytes(int rows) { return (rows * 4 + 15) / 16 * 16; }
 
-  // Only the pages that overlap [start, seq_len) are read: unused entries of
-  // the table are 0 (the trash page) and are never taken as data.
-  if (n_keys > 0) {
-    const int j1 = (seq_len + ps - 1) / ps;
-    for (int j = start / ps + threadIdx.x; j < j1; j += kThreads)
-      sm_pt[j] = page_table[static_cast<long long>(i) * mp + j];
+// The ticket of a finished run of (sequence i, head h): true for the last of
+// its splits to arrive, which sets the counter back to 0 for the next call.
+__device__ __forceinline__ bool take_ticket(const Params& p, int i, int h) {
+  int* ticket = p.tickets + static_cast<long long>(i) * p.nkv + h;
+  __threadfence();
+  const bool last = atomicAdd(ticket, 1) == p.splits - 1;
+  if (last) {
+    *ticket = 0;
+    __threadfence();
   }
+  return last;
+}
 
-  float qr[REP][EPL];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    if (r < rep) {
-      load_row<TQ, EPL>(q + (static_cast<long long>(i) * nq + h * rep + r) * hd, hd, d0, vec,
-                        qr[r]);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[r][e] *= scale;
-    } else {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[r][e] = 0.f;
+// The last run of (sequence i, head h) combines the runs' partial states in
+// split order: their weights exp(m_z - m) (0 for an empty run, whose values
+// are never used) into shared memory `sm_w`, then each output element sums
+// its runs' values. `nthreads` threads 0.. of the block take part.
+template <typename TQ>
+__device__ void combine(const Params& p, int i, int h, TQ* out, float* sm_w, int nthreads) {
+  const int tid = threadIdx.x, n_out = p.rep * p.hd, stride = p.rep * (p.hd + 2);
+  const float* part0 = p.partial + (static_cast<long long>(i) * p.nkv + h) * p.splits *
+                                       static_cast<long long>(stride);
+  if (tid < p.rep) {
+    const int r = tid;
+    float m_all = kMin;
+#pragma unroll 8
+    for (int z = 0; z < p.splits; ++z) {
+      const float mz = __ldcg(part0 + static_cast<long long>(z) * stride + r);
+      const float lz = __ldcg(part0 + static_cast<long long>(z) * stride + p.rep + r);
+      if (lz > 0.f) m_all = fmaxf(m_all, mz);
     }
+    float l_all = 0.f;
+#pragma unroll 8
+    for (int z = 0; z < p.splits; ++z) {
+      const float mz = __ldcg(part0 + static_cast<long long>(z) * stride + r);
+      const float lz = __ldcg(part0 + static_cast<long long>(z) * stride + p.rep + r);
+      const float w = lz > 0.f ? expf(mz - m_all) : 0.f;
+      l_all += lz * w;
+      sm_w[z * p.rep + r] = w;
+    }
+    sm_w[p.splits * p.rep + r] = 1.f / fmaxf(l_all, 1e-30f);
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"r"(nthreads) : "memory");
+  for (int idx = tid; idx < n_out; idx += nthreads) {
+    const int r = idx / p.hd;
+    float o = 0.f;
+#pragma unroll 8
+    for (int z = 0; z < p.splits; ++z) {
+      const float v = __ldcg(part0 + static_cast<long long>(z) * stride + 2 * p.rep + idx);
+      const float w = sm_w[z * p.rep + r];
+      o += w != 0.f ? v * w : 0.f;
+    }
+    out[idx] = from_f<TQ>(o * sm_w[p.splits * p.rep + r]);
+  }
+}
+
+// grid (nkv, b, splits); a run with no live key leaves at once. Three blocks
+// share an SM for a query group of one (the register bound keeps them).
+// NV: vectors per lane and row (2 only for fp32 rows
+// over 512 bytes); REP: query heads of the group the registers hold (>= rep).
+template <typename TQ, typename TP, int NV, int REP>
+__global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
+    split_kernel(const Params p) {
+  constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
+  using V = Vec<TP>;
+  constexpr int VN = V::N;
+  constexpr int U = REP >= 8 ? 1 : REP >= 4 ? 2 : 4;  // warp steps a batch (registers)
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ int pages[kMaxPagesPerSplit];
+  __shared__ float sm_m[kConsumerWarps][REP], sm_l[kConsumerWarps][REP];
+  __shared__ int last_flag;
+
+  const int h = blockIdx.x, i = blockIdx.y, split = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int seq_len = min(p.seq_lens[i], p.mp * p.ps);
+  const int start = p.start_lens != nullptr ? max(p.start_lens[i], 0) : 0;
+  const int span = p.pps * p.ps;
+  const int k_lo = max(start, split * span), k_hi = min(seq_len, (split + 1) * span);
+  const int tid = threadIdx.x, n_out = p.rep * p.hd;
+  TQ* out = static_cast<TQ*>(p.out) + (static_cast<long long>(i) * p.nq + h * p.rep) * p.hd;
+  float* part = p.partial + ((static_cast<long long>(i) * p.nkv + h) * p.splits + split) *
+                                static_cast<long long>(p.rep) * (p.hd + 2);
+  if (k_lo >= k_hi) {  // no key of this run is live: an empty state, and leave
+    if (p.splits == 1) {
+      for (int idx = tid; idx < n_out; idx += kThreads) out[idx] = from_f<TQ>(0.f);
+      return;
+    }
+    if (tid < p.rep) {
+      part[tid] = kMin;
+      part[p.rep + tid] = 0.f;
+    }
+    __syncthreads();
+    if (tid == 0) last_flag = take_ticket(p, i, h);
+    __syncthreads();
+    if (last_flag) combine<TQ>(p, i, h, out, reinterpret_cast<float*>(smem), kThreads);
+    return;
+  }
+  // the stages: chunks of `rows` rows of each page, in key order
+  const int cpp = (p.ps + p.rows - 1) / p.rows;
+  const int j_lo = k_lo / p.ps, j_last = (k_hi - 1) / p.ps;
+  const int c_lo = j_lo * cpp + (k_lo - j_lo * p.ps) / p.rows;
+  const int c_n = j_last * cpp + (k_hi - 1 - j_last * p.ps) / p.rows - c_lo + 1;
+  for (int j = j_lo + threadIdx.x; j <= j_last; j += kThreads)
+    pages[j - j_lo] = p.page_table[static_cast<long long>(i) * p.mp + j];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], p.bulk ? 1 : 32);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
+  const int stage_kv = p.rows * p.rs;
+  const long long head_page0 = (static_cast<long long>(p.layer) * p.nkv + h) * p.num_pages;
 
-  float m[REP], l[REP], acc[REP][EPL];
+  if (warp == kConsumerWarps) {  // the producer warp
+    if (p.bulk && lane != 0) return;
+    const TP* kp = static_cast<const TP*>(p.k_pool);
+    const TP* vp = static_cast<const TP*>(p.v_pool);
+    for (int n = 0; n < c_n; ++n) {
+      const int s = n % kStages;
+      if (n >= kStages) mbar_wait(&empty[s], ((n / kStages) + 1) & 1);
+      const int c = c_lo + n, j = c / cpp, r0 = (c - j * cpp) * p.rows;
+      const int rows = min(p.rows, p.ps - r0);
+      const long long row0 = (head_page0 + pages[j - j_lo]) * p.ps + r0;  // pool row
+      unsigned char* st = smem + s * p.stage_bytes;
+      float* ks = reinterpret_cast<float*>(st + 2 * stage_kv);
+      float* vs = reinterpret_cast<float*>(st + 2 * stage_kv + scale_bytes(p.rows));
+      if (p.bulk) {
+        const uint32_t kv = static_cast<uint32_t>(rows * p.rs);
+        mbar_expect_tx(&full[s], 2 * kv + (kQ8 ? 8u * rows : 0u));
+        bulk_load(st, kp + row0 * p.hd, kv, &full[s]);
+        bulk_load(st + stage_kv, vp + row0 * p.hd, kv, &full[s]);
+        if constexpr (kQ8) {
+          bulk_load(ks, p.k_scale + row0, 4u * rows, &full[s]);
+          bulk_load(vs, p.v_scale + row0, 4u * rows, &full[s]);
+        }
+        continue;
+      }
+      // element loads into rows of rs bytes, zeros past hd
+      const int rse = p.rs / static_cast<int>(sizeof(TP));
+      TP* kd = reinterpret_cast<TP*>(st);
+      TP* vd = reinterpret_cast<TP*>(st + stage_kv);
+      for (int e = lane; e < rows * rse; e += 32) {
+        const int r = e / rse, col = e - r * rse;
+        const long long src = (row0 + r) * p.hd + col;
+        kd[e] = col < p.hd ? kp[src] : TP{};
+        vd[e] = col < p.hd ? vp[src] : TP{};
+      }
+      if constexpr (kQ8) {
+        for (int r = lane; r < rows; r += 32) {
+          ks[r] = p.k_scale[row0 + r];
+          vs[r] = p.v_scale[row0 + r];
+        }
+      }
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // consumers: lane group a holds key a of each warp step, lanes gl of it the
+  // vectors gl, gl + G, ... of the row
+  const int G = p.group, kpw = 32 / G, a = lane / G, gl = lane % G;
+  const int nvec = p.rs / V::BYTES;
+  float qv[REP][NV][VN];
+  {
+    const TQ* q = static_cast<const TQ*>(p.q) + (static_cast<long long>(i) * p.nq + h * p.rep) * p.hd;
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VN; ++e) {
+          const int d = (gl + v * G) * VN + e;
+          qv[r][v][e] = r < p.rep && d < p.hd ? as_float<TQ>(q[r * p.hd + d]) * p.scale : 0.f;
+        }
+  }
+  float m[REP], l[REP], acc[REP][NV][VN];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = kMin;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VN; ++e) acc[r][v][e] = 0.f;
   }
 
-  const long long head_page0 = (static_cast<long long>(layer) * nkv + h) * num_pages;
-  for (int t0 = warp * kGroup; t0 < n_keys; t0 += kWarps * kGroup) {
-    float kv[kGroup][EPL], vv[kGroup][EPL], ksc[kGroup], vsc[kGroup];
-    bool ok[kGroup];
+  for (int n = 0; n < c_n; ++n) {
+    const int s = n % kStages;
+    mbar_wait(&full[s], (n / kStages) & 1);
+    const int c = c_lo + n, j = c / cpp, r0 = (c - j * cpp) * p.rows;
+    const int rows = min(p.rows, p.ps - r0), key0 = j * p.ps + r0;
+    const unsigned char* st = smem + s * p.stage_bytes;
+    const float* ks = reinterpret_cast<const float*>(st + 2 * stage_kv);
+    const float* vs = reinterpret_cast<const float*>(st + 2 * stage_kv + scale_bytes(p.rows));
+    // U steps of kpw keys a batch: their dots, one shuffle tree, one max and
+    // one rescale for all of them, then their values
+    for (int kb = warp * kpw * U; kb < rows; kb += kConsumerWarps * kpw * U) {
+      float sc[U][REP], vx[U][NV][VN], ksc[U], vsc[U];
+      bool ok[U];
 #pragma unroll
-    for (int g = 0; g < kGroup; ++g) {
-      ok[g] = t0 + g < n_keys;
-      ksc[g] = 1.f;
-      vsc[g] = 1.f;
-      if (ok[g]) {
-        const int kpos = start + t0 + g;
-        const int j = kpos / ps;
-        const long long row = (head_page0 + sm_pt[j]) * ps + (kpos - j * ps);
-        load_row<TP, EPL>(k_pool + row * hd, hd, d0, vec, kv[g]);
-        load_row<TP, EPL>(v_pool + row * hd, hd, d0, vec, vv[g]);
-        if (kQ8) {
-          ksc[g] = k_scale[row];
-          vsc[g] = v_scale[row];
+      for (int u = 0; u < U; ++u) {
+        const int kr = kb + u * kpw + a, key = key0 + kr;
+        ok[u] = kr < rows && key >= k_lo && key < k_hi;
+        float kx[NV][VN];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int vi = gl + v * G;
+          uint32_t kw[V::W], vw[V::W];
+          if (kr < rows && vi < nvec) {
+            load_words(st + kr * p.rs + vi * V::BYTES, kw);
+            load_words(st + stage_kv + kr * p.rs + vi * V::BYTES, vw);
+          } else {
+#pragma unroll
+            for (int w = 0; w < V::W; ++w) kw[w] = vw[w] = 0u;
+          }
+          V::to_float(kw, kx[v]);
+          V::to_float(vw, vx[u][v]);
         }
-      } else {
+        ksc[u] = kQ8 && kr < rows ? ks[kr] : 1.f;
+        vsc[u] = kQ8 && kr < rows ? vs[kr] : 1.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          kv[g][e] = 0.f;
-          vv[g][e] = 0.f;
+        for (int r = 0; r < REP; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < VN; ++e) dot = fmaf(qv[r][v][e], kx[v][e], dot);
+          sc[u][r] = dot;
         }
       }
+      for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < REP; ++r) sc[u][r] += __shfl_xor_sync(0xffffffffu, sc[u][r], o);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        if (r >= p.rep) continue;
+        float mx = kMin;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float dot = kQ8 ? sc[u][r] * ksc[u] : sc[u][r];
+          if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
+          sc[u][r] = ok[u] ? dot : kMin;
+          mx = fmaxf(mx, sc[u][r]);
+        }
+        for (int o = G; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        l[r] *= alpha;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VN; ++e) acc[r][v][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pr = ok[u] ? expf(sc[u][r] - m_new) : 0.f;
+          l[r] += pr;  // the row sum takes p before the value scale and the rounding
+          const float pw = kQ8 ? pr * vsc[u] : round_like<TP>(pr);
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < VN; ++e) acc[r][v][e] = fmaf(pw, vx[u][v][e], acc[r][v][e]);
+        }
+        m[r] = m_new;
+      }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // the warp's lane groups, then the warps in order (the ring is free: every
+  // stage was consumed)
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    for (int o = G; o < 32; o <<= 1) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VN; ++e) acc[r][v][e] += __shfl_xor_sync(0xffffffffu, acc[r][v][e], o);
+    }
+  }
+  consumer_sync();
+  float* sm_acc = reinterpret_cast<float*>(smem);  // [warps][rep][hd]
+  if (lane < G) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      if (r >= rep) continue;
-      float s[kGroup];
-      float m_new = m[r];
+      if (r >= p.rep) continue;
 #pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        float dot = 0.f;
+      for (int v = 0; v < NV; ++v)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) dot += qr[r][e] * kv[g][e];
-        dot = warp_sum(dot);
-        if (kQ8) dot *= ksc[g];
-        if (softcap > 0.f) dot = softcap * tanhf(dot / softcap);
-        s[g] = ok[g] ? dot : kMin;
-        m_new = fmaxf(m_new, s[g]);
-      }
-      const float alpha = expf(m[r] - m_new);
-      float p[kGroup], p_sum = 0.f;
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        p[g] = ok[g] ? expf(s[g] - m_new) : 0.f;
-        p_sum += p[g];  // the row sum takes p before the value scale and the rounding
-        p[g] = kQ8 ? p[g] * vsc[g] : round_like<TP>(p[g]);
-      }
-      l[r] = l[r] * alpha + p_sum;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        float a = acc[r][e] * alpha;
-#pragma unroll
-        for (int g = 0; g < kGroup; ++g) a += p[g] * vv[g][e];
-        acc[r][e] = a;
-      }
-      m[r] = m_new;
+        for (int e = 0; e < VN; ++e) {
+          const int d = (gl + v * G) * VN + e;
+          if (d < p.hd) sm_acc[(warp * p.rep + r) * p.hd + d] = acc[r][v][e];
+        }
     }
   }
-
-  // Merge the warps' softmax states in warp order (deterministic).
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
@@ -209,100 +469,87 @@ paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
       sm_l[warp][r] = l[r];
     }
   }
-  __syncthreads();
-  float factor[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
+  consumer_sync();
+  for (int idx = tid; idx < n_out + p.rep; idx += kConsumerWarps * 32) {
+    const int r = idx < n_out ? idx / p.hd : idx - n_out;
     float m_all = kMin;
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w][r]);
-    factor[r] = expf(m[r] - m_all);
-    if (threadIdx.x == 0) {
-      float l_all = 0.f;
-      for (int w = 0; w < kWarps; ++w) l_all += sm_l[w][r] * expf(sm_m[w][r] - m_all);
-      sm_inv[r] = 1.f / fmaxf(l_all, 1e-30f);
+    for (int w = 0; w < kConsumerWarps; ++w) m_all = fmaxf(m_all, sm_m[w][r]);
+    float l_all = 0.f, o = 0.f;
+    for (int w = 0; w < kConsumerWarps; ++w) {
+      const float f = expf(sm_m[w][r] - m_all);
+      l_all += sm_l[w][r] * f;
+      if (idx < n_out) o += sm_acc[w * n_out + idx] * f;
+    }
+    if (p.splits == 1) {
+      if (idx < n_out) out[idx] = from_f<TQ>(o * (1.f / fmaxf(l_all, 1e-30f)));
+    } else if (idx < n_out) {
+      part[2 * p.rep + idx] = o;
+    } else {
+      part[r] = m_all;
+      part[p.rep + r] = l_all;
     }
   }
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        if (r >= rep) continue;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          const int d = d0 + e;
-          if (d < hd) {
-            const float part = acc[r][e] * factor[r];
-            sm_o[r * hd + d] = w == 0 ? part : sm_o[r * hd + d] + part;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  TQ* out_row = out + (static_cast<long long>(i) * nq + h * rep) * hd;
-  for (int idx = threadIdx.x; idx < rep * hd; idx += kThreads)
-    out_row[idx] = from_f<TQ>(sm_o[idx] * sm_inv[idx / hd]);
+  if (p.splits == 1) return;
+  __threadfence();
+  consumer_sync();
+  if (tid == 0) last_flag = take_ticket(p, i, h);
+  consumer_sync();
+  if (last_flag) combine<TQ>(p, i, h, out, reinterpret_cast<float*>(smem), kConsumerWarps * 32);
 }
 
-template <typename TQ, typename TP, int EPL, int REP>
-cudaError_t launch_attention(const void* q, const void* k_pool, const void* v_pool,
-                             const void* k_scale, const void* v_scale, const void* page_table,
-                             const void* seq_lens, const void* start_lens, void* out, int b, int nq,
-                             int nkv, int hd, int ps, int mp, long long num_pages, int layer,
-                             float scale, float softcap, int vec, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<TQ, TP, EPL, REP>;
-  const size_t smem = (static_cast<size_t>(REP) * hd + mp) * sizeof(float);
-  if (smem > 48 * 1024) {
-    static std::atomic<unsigned long long> done{0};
-    const cudaError_t err = allow_max_dynamic_smem(kernel, done);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<dim3(nkv, b), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool), static_cast<const TP*>(v_pool),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(page_table), static_cast<const int*>(seq_lens),
-      static_cast<const int*>(start_lens), static_cast<TQ*>(out), nq, nkv, nq / nkv, hd, ps, mp,
-      num_pages, layer, scale, softcap, vec);
+// Rows of one stage, their stride in shared memory, lanes per row and the
+// producer's mode for these shapes and pointers.
+template <typename TP>
+Params layout(Params p) {
+  constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
+  const auto al16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  const int row_bytes = p.hd * static_cast<int>(sizeof(TP));
+  p.rs = (row_bytes + 15) / 16 * 16;
+  p.rows = std::min(p.ps, std::max(1, kStageRowBytes / p.rs));
+  p.bulk = row_bytes % 16 == 0 && al16(p.k_pool) && al16(p.v_pool);
+  if (kQ8)
+    p.bulk = p.bulk && p.ps % 4 == 0 && p.rows % 4 == 0 && al16(p.k_scale) && al16(p.v_scale);
+  const int nvec = p.rs / Vec<TP>::BYTES;
+  int g = 1;
+  while (g < nvec && g < 32) g *= 2;
+  p.group = g;
+  p.stage_bytes = 2 * p.rows * p.rs + (kQ8 ? 2 * scale_bytes(p.rows) : 0);
+  return p;
+}
+
+template <typename TQ, typename TP, int NV, int REP>
+cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
+  const auto kernel = split_kernel<TQ, TP, NV, REP>;
+  // the ring, reused by the warps' merge and the combine's split weights
+  const size_t smem = std::max({(size_t)kStages * p.stage_bytes,
+                                (size_t)kConsumerWarps * p.rep * p.hd * sizeof(float),
+                                (size_t)(p.splits + 1) * p.rep * sizeof(float)});
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = allow_shared_blocks(kernel, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.nkv, b, p.splits), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-#define SSP_PAGED_ARGS                                                                          \
-  q, k_pool, v_pool, k_scale, v_scale, page_table, seq_lens, start_lens, out, b, nq, nkv, hd,  \
-      ps, mp, num_pages, layer, scale, softcap, vec, stream
-
-template <typename TQ, typename TP, int EPL>
-cudaError_t dispatch_rep(const void* q, const void* k_pool, const void* v_pool,
-                         const void* k_scale, const void* v_scale, const void* page_table,
-                         const void* seq_lens, const void* start_lens, void* out, int b, int nq,
-                         int nkv, int hd, int ps, int mp, long long num_pages, int layer,
-                         float scale, float softcap, int vec, cudaStream_t stream) {
-  const int rep = nq / nkv;
+template <typename TQ, typename TP, int NV>
+cudaError_t dispatch_rep(const Params& p, int b, cudaStream_t stream) {
   // three group sizes keep the build short: a group of 2 or 3 runs as 4 (idle
   // registers, no extra bytes moved), 5 to 7 as 8
-  if (rep <= 1) return launch_attention<TQ, TP, EPL, 1>(SSP_PAGED_ARGS);
-  if (rep <= 4) return launch_attention<TQ, TP, EPL, 4>(SSP_PAGED_ARGS);
-  return launch_attention<TQ, TP, EPL, 8>(SSP_PAGED_ARGS);
+  if (p.rep <= 1) return launch<TQ, TP, NV, 1>(p, b, stream);
+  if (p.rep <= 4) return launch<TQ, TP, NV, 4>(p, b, stream);
+  return launch<TQ, TP, NV, 8>(p, b, stream);
 }
 
 template <typename TQ, typename TP>
-cudaError_t dispatch_hd(const void* q, const void* k_pool, const void* v_pool,
-                        const void* k_scale, const void* v_scale, const void* page_table,
-                        const void* seq_lens, const void* start_lens, void* out, int b, int nq,
-                        int nkv, int hd, int ps, int mp, long long num_pages, int layer,
-                        float scale, float softcap, int vec, cudaStream_t stream) {
-  // A lane's EPL contiguous dims must be one vector: fall back to scalar
-  // loads where hd is not a multiple of EPL (hd = 80 is, with EPL = 4).
-  if (hd <= 64) {
-    if (hd % 2) vec = 0;
-    return dispatch_rep<TQ, TP, 2>(SSP_PAGED_ARGS);
-  }
-  if (hd <= 128) {
-    if (hd % 4) vec = 0;
-    return dispatch_rep<TQ, TP, 4>(SSP_PAGED_ARGS);
-  }
-  if (hd % 8) vec = 0;
-  return dispatch_rep<TQ, TP, 8>(SSP_PAGED_ARGS);
+cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
+  p = layout<TP>(p);
+  const int nvec = p.rs / Vec<TP>::BYTES;
+  if (nvec <= p.group) return dispatch_rep<TQ, TP, 1>(p, b, stream);
+  if constexpr (std::is_same<TP, float>::value)  // fp32 rows of 132-256 elements
+    if (nvec <= 2 * p.group) return dispatch_rep<TQ, TP, 2>(p, b, stream);
+  return cudaErrorInvalidValue;
 }
+}  // namespace pa
 
 template <typename TN, typename TP>
 __global__ void __launch_bounds__(kWriteWarps * 32)
@@ -367,24 +614,36 @@ cudaError_t launch_write(const void* k_new, const void* v_new, void* k_pool, voi
 // of sequence i of softcap(q k^T / sqrt(hd)) times v, K/V read from layer
 // `layer` of pools [A, nkv, num_pages, ps, hd] through page_table [b, mp].
 // pool_type 2 (int8) takes the fp32 scales [A, nkv, num_pages, ps] and bf16
-// queries; float pools have q's dtype. start_lens may be null (0); softcap <= 0 means none. `vec`:
-// every base pointer is 32-byte aligned. b <= 65535.
+// queries; float pools have q's dtype. start_lens may be null (0); softcap <= 0
+// means none. The keys are split into `splits` runs of `pages_per_split`
+// pages; splits > 1 takes `workspace` (fp32, b * nkv * splits * rep * (hd + 2))
+// and `tickets` (int32 [b * nkv], all 0; they are 0 again after the kernel).
+// b <= 65535.
 extern "C" int ssp_paged_attention(int q_dtype, int pool_type, const void* q, const void* k_pool,
                                    const void* v_pool, const void* k_scale, const void* v_scale,
                                    const void* page_table, const void* seq_lens,
                                    const void* start_lens, void* out, int b, int nq, int nkv,
                                    int hd, int ps, int mp, long long num_pages, int layer,
-                                   float scale, float softcap, int vec, void* stream_ptr) {
+                                   float scale, float softcap, int pages_per_split, int splits,
+                                   float* workspace, int* tickets, void* stream_ptr) {
   using namespace ssp;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (b <= 0 || nkv <= 0 || hd <= 0 || hd > 256 || nq % nkv != 0 || nq / nkv > 8 || b > 65535)
+  if (b <= 0 || nkv <= 0 || hd <= 0 || hd > 256 || nq % nkv != 0 || nq / nkv > 8 || b > 65535 ||
+      ps <= 0 || mp <= 0 || pages_per_split <= 0 || pages_per_split > pa::kMaxPagesPerSplit ||
+      splits <= 0 || splits > 65535 || (long long)pages_per_split * splits < mp ||
+      (splits > 1 && (workspace == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
+  pa::Params p{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale), static_cast<const int*>(page_table),
+               static_cast<const int*>(seq_lens), static_cast<const int*>(start_lens), out,
+               workspace, tickets, nq, nkv, nq / nkv, hd, ps, mp, num_pages, layer, scale,
+               softcap, pages_per_split, splits};
   if (pool_type == kPoolI8)  // an int8 cache computes in bf16
-    return q_dtype == kBF16 ? dispatch_hd<__nv_bfloat16, int8_t>(SSP_PAGED_ARGS)
+    return q_dtype == kBF16 ? pa::dispatch<__nv_bfloat16, int8_t>(p, b, stream)
                             : cudaErrorInvalidValue;
-  if (q_dtype == kF32 && pool_type == kPoolF32) return dispatch_hd<float, float>(SSP_PAGED_ARGS);
+  if (q_dtype == kF32 && pool_type == kPoolF32) return pa::dispatch<float, float>(p, b, stream);
   if (q_dtype == kBF16 && pool_type == kPoolBF16)
-    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(SSP_PAGED_ARGS);
+    return pa::dispatch<__nv_bfloat16, __nv_bfloat16>(p, b, stream);
   return cudaErrorInvalidValue;
 }
 

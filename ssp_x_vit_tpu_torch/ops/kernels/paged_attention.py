@@ -21,8 +21,11 @@ page). A pool is a float tensor (fp32 or bf16) or an int8 pool
 On the card the wrappers launch ``csrc/paged_attention.cu`` (launch counters
 ``paged_attention``, ``paged_attention_q8``, ``paged_pool_write``,
 ``paged_pool_write_q8``). What bounds the attention: each live K and V row is
-read once for ``4 * rep * hd`` operations, so bytes; the kernel keeps many row
-loads in flight and reads no page outside ``[start, seq_len)``. The write
+read once for ``4 * rep * hd`` operations, so bytes; the kernel splits each
+sequence's keys into runs of whole pages (:func:`split_plan`, from the shapes
+alone), streams the live pages of a run into shared memory with bulk copies
+and combines the runs' softmax states in run order inside the same launch; it
+reads no page outside ``[start, seq_len)``. The write
 moves ``b * nkv * hd`` elements per pool, far below a launch's latency: K and
 V go in one launch. ``layer_idx`` is a host integer (the layer loop is a
 Python loop); tables, lengths and positions are int32 tensors on the card that
@@ -38,8 +41,9 @@ they are ``.at[].set`` in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -48,9 +52,47 @@ from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
 
 Pool = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
-MAX_HEAD_DIM = 256  # the widest row a lane's 8 contiguous dims cover
+MAX_HEAD_DIM = 256  # the widest row a warp's lanes cover
 MAX_GROUP = 8       # query heads per KV head held in one block's registers
+SPLIT_KEYS = 512    # keys one split of the attention aims to hold
+MAX_PAGES_PER_SPLIT = 256  # must match pa::kMaxPagesPerSplit in csrc/paged_attention.cu
 _NEG_INF = torch.finfo(torch.float32).min
+_SM_COUNTS: Dict[int, int] = {}
+
+
+class SplitPlan(NamedTuple):
+    """How the attention kernel splits each sequence's keys: ``splits`` runs
+    of ``pages_per_split`` whole pages of the table (the last may be shorter),
+    one block per (KV head, sequence, run); more than one run takes
+    ``workspace_floats`` fp32 of partial softmax states and ``tickets`` int32
+    counters (one per sequence and KV head)."""
+    pages_per_split: int
+    splits: int
+    workspace_floats: int
+    tickets: int
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(b: int, nkv: int, nq: int, hd: int, ps: int, mp: int, sms: int) -> SplitPlan:
+    """The split of one call, from its shapes and the card's SM count alone (the
+    lengths are device tensors, and a decode step never waits for the host).
+    Runs of about ``SPLIT_KEYS`` keys, halved while the grid would hold fewer
+    than four blocks per SM (two waves at the two or three blocks an SM
+    holds), so a batch of long sequences and a single one both fill the card."""
+    pps = max(1, min(mp, MAX_PAGES_PER_SPLIT, SPLIT_KEYS // ps))
+    while pps > 1 and b * nkv * -(-mp // pps) < 4 * sms:
+        pps = (pps + 1) // 2
+    splits = -(-mp // pps)
+    if splits == 1:
+        return SplitPlan(pps, 1, 0, 0)
+    return SplitPlan(pps, splits, b * nkv * splits * (nq // nkv) * (hd + 2), b * nkv)
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = _SM_COUNTS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def is_q8(pages: Pool) -> bool:
@@ -217,11 +259,18 @@ def paged_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: t
     _check_int32("seq_lens", seq_lens, (b,), q.device)
     if start_lens is not None:
         _check_int32("start_lens", start_lens, (b,), q.device)
+    plan = split_plan(b, nkv, nq, hd, k_pool.shape[3], page_table.shape[1], _sm_count(q.device))
     out = torch.empty_like(q)
+    workspace = tickets = None
+    if plan.splits > 1:
+        workspace = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
+        tickets = build.tickets(q.device, plan.tickets)
     with torch.cuda.device(q.device):
         build.paged_attention(q, k_pool, v_pool, k_scale, v_scale, page_table, seq_lens,
                               start_lens, out, layer=layer, scale=1.0 / math.sqrt(hd),
-                              softcap=0.0 if softcap is None else float(softcap))
+                              softcap=0.0 if softcap is None else float(softcap),
+                              pages_per_split=plan.pages_per_split, splits=plan.splits,
+                              workspace=workspace, tickets=tickets)
     launch_counts["paged_attention_q8" if k_scale is not None else "paged_attention"] += 1
     return out
 

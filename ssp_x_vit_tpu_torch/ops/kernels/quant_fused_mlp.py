@@ -11,15 +11,18 @@ quant_fused_mlp.py``: ``fused_mlp_int8``).
 The contract is the int8 SwiGLU epilogue of the contiguous serving path
 (``llm/serve.py`` ``_layer_step``), which routes unpacked int8 llama trees here.
 
-On the card the wrapper launches ``csrc/quant_fused_mlp.cu`` (a skinny
-weight-streaming product for at most 16 rows, the wgmma tiles of
-``csrc/qgemm_tile.cuh`` above; the source note says what bounds it); on a CPU
-tensor it runs the plain version.
+On the card the wrapper launches ``csrc/quant_fused_mlp.cu`` (for at most 16
+bf16 rows a persistent TMA weight stream on warp-level tensor-core products
+that sums its K splits inside its two launches; for at most 16 fp32 rows a
+SIMT skinny product; above 16 rows the wgmma tiles of ``csrc/qgemm_tile.cuh``;
+the source note says what bounds it); on a CPU tensor it runs the plain
+version.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,32 +67,34 @@ def _check(x, gq, gs, uq, us, dq, ds) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, dtype_code: int, m: int, d: int, f: int,
-                      wide: bool) -> int:
+def _scratch_sizes(device_index: int, dtype_code: int, m: int, d: int, f: int,
+                   wide: bool) -> Tuple[int, int]:
+    """(fp32 workspace floats, int32 ticket counters) of one call at these shapes."""
     with torch.cuda.device(device_index):
-        return build.library("quant_fused_mlp").ssp_fused_mlp_int8_workspace_floats(
-            dtype_code, m, d, f, int(wide))
+        lib = build.library("quant_fused_mlp")
+        return (lib.ssp_fused_mlp_int8_workspace_floats(dtype_code, m, d, f, int(wide)),
+                lib.ssp_fused_mlp_int8_tickets(dtype_code, m, d, f, int(wide)))
 
 
 def fused_mlp_int8_cuda(x, gq, gs, uq, us, dq, ds, *, wide: bool = False) -> torch.Tensor:
-    """One launch of ``csrc/quant_fused_mlp.cu`` on CUDA tensors (no count).
+    """One call of ``csrc/quant_fused_mlp.cu`` on CUDA tensors (no count).
     ``wide=True`` takes the tensor-core tiles at any row count. It is a
-    measurement hook only, the yardstick of the skinny product at m <= 16
-    (ROADMAP B.7.2 replaces it with a size-based route); the serving path
-    never sets it."""
+    measurement hook only, the yardstick of the weight stream at m <= 16;
+    the serving path never sets it."""
     _check(x, gq, gs, uq, us, dq, ds)
     d, f = x.shape[-1], gq.shape[-1]
     m = x.numel() // d
     dt = build.DTYPE_CODES[x.dtype]
     h = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    ws_floats = _workspace_floats(x.device.index, dt, m, d, f, wide)
+    ws_floats, n_tickets = _scratch_sizes(x.device.index, dt, m, d, f, wide)
     ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device) if ws_floats else None
+    tickets = build.tickets(x.device, n_tickets) if n_tickets else None
     with torch.cuda.device(x.device):
         build.check(build.library("quant_fused_mlp").ssp_fused_mlp_int8(
             dt, x.data_ptr(), gq.data_ptr(), gs.data_ptr(), uq.data_ptr(), us.data_ptr(),
             dq.data_ptr(), ds.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f, int(wide),
-            None if ws is None else ws.data_ptr(), build._stream()), "ssp_fused_mlp_int8")
+            build._ptr(ws), build._ptr(tickets), build._stream()), "ssp_fused_mlp_int8")
     return out
 
 

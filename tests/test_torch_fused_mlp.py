@@ -170,11 +170,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_kernel_matches_plain_version_on_the_card(cuda_device, dtype, tol):
-    """Skinny (m <= 16, one and two row groups) and tensor-core (m > 16)
-    paths at ragged widths (f off 8 and 16, d off 8), one launch per call, the
-    same bits on a second run; tolerance on max |diff| / max(1, max |plain|)."""
+    """Skinny (m <= 16: the bf16 weight stream, the fp32 SIMT product) and
+    tensor-core (m > 16) paths at ragged widths (f off 8 and 16, d off 8), and
+    every m from 1 to 16 at a width off TMA's 16-byte rules (d = 200, f = 333:
+    element loads) and at one that meets them (d = 256, f = 512); one launch
+    per call, the same bits on a second run; tolerance on max |diff| /
+    max(1, max |plain|)."""
     reset_launch_counts()
     shapes = [(1, 256, 512), (8, 200, 333), (13, 96, 72), (17, 128, 250), (130, 264, 1000)]
+    shapes += [(m, d, f) for d, f in ((200, 333), (256, 512)) for m in range(1, 17)]
     for m, d, f in shapes:
         x, *ws = [torch.from_numpy(a).to(cuda_device) for a in operands(m, d, f, seed=m)]
         x = x.to(dtype)

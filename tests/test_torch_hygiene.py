@@ -559,9 +559,12 @@ def test_flash_kernels_hold_every_row_on_the_card(cuda_device, dtype):
 def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
     """Rows 7-9 at small ragged shapes (4D and 5D pools, GQA groups of 1, 3
     and 8, head_dim 20 to 256, page sizes off a power of two, windows,
-    softcap, one-key rows): the write leaves pools identical to the plain
-    write (int8 codes and scales bit for bit), the attention stays within
-    ``tol`` of max(1, max |plain|); one launch per wrapper call."""
+    softcap, one-key rows), then at the key-run edges of the split plan (1,
+    ps - 1, ps, ps + 1, a run - 1, a run and a run + 1 keys, and a window
+    that starts inside a run with empty runs before and after it): the write
+    leaves pools identical to the plain write (int8 codes and scales bit for
+    bit), the attention stays within ``tol`` of max(1, max |plain|) and gives
+    the same bits on a second call; one launch per wrapper call."""
     from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
     from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
 
@@ -612,13 +615,16 @@ def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
             leaves = zip(got.values(), ref.values()) if isinstance(got, dict) else [(got, ref)]
             assert all(torch.equal(g, r) for g, r in leaves)
         got = tpa.paged_attention(q, kp, vp, table, lens + 1, starts, softcap, layer)
+        again = tpa.paged_attention(q, kp, vp, table, lens + 1, starts, softcap, layer)
         ref = tpa.paged_attention_plain(q, kp, vp, table, lens + 1, starts, softcap, layer)
         torch.cuda.synchronize()
-        assert torch.isfinite(got.float()).all()
+        assert torch.isfinite(got.float()).all() and torch.equal(got, again)
         err = (got.float() - ref.float()).abs().max().item()
         assert err / max(1.0, ref.float().abs().max().item()) <= tol, (err, hd, ps)
     for name in ("paged_attention", "paged_pool_write"):
-        assert launch_counts[name + suffix] - before[name + suffix] == len(cases)
+        n = 2 if name == "paged_attention" else 1
+        assert launch_counts[name + suffix] - before[name + suffix] == n * len(cases)
+
     # one pool alone (the single-pool form); an fp32 query against int8 pools is refused
     single = torch.zeros(2, 3, 4, 8, device=cuda_device, dtype=dtype)
     tpa.paged_pool_write(single, torch.ones(1, 2, 8, device=cuda_device, dtype=dtype),
@@ -628,6 +634,33 @@ def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
     if kind == "int8":
         with pytest.raises(TypeError, match="computes in bfloat16"):
             tpa.paged_attention(q.float(), kp, vp, table, lens + 1, None, None, layer)
+
+    # the split plan's edges: b sequences of a 32-page table, keys = lens + 1
+    b, nq, nkv, hd, ps, mp = 8, 8, 8, 64, 16, 32
+    plan = tpa.split_plan(b, nkv, nq, hd, ps, mp, tpa._sm_count(cuda_device))
+    run = plan.pages_per_split * ps
+    assert plan.splits > 2, plan
+    P = 1 + b * mp
+    kp = tpa.quantize_token_kv(torch.randn(nkv, P, ps, hd, generator=gen, device=cuda_device))
+    vp = tpa.quantize_token_kv(torch.randn(nkv, P, ps, hd, generator=gen, device=cuda_device))
+    if kind == "int8":
+        kp, vp = {"q": kp[0], "s": kp[1]}, {"q": vp[0], "s": vp[1]}
+    else:
+        kp = torch.randn(nkv, P, ps, hd, generator=gen, device=cuda_device).to(dtype)
+        vp = torch.randn(nkv, P, ps, hd, generator=gen, device=cuda_device).to(dtype)
+    table = (1 + torch.randperm(P - 1, generator=gen, device=cuda_device)[: b * mp]
+             ).reshape(b, mp).to(torch.int32)
+    keys = torch.tensor([1, ps - 1, ps, ps + 1, run - 1, run, run + 1, 2 * run + 5],
+                        dtype=torch.int32, device=cuda_device)
+    q = torch.randn(b, nq, hd, generator=gen, device=cuda_device).to(dtype)
+    for starts in (None, (keys - (run // 2 + 3)).clamp_min(0).to(torch.int32)):
+        got = tpa.paged_attention(q, kp, vp, table, keys, starts)
+        again = tpa.paged_attention(q, kp, vp, table, keys, starts)
+        ref = tpa.paged_attention_plain(q, kp, vp, table, keys, starts)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all() and torch.equal(got, again)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err / max(1.0, ref.float().abs().max().item()) <= tol, (err, starts)
 
 
 @pytest.mark.cuda
