@@ -38,12 +38,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             stream at every m from 1 to 16 at three widths; ``fused_ffn_block``
             under autograd (a grad_fn, gradients against the host CPU's) and
             the attention blocks raising under autograd; the paged
-            decode kernels (with the key-run edges of the split plan, the
-            same bits twice). Times kernel, plain version and a PyTorch library
-            call with CUDA events, beside the data-sheet bound; then times each
-            launch inside the wrappers ([PART] lines) beside ``torch.mm`` and
-            SDPA. The op-level ``ops.ffn.ffn_forward`` is driven on the card
-            against the same call on CPU copies.
+            decode kernels, the write and the attention apart and in one
+            write-and-attend launch from the same pools (with the key-run
+            edges of the split plan, a dead slot and a slot past its table,
+            the same bits twice), and the device time, host enqueue time and
+            events time of each at the served decode shapes. Times kernel,
+            plain version and a PyTorch library call with CUDA events, beside
+            the data-sheet bound; then times each launch inside the wrappers
+            ([PART] lines) beside ``torch.mm`` and SDPA. The op-level
+            ``ops.ffn.ffn_forward`` and the standalone paged write and
+            attention are driven on the card against the same call on CPU
+            copies and against the write-and-attend launch.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, then on ViT-Ti/16 (odd
             head count); then the LLM CLI (``cli.main_llm.run``) on a
@@ -1037,15 +1042,57 @@ def _pools_differ(a, b) -> int:
     return int((a != b).sum().item())
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call to enqueue ``iters`` calls behind a spin
+    kernel that keeps the card busy (no synchronize inside): what a
+    host-bound loop pays per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e6 / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call from a ``torch.profiler`` trace of
+    ``iters`` calls (the kernels' own time; 0 if the trace holds none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+
+
+def _without_trash(pool, layered):
+    """The pool's tensors with trash page 0 cut out."""
+    cut = (slice(None),) * (2 if layered else 1) + (slice(1, None),)
+    return [t[cut] for t in (pool.values() if isinstance(pool, dict) else [pool])]
+
+
 def phase_paged_kernels(device) -> dict:
     """paged_attention, paged_attention_q8, paged_pool_write and
-    paged_pool_write_q8 against their plain versions, as one decode step does
-    them (write the new row at slot len, then attend len + 1 keys); returns
-    their kernels-line records, timed at the Llama-2-7B decode shape of the
-    served run (b=8, 2048 keys each, bf16 and int8 pools)."""
+    paged_pool_write_q8 against their plain versions, as the decode step made
+    them before they were fused (write the new row at slot len, then attend
+    len + 1 keys), and paged_attention_write / _q8, the two in one launch,
+    against the same plain versions from the same pools; returns their
+    kernels-line records, timed at the Llama-2-7B decode shape (b=8, 2048 keys
+    each, and 8 slots of ~520 keys; bf16 and int8 pools)."""
     import torch
     import torch.nn.functional as F
 
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
     from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
 
     gen = torch.Generator(device=device)
@@ -1061,6 +1108,9 @@ def phase_paged_kernels(device) -> dict:
               layers=18, layer=17), None, False),
         ("Llama-2-7B decode, 2047 cached keys each",
          dict(nq=32, nkv=32, hd=128, ps=64, lens=[2047] * 8), None, True),
+        ("Llama-2-7B decode, 8 slots of ~520 cached keys",
+         dict(nq=32, nkv=32, hd=128, ps=64, lens=[519 + 3 * i for i in range(8)], mp=32), None,
+         True),
         ("Mistral-7B, context 6000, window 4096",
          dict(nq=32, nkv=8, hd=128, ps=64, lens=[5999, 6000, 4500, 100], window=4096), None, False),
         ("gemma-2 head_dim 256, softcap 50",
@@ -1079,15 +1129,31 @@ def phase_paged_kernels(device) -> dict:
          dict(nq=32, nkv=32, hd=128, ps=64, lens=[0, 62, 63, 64, run - 2, run - 1, run,
                                                    2 * run + run // 2 - 1], mp=32, window=run),
          None, False),
+        # a dead slot (its table row zeroed: it writes and reads trash page 0; its output is
+        # not compared) and a slot past its full table (it writes row 0 of page 0 and
+        # attends the table's mp * ps keys without the new one)
+        ("dead slot and a slot past the table, served table width",
+         dict(nq=32, nkv=32, hd=128, ps=64, lens=[5, 100, 700, 1500, 2046, 300, 900, 2040],
+              mp=32, dead=[5], past=[7]), None, False),
     ]
     variants = [("float32", torch.float32, "float"), ("bfloat16", torch.bfloat16, "float"),
                 ("bfloat16", torch.bfloat16, "int8")]  # an int8 cache computes in bf16
     for label, geo, softcap, timed in cases:
+        geo = dict(geo)
+        dead, past = geo.pop("dead", []), geo.pop("past", [])
         for dn, dtype, kind in variants:
             c = _paged_setup(gen, device, dtype, kind, **geo)
-            li, lens1 = c["layer"], c["lens"] + 1
-            name = f"{label}: b={len(geo['lens'])} nq={geo['nq']} nkv={geo['nkv']} " \
+            li = c["layer"]
+            b, mp = len(geo["lens"]), c["table"].shape[1]
+            for r in dead:
+                c["table"][r] = 0
+            for r in past:
+                c["lens"][r] = mp * geo["ps"] + 5
+            lens1 = c["lens"] + 1
+            live = torch.tensor([r not in dead for r in range(b)], device=device)
+            name = f"{label}: b={b} nq={geo['nq']} nkv={geo['nkv']} " \
                    f"hd={geo['hd']} ps={geo['ps']} {dn}{' int8 pools' if kind == 'int8' else ''}"
+            k_orig, v_orig = _clone_pool(c["k"]), _clone_pool(c["v"])
             # the write: kernel on the pools, plain version on clones; whole pools compared
             # (codes and scales bit for bit), so a stray write anywhere shows
             k_ref, v_ref = _clone_pool(c["k"]), _clone_pool(c["v"])
@@ -1107,38 +1173,99 @@ def phase_paged_kernels(device) -> dict:
             ref = tpa.paged_attention_plain(c["q"], c["k"], c["v"], c["table"], lens1, c["starts"],
                                             softcap, li)
             torch.cuda.synchronize()
-            if not torch.isfinite(got.float()).all():
+            if not torch.isfinite(got[live].float()).all():
                 raise AssertionError(f"paged_attention {name}: non-finite output")
             if not torch.equal(got, again):
                 raise AssertionError(f"paged_attention {name}: two runs differ")
-            err, rel = scaled_err(got, ref)
+            err, rel = scaled_err(got[live], ref[live])
             tol = TOL["bfloat16"] if kind == "int8" else TOL[dn]
-            plan = tpa.split_plan(len(geo["lens"]), geo["nkv"], geo["nq"], geo["hd"], geo["ps"],
-                                  c["table"].shape[1], tpa._sm_count(device))
-            log(f"[KERNEL] paged write (pools identical to the plain write) + attention {name}: "
-                f"max_abs_err={err:.3e} scaled={rel:.3e} tol={tol} ok (runs of "
-                f"{plan.pages_per_split} pages x {plan.splits}; same bits on a second run)")
             if rel > tol:
                 raise AssertionError(f"paged_attention {name}: scaled error {rel:.3e} > {tol}")
+            # write-and-attend in one launch, twice, each from the pools as they were: pools
+            # bit for bit with the plain write outside trash page 0, the output of the live
+            # rows within tol of the plain write + attention, the same bits both times
+            n0 = launch_counts["paged_attention_write" + ("_q8" if kind == "int8" else "")]
+            fused = []
+            for _ in range(2):
+                kf, vf = _clone_pool(k_orig), _clone_pool(v_orig)
+                fused.append((tpa.paged_attention_write(c["q"], c["k_new"], c["v_new"], kf, vf,
+                                                        c["table"], c["lens"], c["starts"],
+                                                        softcap, li), kf, vf))
+            torch.cuda.synchronize()
+            (f_got, kf, vf), (f_again, kf2, vf2) = fused
+            if launch_counts["paged_attention_write" + ("_q8" if kind == "int8" else "")] != n0 + 2:
+                raise AssertionError(f"paged_attention_write {name}: not one launch per call")
+            layered = li is not None
+            for a, b_, r in ((kf, kf2, c["k"]), (vf, vf2, c["v"])):
+                for x, y, z in zip(_without_trash(a, layered), _without_trash(b_, layered),
+                                   _without_trash(r, layered)):
+                    if not (torch.equal(x, y) and torch.equal(x, z)):
+                        raise AssertionError(f"paged_attention_write {name}: pools differ from "
+                                             "the plain write or between two runs")
+            if not torch.equal(f_got[live], f_again[live]):  # a dead slot reads what it writes
+                raise AssertionError(f"paged_attention_write {name}: two runs differ")
+            if not torch.isfinite(f_got[live].float()).all():
+                raise AssertionError(f"paged_attention_write {name}: non-finite output")
+            f_err, f_rel = scaled_err(f_got[live], ref[live])
+            if f_rel > tol:
+                raise AssertionError(f"paged_attention_write {name}: scaled error {f_rel:.3e} > {tol}")
+            del kf, vf, kf2, vf2, fused, k_orig, v_orig
+            plan = tpa.split_plan(b, geo["nkv"], geo["nq"], geo["hd"], geo["ps"], mp,
+                                  tpa._sm_count(device))
+            log(f"[KERNEL] paged write (pools identical to the plain write) + attention {name}: "
+                f"max_abs_err={err:.3e} scaled={rel:.3e}; write-and-attend in one launch (pools "
+                f"identical outside page 0): max_abs_err={f_err:.3e} scaled={f_rel:.3e}; "
+                f"tol={tol} ok (runs of {plan.pages_per_split} pages x {plan.splits}; same bits "
+                "on a second run)")
             if not (timed and dtype == torch.bfloat16):
                 del c
                 continue
 
-            # times at the served decode shape, bf16 queries
+            # times at the served decode shapes, bf16 queries
             q8 = kind == "int8"
             nq, nkv, hd, ps = geo["nq"], geo["nkv"], geo["hd"], geo["ps"]
-            keys = int((lens1 - (c["starts"] if c["starts"] is not None else 0)).sum().item())
-            b = len(geo["lens"])
+            keys = int(lens1.sum().item())
             row_bytes = (hd + 4) if q8 else hd * 2
-            a_bytes = 2 * nkv * row_bytes * keys + 2 * b * nq * hd * 2 + c["table"].numel() * 4 + 8 * b
+            common_bytes = 2 * b * nq * hd * 2 + c["table"].numel() * 4 + 4 * b  # q, out, table, lens
+            new_bytes = 2 * b * nkv * (hd * 2 + row_bytes)  # read k_new / v_new, write the rows
+            a_bytes = 2 * nkv * row_bytes * keys + common_bytes
             a_flops = 4 * nq * hd * keys
             a_bound, a_by = _bound(a_flops, a_bytes, "bfloat16")
-            a_ms = time_ms(lambda: tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1,
-                                                       None, None, li), iters=20)
+            w_bytes = new_bytes + c["table"].numel() * 4 + 4 * b
+            w_bound, w_by = _bound(0, w_bytes, "bfloat16")
+            f_bytes = 2 * nkv * row_bytes * (keys - b) + new_bytes + common_bytes
+            f_bound, f_by = _bound(a_flops, f_bytes, "bfloat16")
+
+            def attend():
+                return tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], lens1, None, None, li)
+
+            def write():
+                return tpa.paged_cache_write(c["k"], c["v"], c["k_new"], c["v_new"], c["table"],
+                                             c["lens"], li)
+
+            def pair():
+                write()
+                return attend()
+
+            def write_attend():
+                return tpa.paged_attention_write(c["q"], c["k_new"], c["v_new"], c["k"], c["v"],
+                                                 c["table"], c["lens"], None, None, li)
+
+            def write_plain():
+                tpa.paged_pool_write_plain(c["k"], c["k_new"], c["table"], c["lens"], li)
+                tpa.paged_pool_write_plain(c["v"], c["v_new"], c["table"], c["lens"], li)
+
+            def write_attend_plain():
+                return tpa.paged_attention_write_plain(c["q"], c["k_new"], c["v_new"], c["k"],
+                                                       c["v"], c["table"], c["lens"], None, None, li)
+
+            t = {name_: dict(ms=time_ms(fn, iters=20), device_ms=device_ms(fn), host_us=host_us(fn))
+                 for name_, fn in (("attend", attend), ("write", write), ("pair", pair),
+                                   ("write_attend", write_attend))}
             ap_ms = time_ms(lambda: tpa.paged_attention_plain(c["q"], c["k"], c["v"], c["table"],
                                                               lens1, None, None, li), iters=5, warmup=1)
+            fp_ms = time_ms(write_attend_plain, iters=5, warmup=1)
             table_l = c["table"].long()
-            mp = table_l.shape[1]
             key_mask = (torch.arange(mp * ps, device=device)[None] < lens1[:, None])[:, None, None]
 
             def gathered(pool):
@@ -1157,15 +1284,6 @@ def phase_paged_kernels(device) -> dict:
             if lib_err > tol:
                 raise AssertionError(f"the library composition disagrees with the plain version: {lib_err}")
             al_ms = time_ms(attn_library)
-            w_bytes = 2 * b * nkv * (hd * 2 + (hd + 4 if q8 else hd * 2)) + c["table"].numel() * 4 + 4 * b
-            w_bound, w_by = _bound(0, w_bytes, "bfloat16")
-            w_ms = time_ms(lambda: tpa.paged_cache_write(c["k"], c["v"], c["k_new"], c["v_new"],
-                                                         c["table"], c["lens"], li), iters=20)
-
-            def write_plain():
-                tpa.paged_pool_write_plain(c["k"], c["k_new"], c["table"], c["lens"], li)
-                tpa.paged_pool_write_plain(c["v"], c["v_new"], c["table"], c["lens"], li)
-
             wp_ms = time_ms(write_plain)
             rows = torch.arange(b, device=device)
             phys, off = table_l[rows, c["lens"].long() // ps], c["lens"].long() % ps
@@ -1180,31 +1298,91 @@ def phase_paged_kernels(device) -> dict:
 
                 wl_ms = time_ms(write_library)
             suffix = "_q8" if q8 else ""
-            shape = f"b={b} nq={nq} nkv={nkv} hd={hd} ps={ps}, {keys // b} keys each, bf16" + \
+            shape = f"b={b} nq={nq} nkv={nkv} hd={hd} ps={ps}, ~{keys // b} keys each, bf16" + \
                 (" queries, int8 pools" if q8 else "")
-            log(f"[TIME] paged_attention{suffix} {shape}: kernel {a_ms:.4f} ms "
-                f"({a_bytes / a_ms / 1e9:.1f} TB/s of the bytes it must move), plain {ap_ms:.4f} ms, "
-                f"library page gather + SDPA {al_ms:.4f} ms, bound {a_bound:.4f} ms ({a_by})")
-            log(f"[TIME] paged_pool_write{suffix} {shape}: kernel {w_ms:.4f} ms (K and V in one "
+
+            def stamp(k):
+                return (f"{t[k]['ms']:.4f} ms (events), device {t[k]['device_ms']:.4f} ms, host "
+                        f"{t[k]['host_us']:.1f} us a call to enqueue")
+
+            log(f"[TIME] paged_attention{suffix} {shape}: kernel {stamp('attend')} "
+                f"({a_bytes / t['attend']['device_ms'] / 1e9:.1f} TB/s of the bytes it must move), "
+                f"plain {ap_ms:.4f} ms, library page gather + SDPA {al_ms:.4f} ms, bound "
+                f"{a_bound:.4f} ms ({a_by})")
+            log(f"[TIME] paged_pool_write{suffix} {shape}: kernel {stamp('write')} (K and V in one "
                 f"launch), plain {wp_ms:.4f} ms, library index_put_ "
                 f"{'none for an int8 pool' if wl_ms is None else f'{wl_ms:.4f} ms'}, bound "
                 f"{w_bound:.6f} ms ({w_by}; {w_bytes} bytes, far under a launch's latency)")
+            log(f"[TIME] paged_attention_write{suffix} {shape}: one launch {stamp('write_attend')}; "
+                f"the two calls it replaces (write, then attend) {stamp('pair')}; plain "
+                f"{fp_ms:.4f} ms, bound {f_bound:.4f} ms ({f_by})")
+            if geo["lens"][0] != 2047:
+                continue  # the kernels line keeps the 2048-key shape
             common = dict(route="cuda", source=source, shape=shape, tol=tol)
             records["paged_attention" + suffix] = dict(
                 common, name="paged_attention" + suffix,
                 replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("349" if q8 else "243"),
                 tpu_kernel="_paged_pallas_grouped_q8" if q8 else "paged_attention_pallas",
-                max_abs_err=err, scaled_err=rel, ms=a_ms, kernel_ms=a_ms, plain_ms=ap_ms,
+                max_abs_err=err, scaled_err=rel, ms=t["attend"]["ms"], kernel_ms=t["attend"]["ms"],
+                device_ms=t["attend"]["device_ms"], host_us=t["attend"]["host_us"], plain_ms=ap_ms,
                 bound_ms=a_bound, bound_by=a_by, library_ms=al_ms, flops=a_flops, bytes=a_bytes)
             records["paged_pool_write" + suffix] = dict(
                 common, name="paged_pool_write" + suffix,
                 replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("587" if q8 else "541"),
                 tpu_kernel="_pool_write_pallas_q8" if q8 else "_pool_write_pallas_array",
-                max_abs_err=0.0, scaled_err=0.0, ms=w_ms, kernel_ms=w_ms, plain_ms=wp_ms,
+                max_abs_err=0.0, scaled_err=0.0, ms=t["write"]["ms"], kernel_ms=t["write"]["ms"],
+                device_ms=t["write"]["device_ms"], host_us=t["write"]["host_us"], plain_ms=wp_ms,
                 bound_ms=w_bound, bound_by=w_by, library_ms=wl_ms, flops=0, bytes=w_bytes)
+            records["paged_attention_write" + suffix] = dict(
+                common, name="paged_attention_write" + suffix,
+                replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("587" if q8 else "541"),
+                tpu_kernel=("_pool_write_pallas_q8 + _paged_pallas_grouped_q8" if q8 else
+                            "_pool_write_pallas_array + paged_attention_pallas"),
+                max_abs_err=f_err, scaled_err=f_rel, ms=t["write_attend"]["ms"],
+                kernel_ms=t["write_attend"]["ms"], device_ms=t["write_attend"]["device_ms"],
+                host_us=t["write_attend"]["host_us"], pair_device_ms=t["pair"]["device_ms"],
+                pair_host_us=t["pair"]["host_us"], plain_ms=fp_ms, bound_ms=f_bound,
+                bound_by=f_by, library_ms=None, flops=a_flops, bytes=f_bytes)
             del c
         torch.cuda.empty_cache()
     return records
+
+
+def drive_paged_standalone(device) -> dict:
+    """``paged_cache_write`` and ``paged_attention`` (bf16 and int8 pools) have
+    no caller on the served path since the decode layer makes one
+    ``paged_attention_write`` call; they stay for callers that write without
+    attending (the JAX package's single-pool write) and are driven here at the
+    served decode shape (8 slots of ~520 keys), against
+    ``paged_attention_write`` from the same pools: the same pools bit for bit,
+    outputs within the bf16 tolerance. Returns the launches this drive made."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(10)
+    reset_launch_counts()
+    for kind in ("float", "int8"):
+        c = _paged_setup(gen, device, torch.bfloat16, kind, nq=32, nkv=32, hd=128, ps=64,
+                         lens=[519 + 3 * i for i in range(8)], mp=32)
+        kf, vf = _clone_pool(c["k"]), _clone_pool(c["v"])
+        tpa.paged_cache_write(c["k"], c["v"], c["k_new"], c["v_new"], c["table"], c["lens"])
+        got = tpa.paged_attention(c["q"], c["k"], c["v"], c["table"], c["lens"] + 1)
+        ref = tpa.paged_attention_write(c["q"], c["k_new"], c["v_new"], kf, vf, c["table"],
+                                        c["lens"])
+        torch.cuda.synchronize()
+        err, rel = scaled_err(got, ref)
+        same = _pools_differ(c["k"], kf) + _pools_differ(c["v"], vf) == 0
+        log(f"[KERNEL] paged_cache_write + paged_attention ({kind} pools), the standalone "
+            f"calls, vs paged_attention_write: pools identical {same}, max_abs_err={err:.3e} "
+            f"scaled={rel:.3e} tol={TOL['bfloat16']}")
+        if not same or rel > TOL["bfloat16"]:
+            raise AssertionError(f"the standalone paged calls ({kind} pools) disagree with "
+                                 "paged_attention_write")
+    names = ("paged_attention", "paged_attention_q8", "paged_pool_write", "paged_pool_write_q8")
+    return {name: launch_counts[name] for name in names}
 
 
 def _fused_mlp_bound(m, d, f, elem, dtype_name):
@@ -1823,15 +2001,16 @@ def check_paged_against_host(params, cfg, device) -> None:
         worst = max(scaled_err(g, r)[1] for g, r in zip(got, ref))
         if not all(torch.isfinite(g).all() for g in got):
             raise AssertionError(f"paged path {dtype}: non-finite logits")
-        n_attn, n_write = launch_counts["paged_attention"], launch_counts["paged_pool_write"]
+        n_fused = launch_counts["paged_attention_write"]
+        n_apart = launch_counts["paged_attention"] + launch_counts["paged_pool_write"]
         log(f"[SERVE] Llama-2-7B width, 2 layers, prompts of 70 and 33 tokens, prefill + {steps} "
             f"decode steps: card kernels {dtype} vs host CPU plain fp32 ({host_s:.1f} s), worst "
             f"scaled logit error over {len(got)} logit rows {worst:.3e} tol={tol}; launches "
-            f"paged_attention {n_attn}, paged_pool_write {n_write}, flash_attention "
-            f"{launch_counts['flash_attention']}")
+            f"paged_attention_write {n_fused}, paged_attention + paged_pool_write {n_apart}, "
+            f"flash_attention {launch_counts['flash_attention']}")
         if worst > tol:
             raise AssertionError("the paged path on the card disagrees with the CPU plain path")
-        if n_attn != 2 * steps or n_write != 2 * steps or launch_counts["flash_attention"] != 4:
+        if n_fused != 2 * steps or n_apart or launch_counts["flash_attention"] != 4:
             raise AssertionError("unexpected kernel launch counts on the paged path")
 
 
@@ -1996,10 +2175,12 @@ def _check_greedy_alone(params, cfg, device, requests, responses, cache_dtype, l
 
 def _expect_decode_launches(label, run, cfg, names) -> None:
     """Each named kernel launched once per layer and batched decode step of the
-    run, and the kernels of the other pool kind not at all: the decode phase
-    went through them and through nothing else."""
+    run, and the other paged kernels (the standalone write and attention, the
+    other pool kind) not at all: the decode phase went through them and
+    through nothing else."""
     want = run["decode_steps"] * cfg.num_layers
-    paged = ("paged_attention", "paged_pool_write", "paged_attention_q8", "paged_pool_write_q8")
+    paged = ("paged_attention", "paged_pool_write", "paged_attention_q8", "paged_pool_write_q8",
+             "paged_attention_write", "paged_attention_write_q8")
     for name in paged:
         expect = want if name in names else 0
         if run["launches"][name] != expect or want <= 0:
@@ -2008,11 +2189,11 @@ def _expect_decode_launches(label, run, cfg, names) -> None:
                                  f"expected {expect}")
 
 
-def measure_decode(params, cfg, device) -> None:
+def measure_decode(params, cfg, device) -> dict:
     """Eight live slots with 512-token prompts on a ``PagedServer`` of the
-    served geometry: ms per decode step over blocks of 8 (host clock around a
-    synchronized block), launches per step, and a ``torch.profiler`` split of
-    one block."""
+    served geometry: ms per decode step over blocks of 8 (host clock around
+    each synchronized block), launches per step, and a ``torch.profiler`` split
+    of one block. Returns those numbers."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2029,13 +2210,14 @@ def measure_decode(params, cfg, device) -> None:
     server.step_many(8)  # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
-    blocks = 4
-    t0 = time.perf_counter()
-    for _ in range(blocks):
+    blocks = []
+    for _ in range(4):
+        t0 = time.perf_counter()
         server.step_many(8)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (blocks * 8)
-    ours = {k: v / (blocks * 8) for k, v in launch_counts.items() if v}
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t0) * 1e3 / 8)
+    step_ms = sum(blocks) / len(blocks)
+    ours = {k: v / (len(blocks) * 8) for k, v in launch_counts.items() if v}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         server.step_many(8)
         torch.cuda.synchronize()
@@ -2045,18 +2227,23 @@ def measure_decode(params, cfg, device) -> None:
     n_launch = sum(e.count for e in kernels) / 8
     weights_ms = sum(v.numel() * v.element_size() for v in params["blocks"].values()) / PEAK_BYTES * 1e3
     log(f"[SERVE] decode at 8 live slots (~520 cached tokens each), bf16 pools: {step_ms:.2f} ms "
-        f"per step over {blocks} blocks of 8 (host clock, no profiler) = {8e3 / step_ms:.0f} "
-        f"tokens/s; hand-written kernel launches per step {json.dumps(ours)}; reading the block "
-        f"weights once takes {weights_ms:.2f} ms at the data-sheet rate")
+        f"per step over {len(blocks)} blocks of 8 (host clock, no profiler; blocks "
+        f"{', '.join(f'{x:.2f}' for x in blocks)}) = {8e3 / step_ms:.0f} tokens/s; hand-written "
+        f"kernel launches per step {json.dumps(ours)}; reading the block weights once takes "
+        f"{weights_ms:.2f} ms at the data-sheet rate")
+    top = [(e.key[:90], _device_us(e) / 1e3 / 8, e.count // 8)
+           for e in sorted(kernels, key=_device_us, reverse=True)[:8]]
+    out = dict(step_ms=step_ms, block_step_ms=blocks, launches_per_step=ours,
+               device_kernels_per_step=n_launch, device_ms_per_step=total_ms, top=top)
     if total_ms <= 0:
         log("[PROFILE] decode block: the trace holds no device time: not measured")
-        return
+        return out
     log(f"[PROFILE] decode block of 8 steps: {n_launch:.0f} device kernels and {total_ms:.2f} ms "
         f"of device activity per step ({100 * total_ms / step_ms:.0f}% of the step's wall time; "
         f"the rest is the host dispatching)")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
-        ms = _device_us(e) / 1e3 / 8
-        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count // 8:<4d} {e.key[:90]}")
+    for key, ms, count in top:
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{count:<4d} {key}")
+    return out
 
 
 def phase_serving(device, params, cfg) -> dict:
@@ -2100,7 +2287,7 @@ def phase_serving(device, params, cfg) -> dict:
             raise AssertionError(f"run 1: requests {a} and {b} ({what}) returned different tokens")
     if run1["prefix_hit_pages"] <= 0:
         raise AssertionError("run 1: the shared 256-token prefix hit no cached page")
-    _expect_decode_launches("run 1", run1, cfg, ("paged_attention", "paged_pool_write"))
+    _expect_decode_launches("run 1", run1, cfg, ("paged_attention_write",))
     _check_greedy_alone(params, cfg, device, requests, r, torch.bfloat16, "run 1")
     alone = paged_generate(params, cfg, [requests[8]["prompt"]], max_new_tokens=64, page_size=PAGE)
     same = sum(1 for x, y in zip(alone[0][128:].tolist(), r[8]["tokens"]) if x == y)
@@ -2113,13 +2300,11 @@ def phase_serving(device, params, cfg) -> dict:
                  dict(prompt=prompt(6100, 64), max_tokens=64, **greedy)]
     run2 = _serve(params, cfg, device, ["--kv-dtype", "int8", "--chunked-prefill", "64"], requests2,
                   "run 2 (int8 pools, chunked prefill)")
-    _expect_decode_launches("run 2", run2, cfg, ("paged_attention_q8", "paged_pool_write_q8"))
+    _expect_decode_launches("run 2", run2, cfg, ("paged_attention_write_q8",))
     _check_greedy_alone(params, cfg, device, requests2, run2["responses"], torch.int8, "run 2")
     measure_decode(params, cfg, device)
-    return {"paged_attention": run1["launches"]["paged_attention"],
-            "paged_pool_write": run1["launches"]["paged_pool_write"],
-            "paged_attention_q8": run2["launches"]["paged_attention_q8"],
-            "paged_pool_write_q8": run2["launches"]["paged_pool_write_q8"]}
+    return {"paged_attention_write": run1["launches"]["paged_attention_write"],
+            "paged_attention_write_q8": run2["launches"]["paged_attention_write_q8"]}
 
 
 GEN_MAX_LENGTH = 640  # prompt + generation of the contiguous-serving runs
@@ -2845,6 +3030,9 @@ def main() -> int:
     direct = {"fused_ffn": ("ops.ffn.ffn_forward called directly", drive_ffn_forward(device)),
               "quant_matmul": ("direct wrapper call, no caller in the package",
                                drive_quant_matmul(device))}
+    for name, n in drive_paged_standalone(device).items():
+        direct[name] = ("direct wrapper calls; the served decode layer makes one "
+                        "paged_attention_write call instead", n)
     phase_done("kernels (phase 3)")
     cli_launches = {name: 0 for name in KERNEL_NAMES}
     with tempfile.TemporaryDirectory() as out_root:

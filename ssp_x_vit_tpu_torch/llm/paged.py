@@ -12,8 +12,9 @@
   positions) write there.
 
 Decode attention and the per-step K/V write go through
-``ops/kernels/paged_attention.py`` (the hand-written CUDA kernels for CUDA
-tensors, their plain versions for CPU tensors). The pools are written in
+``ops/kernels/paged_attention.py`` as one write-and-attend call per layer (one
+hand-written CUDA kernel launch for CUDA tensors, the plain versions for CPU
+tensors). The pools are written in
 place; every function that takes pools returns the same objects, which keeps
 the JAX package's call shapes. The layer loop is a Python loop: ``layer_idx``
 is a host integer, and gemma-2's per-layer windows are static. Eager PyTorch
@@ -50,7 +51,7 @@ from ssp_x_vit_tpu_torch.llm.serve import (
 from ssp_x_vit_tpu_torch.ops.attention import flash_attention
 from ssp_x_vit_tpu_torch.ops.common import gelu
 from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import (
-    Pool, layer_of, page_size_of, paged_attention, paged_cache_write, paged_cache_write_many,
+    Pool, layer_of, page_size_of, paged_attention_write, paged_cache_write_many,
 )
 
 _NEG_INF = torch.finfo(torch.float32).min
@@ -120,28 +121,25 @@ def _block(x, bp, cfg: LlamaConfig, compute_dtype, attend):
 def _paged_layer(x, bp, k_pools, v_pools, cfg: LlamaConfig, page_tables, seq_lens,
                  compute_dtype, has_attn=True, window=None, layer_idx=None, ctx=None):
     """One decode-step layer over the paged cache: write the new token's K/V
-    at slot ``seq_lens`` of each sequence, then attend ``seq_lens + 1`` keys on
-    the same stream. ``k_pools`` / ``v_pools`` are the full 5D pools with the
-    host integer ``layer_idx`` (4D pools with None); ``window`` is this
-    layer's static sliding window."""
+    at slot ``seq_lens`` of each sequence and attend ``seq_lens + 1`` keys, in
+    one ``paged_attention_write`` call (one launch on the card). ``k_pools`` /
+    ``v_pools`` are the full 5D pools with the host integer ``layer_idx`` (4D
+    pools with None); ``window`` is this layer's static sliding window."""
     b = x.shape[0]
     ctx = {} if ctx is None else ctx
 
     def attend(h):
         q, k, v = _block_qkv(h, bp, cfg, seq_lens[:, None], compute_dtype, ctx.get("rope"))
-        paged_cache_write(k_pools, v_pools, k[:, 0].contiguous(), v[:, 0].contiguous(),
-                          page_tables, seq_lens, layer_idx=layer_idx)
-        lens1 = ctx.get("lens1")
-        if lens1 is None:
-            lens1 = ctx["lens1"] = seq_lens + 1
         starts = None
         if window is not None:
             # query position == seq_lens; HF window: keys k with q - k < window
             starts = ctx.get(("starts", window))
             if starts is None:
-                starts = ctx[("starts", window)] = (lens1 - window).clamp_min(0)
-        attn = paged_attention(q[:, 0].contiguous(), k_pools, v_pools, page_tables, lens1,
-                               start_lens=starts, softcap=cfg.attn_softcap, layer_idx=layer_idx)
+                starts = ctx[("starts", window)] = (seq_lens + 1 - window).clamp_min(0)
+        attn = paged_attention_write(q[:, 0].contiguous(), k[:, 0].contiguous(),
+                                     v[:, 0].contiguous(), k_pools, v_pools, page_tables,
+                                     seq_lens, start_lens=starts, softcap=cfg.attn_softcap,
+                                     layer_idx=layer_idx)
         return _o_proj(attn.reshape(b, 1, -1), bp, compute_dtype)
 
     return _block(x, bp, cfg, compute_dtype, attend if has_attn else None)

@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``csrc/`` with nvcc at first use, bind them with
 ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``,
-``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``;
+``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``,
+``paged_attention_write``;
 ``quant_fused_mlp`` is launched by ``ops/kernels/quant_fused_mlp.py``).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<hash>/lib<name>.so`` at the
@@ -68,6 +69,9 @@ SIGNATURES = {
                                  _I, _L, _I, _F, _F, _I, _I, _P, _P, _P], _I),
         "ssp_paged_pool_write": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _L, _I, _P], _I),
+        "ssp_paged_attention_write": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _I, _I, _P, _P,
+                                       _P], _I),
     },
     "quant_fused_mlp": {
         "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -79,6 +83,7 @@ SIGNATURES = {
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _tickets: Dict[int, torch.Tensor] = {}
+_workspaces: Dict[int, torch.Tensor] = {}
 build_log: Dict[str, str] = {}  # nvcc output (ptxas register/smem report) per source
 build_seconds: float = 0.0
 
@@ -175,6 +180,25 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device.index] = buf
     return buf
+
+
+def workspace(device_index: int, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 of workspace on the card ``device_index``, one buffer per
+    device: a kernel that combines its key runs inside the launch writes and
+    reads it within that launch, so calls in stream order share it (as they
+    share ``tickets``)."""
+    buf = _workspaces.get(device_index)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1 << 16), dtype=torch.float32,
+                          device=torch.device("cuda", device_index))
+        _workspaces[device_index] = buf
+    return buf
+
+
+def raw_stream(device_index: int) -> int:
+    """The current stream of the card ``device_index`` as a ``cudaStream_t``
+    integer, without making a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -323,3 +347,26 @@ def paged_pool_write(k_new: torch.Tensor, v_new: Optional[torch.Tensor], k_pool:
         k_pool.data_ptr(), _ptr(v_pool), _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
         positions.data_ptr(), b, nkv, hd, ps, page_table.shape[1], num_pages, layer, _stream()),
         "ssp_paged_pool_write")
+
+
+def paged_attention_write(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                          k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                          page_table: torch.Tensor, positions: torch.Tensor,
+                          start_lens: Optional[torch.Tensor], out: torch.Tensor, dims: tuple, *,
+                          layer: int, workspace: Optional[torch.Tensor],
+                          tickets: Optional[torch.Tensor], stream: int) -> torch.Tensor:
+    """Write-and-attend in one launch: row ``positions[i]`` of sequence i in layer
+    ``layer`` of the pools becomes ``k_new[i]`` / ``v_new[i]`` (as ``paged_pool_write``),
+    and ``out`` the attention of ``q`` over the keys ``start_lens <= pos <=
+    positions`` (as ``paged_attention``). ``dims``: (q dtype code, pool code, new-row
+    dtype code, b, nq, nkv, hd, ps, mp, num_pages, scale, softcap, pages per split,
+    splits), decided once per signature by the caller."""
+    qc, pc, nc, b, nq, nkv, hd, ps, mp, num_pages, scale, softcap, pps, splits = dims
+    check(library("paged_attention").ssp_paged_attention_write(
+        qc, pc, nc, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+        positions.data_ptr(), _ptr(start_lens), out.data_ptr(), b, nq, nkv, hd, ps, mp,
+        num_pages, layer, scale, softcap, pps, splits, _ptr(workspace), _ptr(tickets), stream),
+        "ssp_paged_attention_write")
+    return out

@@ -43,9 +43,29 @@
 // takes p before either. Pool offsets are 64-bit (a Llama-2-7B pool of 512
 // pages of 64 has 4.29e9 elements). A row with no key in range is 0.
 //
-// Write: one warp per (sequence, KV head) row writes hd elements (and, for
-// int8 pools, the row's scale) at (layer, page_table[i, pos / ps], pos % ps),
-// K and V in one launch, in place; nothing else of the pool is touched.
+// Write-and-attend (the decode step's layer: write the new token's K and V at
+// slot pos = positions[i], then attend pos + 1 keys): the attention kernel
+// above with the write folded in, one launch where the step made two. The
+// write moves a few hundred KB, far under a launch's latency, so what the
+// separate write cost was a launch and a wrapper call per layer and step. Key
+// pos lies in exactly one run. In the block that owns it, the producer warp,
+// once the ring's first copies are in flight, writes the K and V rows of its
+// KV head to the pools (a slot outside the table goes to row 0 of trash page
+// 0, which split 0 writes and no block scores) and the same values to a
+// one-row stage in shared memory after the ring; consumer warp 0, after its
+// stream, scores the key last from that stage (an mbarrier orders the two),
+// as a later read of the pool would give it (pool dtype; int8 codes and their
+// scale). The stream's loop is the attention's own. The block streams only
+// [k_lo, pos), so nothing in the launch reads what it writes: the bulk copies
+// need no proxy fence, and the last chunk may hold row pos only masked. Live
+// sequences own disjoint pages, and prefix-cached pages are full and never
+// written; dead slots (table rows zeroed) write and read trash page 0, and
+// only their own rows read it.
+//
+// Write alone: one warp per (sequence, KV head) row writes hd elements (and,
+// for int8 pools, the row's scale) at (layer, page_table[i, pos / ps], pos % ps),
+// K and V in one launch, in place; nothing else of the pool is touched. Both
+// write kernels quantize through kv_scale and kv_code.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -74,6 +94,30 @@ template <> __device__ __forceinline__ float as_float<__nv_bfloat16>(__nv_bfloat
 template <typename T> __device__ __forceinline__ float round_like(float p) { return p; }
 template <> __device__ __forceinline__ float round_like<__nv_bfloat16>(float p) {
   return __bfloat162float(__float2bfloat16(p));
+}
+
+// The quantizer of int8 pools, per token and KV head, which both write
+// kernels use: scale = amax / 127 (1 where amax == 0), code =
+// clip(round-half-to-even(x / scale), +-127).
+__device__ __forceinline__ float kv_scale(float amax) { return amax > 0.f ? amax / 127.0f : 1.0f; }
+__device__ __forceinline__ int8_t kv_code(float x, float scale) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(x / scale), -127.f), 127.f));
+}
+
+// One new row of hd elements into the pool row `dst` by the 32 lanes of a
+// warp; int8 pools quantize it and store its scale at *dst_scale.
+template <typename TN, typename TP>
+__device__ __forceinline__ void write_row(const TN* src, TP* dst, float* dst_scale, int hd,
+                                          int lane) {
+  if constexpr (std::is_same<TP, int8_t>::value) {
+    float amax = 0.f;
+    for (int d = lane; d < hd; d += 32) amax = fmaxf(amax, fabsf(as_float<TN>(src[d])));
+    const float sc = kv_scale(warp_max(amax));
+    for (int d = lane; d < hd; d += 32) dst[d] = kv_code(as_float<TN>(src[d]), sc);
+    if (lane == 0) *dst_scale = sc;
+  } else {
+    for (int d = lane; d < hd; d += 32) dst[d] = from_f<TP>(as_float<TN>(src[d]));
+  }
 }
 
 namespace pa {
@@ -105,7 +149,102 @@ struct Params {
   int group;              // lanes that hold one key row (a power of two)
   int stage_bytes;
   int bulk;               // the producer copies with cp.async.bulk (else element loads)
+  // write-and-attend only: the new rows [b, nkv, hd] (fp32 when new_f32, else
+  // bf16) and their slots; the keys are then [start, positions[i] + 1)
+  const void* k_new;
+  const void* v_new;
+  const int* positions;
+  int new_f32;
 };
+
+// Write-and-attend's shared memory after the ring: an mbarrier, then from
+// byte 16 the one-row stage of the written key: K row, V row (rs bytes each,
+// rs <= 256 elements), then the K and V scales of int8 pools.
+template <typename TP>
+constexpr int kNewStageBytes = 16 + 2 * 256 * static_cast<int>(sizeof(TP)) + 32;
+
+// The producer warp of the block that owns slot `pos` of sequence i: the K
+// and V rows of KV head h (hd <= 256) into the pools at that slot (row 0 of
+// trash page 0 outside the table), and the same values into the one-row
+// stage `st` (K row, V row rs bytes on, zeros past hd; the int8 scales after
+// them). Every load is issued before the first store: one trip to memory.
+template <typename TN, typename TP>
+__device__ __forceinline__ void write_new_rows(const Params& p, int i, int h, int pos,
+                                               unsigned char* st, int lane) {
+  constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
+  constexpr int T = 256 / 32;  // elements of a row per lane
+  const bool in_table = pos >= 0 && pos < p.mp * p.ps;
+  const int j = in_table ? pos / p.ps : 0;
+  const int phys = in_table ? p.page_table[static_cast<long long>(i) * p.mp + j] : 0;
+  const long long src = (static_cast<long long>(i) * p.nkv + h) * p.hd;
+  const TN* ksrc = static_cast<const TN*>(p.k_new) + src;
+  const TN* vsrc = static_cast<const TN*>(p.v_new) + src;
+  float kx[T], vx[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int d = lane + 32 * t;
+    kx[t] = d < p.hd ? as_float<TN>(ksrc[d]) : 0.f;
+    vx[t] = d < p.hd ? as_float<TN>(vsrc[d]) : 0.f;
+  }
+  const long long row =
+      ((static_cast<long long>(p.layer) * p.nkv + h) * p.num_pages + phys) * p.ps +
+      (in_table ? pos - j * p.ps : 0);
+  TP* kd = const_cast<TP*>(static_cast<const TP*>(p.k_pool)) + row * p.hd;
+  TP* vd = const_cast<TP*>(static_cast<const TP*>(p.v_pool)) + row * p.hd;
+  TP* kc = reinterpret_cast<TP*>(st);
+  TP* vc = reinterpret_cast<TP*>(st + p.rs);
+  const int copy_len = p.rs / static_cast<int>(sizeof(TP));
+  float sk = 1.f, sv = 1.f;
+  if constexpr (kQ8) {
+    float ak = 0.f, av = 0.f;
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      ak = fmaxf(ak, fabsf(kx[t]));
+      av = fmaxf(av, fabsf(vx[t]));
+    }
+    sk = kv_scale(warp_max(ak));
+    sv = kv_scale(warp_max(av));
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int d = lane + 32 * t;
+    if (d < p.hd) {
+      TP kq, vq;
+      if constexpr (kQ8) {
+        kq = kv_code(kx[t], sk);
+        vq = kv_code(vx[t], sv);
+      } else {
+        kq = from_f<TP>(kx[t]);
+        vq = from_f<TP>(vx[t]);
+      }
+      kd[d] = kq;
+      vd[d] = vq;
+      kc[d] = kq;
+      vc[d] = vq;
+    } else if (d < copy_len) {
+      kc[d] = TP{};
+      vc[d] = TP{};
+    }
+  }
+  if (kQ8 && lane == 0) {
+    const_cast<float*>(p.k_scale)[row] = sk;
+    const_cast<float*>(p.v_scale)[row] = sv;
+    float* scales = reinterpret_cast<float*>(st + 2 * p.rs);
+    scales[0] = sk;
+    scales[4] = sv;
+  }
+  __syncwarp();
+}
+
+// write_new_rows for the new rows' dtype (fp32 or bf16, a launch argument).
+template <typename TP>
+__device__ __forceinline__ void write_new(const Params& p, int i, int h, int pos,
+                                          unsigned char* st, int lane) {
+  if (p.new_f32)
+    write_new_rows<float, TP>(p, i, h, pos, st, lane);
+  else
+    write_new_rows<__nv_bfloat16, TP>(p, i, h, pos, st, lane);
+}
 
 // A lane's vector of a row: 8 elements (bf16, int8) or 4 (fp32), read from
 // shared memory as W 32-bit words and turned into floats (exactly).
@@ -220,8 +359,9 @@ __device__ void combine(const Params& p, int i, int h, TQ* out, float* sm_w, int
 // grid (nkv, b, splits); a run with no live key leaves at once. Three blocks
 // share an SM for a query group of one (the register bound keeps them).
 // NV: vectors per lane and row (2 only for fp32 rows
-// over 512 bytes); REP: query heads of the group the registers hold (>= rep).
-template <typename TQ, typename TP, int NV, int REP>
+// over 512 bytes); REP: query heads of the group the registers hold (>= rep);
+// WRITE: write-and-attend (positions instead of seq_lens, see the note at the top).
+template <typename TQ, typename TP, int NV, int REP, bool WRITE>
 __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
     split_kernel(const Params p) {
   constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
@@ -233,22 +373,41 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
   __shared__ int pages[kMaxPagesPerSplit];
   __shared__ float sm_m[kConsumerWarps][REP], sm_l[kConsumerWarps][REP];
   __shared__ int last_flag;
+  // write-and-attend: after the ring, an mbarrier the writer's producer warp
+  // arrives on once it has written the key's one-row stage (16 bytes on)
+  unsigned char* const new_stage = smem + kStages * p.stage_bytes;
+  uint64_t* const new_full = reinterpret_cast<uint64_t*>(new_stage);
 
   const int h = blockIdx.x, i = blockIdx.y, split = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int seq_len = min(p.seq_lens[i], p.mp * p.ps);
+  int seq_len, pos = 0;
+  if constexpr (WRITE) {
+    pos = p.positions[i];
+    seq_len = pos >= p.mp * p.ps ? p.mp * p.ps : pos + 1;
+  } else {
+    seq_len = min(p.seq_lens[i], p.mp * p.ps);
+  }
   const int start = p.start_lens != nullptr ? max(p.start_lens[i], 0) : 0;
   const int span = p.pps * p.ps;
+  bool writer = false, fold = false;  // fold: this block scores key pos from its stage
+  if constexpr (WRITE) {
+    const bool in_table = pos >= 0 && pos < p.mp * p.ps;
+    writer = split == (in_table ? pos / span : 0);
+    fold = writer && in_table && pos >= start;
+  }
   const int k_lo = max(start, split * span), k_hi = min(seq_len, (split + 1) * span);
+  const int k_end = fold ? pos : k_hi;  // the streamed keys are [k_lo, k_end)
   const int tid = threadIdx.x, n_out = p.rep * p.hd;
-  TQ* out = static_cast<TQ*>(p.out) + (static_cast<long long>(i) * p.nq + h * p.rep) * p.hd;
-  float* part = p.partial + ((static_cast<long long>(i) * p.nkv + h) * p.splits + split) *
-                                static_cast<long long>(p.rep) * (p.hd + 2);
-  if (k_lo >= k_hi) {  // no key of this run is live: an empty state, and leave
+  if (k_lo >= k_end && !fold) {  // no key of this run is live: an empty state, and leave
+    if constexpr (WRITE)
+      if (writer && warp == 0) write_new<TP>(p, i, h, pos, new_stage + 16, lane);
+    TQ* out = static_cast<TQ*>(p.out) + (static_cast<long long>(i) * p.nq + h * p.rep) * p.hd;
     if (p.splits == 1) {
       for (int idx = tid; idx < n_out; idx += kThreads) out[idx] = from_f<TQ>(0.f);
       return;
     }
+    float* part = p.partial + ((static_cast<long long>(i) * p.nkv + h) * p.splits + split) *
+                                  static_cast<long long>(p.rep) * (p.hd + 2);
     if (tid < p.rep) {
       part[tid] = kMin;
       part[p.rep + tid] = 0.f;
@@ -260,10 +419,12 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
     return;
   }
   // the stages: chunks of `rows` rows of each page, in key order
+  // (none when the block only scores its written key)
+  const bool any = !WRITE || k_lo < k_end;
   const int cpp = (p.ps + p.rows - 1) / p.rows;
-  const int j_lo = k_lo / p.ps, j_last = (k_hi - 1) / p.ps;
+  const int j_lo = k_lo / p.ps, j_last = any ? (k_end - 1) / p.ps : j_lo - 1;
   const int c_lo = j_lo * cpp + (k_lo - j_lo * p.ps) / p.rows;
-  const int c_n = j_last * cpp + (k_hi - 1 - j_last * p.ps) / p.rows - c_lo + 1;
+  const int c_n = any ? j_last * cpp + (k_end - 1 - j_last * p.ps) / p.rows - c_lo + 1 : 0;
   for (int j = j_lo + threadIdx.x; j <= j_last; j += kThreads)
     pages[j - j_lo] = p.page_table[static_cast<long long>(i) * p.mp + j];
   if (threadIdx.x == 0) {
@@ -271,6 +432,7 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
       mbar_init(&full[s], p.bulk ? 1 : 32);
       mbar_init(&empty[s], kConsumerWarps);
     }
+    if constexpr (WRITE) mbar_init(new_full, 32);
     mbar_init_fence();
   }
   __syncthreads();
@@ -278,12 +440,11 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
   const long long head_page0 = (static_cast<long long>(p.layer) * p.nkv + h) * p.num_pages;
 
   if (warp == kConsumerWarps) {  // the producer warp
-    if (p.bulk && lane != 0) return;
     const TP* kp = static_cast<const TP*>(p.k_pool);
     const TP* vp = static_cast<const TP*>(p.v_pool);
-    for (int n = 0; n < c_n; ++n) {
+    // stage n of the stream into ring slot n % kStages (bulk copies: lane 0 alone)
+    const auto copy_stage = [&](int n) {
       const int s = n % kStages;
-      if (n >= kStages) mbar_wait(&empty[s], ((n / kStages) + 1) & 1);
       const int c = c_lo + n, j = c / cpp, r0 = (c - j * cpp) * p.rows;
       const int rows = min(p.rows, p.ps - r0);
       const long long row0 = (head_page0 + pages[j - j_lo]) * p.ps + r0;  // pool row
@@ -299,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
           bulk_load(ks, p.k_scale + row0, 4u * rows, &full[s]);
           bulk_load(vs, p.v_scale + row0, 4u * rows, &full[s]);
         }
-        continue;
+        return;
       }
       // element loads into rows of rs bytes, zeros past hd
       const int rse = p.rs / static_cast<int>(sizeof(TP));
@@ -318,6 +479,21 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
         }
       }
       mbar_arrive(&full[s]);
+    };
+    int n = 0;
+    if constexpr (WRITE) {
+      if (writer) {  // the write, behind the ring's first fill: off the consumers' way
+        if (p.bulk && lane == 0)
+          for (; n < min(c_n, kStages); ++n) copy_stage(n);
+        __syncwarp();
+        write_new<TP>(p, i, h, pos, new_stage + 16, lane);
+        mbar_arrive(new_full);
+      }
+    }
+    if (p.bulk && lane != 0) return;
+    for (; n < c_n; ++n) {
+      if (n >= kStages) mbar_wait(&empty[n % kStages], ((n / kStages) + 1) & 1);
+      copy_stage(n);
     }
     return;
   }
@@ -366,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int kr = kb + u * kpw + a, key = key0 + kr;
-        ok[u] = kr < rows && key >= k_lo && key < k_hi;
+        ok[u] = kr < rows && key >= k_lo && key < k_end;
         float kx[NV][VN];
 #pragma unroll
         for (int v = 0; v < NV; ++v) {
@@ -434,6 +610,51 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
+  if constexpr (WRITE) {
+    if (fold && warp == 0) {  // the written key, last: one key of the loop's update
+      mbar_wait(new_full, 0);
+      const unsigned char* st = new_stage + 16;
+      float kx[NV][VN], vx[NV][VN];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int vi = gl + v * G;
+        uint32_t kw[V::W], vw[V::W];
+        if (a == 0 && vi < nvec) {
+          load_words(st + vi * V::BYTES, kw);
+          load_words(st + p.rs + vi * V::BYTES, vw);
+        } else {
+#pragma unroll
+          for (int w = 0; w < V::W; ++w) kw[w] = vw[w] = 0u;
+        }
+        V::to_float(kw, kx[v]);
+        V::to_float(vw, vx[v]);
+      }
+      const float* scales = reinterpret_cast<const float*>(st + 2 * p.rs);
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VN; ++e) dot = fmaf(qv[r][v][e], kx[v][e], dot);
+        for (int o = G / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (r >= p.rep) continue;
+        if (kQ8) dot *= scales[0];
+        if (p.softcap > 0.f) dot = p.softcap * tanhf(dot / p.softcap);
+        const float mx = __shfl_sync(0xffffffffu, dot, 0);
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        const float pr = a == 0 ? expf(mx - m_new) : 0.f;
+        l[r] = l[r] * alpha + pr;
+        const float pw = kQ8 ? pr * scales[4] : round_like<TP>(pr);
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VN; ++e) acc[r][v][e] = fmaf(pw, vx[v][e], acc[r][v][e] * alpha);
+        m[r] = m_new;
+      }
+    }
+  }
 
   // the warp's lane groups, then the warps in order (the ring is free: every
   // stage was consumed)
@@ -448,6 +669,9 @@ __global__ void __launch_bounds__(kThreads, REP == 1 ? 3 : 1)
     }
   }
   consumer_sync();
+  TQ* out = static_cast<TQ*>(p.out) + (static_cast<long long>(i) * p.nq + h * p.rep) * p.hd;
+  float* part = p.partial + ((static_cast<long long>(i) * p.nkv + h) * p.splits + split) *
+                                static_cast<long long>(p.rep) * (p.hd + 2);
   float* sm_acc = reinterpret_cast<float*>(smem);  // [warps][rep][hd]
   if (lane < G) {
 #pragma unroll
@@ -517,11 +741,12 @@ Params layout(Params p) {
   return p;
 }
 
-template <typename TQ, typename TP, int NV, int REP>
+template <typename TQ, typename TP, int NV, int REP, bool WRITE>
 cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
-  const auto kernel = split_kernel<TQ, TP, NV, REP>;
-  // the ring, reused by the warps' merge and the combine's split weights
-  const size_t smem = std::max({(size_t)kStages * p.stage_bytes,
+  const auto kernel = split_kernel<TQ, TP, NV, REP, WRITE>;
+  // the ring (and the written key's stage after it), reused by the warps'
+  // merge and the combine's split weights
+  const size_t smem = std::max({(size_t)kStages * p.stage_bytes + (WRITE ? kNewStageBytes<TP> : 0),
                                 (size_t)kConsumerWarps * p.rep * p.hd * sizeof(float),
                                 (size_t)(p.splits + 1) * p.rep * sizeof(float)});
   static std::atomic<unsigned long long> done{0};
@@ -531,22 +756,56 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TP, int NV>
+template <typename TQ, typename TP, int NV, bool WRITE>
 cudaError_t dispatch_rep(const Params& p, int b, cudaStream_t stream) {
   // three group sizes keep the build short: a group of 2 or 3 runs as 4 (idle
   // registers, no extra bytes moved), 5 to 7 as 8
-  if (p.rep <= 1) return launch<TQ, TP, NV, 1>(p, b, stream);
-  if (p.rep <= 4) return launch<TQ, TP, NV, 4>(p, b, stream);
-  return launch<TQ, TP, NV, 8>(p, b, stream);
+  if (p.rep <= 1) return launch<TQ, TP, NV, 1, WRITE>(p, b, stream);
+  if (p.rep <= 4) return launch<TQ, TP, NV, 4, WRITE>(p, b, stream);
+  return launch<TQ, TP, NV, 8, WRITE>(p, b, stream);
 }
 
-template <typename TQ, typename TP>
+template <typename TQ, typename TP, bool WRITE>
 cudaError_t dispatch(Params p, int b, cudaStream_t stream) {
   p = layout<TP>(p);
   const int nvec = p.rs / Vec<TP>::BYTES;
-  if (nvec <= p.group) return dispatch_rep<TQ, TP, 1>(p, b, stream);
+  if (nvec <= p.group) return dispatch_rep<TQ, TP, 1, WRITE>(p, b, stream);
   if constexpr (std::is_same<TP, float>::value)  // fp32 rows of 132-256 elements
-    if (nvec <= 2 * p.group) return dispatch_rep<TQ, TP, 2>(p, b, stream);
+    if (nvec <= 2 * p.group) return dispatch_rep<TQ, TP, 2, WRITE>(p, b, stream);
+  return cudaErrorInvalidValue;
+}
+
+// Params of one call from the C entry points' arguments; false if the kernel
+// does not take them.
+inline bool make_params(Params& p, const void* q, const void* k_pool, const void* v_pool,
+                        const void* k_scale, const void* v_scale, const void* page_table,
+                        const void* seq_lens, const void* start_lens, void* out, int b, int nq,
+                        int nkv, int hd, int ps, int mp, long long num_pages, int layer,
+                        float scale, float softcap, int pages_per_split, int splits,
+                        float* workspace, int* tickets) {
+  if (b <= 0 || nkv <= 0 || hd <= 0 || hd > 256 || nq % nkv != 0 || nq / nkv > 8 || b > 65535 ||
+      ps <= 0 || mp <= 0 || pages_per_split <= 0 || pages_per_split > kMaxPagesPerSplit ||
+      splits <= 0 || splits > 65535 || (long long)pages_per_split * splits < mp ||
+      (long long)mp * ps > 0x7fffffff || (splits > 1 && (workspace == nullptr || tickets == nullptr)))
+    return false;
+  p = Params{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+             static_cast<const float*>(v_scale), static_cast<const int*>(page_table),
+             static_cast<const int*>(seq_lens), static_cast<const int*>(start_lens), out,
+             workspace, tickets, nq, nkv, nq / nkv, hd, ps, mp, num_pages, layer, scale,
+             softcap, pages_per_split, splits};
+  return true;
+}
+
+// The attention (WRITE: with the write) for the dtypes the kernels take.
+template <bool WRITE>
+cudaError_t dispatch_dtypes(int q_dtype, int pool_type, const Params& p, int b,
+                            cudaStream_t stream) {
+  if (pool_type == kPoolI8)  // an int8 cache computes in bf16
+    return q_dtype == kBF16 ? dispatch<__nv_bfloat16, int8_t, WRITE>(p, b, stream)
+                            : cudaErrorInvalidValue;
+  if (q_dtype == kF32 && pool_type == kPoolF32) return dispatch<float, float, WRITE>(p, b, stream);
+  if (q_dtype == kBF16 && pool_type == kPoolBF16)
+    return dispatch<__nv_bfloat16, __nv_bfloat16, WRITE>(p, b, stream);
   return cudaErrorInvalidValue;
 }
 }  // namespace pa
@@ -558,7 +817,6 @@ paged_pool_write_kernel(const TN* __restrict__ k_new, const TN* __restrict__ v_n
                         float* __restrict__ k_scale, float* __restrict__ v_scale,
                         const int* __restrict__ page_table, const int* __restrict__ positions,
                         int nkv, int hd, int ps, int mp, long long num_pages, int layer) {
-  constexpr bool kQ8 = std::is_same<TP, int8_t>::value;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.x * kWriteWarps + warp;
   if (h >= nkv) return;  // the whole warp leaves together
@@ -574,23 +832,8 @@ paged_pool_write_kernel(const TN* __restrict__ k_new, const TN* __restrict__ v_n
   const int phys = j < mp ? page_table[static_cast<long long>(i) * mp + j] : 0;
   const int off = j < mp ? pos - j * ps : 0;
   const long long row = ((static_cast<long long>(layer) * nkv + h) * num_pages + phys) * ps + off;
-  TP* dst = pool + row * hd;
-
-  if constexpr (kQ8) {
-    // per token and KV head: scale = amax / 127 (1 where amax == 0),
-    // code = clip(round-half-to-even(x / scale), +-127)
-    float amax = 0.f;
-    for (int d = lane; d < hd; d += 32) amax = fmaxf(amax, fabsf(as_float<TN>(src[d])));
-    amax = warp_max(amax);
-    const float sc = amax > 0.f ? amax / 127.0f : 1.0f;
-    for (int d = lane; d < hd; d += 32) {
-      const float code = fminf(fmaxf(rintf(as_float<TN>(src[d]) / sc), -127.f), 127.f);
-      dst[d] = static_cast<int8_t>(code);
-    }
-    if (lane == 0) pool_scale[row] = sc;
-  } else {
-    for (int d = lane; d < hd; d += 32) dst[d] = from_f<TP>(as_float<TN>(src[d]));
-  }
+  write_row<TN, TP>(src, pool + row * hd, pool_scale != nullptr ? pool_scale + row : nullptr, hd,
+                    lane);
 }
 
 template <typename TN, typename TP>
@@ -627,24 +870,44 @@ extern "C" int ssp_paged_attention(int q_dtype, int pool_type, const void* q, co
                                    float scale, float softcap, int pages_per_split, int splits,
                                    float* workspace, int* tickets, void* stream_ptr) {
   using namespace ssp;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (b <= 0 || nkv <= 0 || hd <= 0 || hd > 256 || nq % nkv != 0 || nq / nkv > 8 || b > 65535 ||
-      ps <= 0 || mp <= 0 || pages_per_split <= 0 || pages_per_split > pa::kMaxPagesPerSplit ||
-      splits <= 0 || splits > 65535 || (long long)pages_per_split * splits < mp ||
-      (splits > 1 && (workspace == nullptr || tickets == nullptr)))
+  pa::Params p;
+  if (seq_lens == nullptr ||
+      !pa::make_params(p, q, k_pool, v_pool, k_scale, v_scale, page_table, seq_lens, start_lens,
+                       out, b, nq, nkv, hd, ps, mp, num_pages, layer, scale, softcap,
+                       pages_per_split, splits, workspace, tickets))
     return cudaErrorInvalidValue;
-  pa::Params p{q, k_pool, v_pool, static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), static_cast<const int*>(page_table),
-               static_cast<const int*>(seq_lens), static_cast<const int*>(start_lens), out,
-               workspace, tickets, nq, nkv, nq / nkv, hd, ps, mp, num_pages, layer, scale,
-               softcap, pages_per_split, splits};
-  if (pool_type == kPoolI8)  // an int8 cache computes in bf16
-    return q_dtype == kBF16 ? pa::dispatch<__nv_bfloat16, int8_t>(p, b, stream)
-                            : cudaErrorInvalidValue;
-  if (q_dtype == kF32 && pool_type == kPoolF32) return pa::dispatch<float, float>(p, b, stream);
-  if (q_dtype == kBF16 && pool_type == kPoolBF16)
-    return pa::dispatch<__nv_bfloat16, __nv_bfloat16>(p, b, stream);
-  return cudaErrorInvalidValue;
+  return pa::dispatch_dtypes<false>(q_dtype, pool_type, p, b, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// Write-and-attend, one launch: the K and V rows k_new / v_new [b, nkv, hd]
+// (new_dtype, fp32 or bf16; int8 pools quantize them per token and KV head) go
+// to slot positions[i] of sequence i in layer `layer` of the pools, as
+// ssp_paged_pool_write writes them (a slot outside the table: row 0 of trash
+// page 0), and out = the attention of ssp_paged_attention over the keys
+// [start_lens[i], positions[i] + 1), the written key included. The other
+// arguments are ssp_paged_attention's.
+extern "C" int ssp_paged_attention_write(int q_dtype, int pool_type, int new_dtype, const void* q,
+                                         const void* k_new, const void* v_new, void* k_pool,
+                                         void* v_pool, void* k_scale, void* v_scale,
+                                         const void* page_table, const void* positions,
+                                         const void* start_lens, void* out, int b, int nq,
+                                         int nkv, int hd, int ps, int mp, long long num_pages,
+                                         int layer, float scale, float softcap,
+                                         int pages_per_split, int splits, float* workspace,
+                                         int* tickets, void* stream_ptr) {
+  using namespace ssp;
+  pa::Params p;
+  if (k_new == nullptr || v_new == nullptr || positions == nullptr ||
+      (new_dtype != kF32 && new_dtype != kBF16) ||
+      !pa::make_params(p, q, k_pool, v_pool, k_scale, v_scale, page_table, nullptr, start_lens,
+                       out, b, nq, nkv, hd, ps, mp, num_pages, layer, scale, softcap,
+                       pages_per_split, splits, workspace, tickets))
+    return cudaErrorInvalidValue;
+  p.k_new = k_new;
+  p.v_new = v_new;
+  p.positions = static_cast<const int*>(positions);
+  p.new_f32 = new_dtype == kF32;
+  return pa::dispatch_dtypes<true>(q_dtype, pool_type, p, b, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // In place: pool[layer, :, page_table[i, positions[i] / ps], positions[i] % ps, :]

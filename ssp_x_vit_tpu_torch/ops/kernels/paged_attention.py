@@ -17,17 +17,23 @@ page). A pool is a float tensor (fp32 or bf16) or an int8 pool
     paged_cache_write  one new K and V row per sequence at slot
                        ``positions[i]`` of its pages, in place; int8 pools
                        quantize per token and head (``quantize_token_kv``).
+    paged_attention_write  the decode step's layer: ``paged_cache_write`` at
+                       ``positions``, then ``paged_attention`` over
+                       ``positions + 1`` keys, in one launch on the card.
 
 On the card the wrappers launch ``csrc/paged_attention.cu`` (launch counters
 ``paged_attention``, ``paged_attention_q8``, ``paged_pool_write``,
-``paged_pool_write_q8``). What bounds the attention: each live K and V row is
+``paged_pool_write_q8``, ``paged_attention_write``,
+``paged_attention_write_q8``). What bounds the attention: each live K and V row is
 read once for ``4 * rep * hd`` operations, so bytes; the kernel splits each
 sequence's keys into runs of whole pages (:func:`split_plan`, from the shapes
 alone), streams the live pages of a run into shared memory with bulk copies
 and combines the runs' softmax states in run order inside the same launch; it
 reads no page outside ``[start, seq_len)``. The write
-moves ``b * nkv * hd`` elements per pool, far below a launch's latency: K and
-V go in one launch. ``layer_idx`` is a host integer (the layer loop is a
+moves ``b * nkv * hd`` elements per pool, far below a launch's latency, so the
+decode step writes inside its attention launch (``paged_attention_write``,
+whose wrapper decides its shape and dtype checks once per signature); the
+write alone puts K and V in one launch. ``layer_idx`` is a host integer (the layer loop is a
 Python loop); tables, lengths and positions are int32 tensors on the card that
 the kernels read through pointers, so a decode step never syncs with the host.
 
@@ -41,6 +47,7 @@ they are ``.at[].set`` in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple, Union
@@ -216,17 +223,11 @@ def _pool_5d(name: str, pages: Pool, layer_idx: Optional[int], device
     return codes, scales, int(layer_idx)
 
 
-def paged_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: torch.Tensor,
-                    seq_lens: torch.Tensor, start_lens: Optional[torch.Tensor] = None,
-                    softcap: Optional[float] = None,
-                    layer_idx: Optional[int] = None) -> torch.Tensor:
-    """q [b, nq, hd] -> [b, nq, hd] in q's dtype. ``k_pages`` / ``v_pages``:
-    4D pools, or 5D pools with the host integer ``layer_idx``; ``page_table``
-    [b, mp], ``seq_lens`` and ``start_lens`` [b] int32 (``start_lens`` masks
-    the keys below it: sliding-window decode)."""
-    if not dispatch.use_kernel(q):
-        return paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens, start_lens,
-                                     softcap, layer_idx)
+def _check_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: torch.Tensor,
+                     lens: torch.Tensor, lens_name: str, start_lens: Optional[torch.Tensor],
+                     layer_idx: Optional[int]):
+    """paged_attention's checks of its operands (``lens`` under ``lens_name``);
+    returns the 5D pools, their scales (None for float pools) and the layer."""
     if q.dim() != 3 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous [b, nq, hd] tensor, got {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -256,10 +257,28 @@ def paged_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: t
     if page_table.dim() != 2:
         raise ValueError(f"page_table must be [b, mp], got {tuple(page_table.shape)}")
     _check_int32("page_table", page_table, (b, page_table.shape[1]), q.device)
-    _check_int32("seq_lens", seq_lens, (b,), q.device)
+    _check_int32(lens_name, lens, (b,), q.device)
     if start_lens is not None:
         _check_int32("start_lens", start_lens, (b,), q.device)
-    plan = split_plan(b, nkv, nq, hd, k_pool.shape[3], page_table.shape[1], _sm_count(q.device))
+    return k_pool, v_pool, k_scale, v_scale, layer
+
+
+def paged_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: torch.Tensor,
+                    seq_lens: torch.Tensor, start_lens: Optional[torch.Tensor] = None,
+                    softcap: Optional[float] = None,
+                    layer_idx: Optional[int] = None) -> torch.Tensor:
+    """q [b, nq, hd] -> [b, nq, hd] in q's dtype. ``k_pages`` / ``v_pages``:
+    4D pools, or 5D pools with the host integer ``layer_idx``; ``page_table``
+    [b, mp], ``seq_lens`` and ``start_lens`` [b] int32 (``start_lens`` masks
+    the keys below it: sliding-window decode)."""
+    if not dispatch.use_kernel(q):
+        return paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens, start_lens,
+                                     softcap, layer_idx)
+    k_pool, v_pool, k_scale, v_scale, layer = _check_attention(
+        q, k_pages, v_pages, page_table, seq_lens, "seq_lens", start_lens, layer_idx)
+    b, nq, hd = q.shape
+    plan = split_plan(b, k_pool.shape[1], nq, hd, k_pool.shape[3], page_table.shape[1],
+                      _sm_count(q.device))
     out = torch.empty_like(q)
     workspace = tickets = None
     if plan.splits > 1:
@@ -277,11 +296,16 @@ def paged_attention(q: torch.Tensor, k_pages: Pool, v_pages: Pool, page_table: t
 
 def _slot_of(pages: Pool, page_table: torch.Tensor, positions: torch.Tensor,
              layer_idx: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(physical page, offset in the page) of logical slot ``positions[i]`` of sequence i."""
+    """(physical page, offset in the page) of logical slot ``positions[i]`` of
+    sequence i; a slot outside the table (< 0 or >= mp * ps) is row 0 of trash
+    page 0, as the kernels write it."""
     ps = page_size_of(pages, layer_idx)
     pos = positions.long()
+    inside = (pos >= 0) & (pos < page_table.shape[1] * ps)
+    pos = torch.where(inside, pos, torch.zeros_like(pos))
     rows = torch.arange(pos.shape[0], device=pos.device)
-    return page_table.long()[rows, pos // ps], pos % ps
+    phys = page_table.long()[rows, pos // ps]
+    return torch.where(inside, phys, torch.zeros_like(phys)), pos % ps
 
 
 def _assign(pages: Pool, new: torch.Tensor, phys: torch.Tensor, off: torch.Tensor) -> None:
@@ -305,9 +329,11 @@ def paged_pool_write_plain(pages: Pool, new: torch.Tensor, page_table: torch.Ten
     return pages
 
 
-def _write(k_pages: Pool, v_pages: Optional[Pool], k_new: torch.Tensor,
-           v_new: Optional[torch.Tensor], page_table: torch.Tensor, positions: torch.Tensor,
-           layer_idx: Optional[int]) -> None:
+def _check_write(k_pages: Pool, v_pages: Optional[Pool], k_new: torch.Tensor,
+                 v_new: Optional[torch.Tensor], page_table: torch.Tensor,
+                 positions: torch.Tensor, layer_idx: Optional[int]):
+    """The pool write's checks of its operands; returns the 5D pools, their
+    scales (None for float pools, or for a missing V pool) and the layer."""
     if k_new.dim() != 3 or k_new.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"new rows must be float32 or bfloat16 [b, nkv, hd], got {k_new.dtype} "
                         f"{tuple(k_new.shape)}")
@@ -336,7 +362,15 @@ def _write(k_pages: Pool, v_pages: Optional[Pool], k_new: torch.Tensor,
         raise ValueError(f"page_table must be [b, mp], got {tuple(page_table.shape)}")
     _check_int32("page_table", page_table, (b, page_table.shape[1]), device)
     _check_int32("positions", positions, (b,), device)
-    with torch.cuda.device(device):
+    return k_pool, v_pool, k_scale, v_scale, layer
+
+
+def _write(k_pages: Pool, v_pages: Optional[Pool], k_new: torch.Tensor,
+           v_new: Optional[torch.Tensor], page_table: torch.Tensor, positions: torch.Tensor,
+           layer_idx: Optional[int]) -> None:
+    k_pool, v_pool, k_scale, v_scale, layer = _check_write(k_pages, v_pages, k_new, v_new,
+                                                           page_table, positions, layer_idx)
+    with torch.cuda.device(k_new.device):
         build.paged_pool_write(k_new, v_new, k_pool, v_pool, k_scale, v_scale, page_table,
                                positions, layer=layer)
     launch_counts["paged_pool_write_q8" if k_scale is not None else "paged_pool_write"] += 1
@@ -364,6 +398,112 @@ def paged_cache_write(k_pages: Pool, v_pages: Pool, k_new: torch.Tensor, v_new: 
         return k_pages, v_pages
     _write(k_pages, v_pages, k_new, v_new, page_table, positions, layer_idx)
     return k_pages, v_pages
+
+
+class _WriteLaunch(NamedTuple):
+    """What one signature (shapes, dtypes, card, 4D or 5D pools, softcap) of
+    ``paged_attention_write`` decides once: the launch's dimensions, the pools'
+    layer count, the split plan's workspace and tickets, and the launch counter."""
+    dims: tuple
+    layers: int
+    workspace_floats: int
+    tickets: int
+    counter: str
+    device: torch.device
+
+
+_WRITE_LAUNCHES: Dict[tuple, _WriteLaunch] = {}
+
+
+def _write_launch(key: tuple, q, k_new, v_new, k_pages, v_pages, page_table, positions,
+                  start_lens, softcap, layer_idx) -> Tuple[_WriteLaunch, int]:
+    """Every check of ``paged_cache_write`` and of ``paged_attention`` over
+    ``positions + 1`` keys, on the tensors themselves (raises on a fault); then
+    the signature's launch, kept for the next calls, and the layer."""
+    k_pool, _, k_scale, _, layer = _check_attention(
+        q, k_pages, v_pages, page_table, positions, "positions", start_lens, layer_idx)
+    _check_write(k_pages, v_pages, k_new, v_new, page_table, positions, layer_idx)
+    if k_new.device != q.device:
+        raise ValueError(f"k_new is on {k_new.device}, expected {q.device}")
+    b, nq, hd = q.shape
+    _, nkv, num_pages, ps, _ = k_pool.shape
+    mp = page_table.shape[1]
+    if mp * ps > 2 ** 31 - 1:
+        raise ValueError(f"a table of {mp} pages of {ps} keys exceeds 2^31 - 1 keys")
+    plan = split_plan(b, nkv, nq, hd, ps, mp, _sm_count(q.device))
+    dims = (build.DTYPE_CODES[q.dtype], build.POOL_CODES[k_pool.dtype],
+            build.DTYPE_CODES[k_new.dtype], b, nq, nkv, hd, ps, mp, num_pages,
+            1.0 / math.sqrt(hd), 0.0 if softcap is None else float(softcap),
+            plan.pages_per_split, plan.splits)
+    launch = _WriteLaunch(dims, k_pool.shape[0], plan.workspace_floats, plan.tickets,
+                          "paged_attention_write_q8" if k_scale is not None
+                          else "paged_attention_write", q.device)
+    if len(_WRITE_LAUNCHES) >= 256:
+        _WRITE_LAUNCHES.clear()
+    _WRITE_LAUNCHES[key] = launch
+    return launch, layer
+
+
+def paged_attention_write_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                                k_pages: Pool, v_pages: Pool, page_table: torch.Tensor,
+                                positions: torch.Tensor, start_lens: Optional[torch.Tensor] = None,
+                                softcap: Optional[float] = None,
+                                layer_idx: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: the two pool writes, then the attention over
+    ``positions + 1`` keys."""
+    paged_pool_write_plain(k_pages, k_new, page_table, positions, layer_idx)
+    paged_pool_write_plain(v_pages, v_new, page_table, positions, layer_idx)
+    return paged_attention_plain(q, k_pages, v_pages, page_table, positions + 1, start_lens,
+                                 softcap, layer_idx)
+
+
+def paged_attention_write(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                          k_pages: Pool, v_pages: Pool, page_table: torch.Tensor,
+                          positions: torch.Tensor, start_lens: Optional[torch.Tensor] = None,
+                          softcap: Optional[float] = None,
+                          layer_idx: Optional[int] = None) -> torch.Tensor:
+    """The decode step's layer: ``paged_cache_write(k_pages, v_pages, k_new, v_new,
+    page_table, positions, layer_idx)`` then ``paged_attention(q, k_pages, v_pages,
+    page_table, positions + 1, start_lens, softcap, layer_idx)``; writes the
+    pools in place and returns the attention [b, nq, hd]. On the card one launch
+    (counter ``paged_attention_write`` / ``_q8``). A new signature goes through
+    every check of the two wrappers; a known one checks again only what can
+    change between calls of one signature: the card, contiguity and the host
+    integer ``layer_idx``."""
+    if not (q.is_cuda or dispatch.use_kernel(q)):
+        return paged_attention_write_plain(q, k_new, v_new, k_pages, v_pages, page_table,
+                                           positions, start_lens, softcap, layer_idx)
+    k_q8, v_q8 = isinstance(k_pages, dict), isinstance(v_pages, dict)
+    kq = k_pages["q"] if k_q8 else k_pages
+    vq = v_pages["q"] if v_q8 else v_pages
+    scales = (k_pages["s"], v_pages["s"]) if k_q8 and v_q8 else ()
+    dev = q.get_device()
+    key = (q.shape, q.dtype, k_new.shape, k_new.dtype, v_new.shape, v_new.dtype, kq.shape,
+           kq.dtype, vq.shape, vq.dtype, tuple((t.shape, t.dtype) for t in scales),
+           page_table.shape, page_table.dtype, positions.shape, positions.dtype,
+           None if start_lens is None else (start_lens.shape, start_lens.dtype),
+           layer_idx is None, k_q8, v_q8, softcap, dev)
+    launch = _WRITE_LAUNCHES.get(key)
+    layer = 0 if layer_idx is None else layer_idx
+    tensors = (q, k_new, v_new, kq, vq, page_table, positions) + scales + \
+        (() if start_lens is None else (start_lens,))
+    if (launch is None or type(layer) is not int or not 0 <= layer < launch.layers
+            or not all(t.get_device() == dev and t.is_contiguous() for t in tensors)):
+        launch, layer = _write_launch(key, q, k_new, v_new, k_pages, v_pages, page_table,
+                                      positions, start_lens, softcap, layer_idx)
+    workspace = tickets = None
+    if launch.tickets:
+        workspace = build.workspace(dev, launch.workspace_floats)
+        tickets = build.tickets(launch.device, launch.tickets)
+    out = torch.empty_like(q)
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev
+          else torch.cuda.device(dev)):
+        build.paged_attention_write(q, k_new, v_new, kq, vq, *(scales or (None, None)),
+                                    page_table, positions, start_lens, out, launch.dims,
+                                    layer=layer, workspace=workspace, tickets=tickets,
+                                    stream=build.raw_stream(dev))
+    launch_counts[launch.counter] += 1
+    return out
 
 
 def paged_pool_write_many(pages: Pool, new: torch.Tensor, page_table: torch.Tensor, start: int,

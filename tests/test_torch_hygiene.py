@@ -205,8 +205,9 @@ def test_paged_kernel_wrappers_check_their_operands(monkeypatch):
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
     from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
 
-    assert KERNEL_NAMES[-5:-1] == ("paged_attention", "paged_attention_q8", "paged_pool_write",
-                                   "paged_pool_write_q8")
+    assert KERNEL_NAMES[-7:-1] == ("paged_attention", "paged_attention_q8", "paged_pool_write",
+                                   "paged_pool_write_q8", "paged_attention_write",
+                                   "paged_attention_write_q8")
     reset_launch_counts()
     b, nq, nkv, hd, ps, P, mp = 2, 4, 2, 8, 4, 5, 2
     q, new = torch.zeros(b, nq, hd), torch.ones(b, nkv, hd)
@@ -271,6 +272,88 @@ def test_paged_kernel_wrappers_check_their_operands(monkeypatch):
         with pytest.raises(exc, match=match):
             call(**kw)
     assert all(n == 0 for n in launch_counts.values())
+
+
+def test_write_attend_wrapper_refuses_what_the_two_wrappers_refuse(monkeypatch):
+    """``paged_attention_write`` (the decode layer's one call) raises, before
+    any launch, for every operand the write and the attention refuse, and a
+    signature it has seen is checked again for what can change between calls
+    of one signature: contiguity and the host layer index
+    (``dispatch.use_kernel`` and the launch patched, tensors on the CPU)."""
+    from ssp_x_vit_tpu_torch.ops import dispatch
+    from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    reset_launch_counts()
+    b, nq, nkv, hd, ps, P = 2, 4, 2, 8, 4, 5
+    q, new = torch.zeros(b, nq, hd), torch.ones(b, nkv, hd)
+    pool = torch.zeros(nkv, P, ps, hd)
+    pool8 = {"q": torch.zeros(nkv, P, ps, hd, dtype=torch.int8), "s": torch.ones(nkv, P, ps)}
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pos = torch.tensor([3, 5], dtype=torch.int32)
+    out = tpa.paged_attention_write(q, new, new, pool, pool.clone(), table, pos)
+    assert out.shape == q.shape and pool[:, 1, 3].eq(1).all() and pool[:, 4, 1].eq(1).all()
+    assert all(n == 0 for n in launch_counts.values())
+    meta = torch.zeros(b, nq, hd, device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        tpa.paged_attention_write(meta, new, new, pool, pool, table, pos)
+
+    launched = []
+    monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+    monkeypatch.setattr(build, "paged_attention_write", lambda *a, **k: launched.append(k))
+    monkeypatch.setattr(build, "raw_stream", lambda index: 0)
+    monkeypatch.setattr(tpa, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(build, "workspace", lambda index, n: torch.zeros(n))
+    monkeypatch.setattr(build, "tickets", lambda device, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)  # a CPU tensor's get_device()
+
+    def call(**kw):
+        return tpa.paged_attention_write(**{**dict(
+            q=q, k_new=new, v_new=new, k_pages=pool, v_pages=pool, page_table=table,
+            positions=pos), **kw})
+
+    pool5 = pool[None]
+    for kw, exc, match in (
+            (dict(q=q.double()), TypeError, "float32 or bfloat16"),
+            (dict(q=q.transpose(0, 1)), ValueError, "contiguous"),
+            (dict(page_table=table.long()), TypeError, "page_table must be int32"),
+            (dict(positions=pos.long()), TypeError, "positions must be int32"),
+            (dict(start_lens=pos[:1]), ValueError, "start_lens has shape"),
+            (dict(page_table=table.t()), ValueError, "page_table"),
+            (dict(k_pages=pool5), ValueError, "4D pool"),
+            (dict(layer_idx=0), ValueError, "5D pool"),
+            (dict(k_pages=pool5, v_pages=pool5, layer_idx=1), ValueError, "host integer"),
+            (dict(k_pages=pool5, v_pages=pool5, layer_idx=torch.tensor(0)), ValueError,
+             "host integer"),
+            (dict(k_pages=pool.bfloat16(), v_pages=pool.bfloat16()), TypeError,
+             "a float pool has q's dtype"),
+            (dict(k_pages=pool8, v_pages=pool8), TypeError, "computes in bfloat16"),
+            (dict(k_pages=pool8), TypeError, "both be float pools or both int8"),
+            (dict(q=q.bfloat16(), k_pages={"q": pool8["q"], "s": pool8["s"].double()},
+                  v_pages=pool8), TypeError, "int8 codes and float32 scales"),
+            (dict(k_pages=pool[..., :4], v_pages=pool[..., :4]), ValueError, "contiguous"),
+            (dict(q=torch.zeros(b, 3, hd)), ValueError, "multiple of nkv"),
+            (dict(q=torch.zeros(b, 18, hd)), ValueError, "at most 8"),
+            (dict(k_new=new.double()), TypeError, "float32 or bfloat16"),
+            (dict(v_new=new.transpose(1, 2).contiguous().transpose(1, 2)), ValueError,
+             "contiguous"),
+            (dict(k_new=torch.ones(b, nkv, hd + 1), v_new=torch.ones(b, nkv, hd + 1)),
+             ValueError, "do not fit")):
+        with pytest.raises(exc, match=match):
+            call(**kw)
+    assert not launched
+    # a signature seen once: its next calls still refuse what can change between calls
+    call()
+    call(k_pages=pool5, v_pages=pool5, layer_idx=0)
+    assert len(launched) == 2 and launched[1]["layer"] == 0
+    for kw, exc, match in (
+            (dict(q=q.transpose(1, 2).contiguous().transpose(1, 2)), ValueError, "contiguous"),
+            (dict(k_pages=pool5, v_pages=pool5, layer_idx=1), ValueError, "host integer"),
+            (dict(k_pages=pool5, v_pages=pool5, layer_idx=-1), ValueError, "host integer")):
+        with pytest.raises(exc, match=match):
+            call(**kw)
+    assert len(launched) == 2
+    assert launch_counts["paged_attention_write"] == 2
 
 
 def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
@@ -664,6 +747,106 @@ def test_paged_kernels_match_plain_versions_on_the_card(cuda_device, kind, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,tol", [("float32", 1e-4), ("bfloat16", 3e-2), ("int8", 3e-2)])
+def test_paged_write_attend_matches_plain_on_the_card(cuda_device, kind, tol):
+    """Write-and-attend in one launch against its plain version (the two plain
+    writes, then the plain attention over ``positions + 1`` keys) at ragged
+    shapes and at the edges of the split plan: the new key at position 0, on a
+    page boundary, at the last key of a run and on a run boundary, under a
+    window and a softcap, a dead slot (its table row zeroed), slots past the
+    table and below 0 (trash page 0, key not scored), new rows in the other
+    float dtype. Pools bit for bit outside trash page 0; live rows within
+    ``tol`` of max(1, max |plain|) and the same bits on a second run from the
+    same pools; one launch per call and no launch of the other paged kernels."""
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    counter = "paged_attention_write" + ("_q8" if kind == "int8" else "")
+    before = dict(launch_counts)
+
+    def clone(p):
+        return {k: v.clone() for k, v in p.items()} if isinstance(p, dict) else p.clone()
+
+    def leaves(p, lead):
+        """The pool's tensors with trash page 0 cut out."""
+        cut = (slice(None),) * (lead + 1) + (slice(1, None),)
+        return [t[cut] for t in (p.values() if isinstance(p, dict) else [p])]
+
+    # b, nq, nkv, hd, ps, mp, layers, softcap, window, positions (None: random), new dtype
+    run = tpa.split_plan(8, 8, 8, 64, 16, 32, tpa._sm_count(cuda_device)).pages_per_split * 16
+    assert tpa.split_plan(8, 8, 8, 64, 16, 32, tpa._sm_count(cuda_device)).splits > 2
+    cases = [
+        (3, 4, 4, 64, 16, 4, None, None, None, None, dtype),
+        (2, 6, 2, 40, 12, 5, 3, 30.0, 17, None, dtype),
+        (4, 8, 1, 128, 8, 6, 2, None, None, None, other),
+        (1, 4, 2, 256, 5, 7, None, 50.0, 9, None, dtype),
+        (5, 2, 2, 20, 3, 9, None, None, 1, None, dtype),
+        (2, 32, 8, 80, 64, 2, 2, None, 100, None, other),
+        # the split plan's edges at a 32-page table: 0, a page boundary, a run's last key,
+        # a run boundary and the one after, the table's last slot, past the table, below 0
+        (8, 8, 8, 64, 16, 32, None, None, None,
+         [0, 16, run - 1, run, run + 1, 32 * 16 - 1, 32 * 16 + 3, -1], dtype),
+        (8, 8, 8, 64, 16, 32, 2, 20.0, run // 2,
+         [0, 15, run - 1, run, 2 * run, 2 * run + 7, 32 * 16 - 1, 5], dtype),
+    ]
+    for b, nq, nkv, hd, ps, mp, layers, softcap, window, positions, new_dtype in cases:
+        lead = () if layers is None else (layers,)
+        layer = None if layers is None else layers - 1
+        P = 1 + b * mp
+        shape = lead + (nkv, P, ps, hd)
+
+        def pool():
+            vals = torch.randn(shape, generator=gen, device=cuda_device)
+            if kind == "int8":
+                codes, sc = tpa.quantize_token_kv(vals)
+                return {"q": codes, "s": sc}
+            return vals.to(dtype)
+
+        kp, vp = pool(), pool()
+        table = (1 + torch.randperm(P - 1, generator=gen, device=cuda_device)[: b * mp]
+                 ).reshape(b, mp).to(torch.int32)
+        if positions is None:
+            pos = torch.randint(0, mp * ps, (b,), generator=gen, device=cuda_device)
+            pos[0] = 0
+        else:
+            pos = torch.tensor(positions, device=cuda_device)
+        pos = pos.to(torch.int32)
+        live = pos >= 0  # past the table: its mp * ps keys, the written key not among them
+        if positions is not None and layers is not None:
+            table[-1] = 0  # a dead slot: its table row zeroed, it writes and reads page 0
+            live[-1] = False
+        starts = None if window is None else (pos + 1 - window).clamp_min(0).to(torch.int32)
+        q = torch.randn(b, nq, hd, generator=gen, device=cuda_device).to(dtype)
+        k_new = torch.randn(b, nkv, hd, generator=gen, device=cuda_device).to(new_dtype)
+        v_new = torch.randn(b, nkv, hd, generator=gen, device=cuda_device).to(new_dtype)
+        k_new[0, 0] = 0  # a zero row: scale 1, codes 0
+        runs = []
+        for _ in range(2):
+            k2, v2 = clone(kp), clone(vp)
+            runs.append((tpa.paged_attention_write(q, k_new, v_new, k2, v2, table, pos, starts,
+                                                   softcap, layer), k2, v2))
+        ref = tpa.paged_attention_write_plain(q, k_new, v_new, kp, vp, table, pos, starts,
+                                              softcap, layer)
+        torch.cuda.synchronize()
+        (got, k1, v1), (again, k2, v2) = runs
+        assert torch.equal(got[live], again[live])  # a dead slot reads what it writes
+        for a, b_, r in ((k1, k2, kp), (v1, v2, vp)):
+            for x, y, z in zip(leaves(a, len(lead)), leaves(b_, len(lead)), leaves(r, len(lead))):
+                assert torch.equal(x, y) and torch.equal(x, z)
+        got, ref = got[live].float(), ref[live].float()
+        assert torch.isfinite(got).all()
+        err = (got - ref).abs().max().item()
+        assert err / max(1.0, ref.abs().max().item()) <= tol, (err, hd, ps, positions)
+    assert launch_counts[counter] - before[counter] == 2 * len(cases)
+    for name in ("paged_attention", "paged_pool_write"):
+        for n in (name, name + "_q8"):
+            assert launch_counts[n] == before[n], n
+
+
+@pytest.mark.cuda
 def test_paged_server_on_the_card_matches_the_cpu_backend(cuda_device):
     """A tiny model served with fp32 pools on the card (kernels) and on the
     CPU (plain versions), with a sliding window and the prefix cache: the same
@@ -678,7 +861,7 @@ def test_paged_server_on_the_card_matches_the_cpu_backend(cuda_device):
     card = {k: ({kk: vv.to(cuda_device) for kk, vv in v.items()} if isinstance(v, dict)
                 else v.to(cuda_device)) for k, v in host.items()}
     prompts = [[5, 6, 7, 8, 9, 10, 11], [3], list(range(20, 45))]
-    before = launch_counts["paged_attention"]
+    before = dict(launch_counts)
     outs = []
     for params in (host, card):
         srv = PagedServer(params, cfg, max_batch=2, num_pages=40, page_size=4, max_context=64,
@@ -690,7 +873,10 @@ def test_paged_server_on_the_card_matches_the_cpu_backend(cuda_device):
         done = srv.run(8)
         outs.append([done[i].tolist() for i in ids])
     assert outs[0] == outs[1]
-    assert launch_counts["paged_attention"] > before
+    # each decode layer makes one write-and-attend launch and nothing else of the paged kernels
+    assert launch_counts["paged_attention_write"] > before["paged_attention_write"]
+    for name in ("paged_attention", "paged_pool_write"):
+        assert launch_counts[name] == before[name], name
 
 
 @pytest.mark.cuda

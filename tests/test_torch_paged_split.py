@@ -125,3 +125,43 @@ def test_the_wrapper_allocates_the_plans_workspace(monkeypatch, shape):
         assert seen["workspace"].numel() == plan.workspace_floats
         assert seen["workspace"].dtype == torch.float32
         assert seen["tickets"].numel() >= plan.tickets
+
+
+@pytest.mark.parametrize("shape", SHAPES[:6], ids=[str(s) for s in SHAPES[:6]])
+def test_the_write_attend_wrapper_passes_the_plan(monkeypatch, shape):
+    """``paged_attention_write`` launches the same split plan, with a workspace of
+    at least the plan's size, and reads no length or position back to the host
+    (the launch patched, tensors on the CPU)."""
+    b, nkv, nq, hd, ps, mp, sms = shape
+    plan = tpa.split_plan(*shape)
+    seen = {}
+
+    def launch(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, page_table, positions,
+               start_lens, out, dims, *, layer, workspace, tickets, stream):
+        seen.update(dims=dims, workspace=workspace, tickets=tickets)
+        return out
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the wrapper read a device value back to the host")
+
+    monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+    monkeypatch.setattr(build, "paged_attention_write", launch)
+    monkeypatch.setattr(build, "raw_stream", lambda index: 0)
+    monkeypatch.setattr(build, "workspace", lambda index, n: torch.zeros(n))
+    monkeypatch.setattr(build, "tickets", lambda device, n: torch.zeros(n, dtype=torch.int32))
+    monkeypatch.setattr(tpa, "_sm_count", lambda device: sms)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
+    pool = torch.zeros(nkv, 1 + b * mp, ps, hd)
+    table = torch.arange(b * mp, dtype=torch.int32).reshape(b, mp) + 1
+    positions = torch.full((b,), mp * ps - 1, dtype=torch.int32)
+    q, new = torch.zeros(b, nq, hd), torch.zeros(b, nkv, hd)
+    for name in ("item", "tolist", "cpu", "__bool__", "__int__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    tpa.paged_attention_write(q, new, new, pool, pool, table, positions)
+    assert seen["dims"][-2:] == (plan.pages_per_split, plan.splits)
+    assert seen["dims"][3:10] == (b, nq, nkv, hd, ps, mp, 1 + b * mp)
+    if plan.splits == 1:
+        assert seen["workspace"] is None and seen["tickets"] is None
+    else:
+        assert seen["workspace"].numel() >= plan.workspace_floats
+        assert seen["tickets"].numel() >= plan.tickets
