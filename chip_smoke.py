@@ -36,9 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             and 16384 rows, the same bits on a second run; ``fused_mlp_int8``
             at decode and prefill rows and the same edges, and its bf16 weight
             stream at every m from 1 to 16 at three widths; ``fused_ffn_block``
-            under autograd (a grad_fn, gradients against the host CPU's) and
-            the attention blocks raising under autograd; the paged
-            decode kernels, the write and the attention apart and in one
+            and ``fused_ffn`` under autograd (a grad_fn, one launch, gradients
+            against the host CPU's; ``fused_ffn`` also at b=32 as the finetune
+            steps call it, timed) and the attention blocks raising under
+            autograd; the paged decode kernels, the write and the attention apart and in one
             write-and-attend launch from the same pools (with the key-run
             edges of the split plan, a dead slot and a slot past its table,
             the same bits twice), and the device time, host enqueue time and
@@ -50,20 +51,29 @@ Phases, in order; any failure raises and the script exits non-zero:
             attention are driven on the card against the same call on CPU
             copies and against the write-and-attend launch.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
-            random weights and the synthetic dataset, then on ViT-Ti/16 (odd
-            head count); then the LLM CLI (``cli.main_llm.run``) on a
-            Llama-2-7B-width model (32 layers, random bf16 weights made on the
-            card): 25% 2SSP with dense and pruned perplexity at s=2048, and a
-            dense ``--quantize int4`` evaluation; the same model served over
-            HTTP on 127.0.0.1; then the training CLI (``cli.train_llm.run``)
-            on a fresh bf16 model of the same shape, 4 updates at b=1, s=2048
-            with remat, and a profiler split of one update. Kernel launches
-            per run, each driven path with the counts set to 0 just before it.
-5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1
-            and top-1 after 25% 2SSP) and ``ckpts/code_llm_small`` (perplexity
-            against the pinned value and the host CPU's plain path; int8, int4,
-            25% 2SSP; served tokens; fp32 training on the card against the
-            host CPU, a bit-exact resume and gradient accumulation).
+            random weights and the synthetic dataset, finetuned first
+            (``--do-finetune``: one epoch, 32 steps at b=32, bf16, every step
+            through ``fused_ffn`` under autograd) and evaluated in int8 at the
+            end (``--quantize int8``), then on ViT-Ti/16 (odd head count) with
+            an adapter head trained on the frozen backbone and saved; a
+            profiler split of one ViT-B/16 finetune step; then the LLM CLI
+            (``cli.main_llm.run``) on a Llama-2-7B-width model (32 layers,
+            random bf16 weights made on the card): 25% 2SSP with dense and
+            pruned perplexity at s=2048, and a dense ``--quantize int4``
+            evaluation; the same model served over HTTP on 127.0.0.1; then
+            the training CLI (``cli.train_llm.run``) on a fresh bf16 model of
+            the same shape, 4 updates at b=1, s=2048 with remat, and a
+            profiler split of one update. Kernel launches per run, each
+            driven path with the counts set to 0 just before it.
+5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
+            top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
+            top-1; 4 LoRA and 4 KD steps with falling losses), the ViT-B/16
+            finetune step in fp32 on the card against the host CPU, LoRA on
+            ``ckpts/code_llm_small`` against the host CPU, and
+            ``ckpts/code_llm_small`` (perplexity against the pinned value and
+            the host CPU's plain path; int8, int4, 25% 2SSP; served tokens;
+            fp32 training on the card against the host CPU, a bit-exact
+            resume and gradient accumulation).
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -359,12 +369,19 @@ def phase_kernels(device) -> dict:
     return records
 
 
-def check_vit_block_gradients(device) -> None:
-    """Under autograd, fused_ffn_block runs its kernel inside an autograd
-    Function: the output has a grad_fn and the gradients of every input (the
-    gate a tensor) match the host CPU's fp32 autodiff of the plain version,
-    fp32 and bf16, at ViT-B/16 width (b=2); the fused attention blocks, which
-    have no backward, raise under autograd."""
+def check_vit_block_gradients(device) -> dict:
+    """Under autograd, fused_ffn_block (row 3) and fused_ffn (row 4, the call
+    every finetune step makes) run their kernel inside an autograd Function:
+    the output has a grad_fn, the kernel launches once per call, and the
+    gradients of every input that takes one (the block's gate a tensor)
+    match the host CPU's fp32 autodiff of the plain version, fp32 and bf16,
+    at ViT-B/16 width: the block at b=2 with mask, gate and stats; fused_ffn
+    at b=2 with mask and stats and at b=32 (the finetune batch) as the
+    finetune steps call it, no mask and no stats (the stats stay out of the
+    graph, None stays None). Times row 4 under autograd at b=32 bf16 (forward,
+    forward + backward) beside the plain version's autodiff and returns those
+    times. The fused attention blocks, which have no backward, raise under
+    autograd."""
     import torch
 
     from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
@@ -372,44 +389,84 @@ def check_vit_block_gradients(device) -> None:
     from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
 
     gen = torch.Generator().manual_seed(13)
-    b, s, d, f = 2, 197, 768, 3072
-    host = [torch.randn(b, s, d, generator=gen), 1 + 0.1 * torch.randn(d, generator=gen),
-            0.1 * torch.randn(d, generator=gen), torch.randn(d, f, generator=gen) * d ** -0.5,
-            0.1 * torch.randn(f, generator=gen), torch.randn(f, d, generator=gen) * f ** -0.5,
-            0.1 * torch.randn(d, generator=gen), torch.full((), 0.7)]
-    mask = (torch.rand(f, generator=gen) > 0.3).float()
-    g_out = torch.randn(b, s, d, generator=gen)
+    s, d, f = 197, 768, 3072
     names = ("x", "ln_scale", "ln_bias", "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias", "gate")
+    mask = (torch.rand(f, generator=gen) > 0.3).float()
+    cases = [("fused_ffn_block", 2, True), ("fused_ffn", 2, True), ("fused_ffn", 32, False)]
+    timing = {}
+    for name, b, extras in cases:
+        block = name == "fused_ffn_block"
+        host = [torch.randn(b, s, d, generator=gen), 1 + 0.1 * torch.randn(d, generator=gen),
+                0.1 * torch.randn(d, generator=gen), torch.randn(d, f, generator=gen) * d ** -0.5,
+                0.1 * torch.randn(f, generator=gen), torch.randn(f, d, generator=gen) * f ** -0.5,
+                0.1 * torch.randn(d, generator=gen), torch.full((), 0.7)]
+        picked = list(range(8)) if block else [0, 3, 4, 5, 6]
+        g_out = torch.randn(b, s, d, generator=gen)
+        kw = dict(neuron_mask=mask, collect_stats=True) if extras else {}
 
-    def grads(dev, dtype):
-        leaves = [t.to(dev, dtype if t.dim() else torch.float32, copy=True).requires_grad_()
-                  for t in host]
-        out, stats = ffk.fused_ffn_block(*leaves[:7], neuron_mask=mask.to(dev), gate=leaves[7],
-                                         collect_stats=True)
-        if out.grad_fn is None or stats.grad_fn is not None:
-            raise AssertionError("fused_ffn_block under autograd: no grad_fn on the output")
-        out.backward(g_out.to(dev, dtype))
-        return [t.grad.float().cpu() for t in leaves]
+        def call(leaves, dev):
+            kwx = dict(kw, neuron_mask=mask.to(dev)) if extras else kw
+            if block:
+                return ffk.fused_ffn_block(*leaves[:7], gate=leaves[7], **kwx)
+            return ffk.fused_ffn(*leaves, **kwx)
 
-    ref = grads("cpu", torch.float32)
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[1]
-        before = launch_counts["fused_ffn_block"]
-        got = grads(device, dtype)
-        torch.cuda.synchronize()
-        if launch_counts["fused_ffn_block"] - before != 1:
-            raise AssertionError("fused_ffn_block under autograd did not launch its kernel once")
-        worst = 0.0
-        for name, a, r in zip(names, got, ref):
-            rel = (a - r).abs().max().item() / max(1.0, r.abs().max().item())
-            if rel > TOL[dn]:
-                raise AssertionError(f"fused_ffn_block gradient of {name} {dn}: scaled error "
-                                     f"{rel:.3e} > {TOL[dn]}")
-            worst = max(worst, rel)
-        log(f"[KERNEL] fused_ffn_block under autograd b={b} s={s} d={d} f={f} {dn}: grad_fn set, "
-            f"gradients of {len(names)} inputs vs the host CPU's fp32 autodiff: worst scaled "
-            f"error {worst:.3e} tol={TOL[dn]} ok")
-    x = host[0].to(device, torch.bfloat16).requires_grad_()
+        def grads(dev, dtype):
+            leaves = [host[i].to(dev, dtype if host[i].dim() else torch.float32, copy=True)
+                      .requires_grad_() for i in picked]
+            out, stats = call(leaves, dev)
+            if out.grad_fn is None or (stats is not None and stats.grad_fn is not None) \
+                    or (stats is None) == extras:
+                raise AssertionError(f"{name} under autograd: no grad_fn on the output, or the "
+                                     f"stats in the graph or missing")
+            out.backward(g_out.to(dev, dtype))
+            return [t.grad.float().cpu() for t in leaves]
+
+        t0 = time.perf_counter()
+        ref = grads("cpu", torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            before = launch_counts[name]
+            got = grads(device, dtype)
+            torch.cuda.synchronize()
+            if launch_counts[name] - before != 1:
+                raise AssertionError(f"{name} under autograd did not launch its kernel once")
+            worst = 0.0
+            for i, a, r in zip(picked, got, ref):
+                rel = (a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                if rel > TOL[dn]:
+                    raise AssertionError(f"{name} b={b} gradient of {names[i]} {dn}: scaled "
+                                         f"error {rel:.3e} > {TOL[dn]}")
+                worst = max(worst, rel)
+            log(f"[KERNEL] {name} under autograd b={b} s={s} d={d} f={f} {dn}"
+                f"{' mask, stats' if extras else ' no mask, no stats (the finetune call)'}: "
+                f"grad_fn set, one launch, gradients of {len(picked)} inputs vs the host CPU's "
+                f"fp32 autodiff: worst scaled error {worst:.3e} tol={TOL[dn]} ok "
+                f"({time.perf_counter() - t0:.1f} s with the host reference)")
+        if name == "fused_ffn" and b == 32:
+            leaves = [host[i].to(device, torch.bfloat16).requires_grad_() for i in picked]
+            g = g_out.to(device, torch.bfloat16)
+            plain = ffk.fused_ffn_plain
+
+            def fwd_bwd(fn):
+                out, _ = fn(*leaves)
+                torch.autograd.grad(out, leaves, g)
+
+            timing = dict(
+                autograd_fwd_ms=time_ms(lambda: ffk.fused_ffn(*leaves)),
+                autograd_fwd_bwd_ms=time_ms(lambda: fwd_bwd(ffk.fused_ffn)),
+                autograd_plain_fwd_bwd_ms=time_ms(lambda: fwd_bwd(plain)),
+                autograd_fwd_device_ms=device_ms(lambda: ffk.fused_ffn(*leaves)),
+                autograd_fwd_bwd_device_ms=device_ms(lambda: fwd_bwd(ffk.fused_ffn)),
+                autograd_plain_fwd_bwd_device_ms=device_ms(lambda: fwd_bwd(plain)))
+            log(f"[TIME] fused_ffn under autograd b=32 s={s} d={d} f={f} bf16 (the finetune "
+                f"call), CUDA events (host dispatch included) / profiler device time per call: "
+                f"forward {timing['autograd_fwd_ms']:.4f} / "
+                f"{timing['autograd_fwd_device_ms']:.4f} ms, forward + backward "
+                f"{timing['autograd_fwd_bwd_ms']:.4f} / {timing['autograd_fwd_bwd_device_ms']:.4f} "
+                f"ms (the backward recomputes the plain FFN); the plain version's autodiff "
+                f"{timing['autograd_plain_fwd_bwd_ms']:.4f} / "
+                f"{timing['autograd_plain_fwd_bwd_device_ms']:.4f} ms")
+    x = torch.randn(2, s, d, generator=gen).to(device, torch.bfloat16).requires_grad_()
     attn = [t.to(device, torch.bfloat16) for t in (
         torch.ones(d), torch.zeros(d), torch.randn(d, 3 * d, generator=gen) * 0.03,
         torch.zeros(3 * d), torch.randn(d, d, generator=gen) * 0.03, torch.zeros(d))]
@@ -422,6 +479,7 @@ def check_vit_block_gradients(device) -> None:
             log(f"[KERNEL] {name} under autograd raises as it should: {e}")
         else:
             raise AssertionError(f"{name} under autograd returned instead of raising")
+    return timing
 
 
 def check_vit_core(device) -> None:
@@ -1689,26 +1747,102 @@ def check_forward(model: str, device) -> None:
                     raise AssertionError(f"{model}: fp32 top-1 differs from the CPU reference")
 
 
+FT_STEPS = 32  # one epoch of the CLI's 1024 synthetic training images at b=32
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def check_finetune_phase(model: str, report: dict, num_layers: int) -> None:
+    """The CLI's finetune phase went through row 4 and nothing else: fused_ffn
+    launched once per block and step, no fused block kernel; every step's
+    loss finite."""
+    import math
+
+    ft = report["kernel_launches"]["finetune"]
+    losses = report["finetune_losses"]
+    seconds = report["phase_seconds"]["finetune"]
+    log(f"[MAIN] {model} finetune: {seconds:.2f} s for {len(losses)} steps "
+        f"({1e3 * seconds / max(1, len(losses)):.1f} ms a step, host clock, first step "
+        f"included); losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{json.dumps({k: n for k, n in ft.items() if n})}")
+    if len(losses) != FT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{model}: finetune losses {losses}")
+    if ft["fused_ffn"] != num_layers * FT_STEPS:
+        raise AssertionError(f"{model}: fused_ffn launched {ft['fused_ffn']} times in the "
+                             f"finetune phase, expected {num_layers} x {FT_STEPS}")
+    for kernel in ("fused_attn_block_v2", "fused_attn_block", "fused_ffn_block"):
+        if ft[kernel]:
+            raise AssertionError(f"{model}: {kernel} launched in the finetune phase")
+
+
+def check_adapter_run(report: dict, backbone: dict, params: dict, device) -> None:
+    """--freeze-backbone left every backbone leaf as it was, bit for bit; the
+    saved adapter.npz, loaded onto the final model's backbone
+    (``load_cifar_adapter``, what --load-adapter calls), gives the finetuned
+    head's logits on 4 images, bit for bit."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli.common import resolve_dataset
+    from ssp_x_vit_tpu_torch.models.adapter import load_cifar_adapter
+    from ssp_x_vit_tpu_torch.models.vit import vit_forward_materialized
+
+    changed = [p for p, t in _flat(params).items()
+               if not p.startswith("head/") and not torch.equal(t, backbone[p])]
+    if changed or len(backbone) != len(_flat(params)) - len(params["head"]):
+        raise AssertionError(f"--freeze-backbone changed backbone leaves {changed[:4]}")
+    final, cfg = report["model"]
+    path = report["artifacts"]["adapter_path"]
+    loaded, lcfg = load_cifar_adapter(path, {k: v for k, v in final.items() if k != "head"}, cfg)
+    px = resolve_dataset("synthetic", cfg, device=device)[1].batches(1)[0]["pixel_values"][:4]
+    with torch.inference_mode():
+        want = vit_forward_materialized(final, px, cfg)
+        got = vit_forward_materialized(loaded, px, lcfg)
+    if lcfg != cfg or not torch.equal(got, want):
+        raise AssertionError("the saved adapter does not reproduce the finetuned head's logits")
+    log(f"[MAIN] vit-ti16 adapter: {len(backbone)} backbone leaves unchanged bit for bit; "
+        f"{os.path.basename(path)} ({lcfg.head_type}, bottleneck {lcfg.adapter_bottleneck}) "
+        f"loaded onto the pruned backbone gives the finetuned head's logits on 4 images, "
+        f"bit for bit")
+
+
 def phase_main(out_root: str, device) -> dict:
-    """Full-width 2SSP CLI runs; returns launches per kernel summed over them."""
+    """Full-width 2SSP CLI runs, with the recovery flags: ViT-B/16 finetunes
+    the whole model (one epoch, 32 steps at b=32, bf16) and evaluates int8;
+    ViT-Ti/16 trains an adapter head on a frozen backbone and saves it.
+    Returns launches per kernel summed over the runs."""
+    import torch
+
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
+    from ssp_x_vit_tpu_torch.cli.common import resolve_model
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
     totals = {name: 0 for name in KERNEL_NAMES}
     runs = [
-        ("vit-b16", "fused_attn_block_v2"),
-        ("vit-ti16", "fused_attn_block"),
+        ("vit-b16", "fused_attn_block_v2", ["--do-finetune", "--quantize", "int8"]),
+        ("vit-ti16", "fused_attn_block", ["--use-adapter", "--do-finetune", "--freeze-backbone",
+                                          "--save-adapter"]),
     ]
-    for model, _ in runs:
+    for model, _, _ in runs:
         check_forward(model, device)
-    for model, attn_kernel in runs:
+    for model, attn_kernel, flags in runs:
         argv = ["--model", model, "--dataset", "synthetic", "--target", "0.25",
                 "--stage", "both", "--eval-batches", "2", "--min-remaining", "512",
-                "--backend", "cuda", "--out-root", os.path.join(out_root, model)]
+                "--backend", "cuda", "--out-root", os.path.join(out_root, model), *flags]
         log(f"[MAIN] auto_2ssp {' '.join(argv)}")
+        built = None
+        if "--freeze-backbone" in flags:  # the model the CLI builds from its seed, kept to compare
+            built = resolve_model(model, device=device)
+            backbone = {p: t.clone() for p, t in _flat(built[0]).items()
+                        if not p.startswith("head/")}
         reset_launch_counts()
         t0 = time.perf_counter()
-        report = auto_2ssp.run(auto_2ssp.build_argparser().parse_args(argv))
+        report = auto_2ssp.run(auto_2ssp.build_argparser().parse_args(argv), model=built)
         seconds = time.perf_counter() - t0
         for name in KERNEL_NAMES:
             totals[name] += launch_counts[name]
@@ -1720,6 +1854,7 @@ def phase_main(out_root: str, device) -> dict:
             for kernel in (attn_kernel, "fused_ffn_block"):
                 if by_phase[phase][kernel] <= 0:
                     raise AssertionError(f"{model}: {kernel} not launched in the {phase} phase")
+        check_finetune_phase(model, report, report["model"][1].num_layers)
         plan, m = report["plan"], report["metrics"]
         est = plan["estimated_total_removed_params"] / m["params_before_stage1"]
         achieved = 1.0 - m["params_after_stage2"] / m["params_before_stage1"]
@@ -1731,15 +1866,170 @@ def phase_main(out_root: str, device) -> dict:
         for key in ("acc_baseline", "acc_stage1", "acc_stage2"):
             if not 0.0 <= m[key] <= 1.0:
                 raise AssertionError(f"{model}: {key}={m[key]}")
+        if "--quantize" in flags:
+            log(f"[MAIN] {model} int8: latency(b=1) {m['latency_int8_ms']} ms against the "
+                f"pruned bf16 model's {m['latency_stage2_ms']} ms, top-1 {m['acc_int8']}; "
+                f"{report['phase_seconds']['quantize']:.2f} s, launches "
+                f"{json.dumps({k: n for k, n in by_phase['quantize'].items() if n})}")
+            if not 0.0 <= m["acc_int8"] <= 1.0:
+                raise AssertionError(f"{model}: acc_int8={m['acc_int8']}")
+        if built is not None:
+            check_adapter_run(report, backbone, built[0], device)
+        del report, built
+        torch.cuda.empty_cache()
+    profile_finetune_step(device)
     return totals
 
 
+def _vit_b16_batch(device, n: int):
+    """ViT-B/16 with the CLI's random weights (its seed) and a batch of n images
+    from the CLI's synthetic generator (n images only: the CLI's 1536 take
+    seconds of host time to make)."""
+    from ssp_x_vit_tpu_torch.cli.common import resolve_model
+    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, synthetic_dataset
+
+    params, cfg = resolve_model("vit-b16", device=device)
+    images, labels = synthetic_dataset(n, cfg.num_classes, image_size=cfg.image_size, seed=0)
+    batch = next(iter(DataPipeline(images, labels, img_size=cfg.image_size, batch_size=n,
+                                   device=device)))
+    return params, cfg, batch
+
+
+def _event_device_us(event) -> float:
+    """Device time of a host-side profiler event and its children, in microseconds."""
+    total = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if total is None else total
+
+
+def profile_finetune_step(device) -> None:
+    """Where one finetune step's time goes at the CLI's shape (ViT-B/16, b=32,
+    bf16 compute over fp32 parameters, everything trainable): a warm-up step,
+    3 steps on the host clock, then ``torch.profiler`` over one more. Device
+    time by part: the fused_ffn kernels (the ``ssp::`` GEMMs, forward only),
+    the FFN backward (the ``_FusedFFNBackward`` node: the plain FFN recomputed
+    and differentiated), the rest of the backward (attention, projections,
+    LayerNorms, embedding, head), AdamW (its ``apply``, a profiler range
+    here) and the rest of the forward (attention, LayerNorms, embedding, head,
+    loss). Prints "not measured" for what the trace does not show."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ssp_x_vit_tpu_torch.pruning.finetune import make_optimizer, make_train_step
+
+    params, cfg, batch = _vit_b16_batch(device, 32)
+    optimizer = make_optimizer(params, trainable="all")
+    state = optimizer.init(params)
+    apply = optimizer.apply
+
+    def ranged_apply(*args):
+        with record_function("chip_smoke.adamw"):
+            return apply(*args)
+
+    optimizer.apply = ranged_apply
+    step = make_train_step(cfg, optimizer)
+
+    def run():
+        step(params, state, batch["pixel_values"], batch["labels"])
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device rows without the range's own annotation on the device timeline
+    rows = [e for e in prof.key_averages() if e.device_type == cuda and _device_us(e) > 0
+            and e.key != "chip_smoke.adamw"]
+    total = sum(_device_us(e) for e in rows) / 1e3
+    if total <= 0:
+        log(f"[PROFILE] finetune step ViT-B/16 b=32 bf16: {wall_ms:.1f} ms wall; the trace "
+            f"holds no device time: split not measured")
+        return
+    ffn_kernel = sum(_device_us(e) for e in rows if "ssp::" in e.key) / 1e3
+    adamw = ffn_bwd = backward = 0.0
+    evaluate = "autograd::engine::evaluate_function"
+    host_events = [e for e in prof.events() if e.device_type != cuda]
+    ffn_nodes = [e for e in host_events
+                 if e.name.startswith(evaluate) and "_FusedFFNBackward" in e.name]
+
+    def in_ffn_node(e):
+        # the backward nodes of the recomputed plain FFN run inside the
+        # _FusedFFNBackward node, on its thread, whether or not the trace links
+        # them to it as children
+        return any(n is not e and n.thread == e.thread
+                   and n.time_range.start <= e.time_range.start
+                   and e.time_range.end <= n.time_range.end for n in ffn_nodes)
+
+    for e in host_events:
+        if e.name == "chip_smoke.adamw":
+            adamw += _event_device_us(e) / 1e3
+        elif e.name.startswith(evaluate):
+            parent = e.cpu_parent
+            while parent is not None and not parent.name.startswith(evaluate):
+                parent = parent.cpu_parent
+            if parent is None:  # not a child of another node (whose total holds it)
+                backward += _event_device_us(e) / 1e3
+                if "_FusedFFNBackward" in e.name or in_ffn_node(e):
+                    ffn_bwd += _event_device_us(e) / 1e3
+    ffn_nodes_ms = sum(_event_device_us(n) for n in ffn_nodes) / 1e3
+    parts = {"fused_ffn kernels (forward)": ffn_kernel,
+             "rest of the forward (attention, LN, embedding, head, loss)":
+                 total - backward - adamw - ffn_kernel,
+             "FFN backward (plain recompute + its autodiff)": ffn_bwd,
+             "rest of the backward (attention, projections, LN, ...)": backward - ffn_bwd,
+             "AdamW": adamw}
+    if backward <= 0 or adamw <= 0:
+        log(f"[PROFILE] finetune step: backward nodes or the AdamW range hold no device time "
+            f"in the trace; split not measured beyond fused_ffn {ffn_kernel:.2f} ms of "
+            f"{total:.2f} ms")
+    log(f"[PROFILE] finetune step ViT-B/16 b=32 bf16 (trainable all): {wall_ms:.1f} ms wall "
+        f"per step (host clock, no profiler), {total:.1f} ms of device activity in the trace "
+        f"({100 * total / wall_ms:.0f}% of the wall time); by part: "
+        + ", ".join(f"{k} {v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
+        + f"; {len(ffn_nodes)} _FusedFFNBackward nodes hold {ffn_nodes_ms:.2f} ms themselves")
+    for e in sorted(rows, key=_device_us, reverse=True)[:8]:
+        ms = _device_us(e) / 1e3
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _falling(label: str, losses) -> None:
+    import math
+
+    log(f"[ANCHOR] {label}: losses {', '.join(f'{x:.6f}' for x in losses)}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses not finite or not falling: {losses}")
+
+
 def phase_anchor(device) -> None:
-    """Trained checkpoint: dense top-1 >= pinned - 0.02, >= 0.9 after 25% 2SSP."""
+    """Trained checkpoint: dense top-1 >= pinned - 0.02, >= 0.9 after 25% 2SSP;
+    int8 dense >= 0.97 (the JAX package's pin), the pruned int8 printed; the
+    pruned model finetuned (everything trainable, 2 epochs over the 64
+    calibration images at b=32, bf16, lr 5e-5) stays >= 0.9; 4 LoRA steps on
+    the dense model (qkv and proj adapters, rank 8) and 4 KD steps (dense
+    teacher, pruned student) on one calibration batch: losses finite and
+    falling from the first to the last."""
+    import torch
+
     from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, load_procgen_slice
     from ssp_x_vit_tpu_torch.evaluation.classify import evaluate_top1
+    from ssp_x_vit_tpu_torch.llm.lora import init_lora
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW
     from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
+    from ssp_x_vit_tpu_torch.models.quant import quantize_vit_params_int8
     from ssp_x_vit_tpu_torch.pruning import two_ssp_prune_vit
+    from ssp_x_vit_tpu_torch.pruning.finetune import (
+        VIT_LORA_TARGETS, finetune, make_distill_train_step, make_lora_train_step,
+        make_optimizer,
+    )
 
     here = os.path.dirname(os.path.abspath(__file__))
     ckpt = os.path.join(here, "ckpts", "vit_procgen")
@@ -1763,6 +2053,151 @@ def phase_anchor(device) -> None:
         raise AssertionError(f"dense top-1 {dense} < pinned {pinned} - 0.02")
     if pruned < 0.9:
         raise AssertionError(f"top-1 after 25% 2SSP {pruned} < 0.9")
+
+    dense_q = evaluate_top1(quantize_vit_params_int8(params, cfg), cfg, test)
+    pruned_q = evaluate_top1(quantize_vit_params_int8(p2, c2), c2, test)
+    log(f"[ANCHOR] vit_procgen int8 (weight-only): dense top-1 {dense_q:.4f} (pin >= 0.97), "
+        f"after 25% 2SSP {pruned_q:.4f}")
+    if dense_q < 0.97:
+        raise AssertionError(f"int8 dense top-1 {dense_q} < 0.97")
+
+    # The pruned tree shares leaves with the dense one, and finetuning updates in place.
+    tuned = _clone_tree(p2)
+    losses = []
+    t0 = time.perf_counter()
+    finetune(tuned, c2, lambda: calib, epochs=2, lr=5e-5, trainable="all", losses=losses)
+    seconds = time.perf_counter() - t0
+    after = evaluate_top1(tuned, c2, test)
+    log(f"[ANCHOR] vit_procgen 2SSP + finetune (all, 2 epochs, 4 steps at b=32, bf16, lr 5e-5, "
+        f"{seconds:.2f} s): top-1 {pruned:.4f} -> {after:.4f} (limit 0.9); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    if after < 0.9 or len(losses) != 4:
+        raise AssertionError(f"top-1 after 2SSP + finetune {after} < 0.9")
+
+    px, labels = calib[0]["pixel_values"], calib[0]["labels"]
+    lora = init_lora(torch.Generator().manual_seed(0), params, rank=8, targets=VIT_LORA_TARGETS)
+    opt = AdamW(1e-3)
+    state, step, lora_losses = opt.init(lora), make_lora_train_step(cfg, opt), []
+    for _ in range(4):
+        lora, state, loss = step(params, lora, state, px, labels)
+        lora_losses.append(loss.item())
+    _falling("vit_procgen LoRA (qkv + proj, rank 8, AdamW 1e-3, bf16), 4 steps on one "
+             "calibration batch", lora_losses)
+    student = _clone_tree(p2)
+    opt = make_optimizer(student, lr=1e-4, trainable="all")
+    state = opt.init(student)
+    step = make_distill_train_step(params, cfg, c2, opt)
+    kd_losses = []
+    for _ in range(4):
+        student, state, loss = step(student, state, px, labels)
+        kd_losses.append(loss.item())
+    _falling("vit_procgen KD (dense teacher, 25% 2SSP student, alpha 0.5, T 2, lr 1e-4, bf16), "
+             "4 steps on one calibration batch", kd_losses)
+    if evaluate_top1(params, cfg, test) != dense:
+        raise AssertionError("the KD steps changed the teacher")
+
+
+def phase_finetune_host(device) -> None:
+    """The finetune step on the card against the host CPU in fp32: ViT-B/16
+    (random weights, the CLI's seed), b=4 synthetic images,
+    ``make_train_step`` over ``make_optimizer(trainable="all")``: the first
+    step's gradients within 1e-4 of max(1, max |cpu grad|), the losses of 3
+    steps within 1e-4 relative."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.models.vit import vit_forward
+    from ssp_x_vit_tpu_torch.pruning.finetune import (
+        cross_entropy_loss, make_optimizer, make_train_step,
+    )
+
+    params, cfg, batch = _vit_b16_batch(device, 4)
+    px, labels = batch["pixel_values"], batch["labels"]
+    host = _clone_tree({k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                            else v.cpu()) for k, v in params.items()})
+    t0 = time.perf_counter()
+    grads = {}
+    for place, tree in (("card", params), ("host", host)):
+        alias = {p: t.detach().requires_grad_(True) for p, t in _flat(tree).items()}
+        nested = {}
+        for path, t in alias.items():
+            *parents, key = path.split("/")
+            node = nested
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[key] = t
+        dev = params["pos_embed"].device if place == "card" else torch.device("cpu")
+        logits, _ = vit_forward(nested, px.to(dev), cfg, allow_fused_attn=False)
+        cross_entropy_loss(logits, labels.to(dev)).backward()
+        grads[place] = {p: t.grad.cpu() for p, t in alias.items()}
+    scale = max(1.0, max(g.abs().max().item() for g in grads["host"].values()))
+    gerr = max((grads["card"][p] - g).abs().max().item() for p, g in grads["host"].items()) / scale
+    losses = {}
+    for place, tree in (("card", params), ("host", host)):
+        opt = make_optimizer(tree, lr=1e-4, trainable="all")
+        state, step, losses[place] = opt.init(tree), make_train_step(cfg, opt, torch.float32), []
+        for _ in range(3):
+            _, state, loss = step(tree, state, px, labels)
+            losses[place].append(loss.item())
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["host"]))
+    log(f"[ANCHOR] ViT-B/16 finetune step fp32 b=4, card vs host CPU: first-step gradients of "
+        f"{len(grads['host'])} leaves scaled {gerr:.3e} (tol 1e-4); losses card "
+        f"{losses['card']} host {losses['host']} (max rel {lerr:.3e}, tol 1e-4; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if gerr > 1e-4 or lerr > 1e-4:
+        raise AssertionError("the finetune step on the card disagrees with the host")
+
+
+def phase_anchor_lora_llm(device) -> None:
+    """LLM LoRA on ``ckpts/code_llm_small`` in fp32 with remat, card against the
+    host CPU from the same adapters (b nonzero, so both factors get
+    gradients) and batches (b=4, s=512 of ``corpus_slice/train.bin``): the
+    first step's adapter gradients within 1e-4 of max(1, max |cpu grad|), the
+    losses of 3 steps within 1e-4 relative."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.lora import apply_lora, init_lora, make_lora_train_step
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW
+    from ssp_x_vit_tpu_torch.llm.train import next_token_loss
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    s = 512
+    ids = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16, "r")
+                     [:12 * (s + 1)], np.int32).reshape(12, s + 1)
+    batches = [torch.from_numpy(ids[4 * i:4 * i + 4]).long() for i in range(3)]
+    gen = torch.Generator().manual_seed(5)
+    lora = init_lora(gen, params, rank=8)
+    for ab in lora.values():
+        ab["b"] = (0.01 * torch.randn(ab["b"].shape, generator=gen)).to(device)
+    t0 = time.perf_counter()
+    grads, losses = {}, {}
+    for place, dev in (("card", device), ("host", torch.device("cpu"))):
+        base = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.to(dev, copy=True)) for k, v in params.items()}
+        ad = {t: {k: v.to(dev, copy=True).requires_grad_(True) for k, v in ab.items()}
+              for t, ab in lora.items()}
+        next_token_loss(apply_lora(base, ad), batches[0].to(dev), cfg,
+                        compute_dtype=torch.float32, remat=True).backward()
+        grads[place] = {f"{t}/{k}": v.grad.cpu() for t, ab in ad.items() for k, v in ab.items()}
+        ad = {t: {k: v.detach() for k, v in ab.items()} for t, ab in ad.items()}
+        opt = AdamW(1e-4)
+        state, step, losses[place] = opt.init(ad), make_lora_train_step(
+            cfg, opt, compute_dtype=torch.float32, remat=True), []
+        for tokens in batches:
+            ad, state, loss = step(base, ad, state, tokens)
+            losses[place].append(loss.item())
+    scale = max(1.0, max(g.abs().max().item() for g in grads["host"].values()))
+    gerr = max((grads["card"][p] - g).abs().max().item() for p, g in grads["host"].items()) / scale
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["host"]))
+    log(f"[ANCHOR] code_llm_small LoRA fp32 remat (q/k/v/o, rank 8) b=4 s={s}, card vs host "
+        f"CPU: first-step adapter gradients scaled {gerr:.3e} (tol 1e-4); losses card "
+        f"{losses['card']} host {losses['host']} (max rel {lerr:.3e}, tol 1e-4; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if gerr > 1e-4 or lerr > 1e-4:
+        raise AssertionError("LLM LoRA on the card disagrees with the host")
 
 
 LLAMA_2_7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
@@ -3014,7 +3449,7 @@ def main() -> int:
     records = phase_kernels(device)
     check_vit_core(device)
     check_vit_gemm_edges(device)
-    check_vit_block_gradients(device)
+    records["fused_ffn"].update(check_vit_block_gradients(device))
     records.update(phase_llm_kernels(device))
     records.update(phase_flash_backward(device))
     records.update(phase_paged_kernels(device))
@@ -3023,11 +3458,12 @@ def main() -> int:
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
     # Driven paths, each with the counts set to 0 just before it and read just
-    # after. The CLI runs (two ViT, two LLM) are the main paths; fused_ffn and
-    # quant_matmul have no caller under the CLIs (quant_matmul has none in
-    # either package), so each is driven through its public op-level entry and
-    # its record says so.
-    direct = {"fused_ffn": ("ops.ffn.ffn_forward called directly", drive_ffn_forward(device)),
+    # after. The CLI runs (two ViT, two LLM) are the main paths: fused_ffn is
+    # launched there by the ViT finetune phases, and driven through its public
+    # op-level entry too; quant_matmul has no caller in either package, so it
+    # is driven through its wrapper and its record says so.
+    direct = {"fused_ffn": ("cli runs (the finetune phases) + ops.ffn.ffn_forward called "
+                            "directly", drive_ffn_forward(device)),
               "quant_matmul": ("direct wrapper call, no caller in the package",
                                drive_quant_matmul(device))}
     for name, n in drive_paged_standalone(device).items():
@@ -3056,6 +3492,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("main, training (phase 4)")
     phase_anchor(device)
+    phase_finetune_host(device)
+    phase_anchor_lora_llm(device)
     phase_anchor_llm(device)
     phase_anchor_serving(device)
     phase_anchor_contiguous(device)

@@ -6,11 +6,19 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
   python -m ssp_x_vit_tpu_torch.cli.auto_2ssp --model vit-b16 --dataset synthetic \
       --target 0.25 --stage both --eval-batches 2
 
-Flags of parts not ported yet raise NotImplementedError naming the ROADMAP.md
-item. ``run`` also returns, under "kernel_launches" and "phase_seconds", the
-block-kernel launches and the wall seconds of each phase of the run (setup,
-baseline, candidates, stats, stage1, materialized); neither is saved in the
-report files.
+The recovery flow is the JAX CLI's: ``--use-adapter`` / ``--replace-classifier``
+/ ``--load-adapter`` set the head, ``--do-finetune [--freeze-backbone]`` trains
+it (or the whole model) before the baseline metrics, ``--save-adapter`` writes
+the head, ``--quantize int8`` evaluates the int8 weight-only model. Flags of
+parts not ported yet raise NotImplementedError naming the ROADMAP.md item.
+
+``run(args, model=None)`` runs on ``model=(params, cfg)`` when the caller built
+one (the CLI's setup otherwise), and also returns, beside the report, under
+"kernel_launches" and "phase_seconds", the kernel launches and the wall seconds
+of each phase of the run (setup, finetune, baseline, candidates, stats, stage1,
+materialized, quantize; finetune and quantize only with their flags), under
+"finetune_losses" each finetune step's loss, and under "model" the final
+(params, cfg); none of these is saved in the report files.
 """
 
 from __future__ import annotations
@@ -86,14 +94,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     unported = {
-        "--do-finetune": args.do_finetune,
         "--use-srp-checkpoint": args.use_srp_checkpoint,
-        "--quantize int8": args.quantize != "none",
         "--save-format hf": args.save_format != "native",
         "--data-parallel": args.data_parallel,
         "--export-framework-prefix": args.export_framework_prefix is not None,
-        "--use-adapter/--save-adapter/--load-adapter (adapters)":
-            args.use_adapter or args.save_adapter or args.load_adapter is not None,
         "--dataset cifar10/cifar100 (--load-cifar)": args.dataset != "synthetic" or args.load_cifar,
     }
     for flag, used in unported.items():
@@ -101,13 +105,15 @@ def _reject_unported(args) -> None:
             raise NotImplementedError(f"{flag} {_NOT_PORTED}")
 
 
-def run(args) -> Dict[str, Any]:
+def run(args, model=None) -> Dict[str, Any]:
     _reject_unported(args)
     import torch
 
     from ssp_x_vit_tpu_torch.cli.common import resolve_dataset, resolve_model
     from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
     from ssp_x_vit_tpu_torch.evaluation import evaluate_top1, measure_latency, save_report
+    from ssp_x_vit_tpu_torch.models.adapter import load_cifar_adapter, save_cifar_adapter
+    from ssp_x_vit_tpu_torch.models.vit import init_head_params, params_device
     from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
     from ssp_x_vit_tpu_torch.pruning import (
         compute_actual_sparsity, count_total_params, materialize_depth_pruning,
@@ -128,7 +134,7 @@ def run(args) -> Dict[str, Any]:
 
     @contextlib.contextmanager
     def phase(name):
-        """Record the block-kernel launches and the wall seconds of one phase
+        """Record the kernel launches and the wall seconds of one phase
         (the device is synchronized at its end, so its work is inside)."""
         before, t0 = dict(launch_counts), time.perf_counter()
         yield
@@ -139,11 +145,26 @@ def run(args) -> Dict[str, Any]:
 
     num_classes = args.num_classes or 10
     with phase("setup"):
-        params, cfg = resolve_model(args.model, num_classes=num_classes,
-                                    checkpoint=args.checkpoint, seed=args.seed, device=device)
-        if args.replace_classifier:
-            from ssp_x_vit_tpu_torch.models.vit import init_head_params
-
+        if model is None:
+            params, cfg = resolve_model(args.model, num_classes=num_classes,
+                                        checkpoint=args.checkpoint, seed=args.seed, device=device)
+        else:
+            params, cfg = model
+            if params_device(params).type != device.type:
+                raise ValueError(f"the model is on {params_device(params)}, "
+                                 f"--backend is {device.type}")
+        # Head config, in the JAX CLI's order
+        if args.load_adapter:
+            params, cfg = load_cifar_adapter(args.load_adapter, params, cfg)
+            print(f"[INFO] Loaded adapter from: {args.load_adapter} "
+                  f"(num_labels={cfg.num_classes}, type={cfg.head_type})")
+        elif args.use_adapter:
+            bottleneck = max(cfg.hidden_size // args.adapter_reduction, 32)
+            cfg = dataclasses.replace(cfg, head_type="adapter", adapter_bottleneck=bottleneck)
+            params = dict(params)
+            params["head"] = init_head_params(cfg, seed=args.seed + 1, device=device)
+            print(f"[INFO] Using adapter head with bottleneck={bottleneck}")
+        elif args.replace_classifier:
             cfg = dataclasses.replace(cfg, head_type="linear", num_classes=num_classes)
             params = dict(params)
             params["head"] = init_head_params(cfg, seed=args.seed + 1, device=device)
@@ -154,6 +175,17 @@ def run(args) -> Dict[str, Any]:
             calib_per_class=args.calib_per_class, seed=args.seed, device=device)
         test_batches = test.batches(args.eval_batches)
         calib_batches = calib.batches()
+
+    ft_losses = []
+    if args.do_finetune:
+        # Before the baseline metrics, as the JAX CLI: the evaluations run
+        # under torch.inference_mode(), which finetuning cannot follow.
+        from ssp_x_vit_tpu_torch.pruning.finetune import finetune
+
+        trainable = "head" if args.freeze_backbone else "all"
+        with phase("finetune"):
+            params = finetune(params, cfg, lambda: iter(train), epochs=args.ft_epochs,
+                              lr=args.ft_lr, trainable=trainable, losses=ft_losses)
 
     # Baseline metrics
     params_before = count_total_params(cfg)
@@ -255,6 +287,20 @@ def run(args) -> Dict[str, Any]:
         latency_stage2 = measure_latency(work_params, work_cfg, batch_size=1)
         acc_stage2 = evaluate_top1(work_params, work_cfg, test_batches)
 
+    quant_params = None
+    quant_metrics: Dict[str, Any] = {}
+    if args.quantize == "int8":
+        from ssp_x_vit_tpu_torch.models.quant import quantize_vit_params_int8
+
+        with phase("quantize"):
+            quant_params = quantize_vit_params_int8(work_params, work_cfg)
+            quant_metrics = {
+                "latency_int8_ms": round(measure_latency(quant_params, work_cfg, batch_size=1), 2),
+                "acc_int8": round(evaluate_top1(quant_params, work_cfg, test_batches), 4),
+            }
+        print(f"[QUANT] int8: latency {quant_metrics['latency_int8_ms']} ms, "
+              f"top-1 {quant_metrics['acc_int8']}")
+
     s1 = compute_actual_sparsity(params_before, params_after_stage1)
     s2_local = compute_actual_sparsity(params_after_stage1, params_after_stage2)
     s_total = compute_actual_sparsity(params_before, params_after_stage2)
@@ -297,12 +343,23 @@ def run(args) -> Dict[str, Any]:
         print(f"[ARTIFACT] Attention pruned indices saved to: {attn_indices_path}")
         artifacts["attn_pruned_indices_path"] = str(attn_indices_path)
 
+    if args.save_adapter:
+        artifacts["adapter_path"] = save_cifar_adapter(
+            work_params, work_cfg, str(artifacts_dir),
+            extra={"model_name": args.model, "target_sparsity": args.target,
+                   "use_adapter": args.use_adapter, "replace_classifier": args.replace_classifier},
+        )
+
     if args.save_pruned_model:
         from ssp_x_vit_tpu_torch.models.persistence import save_pruned_model
 
         pruned_dir = out_root / "pruned_models" / run_id
         save_pruned_model(str(pruned_dir), work_params, work_cfg)
         artifacts["pruned_model_dir"] = str(pruned_dir)
+        if quant_params is not None:
+            qdir = out_root / "pruned_models" / f"{run_id}-int8"
+            save_pruned_model(str(qdir), quant_params, work_cfg)
+            artifacts["pruned_model_int8_dir"] = str(qdir)
 
     report = {
         "config": {
@@ -342,6 +399,7 @@ def run(args) -> Dict[str, Any]:
             "acc_drop_stage1_percent": round(((acc_baseline - acc_stage1) / max(1e-12, acc_baseline)) * 100, 2),
             "acc_drop_stage2_percent": round(((acc_stage1 - acc_stage2) / max(1e-12, acc_stage1)) * 100, 2),
             "acc_total_drop_percent": round(((acc_baseline - acc_stage2) / max(1e-12, acc_baseline)) * 100, 2),
+            **quant_metrics,
         },
         "artifacts": artifacts,
     }
@@ -362,6 +420,8 @@ def run(args) -> Dict[str, Any]:
     print(f"[INFO] Report saved to: {saved['json']} and {saved['md']}")
     report["kernel_launches"] = launches
     report["phase_seconds"] = seconds
+    report["finetune_losses"] = ft_losses
+    report["model"] = (work_params, work_cfg)
     return report
 
 

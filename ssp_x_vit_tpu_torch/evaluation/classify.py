@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ssp_x_vit_tpu_torch.models.vit import (
-    ViTConfig, cast_params, vit_forward, vit_forward_materialized,
+    ViTConfig, cast_params, params_device, vit_forward, vit_forward_materialized,
 )
 
 
@@ -29,10 +29,6 @@ def _eval_dtype(device: torch.device) -> torch.dtype:
     """bf16 on the card (the JAX package's accelerator choice, and the
     reference's autocast), fp32 on the CPU for test determinism."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
-
-
-def _params_device(params) -> torch.device:
-    return params["blocks"]["fc1_kernel"].device
 
 
 @torch.inference_mode()
@@ -51,7 +47,7 @@ def evaluate_top1(
     if token_keep_schedule:
         raise NotImplementedError("token pruning (token_keep_schedule) is not ported yet "
                                   "(ROADMAP.md A.7)")
-    dtype = _eval_dtype(_params_device(params))
+    dtype = _eval_dtype(params_device(params))
     params = cast_params(params, dtype)
     correct = None
     total = 0
@@ -80,7 +76,7 @@ def evaluate_top1_candidates(
     max_batches: Optional[int] = None,
 ) -> np.ndarray:
     """Accuracy of each row of ``attn_gates`` ([C, num_layers]) -> [C]."""
-    device = _params_device(params)
+    device = params_device(params)
     dtype = _eval_dtype(device)
     params = cast_params(params, dtype)
     gates = torch.as_tensor(np.asarray(attn_gates, np.float32)).to(device)

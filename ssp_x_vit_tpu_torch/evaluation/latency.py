@@ -13,7 +13,7 @@ from typing import Callable
 import torch
 
 from ssp_x_vit_tpu_torch.models.vit import (
-    ViTConfig, cast_params, vit_forward, vit_forward_materialized,
+    ViTConfig, cast_params, params_device, vit_forward, vit_forward_materialized,
 )
 
 
@@ -41,7 +41,7 @@ def measure_latency_fn(fn: Callable[[], object], device: torch.device, *, warmup
 def measure_latency(params, cfg: ViTConfig, *, batch_size: int = 1, warmup: int = 3,
                     iters: int = 10, compute_dtype=torch.float32) -> float:
     """Mean forward latency (ms) on a zero batch of ``batch_size`` images."""
-    device = params["blocks"]["fc1_kernel"].device
+    device = params_device(params)
     params = cast_params(params, compute_dtype)
     dummy = torch.zeros((batch_size, cfg.image_size, cfg.image_size, cfg.num_channels),
                         dtype=compute_dtype, device=device)

@@ -23,7 +23,7 @@ from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params
 from ssp_x_vit_tpu_torch.llm.rope import RopeScaling
 from ssp_x_vit_tpu_torch.models.checkpoints import (
-    _to_tensor, load_params_npz, save_params_npz,
+    to_tensor, load_params_npz, save_params_npz,
 )
 
 _HF_NOT_PORTED = "HF checkpoint directories are not ported yet (ROADMAP.md A.10)"
@@ -45,7 +45,7 @@ def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
                 out[k] = convert(v)
             else:
                 leaf_dtype = torch.float32 if k.endswith("_scale") else dtype
-                out[k] = _to_tensor(np.asarray(v), dev, leaf_dtype)
+                out[k] = to_tensor(np.asarray(v), dev, leaf_dtype)
         return out
 
     return convert(tree)
@@ -57,8 +57,8 @@ def pools_from_jax(pool, *, device: DeviceLike = None):
     every leaf in its own dtype (fp32, bf16, int8)."""
     dev = resolve_device(device)
     if isinstance(pool, dict):
-        return {k: _to_tensor(np.asarray(v), dev, None) for k, v in pool.items()}
-    return _to_tensor(np.asarray(pool), dev, None)
+        return {k: to_tensor(np.asarray(v), dev, None) for k, v in pool.items()}
+    return to_tensor(np.asarray(pool), dev, None)
 
 
 def caches_from_jax(cache_k, cache_v, *, device: DeviceLike = None):

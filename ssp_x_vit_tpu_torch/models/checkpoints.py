@@ -16,7 +16,7 @@ from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.models.vit import Params
 
 
-def _to_tensor(arr: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
+def to_tensor(arr: np.ndarray, device: torch.device, dtype) -> torch.Tensor:
     """numpy leaf -> tensor; ``dtype`` applies to float leaves only.
 
     ``np.savez`` stores bf16 leaves (an ml_dtypes extension type) with a raw
@@ -45,8 +45,17 @@ def params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
         elif v is None:
             out[k] = None
         else:
-            out[k] = _to_tensor(np.asarray(v), dev, dtype)
+            out[k] = to_tensor(np.asarray(v), dev, dtype)
     return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf as numpy for ``np.savez``: bf16 as raw 2-byte words, which
+    ``to_tensor`` (and the JAX package's loader) read back as bf16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(np.dtype("V2"))
+    return t.numpy()
 
 
 def save_params_npz(path: str, params: Params) -> None:
@@ -59,11 +68,7 @@ def save_params_npz(path: str, params: Params) -> None:
             for k, v in node.items():
                 walk(f"{prefix}/{k}" if prefix else k, v)
         else:
-            t = node.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                flat[prefix] = t.view(torch.uint16).numpy().view(np.dtype("V2"))
-            else:
-                flat[prefix] = t.numpy()
+            flat[prefix] = to_numpy(node)
 
     walk("", params)
     np.savez(path, **flat)
@@ -80,5 +85,5 @@ def load_params_npz(path: str, *, device: DeviceLike = None, dtype=torch.float32
             parts = key.split("/")
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = _to_tensor(npz[key], dev, dtype)
+            node[parts[-1]] = to_tensor(npz[key], dev, dtype)
     return out

@@ -11,19 +11,26 @@
 - Final pruned models are materialized once (gathered FFN widths, attention
   weights of depth-pruned blocks dropped) and run by
   :func:`vit_forward_materialized`, which skips those attention branches.
-- A Python loop over the blocks replaces ``lax.scan``. Every block runs the
-  ``fused_attn_block_v2`` (even head count) or ``fused_attn_block`` kernel and
-  the ``fused_ffn_block`` kernel on a CUDA tensor, their plain versions on a
-  CPU tensor. ``allow_fused_attn=False`` turns both fused blocks off, as in
-  the JAX package: the attention branch runs the block's plain version (its
-  attention core is ``flash_attention`` on the card) and the FFN goes through
-  ``ops.ffn.ffn_forward``; both differentiate on any device (the fused
-  attention kernels have no backward).
+- A Python loop over the blocks replaces ``lax.scan``; the stacked tensors
+  are unbound once per forward, so under autograd each stacked leaf gets one
+  stacked gradient. Every block runs the ``fused_attn_block_v2`` (even head
+  count) or ``fused_attn_block`` kernel and the ``fused_ffn_block`` kernel on
+  a CUDA tensor, their plain versions on a CPU tensor.
+  ``allow_fused_attn=False`` turns both fused blocks off, as in the JAX
+  package: the attention branch runs the block's plain version (plain
+  ``sdpa_reference``, no kernel) and the FFN goes through
+  ``ops.ffn.ffn_forward`` (the ``fused_ffn`` kernel on the card, inside its
+  autograd Function when a gradient is wanted); both differentiate on any
+  device (the fused attention kernels have no backward). This is the path of
+  the finetune steps (``pruning/finetune.py``).
+- Weight-only int8 trees (``models/quant.py``: ``<k>_q`` + ``<k>_scale``)
+  run every projection through ``ops.common.mm_quant``, the block as plain
+  PyTorch (:func:`_block_apply_quantized`), as the JAX package does.
 
 Model semantics match HF ``ViTForImageClassification``: patch embedding as
 patchify + matmul, CLS token, learned position embeddings, pre-LN blocks with
-exact GELU, final LayerNorm, linear classifier on the CLS token. Quantized
-blocks and adapter heads are not ported yet.
+exact GELU, final LayerNorm, classifier on the CLS token: a linear head, or
+the adapter head ``Linear(d -> m, no bias) -> GELU -> Linear(m -> c)``.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ import torch
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.ops import dispatch
-from ssp_x_vit_tpu_torch.ops.common import layer_norm, patchify, pick_param_variants
+from ssp_x_vit_tpu_torch.ops.attention import sdpa_reference
+from ssp_x_vit_tpu_torch.ops.common import gelu, layer_norm, mm_quant, patchify, pick_param_variants
 from ssp_x_vit_tpu_torch.ops.ffn import ffn_forward
 from ssp_x_vit_tpu_torch.ops.kernels.fused_attn_block import (
     fused_attn_block, fused_attn_block_plain, fused_attn_block_v2,
@@ -158,17 +166,35 @@ def init_vit_params(cfg: ViTConfig, *, seed: int = 0, device: DeviceLike = None,
 
 def init_head_params(cfg: ViTConfig, *, gen: Optional[torch.Generator] = None, seed: int = 0,
                      device: DeviceLike = None, dtype=torch.float32) -> Params:
-    """Linear classifier head ``{"kernel": [d, c], "bias": [c]}``."""
-    if cfg.head_type != "linear":
-        raise NotImplementedError("adapter heads are not ported yet (ROADMAP.md A.7)")
+    """Classifier head: linear ``{"kernel": [d, c], "bias": [c]}``, or the adapter
+    ``{"w0": [d, m], "w2": [m, c], "b2": [c]}`` (``Linear(d -> m, no bias) ->
+    GELU -> Linear(m -> c)``, m = ``cfg.adapter_bottleneck``); truncated
+    normal (std 0.02) kernels and zero biases from ``gen`` (or ``seed``)."""
     dev = resolve_device(device)
     gen = gen if gen is not None else torch.Generator().manual_seed(seed)
-    return {"kernel": _trunc_normal(gen, (cfg.hidden_size, cfg.num_classes), dev).to(dtype),
-            "bias": torch.zeros(cfg.num_classes, dtype=dtype, device=dev)}
+    d, c = cfg.hidden_size, cfg.num_classes
+    if cfg.head_type == "linear":
+        return {"kernel": _trunc_normal(gen, (d, c), dev).to(dtype),
+                "bias": torch.zeros(c, dtype=dtype, device=dev)}
+    if cfg.head_type == "adapter":
+        m = cfg.adapter_bottleneck
+        if m <= 0:
+            raise ValueError("adapter head requires adapter_bottleneck > 0")
+        return {"w0": _trunc_normal(gen, (d, m), dev).to(dtype),
+                "w2": _trunc_normal(gen, (m, c), dev).to(dtype),
+                "b2": torch.zeros(c, dtype=dtype, device=dev)}
+    raise ValueError(f"unknown head_type {cfg.head_type}")
+
+
+def params_device(params: Params) -> torch.device:
+    """The device of a ViT tree (dense, pruned or quantized)."""
+    return params["pos_embed"].device
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Every floating leaf cast to ``dtype`` (leaves already in it are shared).
+    """Every floating leaf cast to ``dtype`` (leaves already in it are shared;
+    int8 codes stay, their fp32 scales are cast as ``mm_quant`` casts them in
+    the JAX package). Differentiable, so a loss in bf16 reaches fp32 masters.
 
     Callers that run many forwards cast once per model and pass the result,
     so the kernels never cast weights per launch."""
@@ -184,19 +210,56 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 
 
 def apply_head(head: Params, cfg: ViTConfig, cls_repr: torch.Tensor) -> torch.Tensor:
-    if cfg.head_type != "linear":
-        raise NotImplementedError("adapter heads are not ported yet (ROADMAP.md A.7)")
     dt = cls_repr.dtype
-    return cls_repr @ head["kernel"].to(dt) + head["bias"].to(dt)
+    if cfg.head_type == "linear":
+        return mm_quant(cls_repr, head, "kernel", dt) + head["bias"].to(dt)
+    h = gelu(mm_quant(cls_repr, head, "w0", dt))
+    return mm_quant(h, head, "w2", dt) + head["b2"].to(dt)
 
 
 def embed(params: Params, cfg: ViTConfig, pixel_values: torch.Tensor, dtype) -> torch.Tensor:
     """pixel_values [batch, H, W, C] -> embedded tokens [batch, seq, hidden]."""
     x = patchify(pixel_values.to(dtype), cfg.patch_size)
-    x = x @ params["patch_embed"]["kernel"].to(dtype) + params["patch_embed"]["bias"].to(dtype)
+    x = mm_quant(x, params["patch_embed"], "kernel", dtype) + \
+        params["patch_embed"]["bias"].to(dtype)
     cls = params["cls_token"].to(dtype).expand(x.shape[0], 1, cfg.hidden_size)
     x = torch.cat([cls, x], dim=1)
     return (x + params["pos_embed"].to(dtype)).contiguous()
+
+
+def _block_apply_quantized(x, bp, cfg: ViTConfig, *, attn_gate, mlp_gate, neuron_mask,
+                           collect_ffn_stats, skip_attention_statically=False):
+    """int8-weight block (``models/quant.py`` trees): the plain block with every
+    projection through ``mm_quant``, as the JAX package's
+    ``_block_apply_quantized``; no kernel of this package (the block kernels
+    take float weights)."""
+    dt = x.dtype
+    eps = cfg.layernorm_eps
+    if not skip_attention_statically:
+        h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"], eps)
+        qkv = mm_quant(h, bp, "qkv_kernel", dt)
+        if bp.get("qkv_bias") is not None:
+            qkv = qkv + bp["qkv_bias"].to(dt)
+        b, s, d = x.shape
+        q, k, v = (t.reshape(b, s, cfg.num_heads, -1).permute(0, 2, 1, 3)
+                   for t in qkv.split(d, dim=-1))
+        attn = sdpa_reference(q, k, v).permute(0, 2, 1, 3).reshape(b, s, d)
+        attn = mm_quant(attn, bp, "proj_kernel", dt)
+        if bp.get("proj_bias") is not None:
+            attn = attn + bp["proj_bias"].to(dt)
+        x = x + dispatch.apply_gate(attn, attn_gate)
+
+    hm = mm_quant(layer_norm(x, bp["ln2_scale"], bp["ln2_bias"], eps), bp, "fc1_kernel", dt)
+    if bp.get("fc1_bias") is not None:
+        hm = hm + bp["fc1_bias"].to(dt)
+    hm = gelu(hm)
+    stats = hm.float().square().sum(dim=1) if collect_ffn_stats else None
+    if neuron_mask is not None:
+        hm = hm * neuron_mask.to(dt)
+    mlp = mm_quant(hm, bp, "fc2_kernel", dt)
+    if bp.get("fc2_bias") is not None:
+        mlp = mlp + bp["fc2_bias"].to(dt)
+    return x + dispatch.apply_gate(mlp, mlp_gate), stats
 
 
 def _block_apply(
@@ -213,6 +276,11 @@ def _block_apply(
 ):
     """One pre-LN encoder block; gates are scalars (None = dense).
     ``allow_fused_attn=False``: both branches without the fused block kernels."""
+    if "fc1_kernel" not in bp:  # quantized tree (models/quant.py)
+        return _block_apply_quantized(
+            x, bp, cfg, attn_gate=attn_gate, mlp_gate=mlp_gate, neuron_mask=neuron_mask,
+            collect_ffn_stats=collect_ffn_stats,
+            skip_attention_statically=skip_attention_statically)
     eps = cfg.layernorm_eps
     if not allow_fused_attn:
         if not skip_attention_statically:
@@ -234,8 +302,11 @@ def _block_apply(
                            collect_stats=collect_ffn_stats, eps=eps)
 
 
-def _block_params(blocks: Params, i: int) -> Params:
-    return {k: v[i] for k, v in blocks.items()}
+def _unbind_blocks(blocks: Params) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """The stacked [L, ...] block tensors as per-layer views, unbound once per
+    forward: under autograd each stacked leaf then gets its gradient as one
+    stack, not as L full-size scatters of a per-layer index."""
+    return {k: v.unbind(0) for k, v in blocks.items()}
 
 
 def vit_forward(
@@ -270,11 +341,11 @@ def vit_forward(
         raise ValueError("use vit_forward_materialized for depth-materialized configs")
     params = cast_params(params, compute_dtype)
     x = embed(params, cfg, pixel_values, compute_dtype)
-    blocks = params["blocks"]
+    blocks = _unbind_blocks(params["blocks"])
     stats, outs = [], []
     for i in range(cfg.num_layers):
         x, st = _block_apply(
-            x, _block_params(blocks, i), cfg,
+            x, {k: v[i] for k, v in blocks.items()}, cfg,
             attn_gate=None if attn_gate is None else attn_gate[i],
             mlp_gate=None if mlp_gate is None else mlp_gate[i],
             neuron_mask=None if neuron_mask is None else neuron_mask[i],
@@ -308,7 +379,7 @@ def vit_forward_materialized(
     (``allow_fused_attn`` as in :func:`vit_forward`)."""
     params = cast_params(params, compute_dtype)
     x = embed(params, cfg, pixel_values, compute_dtype)
-    blocks = params["blocks"]
+    blocks = _unbind_blocks(params["blocks"])
     store = cfg.attn_store_index
     for i in range(cfg.num_layers):
         j = store[i]

@@ -143,9 +143,9 @@ def test_unported_serving_parts_name_the_roadmap_item():
 def test_unported_cli_flags_name_the_roadmap_item():
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
 
-    for flags in (["--do-finetune"], ["--quantize", "int8"], ["--save-format", "hf"],
-                  ["--data-parallel"], ["--use-adapter"], ["--dataset", "cifar10"],
-                  ["--use-srp-checkpoint"], ["--export-framework-prefix", "x"]):
+    for flags in (["--save-format", "hf"], ["--data-parallel"], ["--dataset", "cifar10"],
+                  ["--load-cifar"], ["--use-srp-checkpoint"],
+                  ["--export-framework-prefix", "x"]):
         args = auto_2ssp.build_argparser().parse_args(["--backend", "cpu", *flags])
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             auto_2ssp.run(args)
