@@ -63,7 +63,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             evaluation; the same model served over HTTP on 127.0.0.1; then
             the training CLI (``cli.train_llm.run``) on a fresh bf16 model of
             the same shape, 4 updates at b=1, s=2048 with remat, and a
-            profiler split of one update. Kernel launches per run, each
+            profiler split of one update; then the HF round trips: ViT-B/16
+            exported with ``export_hf_vit`` and the 2SSP CLI run on that
+            directory (loaded parameters and fp32 logits bit for bit the
+            source's), and Llama-2-7B widths cut to 2 layers exported with
+            ``export_hf_llama`` and loaded back in bf16 (bit for bit; export
+            and load seconds, peak host RSS during the load; one s=2048
+            forward of each, same logits). Kernel launches per run, each
             driven path with the counts set to 0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
             top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
@@ -73,7 +79,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``ckpts/code_llm_small`` (perplexity against the pinned value and
             the host CPU's plain path; int8, int4, 25% 2SSP; served tokens;
             fp32 training on the card against the host CPU, a bit-exact
-            resume and gradient accumulation).
+            resume and gradient accumulation); then text: the native BPE
+            engine re-encodes all of the decoded ``val.bin`` to the committed
+            ids ([TOK] line), ``code_llm_small`` exported to an HF directory
+            with its ``tokenizer.json`` runs ``cli.main_llm.run`` with
+            ``--evaluate_perplexity --evaluate_qualitative --save-format hf``
+            (perplexity against the ``.npz`` directory's and the pinned value,
+            the answers as text, the saved directory bit for bit), and
+            ``serve_http`` on that directory serves string prompts, a chat and
+            a stop string with the host CPU's greedy text.
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -3342,6 +3356,422 @@ def phase_anchor_train(device) -> None:
         raise AssertionError("accumulated microbatches differ from the large batch")
 
 
+# ------------------------------------------------- HF directories and text ---
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _peak_rss_during(fn):
+    """(fn(), RSS before, peak RSS while fn ran), sampling /proc/self/statm every 2 ms."""
+    import threading
+
+    before, peak, done = _rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            peak[0] = max(peak[0], _rss_bytes())
+            time.sleep(0.002)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return out, before, max(peak[0], _rss_bytes())
+
+
+def _same_tree(a: dict, b: dict, label: str) -> None:
+    """The same leaves, bit for bit (dtype, shape and bytes)."""
+    import torch
+
+    fa, fb = _flat(a), _flat(b)
+    if sorted(fa) != sorted(fb):
+        raise AssertionError(f"{label}: leaves differ: {sorted(set(fa) ^ set(fb))}")
+    for k, v in fa.items():
+        w = fb[k]
+        if v.dtype != w.dtype or v.shape != w.shape or not torch.equal(
+                v.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{label}: leaf {k} differs")
+
+
+def phase_hf_llama_7b(device) -> dict:
+    """Llama-2-7B widths, depth cut to 2 layers (32 layers in F32 would be a
+    27 GB file), random bf16 weights made on the card: export_hf_llama (F32),
+    load_hf_llama back in bf16 (the parameters bit for bit: bf16 -> F32 -> bf16
+    is exact; export and load seconds, GB/s, peak host RSS during the load),
+    and one s=2048 forward of each with the same logits and a flash launch
+    per layer. Returns the forwards' launches."""
+    import dataclasses
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import export_hf_llama, load_hf_llama
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params, llama_forward
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = LlamaConfig(**dict(LLAMA_2_7B, num_layers=2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        export_hf_llama(d, params, cfg)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+
+        def load():
+            out = load_hf_llama(d, device=device, dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            return out
+
+        t0 = time.perf_counter()
+        (loaded, lcfg), rss0, rss_peak = _peak_rss_during(load)
+        load_s = time.perf_counter() - t0
+    log(f"[HF] Llama-2-7B width, 2 layers: export_hf_llama {size / 1e9:.3f} GB F32 in "
+        f"{export_s:.2f} s ({size / 1e9 / export_s:.2f} GB/s); load_hf_llama to bf16 on the card "
+        f"in {load_s:.2f} s ({size / 1e9 / load_s:.2f} GB/s); host RSS {rss0 / 2 ** 30:.2f} GiB "
+        f"before, peak {rss_peak / 2 ** 30:.2f} GiB during the load (+{(rss_peak - rss0) / 2 ** 20:.0f}"
+        f" MiB; largest tensor {32000 * 4096 * 4 / 2 ** 20:.0f} MiB in F32)")
+    if dataclasses.asdict(lcfg) != dataclasses.asdict(cfg):
+        raise AssertionError(f"HF round trip changed the config: {lcfg} vs {cfg}")
+    _same_tree(params, loaded, "Llama-2-7B width HF round trip")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=torch.Generator().manual_seed(3))
+    tokens = tokens.to(device)
+    reset_launch_counts()
+    with torch.no_grad():
+        a, _ = llama_forward(params, tokens, cfg, compute_dtype=torch.bfloat16)
+        first = launch_counts["flash_attention"]
+        b, _ = llama_forward(loaded, tokens, lcfg, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    if first != cfg.num_layers or launches["flash_attention"] != 2 * cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {first} / {launches['flash_attention']} "
+                             f"times over two forwards of {cfg.num_layers} layers")
+    if not torch.equal(a, b) or not torch.isfinite(a).all():
+        raise AssertionError("the HF-loaded model's logits differ from the source model's")
+    log(f"[HF] Llama-2-7B width, 2 layers: s=2048 logits of the loaded model == the source "
+        f"model's, bit for bit; flash_attention once per layer and forward")
+    del params, loaded, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hf_vit(out_root: str, device) -> dict:
+    """ViT-B/16 (the CLI's random weights) exported with export_hf_vit, then
+    the 2SSP CLI on that directory (``--save-pruned-model --save-format hf``:
+    attention removed, so the native format with the JAX CLI's notice): the
+    loaded parameters, the fp32 logits and their top-1 bit for bit the source
+    model's, and the CLI's baseline top-1 the source's. Returns the CLI's launches."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import auto_2ssp
+    from ssp_x_vit_tpu_torch.cli.common import resolve_dataset, resolve_model
+    from ssp_x_vit_tpu_torch.evaluation import evaluate_top1
+    from ssp_x_vit_tpu_torch.models.checkpoints import export_hf_vit
+    from ssp_x_vit_tpu_torch.models.vit import vit_forward
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    params, cfg = resolve_model("vit-b16", device=device)
+    hf_dir = os.path.join(out_root, "vit-b16-hf")
+    t0 = time.perf_counter()
+    export_hf_vit(hf_dir, params, cfg)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, lcfg = resolve_model(hf_dir, device=device)      # what the CLI loads
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(hf_dir, "model.safetensors"))
+    log(f"[HF] ViT-B/16: export_hf_vit {size / 1e6:.1f} MB in {export_s:.2f} s, "
+        f"resolve_model(<HF dir>) in {load_s:.2f} s")
+    _same_tree(params, loaded, "ViT-B/16 HF round trip")
+    _, test, _ = resolve_dataset("synthetic", cfg, device=device)
+    batches = test.batches(2)
+    with torch.inference_mode():
+        for batch in batches:
+            a, _ = vit_forward(params, batch["pixel_values"], cfg, compute_dtype=torch.float32)
+            b, _ = vit_forward(loaded, batch["pixel_values"], lcfg, compute_dtype=torch.float32)
+            if not torch.equal(a, b) or not torch.equal(a.argmax(-1), b.argmax(-1)):
+                raise AssertionError("ViT-B/16: the HF-loaded fp32 logits differ")
+    acc = evaluate_top1(params, cfg, batches)
+    argv = ["--model", hf_dir, "--dataset", "synthetic", "--target", "0.25", "--stage", "both",
+            "--eval-batches", "2", "--min-remaining", "512", "--backend", "cuda", "--out-root",
+            os.path.join(out_root, "vit-b16-hf-run"), "--save-pruned-model", "--save-format", "hf"]
+    log(f"[HF] auto_2ssp {' '.join(argv)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = auto_2ssp.run(auto_2ssp.build_argparser().parse_args(argv))
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    m = report["metrics"]
+    saved = report["artifacts"]["pruned_model_dir"]
+    log(f"[HF] ViT-B/16 from its HF directory: fp32 logits == the source's on 2 batches, top-1 "
+        f"{m['acc_baseline']} (source {acc:.4f}) -> {m['acc_stage2']} after 25% 2SSP; "
+        f"{seconds:.1f} s; pruned model saved as "
+        f"{'HF' if os.path.exists(os.path.join(saved, 'model.safetensors')) else 'native'} "
+        f"(attention removed: {report['artifacts']['pruned_block_indices']})")
+    if m["acc_baseline"] != round(acc, 4):
+        raise AssertionError(f"CLI baseline top-1 {m['acc_baseline']} vs source {acc}")
+    if report["artifacts"]["pruned_block_indices"] and not os.path.exists(
+            os.path.join(saved, "model.npz")):
+        raise AssertionError("attention removed, yet no native model was saved")
+    return launches
+
+
+def phase_anchor_tokenizer():
+    """The native BPE engine built from native/bpe.cc; all of val.bin decoded
+    and encoded again on it == the committed ids without the 39
+    <|endoftext|>; the encode's seconds and tokens/s on this host's CPU."""
+    import numpy as np
+
+    from ssp_x_vit_tpu_torch.llm import tokenizer as ttok
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    t0 = time.perf_counter()
+    ttok.native_library()
+    build_s = time.perf_counter() - t0
+    tok = ttok.load_tokenizer(ckpt)
+    ids = np.fromfile(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16).tolist()
+    text = tok.decode(ids)
+    t0 = time.perf_counter()
+    got = tok.encode(text)
+    enc_s = time.perf_counter() - t0
+    plain = ttok.load_tokenizer(ckpt, engine="python")
+    t0 = time.perf_counter()
+    plain_got = plain.encode(text)
+    plain_s = time.perf_counter() - t0
+    want = [i for i in ids if i != 8191]
+    if tok.engine != "native" or tok.native_batches < 1:
+        raise AssertionError("the native BPE engine was not the one in use")
+    if got != want or len(got) != 131_033 or plain_got != got:
+        raise AssertionError("val.bin decoded and encoded again differs from the committed ids")
+    log(f"[TOK] native BPE engine built in {build_s:.2f} s; val.bin ({len(ids)} ids, "
+        f"{len(text.encode())} bytes of text) decoded and encoded again == the committed ids "
+        f"without the {len(ids) - len(want)} <|endoftext|>; encode (first, cold word cache) "
+        f"{enc_s:.3f} s = {len(got) / enc_s:.0f} tokens/s on this host's CPU "
+        f"(plain Python merge loop {plain_s:.3f} s = {len(got) / plain_s:.0f} tokens/s)")
+
+
+def phase_anchor_hf_llm(device, work: str):
+    """ckpts/code_llm_small exported to HF (with its tokenizer.json), then
+    ``main_llm.run --model <dir> --evaluate_perplexity --evaluate_qualitative
+    --save-format hf`` on the card: perplexity within 1e-5 relative of the
+    same run on the .npz directory; the qualitative answers as text; the saved
+    HF directory loads back bit for bit; the HF-loaded model's val perplexity
+    within 1e-5 of the .npz model's and 5% of the pinned value. Returns (HF
+    directory, launches of the CLI runs)."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import export_hf_llama, load_hf_llama, load_llm_model
+    from ssp_x_vit_tpu_torch.llm.evaluation import evaluate_perplexity
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    hf_dir, saved = os.path.join(work, "code_llm_small_hf"), os.path.join(work, "saved_hf")
+    export_hf_llama(hf_dir, params, cfg)
+    shutil.copy(os.path.join(ckpt, "tokenizer.json"), hf_dir)
+    flags = ["--synthetic-data", "--seq-len", "1024", "--num-calibration", "8", "--backend",
+             "cuda", "--dense", "--evaluate_perplexity", "--logging", "WARNING"]
+    totals = {name: 0 for name in KERNEL_NAMES}
+    outs = []
+    for argv in (["--model", ckpt, *flags],
+                 ["--model", hf_dir, *flags, "--evaluate_qualitative", "--save-format", "hf",
+                  "--save-model", saved]):
+        log(f"[ANCHOR] main_llm {' '.join(argv)}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs.append(main_llm.run(main_llm.build_argparser().parse_args(argv)))
+        log(f"[ANCHOR] main_llm: {time.perf_counter() - t0:.1f} s, seconds by phase "
+            f"{json.dumps({k: round(v, 3) for k, v in outs[-1]['phase_seconds'].items()})}")
+        for name in KERNEL_NAMES:
+            totals[name] += launch_counts[name]
+    ppl_npz, ppl_hf = outs[0]["dense"]["ppl"], outs[1]["dense"]["ppl"]
+    qual = outs[1]["dense"]["qualitative"]
+    for prompt, answer in qual or ():
+        log(f"[ANCHOR] qualitative: {prompt!r} -> {answer[:160]!r}")
+    if not qual or len(qual) != 2 or not all(isinstance(a, str) and a.startswith(p)
+                                             for p, a in qual):
+        raise AssertionError(f"qualitative results are not text: {qual!r}")
+    if outs[1]["kernel_launches"]["evaluation"]["flash_attention"] <= 0:
+        raise AssertionError("flash_attention not launched in the HF directory's evaluation")
+    _same_tree(load_hf_llama(hf_dir, device=device)[0], load_hf_llama(saved, device=device)[0],
+               "code_llm_small --save-format hf")
+    hf32, _ = load_hf_llama(hf_dir, device=device, dtype=torch.float32)
+    _same_tree(params, hf32, "code_llm_small HF export")
+    with open(os.path.join(ckpt, "train_meta.json")) as f:
+        pinned = json.load(f)["val_ppl_16k"]
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:16384],
+                     np.int32)
+    val_npz = evaluate_perplexity(params, cfg, val, seq_len=1024, batch_size=2)
+    val_hf = evaluate_perplexity(hf32, cfg, val, seq_len=1024, batch_size=2)
+    log(f"[ANCHOR] code_llm_small through its HF directory: main_llm ppl (synthetic stream, bf16 "
+        f"load) {ppl_hf:.6f} vs the .npz directory's {ppl_npz:.6f}; val ppl (fp32, 16384 tokens) "
+        f"{val_hf:.4f} vs .npz {val_npz:.4f}, pinned {pinned}; --save-format hf loads back bit "
+        f"for bit")
+    if not math.isfinite(ppl_hf) or abs(ppl_hf - ppl_npz) > 1e-5 * ppl_npz:
+        raise AssertionError(f"HF directory ppl {ppl_hf} vs .npz {ppl_npz}")
+    if abs(val_hf - val_npz) > 1e-5 * val_npz or abs(val_hf - pinned) > 0.05 * pinned:
+        raise AssertionError(f"HF val ppl {val_hf} vs .npz {val_npz}, pinned {pinned}")
+    return hf_dir, totals
+
+
+def _post_text(port: int, path: str, body: dict) -> dict:
+    """POST a text request; returns text, finish reason, token ids (completions,
+    not streamed), and seconds to the first streamed chunk and to the end."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"HTTP {resp.status}: {resp.read()[:300]!r}")
+    text, finish, tokens, first = "", None, None, None
+    if body.get("stream"):
+        tokens = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            choice = json.loads(line[len(b"data: "):])["choices"][0]
+            if first is None and choice["finish_reason"] is None:
+                first = time.perf_counter() - t0
+            text += choice["delta"].get("content", "") if "delta" in choice else choice["text"]
+            tokens += choice.get("token_ids", [])
+            finish = choice["finish_reason"] or finish
+    else:
+        choice = json.loads(resp.read())["choices"][0]
+        text = choice["message"]["content"] if "message" in choice else choice["text"]
+        finish, tokens = choice["finish_reason"], choice.get("token_ids")
+    conn.close()
+    return dict(text=text, finish=finish, tokens=tokens, first_s=first,
+                total_s=time.perf_counter() - t0)
+
+
+def _host_agrees(label, text, prompt_ids, ref, tok, host, cfg) -> None:
+    """The served text against the host CPU's greedy tokens ``ref``: equal, or
+    diverging first at a token where the host's own top-2 margin is below 1e-3."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+
+    if text == tok.decode(ref):
+        return
+    at = next((k for k in range(len(ref)) if not text.startswith(tok.decode(ref[:k + 1]))),
+              len(ref))
+    with torch.no_grad():
+        logits, _ = llama_forward(host, torch.tensor([prompt_ids + ref[:at]]), cfg,
+                                  compute_dtype=torch.float32)
+    top2 = logits[0, -1].topk(2).values
+    margin = float(top2[0] - top2[1])
+    log(f"[ANCHOR] {label}: the served text leaves the host's at token {at}, where the host's "
+        f"top-2 margin is {margin:.2e}")
+    if margin > 1e-3:
+        raise AssertionError(f"{label}: served text differs from the host CPU's")
+
+
+def phase_anchor_text_serving(device, hf_dir: str) -> dict:
+    """``serve_http`` on the exported code_llm_small directory (its
+    tokenizer.json read by the CLI), fp32 weights and fp32 pools: a string
+    prompt not streamed and streamed, a chat, a stop string that starts
+    inside a token, and the same prompt as token ids (time to first token,
+    text against ids). The served greedy text equals the host CPU's
+    (``paged_generate`` on CPU copies, decoded), streamed equals not
+    streamed, and paged_attention_write makes one launch per layer and decode
+    step. Returns the run's launches."""
+    import threading
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import serve_http
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_hf_llama
+    from ssp_x_vit_tpu_torch.llm.paged import paged_generate
+    from ssp_x_vit_tpu_torch.llm.server_http import _render_chat, create_server
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    params, cfg = load_hf_llama(hf_dir, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    argv = ["--model", hf_dir, "--backend", "cuda", "--port", "0", "--kv-dtype", "fp32",
+            "--page-size", "16", "--num-pages", "128", "--max-context", "512", "--max-batch", "4"]
+    log(f"[SERVE] text: serve_http {' '.join(argv)}")
+    args = serve_http.build_argparser().parse_args(argv)
+    engine, eos = serve_http.build_engine(args, model=(params, cfg))
+    kwargs = serve_http.server_kwargs(args, eos)
+    tok = kwargs["tokenizer"]
+    if tok is None or tok.engine != "native":
+        raise AssertionError("serve_http did not load the directory's tokenizer.json")
+    srv = create_server(engine, **kwargs)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    new = 32
+    prompt = "def fibonacci(n):\n    "
+    messages = [{"role": "user", "content": "Write a function that reverses a list."}]
+    try:
+        reset_launch_counts()
+        steps0 = engine.decode_steps
+        once = _post_text(port, "/v1/completions", dict(prompt=prompt, max_tokens=new,
+                                                        temperature=0))
+        streamed = _post_text(port, "/v1/completions", dict(prompt=prompt, max_tokens=new,
+                                                            temperature=0, stream=True))
+        as_ids = _post_text(port, "/v1/completions", dict(prompt=tok.encode(prompt),
+                                                          max_tokens=new, temperature=0,
+                                                          stream=True))
+        chat = _post_text(port, "/v1/chat/completions", dict(messages=messages, max_tokens=new,
+                                                             temperature=0))
+        text = once["text"]
+        pieces = [tok.decode([i]) for i in once["tokens"]]
+        at = next(k for k, p in enumerate(pieces) if k > 0 and len(p) >= 2 and "�" not in p)
+        start = len("".join(pieces[:at])) + 1
+        stop = text[start:start + 3]
+        stopped = _post_text(port, "/v1/completions", dict(prompt=prompt, max_tokens=new,
+                                                           temperature=0, stop=[stop]))
+        torch.cuda.synchronize()
+        run = dict(launches=dict(launch_counts), decode_steps=engine.decode_steps - steps0)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.shutdown()
+        thread.join(timeout=30)
+    prompt_ids = tok.encode(prompt)
+    chat_ids = tok.encode(_render_chat(messages))
+    kw = dict(max_new_tokens=new, page_size=16, cache_dtype=torch.float32)
+    ref = paged_generate(host, cfg, [prompt_ids], **kw)[0].tolist()[len(prompt_ids):]
+    ref_chat = paged_generate(host, cfg, [chat_ids], **kw)[0].tolist()[len(chat_ids):]
+    _host_agrees("text prompt", text, prompt_ids, ref, tok, host, cfg)
+    _host_agrees("chat", chat["text"], chat_ids, ref_chat, tok, host, cfg)
+    if streamed["text"] != text or as_ids["tokens"] != once["tokens"] or tok.decode(
+            once["tokens"]) != text:
+        raise AssertionError("streamed / token-id / not streamed answers differ")
+    if stopped["text"] != text[:text.find(stop)] or stopped["finish"] != "stop":
+        raise AssertionError(f"stop {stop!r}: {stopped['text']!r} vs {text[:text.find(stop)]!r}")
+    _expect_decode_launches("text serving", run, cfg, ("paged_attention_write",))
+    log(f"[SERVE] text (code_llm_small HF directory, fp32 pools): served text == host CPU text "
+        f"for the string prompt and the chat; streamed == not streamed == token-id prompt; stop "
+        f"{stop!r} (from inside a token) cuts at char {text.find(stop)} with finish 'stop'; "
+        f"{run['decode_steps']} decode steps, paged_attention_write "
+        f"{run['launches']['paged_attention_write']} launches")
+    log(f"[SERVE] text: time to first token (client clock, one request at a time) text prompt "
+        f"{streamed['first_s'] * 1e3:.2f} ms, the same prompt as token ids "
+        f"{as_ids['first_s'] * 1e3:.2f} ms; answer {text[:120]!r}")
+    return run["launches"]
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -3491,6 +3921,12 @@ def main() -> int:
         cli_launches[name] += n
     torch.cuda.empty_cache()
     phase_done("main, training (phase 4)")
+    with tempfile.TemporaryDirectory() as out_root:
+        for name, n in phase_hf_vit(out_root, device).items():
+            cli_launches[name] += n
+    for name, n in phase_hf_llama_7b(device).items():
+        cli_launches[name] += n
+    phase_done("main, HF round trips: ViT-B/16, Llama-2-7B width (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)
@@ -3499,6 +3935,14 @@ def main() -> int:
     phase_anchor_contiguous(device)
     phase_anchor_train(device)
     phase_done("anchors (phase 5)")
+    phase_anchor_tokenizer()
+    with tempfile.TemporaryDirectory() as work:
+        hf_dir, launches = phase_anchor_hf_llm(device, work)
+        for name, n in launches.items():
+            cli_launches[name] += n
+        for name, n in phase_anchor_text_serving(device, hf_dir).items():
+            cli_launches[name] += n
+    phase_done("anchors: tokenizer, HF directory, text serving (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
                if (direct[name][1] if name in direct else cli_launches[name]) <= 0]

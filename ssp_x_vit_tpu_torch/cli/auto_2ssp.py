@@ -9,8 +9,12 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
 The recovery flow is the JAX CLI's: ``--use-adapter`` / ``--replace-classifier``
 / ``--load-adapter`` set the head, ``--do-finetune [--freeze-backbone]`` trains
 it (or the whole model) before the baseline metrics, ``--save-adapter`` writes
-the head, ``--quantize int8`` evaluates the int8 weight-only model. Flags of
-parts not ported yet raise NotImplementedError naming the ROADMAP.md item.
+the head, ``--quantize int8`` evaluates the int8 weight-only model.
+``--model`` also takes a local HF ViT directory, ``--checkpoint`` an AugReg
+``.npz`` or an HF state dict, and ``--save-pruned-model --save-format hf``
+writes the pruned model as an HF directory where it has an HF form (else the
+native one, with the JAX CLI's notice). Flags of parts not ported yet raise
+NotImplementedError naming the ROADMAP.md item.
 
 ``run(args, model=None)`` runs on ``model=(params, cfg)`` when the caller built
 one (the CLI's setup otherwise), and also returns, beside the report, under
@@ -38,9 +42,10 @@ _NOT_PORTED = "is not ported yet (ROADMAP.md A.7)"
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Auto 2SSP for ViT with single TARGET sparsity (PyTorch/CUDA).")
     p.add_argument("--model", type=str, default="google/vit-base-patch16-224",
-                   help="Framework model dir, named arch (vit-b16/s16/ti16), or 'tiny'")
+                   help="Framework or HF model dir, named arch (vit-b16/s16/ti16), or 'tiny'")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="Optional weights: framework .npz")
+                   help="Optional weights: framework or AugReg .npz, or an HF state dict "
+                        "(.safetensors/.bin/.pt)")
     p.add_argument("--target", type=float, default=None, help="Global target sparsity (0..1); used when --stage both")
     p.add_argument("--stage", type=str, default="both", choices=["both", "s1", "s2"])
     p.add_argument("--s1-sparsity", type=float, default=None, help="FFN fraction per block (stage s1)")
@@ -66,7 +71,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--force-depth-blocks", type=int, default=None)
     p.add_argument("--save-pruned-model", action="store_true")
     p.add_argument("--save-format", type=str, default="native", choices=["native", "hf"],
-                   help="native = npz + config.json (save_pruned_model)")
+                   help="native = npz + config.json (save_pruned_model); hf = HF ViT "
+                        "(export_hf_vit), native where the model has no HF form")
     p.add_argument("--quantize", type=str, default="none", choices=["none", "int8"])
     p.add_argument("--out-root", type=str, default=None,
                    help="Root for reports/ artifacts/ pruned_models/ (default: ./runs/auto_2ssp)")
@@ -95,7 +101,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def _reject_unported(args) -> None:
     unported = {
         "--use-srp-checkpoint": args.use_srp_checkpoint,
-        "--save-format hf": args.save_format != "native",
         "--data-parallel": args.data_parallel,
         "--export-framework-prefix": args.export_framework_prefix is not None,
         "--dataset cifar10/cifar100 (--load-cifar)": args.dataset != "synthetic" or args.load_cifar,
@@ -353,8 +358,19 @@ def run(args, model=None) -> Dict[str, Any]:
     if args.save_pruned_model:
         from ssp_x_vit_tpu_torch.models.persistence import save_pruned_model
 
+        def save(path, p_, c_):
+            """HF when asked and the model has an HF form; else native, with a notice
+            (stage-2 attention removal and adapter heads have no HF ViT form)."""
+            if args.save_format == "hf":
+                from ssp_x_vit_tpu_torch.models.checkpoints import export_hf_vit
+                try:
+                    return export_hf_vit(path, p_, c_)
+                except ValueError as e:
+                    print(f"[INFO] hf export skipped ({e}); saving native")
+            return save_pruned_model(path, p_, c_)
+
         pruned_dir = out_root / "pruned_models" / run_id
-        save_pruned_model(str(pruned_dir), work_params, work_cfg)
+        save(str(pruned_dir), work_params, work_cfg)
         artifacts["pruned_model_dir"] = str(pruned_dir)
         if quant_params is not None:
             qdir = out_root / "pruned_models" / f"{run_id}-int8"

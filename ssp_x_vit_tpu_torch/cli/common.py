@@ -1,13 +1,15 @@
 """Shared CLI helpers: model and dataset resolution (counterpart of
 ``ssp_x_vit_tpu/cli/common.py``). Offline only: named architectures with
-random weights, framework ``.npz`` checkpoints and model directories, and the
-synthetic dataset."""
+random weights, framework model directories, local HF ViT directories, and
+``--checkpoint`` files (framework ``.npz``, AugReg ``.npz``, HF state dicts as
+``.safetensors`` / ``.bin`` / ``.pt``); the synthetic dataset."""
 
 from __future__ import annotations
 
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
@@ -37,19 +39,24 @@ def resolve_model(
 ) -> Tuple[Params, ViTConfig]:
     """--model -> (params, cfg) on ``device`` (``cuda`` by default).
 
-    Accepts a framework model directory (``model.npz`` + ``config.json``), or a
-    named architecture from NAMED_CONFIGS with random weights unless
-    ``checkpoint`` names a framework ``.npz``.
+    Accepts a framework model directory (``model.npz`` + ``config.json``), a
+    local HF ViT directory (``config.json`` + weights), or a named
+    architecture from NAMED_CONFIGS with random weights unless ``checkpoint``
+    names a weights file: a framework ``.npz``, an AugReg ``.npz`` (any ``.npz``
+    without the framework's ``blocks``) or an HF state dict.
     """
+    from ssp_x_vit_tpu_torch.models import checkpoints as ckpt
+
     dev = resolve_device(device)
     if os.path.isdir(model):
-        if not os.path.exists(os.path.join(model, "model.npz")):
-            raise NotImplementedError("HF model directories are not ported yet "
-                                      "(ROADMAP.md A.7: HF loaders)")
-        from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
+        if os.path.exists(os.path.join(model, "model.npz")):
+            from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
 
-        params, cfg = load_pruned_model(model, device=dev, dtype=dtype)
-        print(f"[INFO] Loaded framework (possibly pruned) model: {model}")
+            params, cfg = load_pruned_model(model, device=dev, dtype=dtype)
+            print(f"[INFO] Loaded framework (possibly pruned) model: {model}")
+            return params, cfg
+        params, cfg = ckpt.load_hf_vit(model, num_classes=num_classes, device=dev, dtype=dtype)
+        print(f"[INFO] Loaded HF model from directory: {model}")
         return params, cfg
 
     key = model.lower()
@@ -60,16 +67,19 @@ def resolve_model(
     cfg = ViTConfig(num_classes=num_classes, **NAMED_CONFIGS[key])
 
     if checkpoint:
-        if not checkpoint.endswith(".npz"):
-            raise NotImplementedError("state-dict checkpoints are not ported yet "
-                                      "(ROADMAP.md A.7: HF loaders)")
-        from ssp_x_vit_tpu_torch.models.checkpoints import load_params_npz
-
-        params = load_params_npz(checkpoint, device=dev, dtype=dtype)
-        if "blocks" not in params:
-            raise NotImplementedError("AugReg npz checkpoints are not ported yet "
-                                      "(ROADMAP.md A.7: SRP/AugReg loaders)")
-        print(f"[INFO] Loaded framework npz checkpoint: {checkpoint}")
+        if checkpoint.endswith(".npz"):
+            with np.load(checkpoint) as npz:
+                framework = any(k.startswith("blocks/") for k in npz.files)
+            if framework:
+                params = ckpt.load_params_npz(checkpoint, device=dev, dtype=dtype)
+                print(f"[INFO] Loaded framework npz checkpoint: {checkpoint}")
+            else:
+                params = ckpt.load_augreg_npz(checkpoint, cfg, device=dev, dtype=dtype)
+                print(f"[INFO] Loaded AugReg npz checkpoint: {checkpoint}")
+            return params, cfg
+        sd = ckpt.load_state_dict_file(checkpoint)
+        params = ckpt.params_from_hf_state_dict(sd, cfg, device=dev, dtype=dtype)
+        print(f"[INFO] Loaded state dict: {checkpoint}")
         return params, cfg
 
     print(f"[INFO] No checkpoint available; initializing {key} randomly "

@@ -1,7 +1,8 @@
 """LLM pruning CLI on PyTorch (counterpart of the repository's ``main_llm.py``;
 reference main.py:18-253): the same flags and flow: method dispatch, sparsity
-sweeps -1/-2, pruning-time measurement, perplexity and inference-time
-evaluation, weight-only quantized evaluation, native model saving.
+sweeps -1/-2, pruning-time measurement, perplexity, inference-time and
+qualitative evaluation, weight-only quantized evaluation, native and HF model
+saving.
 
 Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
   python -m ssp_x_vit_tpu_torch.cli.main_llm --model tiny-random \\
@@ -9,14 +10,19 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
   python -m ssp_x_vit_tpu_torch.cli.main_llm --model ckpts/code_llm_small --dense \\
       --quantize int4 --evaluate_perplexity --seq-len 1024
 
-``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}`` or
-a native directory (``model.npz`` + ``config.json``). Every run uses the
-deterministic synthetic token streams: the corpora and the tokenizer are not
-in the repository. Flags of parts not ported yet raise NotImplementedError
-naming the ROADMAP.md item.
+``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}``, a
+native directory (``model.npz`` + ``config.json``) or a local HF directory
+(``config.json`` + ``*.safetensors``, read by ``load_hf_llama``).
+``--evaluate_qualitative`` generates text for two prompts with the
+directory's byte-level ``tokenizer.json`` (without one it warns and skips, as
+the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
+directory. Every run uses the deterministic synthetic token streams: the
+corpora are not in the repository. Flags of parts not ported yet raise
+NotImplementedError naming the ROADMAP.md item.
 
-``run(args, model=None)`` returns a dict: perplexities, pruned blocks, kept
-width, achieved sparsity, and the wall seconds and kernel launches of each
+``run(args, model=None)`` returns a dict: perplexities, the qualitative
+(prompt, answer) pairs, pruned blocks, kept width, achieved sparsity, and the
+wall seconds and kernel launches of each
 phase (setup, stats, stage1, candidates, materialize, search, evaluation).
 ``model=(params, cfg)`` runs on a model the caller built.
 """
@@ -53,7 +59,8 @@ _TINY_VARIANTS = {
 def build_argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Pruning of transformer models (PyTorch/CUDA)")
     parser.add_argument('--model', type=str, required=True,
-                        help="Native model directory (model.npz + config.json), or "
+                        help="Native model directory (model.npz + config.json), a local HF "
+                             "directory (config.json + *.safetensors), or "
                              "'tiny-random[-phi|-opt|-gemma|-gemma2|-qwen3]' for an offline test model")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--cache_dir', type=str, required=False)
@@ -89,7 +96,9 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--save-model', type=str, default=None,
                         help='directory to persist the pruned model (materialized weights, '
                              'no gates); sparsity sweeps write per-rate subdirectories')
-    parser.add_argument('--save-format', type=str, default='native', choices=('native', 'hf'))
+    parser.add_argument('--save-format', type=str, default='native', choices=('native', 'hf'),
+                        help="native = model.npz + config.json (save_llm_model); hf = "
+                             "config.json + model.safetensors (export_hf_llama)")
     parser.add_argument('--backend', type=str, default='cuda', choices=['cuda', 'cpu'],
                         help="Device to run on; cuda raises when no GPU is present")
     parser.add_argument('--logging', type=str, default='INFO',
@@ -106,10 +115,7 @@ def _reject_unported(args) -> None:
         "--ablation (llm/ablations.py, ROADMAP.md A.10)": args.ablation or args.ablation_quick,
         "--evaluate_downstream (llm/zeroshot.py, llm/taskpack.py, ROADMAP.md A.10)":
             args.evaluate_downstream or args.task_pack is not None,
-        "--evaluate_qualitative (the tokenizer, llm/tokenizer.py, ROADMAP.md A.10)":
-            args.evaluate_qualitative,
-        "--save-format hf (export_hf_llama, ROADMAP.md A.10)": args.save_format != "native",
-        "--local_datasets (corpus loaders and tokenizer, ROADMAP.md A.10)": args.local_datasets,
+        "--local_datasets (the corpus readers, ROADMAP.md A.10a)": args.local_datasets,
         "--model tiny-random-deepseek* (llm/deepseek.py, ROADMAP.md A.11)":
             args.model.startswith("tiny-random-deepseek"),
     }
@@ -121,14 +127,12 @@ def _reject_unported(args) -> None:
 def load_model(args, device):
     import torch
 
-    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_hf_llama, load_llm_model
     from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
     if os.path.isdir(args.model):
         if not os.path.exists(os.path.join(args.model, "model.npz")):
-            raise NotImplementedError(
-                f"{args.model} is not a native model directory (model.npz + config.json); "
-                "HF checkpoint directories are not ported yet (ROADMAP.md A.10)")
+            return load_hf_llama(args.model, device=device)
         import json
 
         with open(os.path.join(args.model, "config.json")) as f:
@@ -141,7 +145,7 @@ def load_model(args, device):
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         return init_llama_params(gen, cfg, dtype=torch.float32, device=device), cfg
-    raise SystemExit("--model must be a native model directory or one of "
+    raise SystemExit("--model must be a native or HF model directory or one of "
                      f"{sorted(_TINY_VARIANTS)}; got {args.model}")
 
 
@@ -194,7 +198,7 @@ def run(args, model=None) -> Dict[str, Any]:
     from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
     from ssp_x_vit_tpu_torch.llm import datasets as D
     from ssp_x_vit_tpu_torch.llm import pruning as P
-    from ssp_x_vit_tpu_torch.llm.checkpoints import save_llm_model
+    from ssp_x_vit_tpu_torch.llm.checkpoints import export_hf_llama, save_llm_model
     from ssp_x_vit_tpu_torch.llm.evaluation import (
         evaluate_inference_time, evaluate_perplexity, evaluation_ppl,
     )
@@ -246,13 +250,23 @@ def run(args, model=None) -> Dict[str, Any]:
             out["ppl"] = evaluate_perplexity(p, c, wikitext_ids, seq_len=args.seq_len,
                                              attn_gate=attn_gate, mlp_gate=mlp_gate)
             logging.info(f"Perplexity (wikitext2): {out['ppl']}")
+        if args.evaluate_qualitative:
+            from ssp_x_vit_tpu_torch.llm.generate import qualitative_results
+
+            out["qualitative"] = qualitative_results(p, c, args.model, max_length=128)
         phases.stop()
         return out
 
     def save_artifact(p, c, suffix=None):
+        """Persist a materialized model per --save-format; a form the format
+        cannot hold (attention-removed blocks in HF) warns and skips."""
         out = args.save_model if not suffix else os.path.join(args.save_model, suffix)
-        path = save_llm_model(out, p, c)
-        logging.info(f"[ARTIFACT] native model -> {path}")
+        try:
+            path = (export_hf_llama if args.save_format == 'hf' else save_llm_model)(out, p, c)
+        except ValueError as e:
+            logging.warning(f"--save-model skipped: {e}")
+            return None
+        logging.info(f"[ARTIFACT] {args.save_format} model -> {path}")
         return path
 
     def materialize_masked(p, c, attn_mask, mlp_mask):

@@ -14,11 +14,13 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead)::
     python -m ssp_x_vit_tpu_torch.cli.train_llm --model pruned_dir --teacher dense_dir
 
 ``--model`` / ``--teacher`` take a native model directory (``model.npz`` +
-``config.json``) or a ``tiny-random*`` alias; ``--init-json`` takes a JSON
+``config.json``), a local HF directory (``config.json`` + ``*.safetensors``)
+or a ``tiny-random*`` alias; ``--init-json`` takes a JSON
 dict of ``LlamaConfig`` fields (or a file holding one) and makes a fresh bf16
 model. Checkpoints are ``torch.save`` files (params, optimizer state,
 update); rerunning with the same ``--checkpoint-dir`` resumes where the
-previous run stopped. Flags of parts not ported yet raise NotImplementedError
+previous run stopped. ``--save-model`` writes the trained model as a native
+directory, or with ``--save-format hf`` as an HF one (``export_hf_llama``). Flags of parts not ported yet raise NotImplementedError
 naming the ROADMAP.md item.
 
 ``run(args)`` returns a dict: the history of ``[TRAIN-LOG]`` records, the
@@ -41,7 +43,8 @@ import numpy as np
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default=None,
-                   help="Native model dir or a tiny-random* alias (required unless --init-json)")
+                   help="Native or HF model dir, or a tiny-random* alias (required unless "
+                        "--init-json)")
     p.add_argument("--teacher", default=None,
                    help="Dense teacher (dir or alias): enables KD recovery (CE + T^2*KL)")
     p.add_argument("--kd-alpha", type=float, default=0.5)
@@ -59,7 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--data", default=None,
-                   help="Local dataset dir (not ported: ROADMAP.md A.10); a missing dir "
+                   help="Local dataset dir (not ported: ROADMAP.md A.10a); a missing dir "
                         "falls back to the synthetic token stream")
     p.add_argument("--data-bin", default=None,
                    help="Pre-tokenized uint16 token-id file (memmapped)")
@@ -85,8 +88,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     unported = {
-        "--save-format hf (export_hf_llama, ROADMAP.md A.10)": args.save_format != "native",
-        "--data with a local corpus (corpus loaders and tokenizer, ROADMAP.md A.10)":
+        "--data with a local corpus (the corpus readers, ROADMAP.md A.10a)":
             bool(args.data) and not args.synthetic_data and not args.data_bin
             and os.path.exists(args.data),
     }
@@ -141,7 +143,9 @@ def run(args) -> Dict[str, Any]:
     import torch
 
     from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
-    from ssp_x_vit_tpu_torch.llm.checkpoints import config_from_dict, save_llm_model
+    from ssp_x_vit_tpu_torch.llm.checkpoints import (
+        config_from_dict, export_hf_llama, save_llm_model,
+    )
     from ssp_x_vit_tpu_torch.llm.model import init_llama_params
     from ssp_x_vit_tpu_torch.llm.trainer import TrainConfig, Trainer
 
@@ -192,8 +196,9 @@ def run(args) -> Dict[str, Any]:
         logging.info(f"[SUMMARY] {{\"final_loss\": {final[-1]['loss']}, "
                      f"\"updates\": {final[-1]['update']}}}")
     if args.save_model:
-        path = save_llm_model(args.save_model, params, cfg)
-        logging.info(f"[ARTIFACT] native model -> {path}")
+        fn = export_hf_llama if args.save_format == "hf" else save_llm_model
+        path = fn(args.save_model, params, cfg)
+        logging.info(f"[ARTIFACT] {args.save_format} model -> {path}")
     return {"history": history, "final_loss": final[-1]["loss"] if final else None,
             "seconds": seconds, "params": params, "cfg": cfg}
 

@@ -1,32 +1,41 @@
-"""LLM model persistence (counterpart of the native part of
-``ssp_x_vit_tpu/llm/checkpoints.py``) and the JAX -> torch carry-across.
+"""LLM checkpoints (counterpart of ``ssp_x_vit_tpu/llm/checkpoints.py``) and
+the JAX -> torch carry-across.
 
 ``save_llm_model`` / ``load_llm_model`` read and write the framework's own
 ``model.npz`` + ``config.json`` (dense, 2SSP-materialized or int8/int4
 quantized trees; bf16 leaves as raw 2-byte words), the same files the JAX
 package writes, so a model saved by either package loads in the other.
-HF checkpoint directories (``load_hf_llama`` / ``export_hf_llama``) are not
-ported yet (ROADMAP.md A.10).
+
+``load_hf_llama`` / ``export_hf_llama`` read and write local HF causal-LM
+directories (``config.json`` + ``*.safetensors``) of the families the model
+runs: llama, mistral, qwen2, qwen3, gemma, gemma2, phi, phi3 (loaded as
+llama) and opt. The loader reads one tensor at a time and converts it on the
+target device; the exporter writes F32, byte for byte the JAX exporter's file
+for the same parameters. MoE (mixtral, qwen3_moe) and DeepSeek/MLA
+checkpoints raise (ROADMAP.md A.11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params
-from ssp_x_vit_tpu_torch.llm.rope import RopeScaling
+from ssp_x_vit_tpu_torch.llm.rope import RopeScaling, export_rope_scaling, parse_rope_scaling
 from ssp_x_vit_tpu_torch.models.checkpoints import (
-    to_tensor, load_params_npz, save_params_npz,
+    SafetensorsFiles, _fp32, _stack, _t, _write_safetensors, load_params_npz, save_params_npz,
+    to_tensor,
 )
 
-_HF_NOT_PORTED = "HF checkpoint directories are not ported yet (ROADMAP.md A.10)"
+_MOE_NOT_PORTED = ("MoE checkpoints (mixtral, qwen3_moe) are not ported yet "
+                   "(parallel/moe.py, ROADMAP.md A.11)")
 
 
 def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
@@ -107,9 +116,335 @@ def load_llm_model(model_dir: str, *, device: DeviceLike = None,
     return params, cfg
 
 
-def load_hf_llama(model_dir: str, **kwargs):
-    raise NotImplementedError(f"load_hf_llama: {_HF_NOT_PORTED}")
+# ------------------------------------------------------------ HF directories ---
+
+def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
+    """An HF ``config.json`` dict -> LlamaConfig, as the JAX package reads it."""
+    mt = d.get("model_type", "llama")
+    if mt in ("mixtral", "qwen3_moe"):
+        raise NotImplementedError(_MOE_NOT_PORTED)
+    if mt == "deepseek_v3":
+        raise NotImplementedError("DeepSeek/MLA checkpoints are not ported yet "
+                                  "(llm/deepseek.py, ROADMAP.md A.11)")
+    if mt not in ("llama", "mistral", "qwen2", "phi3", "phi", "opt", "gemma", "gemma2", "qwen3"):
+        raise ValueError(f"unsupported model_type {mt}")
+    heads = d["num_attention_heads"]
+    head_dim = d.get("head_dim", d["hidden_size"] // heads)
+    rotary_dim = None
+    if mt == "phi":
+        rotary_dim = int(d.get("partial_rotary_factor", 0.4) * head_dim)
+    if mt == "opt":
+        # 125m-class layout only: pre-LN, no embedding projection
+        if not d.get("do_layer_norm_before", True):
+            raise ValueError("post-LN OPT variants unsupported")
+        if d.get("word_embed_proj_dim", d["hidden_size"]) != d["hidden_size"]:
+            raise ValueError("OPT word_embed_proj_dim != hidden_size unsupported")
+        return LlamaConfig(
+            vocab_size=d["vocab_size"], hidden_size=d["hidden_size"],
+            num_layers=d["num_hidden_layers"], num_heads=heads, num_kv_heads=heads,
+            intermediate_size=d["ffn_dim"], tie_embeddings=d.get("tie_word_embeddings", True),
+            model_type="opt", qkv_bias=d.get("enable_bias", True), layer_norm_eps=1e-5,
+            max_position_embeddings=d.get("max_position_embeddings", 2048))
+    # Sliding windows as HF applies them: mistral and phi3 whenever set; qwen2
+    # and qwen3 only under use_sliding_window and only for the layers from
+    # max_window_layers on (a mixed stack keeps per-layer bounds); gemma-2 on
+    # the even layers.
+    sliding_window, window_layers = None, None
+    if d.get("sliding_window") is not None:
+        if mt in ("mistral", "phi3"):
+            sliding_window = d["sliding_window"]
+        elif mt in ("qwen2", "qwen3") and d.get("use_sliding_window", False):
+            mwl = d.get("max_window_layers", d["num_hidden_layers"])
+            L = d["num_hidden_layers"]
+            if mwl < L:
+                sliding_window = d["sliding_window"]
+                if mwl > 0:
+                    window_layers = tuple(range(mwl, L))
+        elif mt == "gemma2":
+            sliding_window = d["sliding_window"]
+            window_layers = tuple(range(0, d["num_hidden_layers"], 2))
+    gemma = mt in ("gemma", "gemma2")
+    return LlamaConfig(
+        vocab_size=d["vocab_size"],
+        hidden_size=d["hidden_size"],
+        num_layers=d["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=d.get("num_key_value_heads", heads),
+        intermediate_size=d["intermediate_size"],
+        rms_eps=d.get("rms_norm_eps", 1e-5),
+        rope_theta=d.get("rope_theta", 10000.0),
+        rope_scaling=parse_rope_scaling(d.get("rope_scaling")),
+        tie_embeddings=d.get("tie_word_embeddings", gemma),
+        model_type=mt,
+        max_position_embeddings=d.get("max_position_embeddings", 2048),
+        sliding_window=sliding_window,
+        qkv_bias=(mt == "qwen2" or (mt == "qwen3" and d.get("attention_bias", False))),
+        rotary_dim=rotary_dim,
+        layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+        explicit_head_dim=d.get("head_dim") if mt in ("gemma", "gemma2", "qwen3") else None,
+        qk_norm=(mt == "qwen3"),
+        hidden_act="gelu_tanh" if gemma else "silu",
+        scale_embeddings=gemma,
+        window_layers=window_layers,
+        attn_softcap=d.get("attn_logit_softcapping", 50.0) if mt == "gemma2" else None,
+        final_softcap=d.get("final_logit_softcapping", 30.0) if mt == "gemma2" else None,
+    )
 
 
-def export_hf_llama(out_dir: str, params: Params, cfg: LlamaConfig):
-    raise NotImplementedError(f"export_hf_llama: {_HF_NOT_PORTED}")
+# How a leaf maps onto an HF tensor: copied, transposed ([out, in] <-> [in, out]),
+# or a gemma RMSNorm scale (HF stores w, the tree 1 + w).
+_ID, _T, _NORM = "id", "t", "norm"
+
+
+def _layer_names(cfg: LlamaConfig) -> Tuple[str, List[Tuple[str, str, str]]]:
+    """(HF layer prefix, [(leaf, HF suffix, kind)]) in the JAX exporter's order."""
+    if cfg.is_opt:
+        return "model.decoder.layers.{i}.", [
+            ("ln1", "self_attn_layer_norm.weight", _ID), ("ln1_bias", "self_attn_layer_norm.bias", _ID),
+            ("q_kernel", "self_attn.q_proj.weight", _T), ("q_bias", "self_attn.q_proj.bias", _ID),
+            ("k_kernel", "self_attn.k_proj.weight", _T), ("k_bias", "self_attn.k_proj.bias", _ID),
+            ("v_kernel", "self_attn.v_proj.weight", _T), ("v_bias", "self_attn.v_proj.bias", _ID),
+            ("o_kernel", "self_attn.out_proj.weight", _T), ("o_bias", "self_attn.out_proj.bias", _ID),
+            ("ln2", "final_layer_norm.weight", _ID), ("ln2_bias", "final_layer_norm.bias", _ID),
+            ("fc1_kernel", "fc1.weight", _T), ("fc1_bias", "fc1.bias", _ID),
+            ("fc2_kernel", "fc2.weight", _T), ("fc2_bias", "fc2.bias", _ID)]
+    if cfg.is_phi:
+        return "model.layers.{i}.", [
+            ("ln1", "input_layernorm.weight", _ID), ("ln1_bias", "input_layernorm.bias", _ID),
+            ("q_kernel", "self_attn.q_proj.weight", _T), ("q_bias", "self_attn.q_proj.bias", _ID),
+            ("k_kernel", "self_attn.k_proj.weight", _T), ("k_bias", "self_attn.k_proj.bias", _ID),
+            ("v_kernel", "self_attn.v_proj.weight", _T), ("v_bias", "self_attn.v_proj.bias", _ID),
+            ("o_kernel", "self_attn.dense.weight", _T), ("o_bias", "self_attn.dense.bias", _ID),
+            ("fc1_kernel", "mlp.fc1.weight", _T), ("fc1_bias", "mlp.fc1.bias", _ID),
+            ("fc2_kernel", "mlp.fc2.weight", _T), ("fc2_bias", "mlp.fc2.bias", _ID)]
+    names = [("ln1", "input_layernorm.weight", _NORM),
+             ("q_kernel", "self_attn.q_proj.weight", _T), ("k_kernel", "self_attn.k_proj.weight", _T),
+             ("v_kernel", "self_attn.v_proj.weight", _T), ("o_kernel", "self_attn.o_proj.weight", _T),
+             ("gate_kernel", "mlp.gate_proj.weight", _T), ("up_kernel", "mlp.up_proj.weight", _T),
+             ("down_kernel", "mlp.down_proj.weight", _T)]
+    if cfg.is_gemma2:  # ln2 is the PRE-feedforward norm; the post norms are their own leaves
+        names += [("ln1_post", "post_attention_layernorm.weight", _NORM),
+                  ("ln2", "pre_feedforward_layernorm.weight", _NORM),
+                  ("ln2_post", "post_feedforward_layernorm.weight", _NORM)]
+    else:
+        names.append(("ln2", "post_attention_layernorm.weight", _NORM))
+    if cfg.qkv_bias:
+        names += [("q_bias", "self_attn.q_proj.bias", _ID), ("k_bias", "self_attn.k_proj.bias", _ID),
+                  ("v_bias", "self_attn.v_proj.bias", _ID)]
+    if cfg.qk_norm:
+        names += [("q_norm", "self_attn.q_norm.weight", _ID),
+                  ("k_norm", "self_attn.k_norm.weight", _ID)]
+    return "model.layers.{i}.", names
+
+
+def _top_names(cfg: LlamaConfig) -> List[Tuple[str, str, str]]:
+    """[(leaf, HF name, kind)] outside the blocks, in the JAX exporter's order;
+    ``lm_head`` is left out of tied models (and out of a load without one)."""
+    if cfg.is_opt:
+        names = [("embed", "model.decoder.embed_tokens.weight", _ID),
+                 ("pos_embed", "model.decoder.embed_positions.weight", _ID),
+                 ("ln_final", "model.decoder.final_layer_norm.weight", _ID),
+                 ("ln_final_bias", "model.decoder.final_layer_norm.bias", _ID)]
+    elif cfg.is_phi:
+        return [("embed", "model.embed_tokens.weight", _ID),
+                ("ln_final", "model.final_layernorm.weight", _ID),
+                ("ln_final_bias", "model.final_layernorm.bias", _ID),
+                ("lm_head", "lm_head.weight", _T), ("lm_head_bias", "lm_head.bias", _ID)]
+    else:
+        names = [("embed", "model.embed_tokens.weight", _ID),
+                 ("ln_final", "model.norm.weight", _NORM)]
+    if not cfg.tie_embeddings:
+        names.append(("lm_head", "lm_head.weight", _T))
+    return names
+
+
+def _gemma(cfg: LlamaConfig) -> bool:
+    return cfg.model_type in ("gemma", "gemma2")
+
+
+def load_hf_llama(model_dir: str, *, device: DeviceLike = None,
+                  dtype=torch.bfloat16) -> Tuple[Params, LlamaConfig]:
+    """A local HF causal-LM directory (``config.json`` + ``*.safetensors``
+    shards) -> (params, cfg) on ``device`` (``cuda`` by default), every leaf in
+    ``dtype``. Each tensor is read alone, moved to the device in its file
+    dtype and turned there into fp32 (where the family's transform applies:
+    the transpose, gemma's 1 + w, gemma-2's query_pre_attn_scalar folded into
+    q_proj, phi3's fused projections split) and then into ``dtype``, so the
+    values are those of the JAX loader."""
+    dev = resolve_device(device)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw_cfg = json.load(f)
+    cfg = config_from_hf_dict(raw_cfg)
+    shards = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
+    if not shards:
+        raise FileNotFoundError(f"no safetensors shards in {model_dir}")
+    sd = SafetensorsFiles(shards)
+    L = cfg.num_layers
+    phi3 = cfg.model_type == "phi3"
+    if phi3:  # phi-3 loads as the llama layout (its fused projections split below)
+        cfg = dataclasses.replace(cfg, model_type="llama")
+    gemma = _gemma(cfg)
+
+    def convert(x, kind):
+        if kind == _T:
+            return _t(x)
+        return x + 1.0 if kind == _NORM and gemma else x
+
+    prefix, names = _layer_names(cfg)
+    blocks: Dict[str, torch.Tensor] = {}
+    if phi3:
+        hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        f = cfg.intermediate_size
+        splits = {"q_kernel": ("self_attn.qkv_proj.weight", 0, hq),
+                  "k_kernel": ("self_attn.qkv_proj.weight", hq, hq + hkv),
+                  "v_kernel": ("self_attn.qkv_proj.weight", hq + hkv, hq + 2 * hkv),
+                  "gate_kernel": ("mlp.gate_up_proj.weight", 0, f),
+                  "up_kernel": ("mlp.gate_up_proj.weight", f, 2 * f)}
+    for ours, theirs, kind in names:
+        if phi3 and ours in splits:
+            fused, a, b = splits[ours]
+            get = lambda i, fused=fused, a=a, b=b: _t(_fp32(sd, prefix.format(i=i) + fused, dev))[:, a:b]
+        else:
+            get = lambda i, theirs=theirs, kind=kind: convert(
+                _fp32(sd, prefix.format(i=i) + theirs, dev), kind)
+        if cfg.is_gemma2 and ours == "q_kernel":
+            # the query_pre_attn_scalar attention scale folded into q_proj
+            qps = float(raw_cfg.get("query_pre_attn_scalar", cfg.head_dim))
+            scale = float(cfg.head_dim ** 0.5 / qps ** 0.5)
+            get = lambda i, get=get, scale=scale: get(i) * scale
+        blocks[ours] = _stack(L, get, dev, dtype)
+    params: Params = {"blocks": blocks}
+    for ours, theirs, kind in _top_names(cfg):
+        if ours == "lm_head" and not cfg.is_phi and theirs not in sd:
+            continue
+        params[ours] = convert(_fp32(sd, theirs, dev), kind).to(dtype).contiguous()
+    return params, cfg
+
+
+def hf_dict_from_config(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Inverse of :func:`config_from_hf_dict`: the HF config.json dict of
+    ``cfg``, as the JAX package writes it. Raises ValueError where the config
+    has no HF encoding."""
+    if cfg.num_experts:
+        raise NotImplementedError(_MOE_NOT_PORTED)
+    if cfg.is_opt:
+        return {
+            "model_type": "opt", "architectures": ["OPTForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "ffn_dim": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "do_layer_norm_before": True, "enable_bias": True,
+            "word_embed_proj_dim": cfg.hidden_size,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "activation_function": "relu",
+        }
+    if cfg.is_phi:
+        return {
+            "model_type": "phi", "architectures": ["PhiForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "intermediate_size": cfg.effective_intermediate,
+            "partial_rotary_factor": (cfg.rotary_dim or cfg.head_dim) / cfg.head_dim,
+            "rope_theta": cfg.rope_theta,
+            "layer_norm_eps": cfg.layer_norm_eps,
+            "tie_word_embeddings": False,
+            "hidden_act": "gelu_new",
+            **({"rope_scaling": export_rope_scaling(cfg.rope_scaling)}
+               if cfg.rope_scaling is not None else {}),
+        }
+    d: Dict[str, Any] = {
+        "model_type": cfg.model_type,
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "intermediate_size": cfg.effective_intermediate,
+        "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": cfg.tie_embeddings,
+        "max_position_embeddings": cfg.max_position_embeddings,
+    }
+    if cfg.rope_scaling is not None:
+        d["rope_scaling"] = export_rope_scaling(cfg.rope_scaling)
+    arch = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
+            "qwen2": "Qwen2ForCausalLM", "gemma": "GemmaForCausalLM",
+            "gemma2": "Gemma2ForCausalLM", "qwen3": "Qwen3ForCausalLM"}.get(cfg.model_type)
+    if arch is None:
+        raise ValueError(f"model_type {cfg.model_type!r} has no HF export "
+                         "encoding (phi3 loads normalize to llama layout)")
+    d["architectures"] = [arch]
+    if cfg.model_type == "qwen3":
+        d["head_dim"] = cfg.head_dim
+        d["attention_bias"] = cfg.qkv_bias
+    if _gemma(cfg):
+        d["head_dim"] = cfg.head_dim
+        d["hidden_activation"] = "gelu_pytorch_tanh"
+    if cfg.model_type == "gemma2":
+        # the loader folded query_pre_attn_scalar into q_proj: exact under qps == head_dim
+        d["query_pre_attn_scalar"] = cfg.head_dim
+        d["attn_logit_softcapping"] = cfg.attn_softcap
+        d["final_logit_softcapping"] = cfg.final_softcap
+        d["sliding_window"] = cfg.sliding_window
+        if cfg.sliding_window is not None and cfg.window_layers != tuple(
+                range(0, cfg.num_layers, 2)):
+            raise ValueError("HF gemma-2 windows even layers only; this config's "
+                             f"window_layers {cfg.window_layers} cannot round-trip")
+    elif cfg.sliding_window is None:
+        if cfg.model_type == "mistral":
+            # MistralConfig defaults sliding_window to 4096 when the key is absent
+            d["sliding_window"] = None
+    else:
+        if cfg.model_type == "mistral" and cfg.uniform_window:
+            d["sliding_window"] = cfg.sliding_window
+        elif cfg.model_type == "qwen2":
+            wl = cfg.window_layers
+            if wl is not None and wl != tuple(range(min(wl), cfg.num_layers)):
+                raise ValueError(f"qwen2 window_layers {wl} is not a [mwl, L) suffix — "
+                                 "not representable as max_window_layers")
+            d["use_sliding_window"] = True
+            d["sliding_window"] = cfg.sliding_window
+            d["max_window_layers"] = min(wl) if wl else 0
+        else:
+            raise ValueError(f"{cfg.model_type} with sliding_window has no HF encoding")
+    return d
+
+
+def export_hf_llama(out_dir: str, params: Params, cfg: LlamaConfig) -> str:
+    """Export a dense or width-pruned (materialized) LLM tree as an HF
+    checkpoint, ``config.json`` + ``model.safetensors`` in F32: the inverse of
+    :func:`load_hf_llama` (kernels transposed back, gemma's 1 + w taken off,
+    gemma-2 with the folded q_proj under query_pre_attn_scalar == head_dim).
+    The tensors are converted and written one at a time. Quantized trees,
+    depth-materialized attention removal and windows without an HF encoding
+    raise ValueError (MoE: NotImplementedError) before anything is written."""
+    blocks = params["blocks"]
+    if any(k.endswith(("_q", "_q4", "_scale")) for k in blocks) or "lm_head_q" in params:
+        raise ValueError("quantized pytrees have no HF encoding — export the "
+                         "dense params and quantize after from_pretrained")
+    if cfg.pruned_attention_blocks:
+        raise ValueError("depth-materialized attention removal is not "
+                         "representable in vanilla HF blocks; use save_llm_model")
+    hf_cfg = hf_dict_from_config(cfg)   # every refusal before any write
+    unbake = -1.0 if _gemma(cfg) else 0.0
+
+    def convert(x, kind):
+        if kind == _T:
+            return _t(x)
+        return x.float() + unbake if kind == _NORM and unbake else x
+
+    prefix, names = _layer_names(cfg)
+    tensors: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_layers):
+        for ours, theirs, kind in names:
+            tensors[prefix.format(i=i) + theirs] = convert(blocks[ours][i], kind)
+    for ours, theirs, kind in _top_names(cfg):
+        if ours in params:
+            tensors[theirs] = convert(params[ours], kind)
+    os.makedirs(out_dir, exist_ok=True)
+    _write_safetensors(os.path.join(out_dir, "model.safetensors"), tensors,
+                       metadata={"format": "pt"})
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return out_dir

@@ -4,7 +4,9 @@
 The three corpus loaders (wikitext2, C4, FineWeb-Edu) return ``None``: their
 files are not in the repository and nothing is downloaded, so every run uses
 the deterministic synthetic token stream, as the JAX package does offline.
-Real corpora and the tokenizer come with ROADMAP.md A.10.
+The readers of local corpus directories come with ROADMAP.md A.10a.
+``tokenize_corpus`` turns texts into one token stream with a tokenizer
+(``llm/tokenizer.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,13 @@ def synthetic_token_stream(num_tokens: int, vocab_size: int, seed: int = 0) -> n
         out[i: i + n] = p[:n]
         i += n
     return out.reshape(1, -1)
+
+
+def tokenize_corpus(texts: List[str], tokenizer) -> np.ndarray:
+    """'\\n\\n'.join(texts) tokenized without special tokens, int32 ``[1, n]``
+    (reference main.py:93-95, src/utilities.py:158-161)."""
+    ids = tokenizer("\n\n".join(texts), add_special_tokens=False)["input_ids"]
+    return np.asarray(ids, np.int32).reshape(1, -1)
 
 
 def get_calibration(input_ids: np.ndarray, num_samples: int, seq_len: int = 2048

@@ -6,13 +6,17 @@ every step (one forward per step, all live beams in one batch), with the
 reference's ``no_repeat_ngram_size=3`` ban; ``beam_generate_kv`` runs the same
 beam selection over the contiguous KV cache of ``llm/serve.py`` (the beam
 reorder is an ``index_select`` of the cache rows). All run on the device of the
-parameters. ``generate_response`` and ``qualitative_results`` need a tokenizer,
-which is not ported yet (ROADMAP.md A.10).
+parameters. ``generate_response`` turns a text prompt into text through a
+tokenizer; ``qualitative_results`` runs it on two fixed prompts with the model
+directory's byte-level ``tokenizer.json`` (``llm/tokenizer.py``), which adds no
+BOS and has no ``eos_token_id`` (the JAX package's ``AutoTokenizer`` may add
+and stop on them).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import logging
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,10 +27,6 @@ from ssp_x_vit_tpu_torch.llm.model import (
 from ssp_x_vit_tpu_torch.llm.serve import (
     bucket_prompt_pad, decode_step, init_cache, prefill, split_layers,
 )
-
-_TOKENIZER_NOT_PORTED = ("text generation needs the tokenizer, which is not ported yet "
-                         "(llm/tokenizer.py, ROADMAP.md A.10)")
-
 
 def full_logits(params, tokens: torch.Tensor, cfg, compute_dtype, *,
                 remat: bool = False) -> torch.Tensor:
@@ -200,9 +200,36 @@ def beam_generate_kv(params, cfg: LlamaConfig, input_ids, *, max_length: int = 6
 
 def generate_response(prompt: str, params, cfg: LlamaConfig, tokenizer, max_length: int = 512,
                       num_beams: int = 5) -> str:
-    raise NotImplementedError(f"generate_response: {_TOKENIZER_NOT_PORTED}")
+    """``prompt`` -> its continuation's text (prompt included), by beam search
+    (greedy for ``num_beams=1``), stopping at the tokenizer's eos id if it has one."""
+    enc = tokenizer(prompt, add_special_tokens=True)["input_ids"]
+    eos = getattr(tokenizer, "eos_token_id", None)
+    if num_beams > 1:
+        out = beam_generate(params, cfg, np.asarray(enc), max_length=max_length,
+                            num_beams=num_beams, eos_token_id=eos)
+    else:
+        out = greedy_generate(params, cfg, np.asarray(enc), max_length=max_length,
+                              eos_token_id=eos)
+    return tokenizer.decode(out.tolist(), skip_special_tokens=True)
 
 
 def qualitative_results(params, cfg: LlamaConfig, model_name_or_dir: str,
-                        max_length: int = 64) -> None:
-    raise NotImplementedError(f"qualitative_results: {_TOKENIZER_NOT_PORTED}")
+                        max_length: int = 64) -> Optional[List[Tuple[str, str]]]:
+    """Log the responses to the JAX package's two prompts, with the tokenizer of
+    ``model_name_or_dir``; return the (prompt, response) pairs, or None (with
+    the JAX package's warning) when the directory has no usable tokenizer."""
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+    try:
+        tokenizer = load_tokenizer(model_name_or_dir)
+    except (NotImplementedError, ValueError, OSError) as e:
+        logging.warning(f"Tokenizer unavailable ({e}); skipping qualitative results")
+        return None
+    results = []
+    for prompt in ("Who is Albert Einstein?", "The theory of relativity"):
+        logging.info(f"Prompt: {prompt}")
+        logging.info("-" * 20)
+        response = generate_response(prompt, params, cfg, tokenizer, max_length)
+        logging.info(response)
+        results.append((prompt, response))
+    return results

@@ -13,8 +13,8 @@ continuous-batching stack consumable by standard OpenAI SDK clients.
 
 Two prompt modes:
 
-- with a tokenizer (anything with ``encode``/``decode``; the package's own
-  tokenizer is not ported yet, ROADMAP.md A.10, so the CLI serves token ids): ``prompt`` is a string (or list of strings → one
+- with a tokenizer (``llm.tokenizer.ByteLevelBPETokenizer`` or anything with
+  ``encode``/``decode``): ``prompt`` is a string (or list of strings → one
   choice each), responses carry decoded ``text``, and ``stop`` strings are
   honored (generation is cancelled server-side as soon as a stop string
   appears in the decoded tail — tokens after the match are truncated).
@@ -116,7 +116,11 @@ class _StreamState:
     def push(self, token: int) -> str:
         """Add one token; returns the newly safe-to-emit text delta.
         Sets ``self.stopped`` when a stop string completed (the delta is
-        truncated just before the match)."""
+        truncated just before the match). Tokens after the stop add nothing:
+        the engine may still deliver the rest of a decode block it produced
+        before the cancel (the JAX server's detokenizer emits their text)."""
+        if self.stopped:
+            return ""
         self.ids.append(token)
         text = self.tokenizer.decode(self.ids)
         if text.endswith("�"):   # split multi-byte sequence: wait

@@ -145,9 +145,25 @@ def test_speculative_generate_equals_greedy_and_matches_jax(model, draft, k):
                                            cache_dtype=jnp.float32)), greedy)
 
 
-def test_text_generation_needs_the_tokenizer(model):
-    _, _, tparams, tcfg = model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tgen.generate_response("hello", tparams, tcfg, tokenizer=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tgen.qualitative_results(tparams, tcfg, "dir")
+def test_text_generation_needs_the_tokenizer(model, tmp_path):
+    """Text generation goes through a tokenizer (a toy byte tokenizer here:
+    the model's vocabulary is 96): ``generate_response`` gives the JAX
+    package's text; ``qualitative_results`` on a directory without a
+    ``tokenizer.json`` warns and returns None, as the JAX package does."""
+    jparams, jcfg, tparams, tcfg = model
+
+    class Bytes:
+        def __call__(self, text, add_special_tokens=False):
+            return {"input_ids": [b % 96 for b in text.encode()]}
+
+        def decode(self, ids, skip_special_tokens=True):
+            return bytes(32 + int(i) for i in ids).decode("latin-1")
+
+    prompt = "hello"
+    got = tgen.generate_response(prompt, tparams, tcfg, Bytes(), max_length=14, num_beams=1)
+    ref = jgen.generate_response(prompt, jparams, jcfg, Bytes(), max_length=14, num_beams=1)
+    seq = tgen.greedy_generate(tparams, tcfg, np.asarray(Bytes()(prompt)["input_ids"]),
+                               max_length=14).tolist()
+    assert_margins(jparams, jcfg, seq, len(prompt))
+    assert got == ref == Bytes().decode(seq)
+    assert tgen.qualitative_results(tparams, tcfg, str(tmp_path)) is None

@@ -39,6 +39,38 @@ def test_port_and_chip_smoke_never_import_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+FORBIDDEN = ("jax", "jaxlib", "ssp_x_vit_tpu", "regex", "transformers", "tokenizers",
+             "safetensors", "datasets", "ml_dtypes")
+
+
+def test_no_import_statement_names_a_package_the_card_machine_lacks():
+    """Every ``import`` / ``from`` statement of the port and of chip_smoke.py,
+    at any depth (a function's lazy import included), read with ``ast``:
+    none names JAX, the JAX package, or a package the card's machine does not
+    have (``regex``, ``transformers``, ``tokenizers``, ``safetensors``,
+    ``datasets``, ``ml_dtypes``)."""
+    import ast
+
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "ssp_x_vit_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    found = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            found += [(os.path.relpath(path, ROOT), node.lineno, m) for m in mods
+                      if m.split(".")[0] in FORBIDDEN]
+    assert len(files) >= 45
+    assert not found, found
+
+
 def test_chip_smoke_fails_without_a_gpu():
     """No CUDA device here: the script exits non-zero and prints no result."""
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
@@ -117,25 +149,24 @@ def test_serving_entry_points_raise_without_a_gpu(monkeypatch):
         serve_http.build_engine(parser.parse_args(["--model", "x"]), model=(params, tiny))
 
 
-def test_unported_serving_parts_name_the_roadmap_item():
-    """What stays unported on the serving paths raises naming its item: the
-    tokenizer (A.10: ``--tokenizer``, ``generate_response``), multi-LoRA
-    (A.10: ``lora_ids``) and the MLA engine (A.11)."""
+def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
+    """What stays unported on the serving paths raises naming its item:
+    tokenizers other than byte-level BPE (A.10f: a ``--tokenizer`` directory
+    without a byte-level ``tokenizer.json``), multi-LoRA (A.10: ``lora_ids``)
+    and the MLA engine (A.11)."""
     from ssp_x_vit_tpu_torch.cli import serve_http
-    from ssp_x_vit_tpu_torch.llm import generate, serve
+    from ssp_x_vit_tpu_torch.llm import serve
     from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
     from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        serve_http.build_engine(serve_http.build_argparser().parse_args(
-            ["--model", "tiny-random", "--backend", "cpu", "--tokenizer", "dir"]))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.10f"):
+        serve_http.server_kwargs(serve_http.build_argparser().parse_args(
+            ["--model", "tiny-random", "--backend", "cpu", "--tokenizer", str(tmp_path)]), None)
     tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,
                        intermediate_size=24)
     params = init_llama_params(None, tiny, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         serve.generate_kv_scan(params, tiny, [[1, 2, 3]], max_length=8, lora_ids=[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        generate.generate_response("Who is Albert Einstein?", params, tiny, tokenizer=None)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):   # the MLA config class
         ServingEngine({}, object())
 
@@ -143,7 +174,7 @@ def test_unported_serving_parts_name_the_roadmap_item():
 def test_unported_cli_flags_name_the_roadmap_item():
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
 
-    for flags in (["--save-format", "hf"], ["--data-parallel"], ["--dataset", "cifar10"],
+    for flags in (["--data-parallel"], ["--dataset", "cifar10"],
                   ["--load-cifar"], ["--use-srp-checkpoint"],
                   ["--export-framework-prefix", "x"]):
         args = auto_2ssp.build_argparser().parse_args(["--backend", "cpu", *flags])
@@ -159,8 +190,7 @@ def test_unported_llm_flags_name_the_roadmap_item(tmp_path):
                         (["--pruning_method", "slicegpt"], "A.10"),
                         (["--ablation"], "A.10"), (["--ablation-quick"], "A.10"),
                         (["--evaluate_downstream"], "A.10"), (["--task-pack", "x"], "A.10"),
-                        (["--evaluate_qualitative"], "A.10"), (["--save-format", "hf"], "A.10"),
-                        (["--local_datasets"], "A.10")):
+                        (["--local_datasets"], "A.10a")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             main_llm.run(main_llm.build_argparser().parse_args(base + flags))
     for model in ("tiny-random-deepseek", "tiny-random-deepseek-dense"):

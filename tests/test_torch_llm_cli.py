@@ -141,8 +141,12 @@ def test_main_parses_argv_and_runs_a_native_directory(tmp_path):
     ref = tcli.run(parse("--dense", "--evaluate_perplexity"), model=(tparams, tcfg))
     # the directory loads in bf16 (load_llm_model's default, as in the JAX package)
     assert out["dense"]["ppl"] == pytest.approx(ref["dense"]["ppl"], rel=TOL)
-    (tmp_path / "hf").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.run(parse(model=str(tmp_path / "hf")))
+    # an HF directory (no model.npz) loads through load_hf_llama, also in bf16
+    tckpt.export_hf_llama(str(tmp_path / "hf"), tparams, tcfg)
+    out_hf = tcli.run(parse("--dense", "--evaluate_perplexity", model=str(tmp_path / "hf")))
+    assert out_hf["dense"]["ppl"] == out["dense"]["ppl"]
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError):
+        tcli.run(parse(model=str(tmp_path / "empty")))
     with pytest.raises(SystemExit):
         tcli.run(parse(model="no-such-model"))

@@ -233,7 +233,9 @@ def test_synthetic_token_stream_and_calibration_bit_identical():
 
 def test_save_and_load_llm_model_round_trip_with_the_jax_package(tmp_path):
     """A tree saved by either package loads in the other: plain fp32, bf16
-    leaves (raw 2-byte words) and int8 codes."""
+    leaves (raw 2-byte words) and int8 codes; and as an HF directory, whose
+    port export the JAX loader reads back to the same values (the quantized
+    tree has no HF form)."""
     from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4
 
     jparams, jcfg, tparams, tcfg = make_model("tiny-random-gemma2", seed=14)
@@ -253,9 +255,16 @@ def test_save_and_load_llm_model_round_trip_with_the_jax_package(tmp_path):
     from_j, cfg_j = tckpt.load_llm_model(str(tmp_path / "j"), device="cpu", dtype=torch.float32)
     assert cfg_j == tcfg
     assert torch.equal(from_j["blocks"]["down_kernel"], tparams["blocks"]["down_kernel"])
-    for fn in (lambda: tckpt.load_hf_llama("x"), lambda: tckpt.export_hf_llama("x", {}, tcfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-            fn()
+    tckpt.export_hf_llama(str(tmp_path / "hf"), tparams, tcfg)
+    jhf, jhf_cfg = jckpt.load_hf_llama(str(tmp_path / "hf"), dtype=jnp.float32)
+    # gemma-2's config.json carries head_dim, which the loader keeps as explicit
+    assert dataclasses.asdict(jhf_cfg) == dataclasses.asdict(
+        dataclasses.replace(tcfg, explicit_head_dim=tcfg.head_dim))
+    for k, v in tparams["blocks"].items():
+        np.testing.assert_array_equal(np.asarray(jhf["blocks"][k]), v.numpy())
+    with pytest.raises(ValueError, match="quantized"):
+        tckpt.export_hf_llama(str(tmp_path / "hf_q"), tq, tcfg)
+    assert not (tmp_path / "hf_q").exists()
 
 
 def test_trained_checkpoint_logits_match_jax():

@@ -363,6 +363,9 @@ def test_cli_builds_an_engine_on_the_cpu_backend(greedy_ref, params):
         assert len(engine.submit([3, 5, 7, 11], max_new_tokens=4).result(timeout=120)) == 4
     finally:
         engine.shutdown()
+    # a --tokenizer directory without a byte-level tokenizer.json raises (A.10f)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.build_engine(parser.parse_args(["--model", "tiny-random", "--backend", "cpu",
-                                             "--tokenizer", "somewhere"]))
+        tcli.server_kwargs(parser.parse_args(["--model", "tiny-random", "--backend", "cpu",
+                                              "--tokenizer", "somewhere"]), None)
+    assert tcli.server_kwargs(parser.parse_args(["--model", "tiny-random"]), None)[
+        "tokenizer"] is None

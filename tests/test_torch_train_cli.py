@@ -9,8 +9,10 @@
   first loss within 1e-5 relative (same weights, fp32 arithmetic), the later
   losses and the eval perplexity within 1e-3 relative (the two round the bf16
   parameter update at other places), the learning rates exactly.
-- unported flags raise NotImplementedError naming the ROADMAP item, and a
-  missing ``--data`` directory falls back to the synthetic stream.
+- ``--save-format hf`` writes an HF directory that loads back to the trained
+  values; ``--data`` with a local corpus raises NotImplementedError naming
+  the ROADMAP item, and a missing ``--data`` directory falls back to the
+  synthetic stream.
 """
 
 import json
@@ -21,7 +23,7 @@ import torch
 
 from ssp_x_vit_tpu.cli import train_llm as jcli
 from ssp_x_vit_tpu_torch.cli import train_llm as tcli
-from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model, save_llm_model
+from ssp_x_vit_tpu_torch.llm.checkpoints import load_hf_llama, load_llm_model, save_llm_model
 from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
 TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -85,8 +87,12 @@ def test_data_bin_run_matches_the_jax_cli(tmp_path, capsys):
 
 def test_unported_flags_and_the_offline_fallback(tmp_path):
     base = ["--model", "tiny-random", "--steps", "1", "--batch-size", "1", "--seq-len", "8"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.run(_args(*base, "--save-format", "hf"))
+    # --save-format hf writes the trained model as an HF directory that loads back
+    out = tcli.run(_args(*base, "--save-model", str(tmp_path / "hf"), "--save-format", "hf"))
+    back, cfg = load_hf_llama(str(tmp_path / "hf"), device="cpu", dtype=torch.float32)
+    assert cfg == out["cfg"]
+    for k, v in out["params"]["blocks"].items():
+        assert torch.equal(back["blocks"][k], v.float()), k
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         tcli.run(_args(*base, "--data", str(tmp_path)))
     out = tcli.run(_args(*base, "--data", str(tmp_path / "missing"), "--log-every", "1"))
