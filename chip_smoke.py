@@ -69,8 +69,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             source's), and Llama-2-7B widths cut to 2 layers exported with
             ``export_hf_llama`` and loaded back in bf16 (bit for bit; export
             and load seconds, peak host RSS during the load; one s=2048
-            forward of each, same logits). Kernel launches per run, each
-            driven path with the counts set to 0 just before it.
+            forward of each, same logits); then the ViT mask-ensembling and
+            SRP stack on synthesized files in the real on-disk formats (AugReg
+            ``.npz`` at ViT-B/16 and ViT-Ti/16 widths, ``index.csv``, CIFAR-100
+            python pickles): ``auto_2ssp --use-srp-checkpoint`` on Ti/16 with
+            ``--dataset cifar100 --export-framework-prefix --data-parallel``
+            and on B/16 (``--stage s1``), ``normalize_scores`` on two ViT-B/16
+            score files, a summation and a consensus grid (each one
+            ``apply_mask_prune`` subprocess on the card; a re-run adds no row),
+            ``apply_mask_prune.run`` in-process (rows 1 and 3, 12 launches per
+            forward at the mask's widths, no plain block on the card), the
+            token-pruned ViT-B/16 forward (b=64, bf16, schedule ((3, 139), (6,
+            98), (9, 69)); logits against the plain blocks on the card, launches
+            at the shortened lengths, latency with and without the schedule),
+            ``vit_procgen`` token-pruned top-1 on the card against the host CPU,
+            and the cubic resize on the card against the host. Kernel launches
+            per run, each driven path with the counts set to 0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
             top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
             top-1; 4 LoRA and 4 KD steps with falling losses), the ViT-B/16
@@ -3772,6 +3786,522 @@ def phase_anchor_text_serving(device, hf_dir: str) -> dict:
     return run["launches"]
 
 
+# ------------------------------------------------------------------ A.7c ---
+# The ViT mask-ensembling and SRP stack: SRP checkpoints in the AugReg layout
+# and CIFAR-100 in its on-disk format (both synthesized from seeds: neither is
+# in the repository), the mask grids, apply_mask_prune and token pruning.
+
+SRP_SEEDS = {"B/16": 1, "Ti/16": 2}
+SRP_WIDTHS = {"B/16": (768, 12, 3072), "Ti/16": (192, 3, 768)}   # hidden, heads, FFN
+TOKEN_SCHEDULE = ((3, 139), (6, 98), (9, 69))   # ViT-B/16 at 224: 197 tokens at first
+PROCGEN_SCHEDULE = ((3, 49), (6, 33))            # vit_procgen at 64 / 8: 65 tokens
+
+
+def write_augreg_npz(path: str, model_type: str, classes: int, seed: int) -> None:
+    """An AugReg (big_vision) ``.npz`` at the architecture's published widths
+    (12 blocks, 224 pixels, patch 16) with random fp32 weights from ``seed``."""
+    import numpy as np
+
+    d, heads, f = SRP_WIDTHS[model_type]
+    hd, patch = d // heads, 16
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def ones(n):
+        return np.ones(n, np.float32)
+
+    npz = {"embedding/kernel": w(patch, patch, 3, d), "embedding/bias": w(d), "cls": w(1, 1, d),
+           "Transformer/posembed_input/pos_embedding": w(1, 197, d),
+           "Transformer/encoder_norm/scale": ones(d), "Transformer/encoder_norm/bias": w(d),
+           "head/kernel": w(d, classes), "head/bias": w(classes)}
+    for i in range(12):
+        pre = f"Transformer/encoderblock_{i}"
+        att = f"{pre}/MultiHeadDotProductAttention_1"
+        for name in ("query", "key", "value"):
+            npz[f"{att}/{name}/kernel"], npz[f"{att}/{name}/bias"] = w(d, heads, hd), w(heads, hd)
+        npz[f"{att}/out/kernel"], npz[f"{att}/out/bias"] = w(heads, hd, d), w(d)
+        for ln in ("LayerNorm_0", "LayerNorm_2"):
+            npz[f"{pre}/{ln}/scale"], npz[f"{pre}/{ln}/bias"] = ones(d), w(d)
+        mlp = f"{pre}/MlpBlock_3"
+        npz[f"{mlp}/Dense_0/kernel"], npz[f"{mlp}/Dense_0/bias"] = w(d, f), w(f)
+        npz[f"{mlp}/Dense_1/kernel"], npz[f"{mlp}/Dense_1/bias"] = w(f, d), w(d)
+    np.savez(path, **npz)
+
+
+def write_cifar100(root: str, n_train: int, n_test: int, seed: int) -> None:
+    """``root/cifar-100-python/{train,test}``: pickled dicts with ``data``
+    [N, 3072] uint8 in CHW order and ``fine_labels`` / ``coarse_labels``, as
+    torchvision's download unpacks them."""
+    import pickle
+
+    import numpy as np
+
+    d = os.path.join(root, "cifar-100-python")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name, n in (("train", n_train), ("test", n_test)):
+        labels = rng.integers(0, 100, n)
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                         "fine_labels": labels.tolist(),
+                         "coarse_labels": (labels // 5).tolist(),
+                         "filenames": [f"{name}_{i}.png" for i in range(n)]}, f)
+
+
+def make_srp_work(work: str) -> str:
+    """The SRP models directory (index.csv and the two AugReg files) and
+    ``work/data`` with CIFAR-100 (5000 train, 1000 test images). Returns the
+    models directory."""
+    models = os.path.join(work, "models")
+    os.makedirs(models, exist_ok=True)
+    t0 = time.perf_counter()
+    rows = ["name,ds,filename,final_val,adapt_ds,adapt_filename,adapt_final_val"]
+    for arch in ("B/16", "Ti/16"):
+        tag = arch.replace("/", "")
+        rows += [f"{arch},i21k,augreg_{tag}_i21k,0.80,,,",
+                 f"{arch},cifar100,augreg_{tag}_i21k,0,cifar100,augreg_{tag}_c100_224,0.90"]
+        write_augreg_npz(os.path.join(models, f"augreg_{tag}_c100_224.npz"), arch, 100,
+                         SRP_SEEDS[arch])
+    with open(os.path.join(models, "index.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    write_cifar100(os.path.join(work, "data"), 5000, 1000, seed=3)
+    sizes = {n: os.path.getsize(os.path.join(models, n)) for n in sorted(os.listdir(models))}
+    log(f"[SRP] synthesized {json.dumps(sizes)} and CIFAR-100 (5000 + 1000 images, python "
+        f"pickles) in {time.perf_counter() - t0:.2f} s")
+    return models
+
+
+def watch_vit_blocks():
+    """A context that counts calls of the plain ViT block paths with a CUDA
+    tensor (there must be none on a kernel path) and records, per launch of
+    rows 1-3, the sequence length and (for row 3) the FFN width."""
+    import collections
+    import contextlib
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.models import vit
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ff
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = {"plain_on_card": collections.Counter(), "attn": collections.Counter(),
+                "ffn": collections.Counter()}
+        patched = []
+
+        def patch(mod, name, wrapper_of):
+            orig = getattr(mod, name)
+            patched.append((mod, name, orig))
+            setattr(mod, name, wrapper_of(orig))
+
+        def plain(name):
+            def wrapper_of(orig):
+                def wrapper(x, *a, **k):
+                    if isinstance(x, torch.Tensor) and x.is_cuda:
+                        seen["plain_on_card"][name] += 1
+                    return orig(x, *a, **k)
+                return wrapper
+            return wrapper_of
+
+        def record(kind, name):
+            def wrapper_of(orig):
+                def wrapper(x, *a, **k):
+                    if x.is_cuda:
+                        key = (name, x.shape[1]) if kind == "attn" else (x.shape[1], a[2].shape[1])
+                        seen[kind][key] += 1
+                    return orig(x, *a, **k)
+                return wrapper
+            return wrapper_of
+
+        for mod, name in ((vit, "fused_attn_block_plain"), (vit, "ffn_forward"),
+                          (vit, "_block_apply_quantized"), (fab, "fused_attn_block_v2_plain"),
+                          (fab, "fused_attn_block_plain"), (ff, "fused_ffn_block_plain"),
+                          (ff, "fused_ffn_plain")):
+            patch(mod, name, plain(name))
+        for name in ("fused_attn_block_v2", "fused_attn_block"):
+            patch(vit, name, record("attn", name))
+        patch(vit, "fused_ffn_block", record("ffn", "fused_ffn_block"))
+        try:
+            yield seen
+        finally:
+            for mod, name, orig in reversed(patched):
+                setattr(mod, name, orig)
+
+    return ctx()
+
+
+def _check_launch_phases(label, report, attn_kernel, phases):
+    by_phase = report["kernel_launches"]
+    for phase in phases:
+        for kernel in (attn_kernel, "fused_ffn_block"):
+            if by_phase[phase][kernel] <= 0:
+                raise AssertionError(f"{label}: {kernel} not launched in the {phase} phase")
+
+
+def phase_srp(work: str, models: str, device) -> dict:
+    """``auto_2ssp --use-srp-checkpoint --srp-model-type Ti/16 --dataset
+    cifar100 --stage both --target 0.25 --export-framework-prefix
+    --data-parallel`` on the card: row 2 (3 heads) and row 3 in every phase,
+    the achieved sparsity within 0.02 of the plan, the export files at Ti/16's
+    widths. Then the same CLI on the B/16 checkpoint (``--stage s1``), whose
+    FFN importances are the grid's second score file. Returns the launches
+    and the B/16 importances path."""
+    from ssp_x_vit_tpu_torch.cli import auto_2ssp
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    totals = {}
+    fw = os.path.join(work, "framework", "ti16")
+    base = ["--use-srp-checkpoint", "--srp-models-dir", models, "--srp-top10-idx", "1",
+            "--dataset", "cifar100", "--eval-batches", "2", "--backend", "cuda"]
+    runs = [("Ti/16", ["--stage", "both", "--target", "0.25", "--min-remaining", "512",
+                       "--export-framework-prefix", fw, "--data-parallel"]),
+            ("B/16", ["--stage", "s1", "--s1-sparsity", "0.25"])]
+    b16_scores = None
+    for arch, flags in runs:
+        argv = [*base, "--srp-model-type", arch, "--out-root",
+                os.path.join(work, "runs", arch.replace("/", "")), *flags]
+        log(f"[SRP] auto_2ssp {' '.join(argv)}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = auto_2ssp.run(auto_2ssp.build_argparser().parse_args(argv))
+        seconds = time.perf_counter() - t0
+        for name, n in launch_counts.items():
+            totals[name] = totals.get(name, 0) + n
+        m = report["metrics"]
+        log(f"[SRP] {arch}: {seconds:.1f} s; seconds by phase "
+            f"{json.dumps({k: round(v, 3) for k, v in report['phase_seconds'].items()})}; "
+            f"launches by phase {json.dumps(report['kernel_launches'])}")
+        if report["config"]["dataset"] != "cifar100" or report["model"][1].image_size != 224:
+            raise AssertionError(f"SRP {arch}: config {report['config']}")
+        if arch == "B/16":
+            _check_launch_phases(f"SRP {arch}", report, "fused_attn_block_v2",
+                                 ("candidates", "stats", "stage1"))
+            b16_scores = report["artifacts"]["ffn_importances_path"]
+            log(f"[SRP] B/16 --stage s1: {m['params_before_stage1']} -> "
+                f"{m['params_after_stage1']} parameters, top-1 {m['acc_baseline']} -> "
+                f"{m['acc_stage1']}; FFN importances {b16_scores}")
+            continue
+        _check_launch_phases(f"SRP {arch}", report, "fused_attn_block",
+                             ("candidates", "stats", "materialized"))
+        for phase, by_kernel in report["kernel_launches"].items():
+            if by_kernel["fused_attn_block_v2"]:
+                raise AssertionError(f"SRP Ti/16 (3 heads) launched row 1 in {phase}")
+        plan = report["plan"]
+        est = plan["estimated_total_removed_params"] / m["params_before_stage1"]
+        achieved = 1.0 - m["params_after_stage2"] / m["params_before_stage1"]
+        log(f"[SRP] Ti/16: planned sparsity {est:.4f}, achieved {achieved:.4f}, top-1 "
+            f"{m['acc_baseline']} -> {m['acc_stage2']} (random weights, 100 classes), latency "
+            f"(b=1) {m['latency_baseline_ms']} -> {m['latency_stage2_ms']} ms")
+        if abs(achieved - est) > 0.02:
+            raise AssertionError(f"SRP Ti/16: achieved sparsity {achieved} vs plan {est}")
+        with open(fw + "_scores.json") as f:
+            scores = json.load(f)
+        with open(fw + "_masks.json") as f:
+            masks = json.load(f)
+        pruned = set(report["artifacts"]["pruned_block_indices"])
+        want = {"ffn": 12 * 768, "heads": 12 * 3, "qkv_dim": 12 * 192}
+        got = {k: len(v) for k, v in scores.items()}
+        if got != want or sorted(masks) != sorted(want) or any(
+                len(v) != 768 for v in masks["ffn"].values()) or any(
+                set(v) != {int(int(l) in pruned)} for l, v in masks["heads"].items()):
+            raise AssertionError(f"SRP Ti/16 exports: {got}, pruned {pruned}")
+        log(f"[SRP] Ti/16 exports {os.path.basename(fw)}_scores.json {got}, _masks.json "
+            f"(ffn masks prune {sum(map(sum, masks['ffn'].values()))} neurons, heads of "
+            f"blocks {sorted(pruned)})")
+    return totals, b16_scores
+
+
+def phase_mask_grid(work: str, models: str, score_files, device) -> dict:
+    """normalize_scores on two ViT-B/16 score files (12 x 3072), then a
+    summation and a consensus grid (sizes {2}, prune {20}), each one
+    apply_mask_prune subprocess on the SRP B/16 checkpoint and CIFAR-100 on
+    the card; both rows ok with a positive reduction, and a re-run adds no row.
+    Then ``apply_mask_prune.run`` in-process on the summation mask: rows 1 and
+    3 launched 12 times per forward (13 latency forwards + 2 evaluation
+    batches per phase) at the mask's FFN widths, no plain block on the card.
+    Returns the in-process run's launches."""
+    import csv
+    from pathlib import Path
+
+    import numpy as np
+
+    from ssp_x_vit_tpu_torch.cli import apply_mask_prune
+    from ssp_x_vit_tpu_torch.cli.grid import run_cmd, run_grid
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    scores = os.path.join(work, "scores")
+    os.makedirs(scores, exist_ok=True)
+    named = []
+    for name, src in zip(("phase4_b16", "srp_b16"), score_files):
+        dst = os.path.join(scores, f"{name}.json")
+        with open(src, "rb") as f, open(dst, "wb") as g:
+            g.write(f.read())
+        named.append(dst)
+    t0 = time.perf_counter()
+    rc, out, err = run_cmd([sys.executable, "-m", "ssp_x_vit_tpu_torch.cli.normalize_scores",
+                            *named, "--out-dir", os.path.join(work, "normalized")])
+    if rc != 0:
+        raise AssertionError(f"normalize_scores failed:\n{out}{err}")
+    normalized = [os.path.join(work, "normalized", os.path.basename(p)) for p in named]
+    log(f"[MASK] normalize_scores {len(named)} files ({os.path.getsize(named[0])} bytes each) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    apply_args = ["--use-srp-checkpoint", "--srp-model-type", "B/16", "--srp-models-dir", models,
+                  "--srp-top10-idx", "1", "--dataset", "cifar100", "--eval-batches", "2",
+                  "--backend", "cuda"]
+    masks = {}
+    for mode in ("summation", "consensus"):
+        out_dir = os.path.join(work, f"grid_{mode}")
+        t0 = time.perf_counter()
+        csv_path = run_grid(mode, [Path(p) for p in normalized], {2}, [20], Path(out_dir),
+                            apply_args=apply_args)
+        seconds = time.perf_counter() - t0
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != 1 or rows[0]["status"] != "ok" or \
+                float(rows[0]["stage1_reduction_percent"]) <= 0:
+            logs = os.path.join(out_dir, "logs")
+            tails = {n: open(os.path.join(logs, n)).read()[-2000:] for n in os.listdir(logs)}
+            raise AssertionError(f"{mode} grid rows {rows}; logs {tails}")
+        run_grid(mode, [Path(p) for p in normalized], {2}, [20], Path(out_dir),
+                 apply_args=apply_args)
+        with open(csv_path) as f:
+            again = list(csv.DictReader(f))
+        if len(again) != 1:
+            raise AssertionError(f"{mode} grid re-run added rows: {again}")
+        r = rows[0]
+        log(f"[MASK] {mode} grid {r['methods']} prune {r['prune']}: {seconds:.1f} s, status "
+            f"{r['status']}, params {r['params_before_stage1']} -> {r['params_after_stage1']} "
+            f"({r['stage1_reduction_percent']}%), top-1 {r['acc_baseline']} -> "
+            f"{r['acc_stage1']}, latency(b=1) {r['latency_baseline_ms']} -> "
+            f"{r['latency_stage1_ms']} ms; re-run added no row")
+        masks[mode] = os.path.join(out_dir, "mask.json" if mode == "summation"
+                                   else "mask_consensus.json")
+
+    argv = ["--mask", masks["summation"], *apply_args,
+            "--out-root", os.path.join(work, "apply_in_process")]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with watch_vit_blocks() as seen:
+        report = apply_mask_prune.run(apply_mask_prune.build_argparser().parse_args(argv))
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    n_prune = report["artifacts"]["n_to_prune_per_block"]
+    kept = [3072 - n for n in n_prune]
+    padded = -(-max(kept) // 8) * 8
+    forwards = 13 + 2          # measure_latency: 3 warm-up + 10 timed; 2 evaluation batches
+    for phase in ("baseline", "stage1"):
+        got = {k: n for k, n in report["kernel_launches"][phase].items() if n}
+        if got != {"fused_attn_block_v2": 12 * forwards, "fused_ffn_block": 12 * forwards}:
+            raise AssertionError(f"apply_mask_prune {phase}: launches {got}, expected rows "
+                                 f"1 and 3 {12 * forwards} times each")
+    if sum(seen["plain_on_card"].values()):
+        raise AssertionError(f"plain ViT blocks ran on the card: {dict(seen['plain_on_card'])}")
+    widths = {(s, f): n for (s, f), n in seen["ffn"].items()}
+    if widths != {(197, 3072): 12 * forwards, (197, padded): 12 * forwards}:
+        raise AssertionError(f"row 3 widths {widths}, expected 3072 and {padded}")
+    m = report["metrics"]
+    log(f"[MASK] apply_mask_prune.run in-process ({seconds:.1f} s): prune per block "
+        f"{n_prune} (kept {min(kept)}-{max(kept)}, padded {padded}); rows 1 and 3 "
+        f"{12 * forwards} launches each per phase = 12 per forward; row 3 widths "
+        f"{json.dumps({f'{f}': n for (_, f), n in widths.items()})}; no plain block on the "
+        f"card; params {m['params_before_stage1']} -> {m['params_after_stage1']} "
+        f"({m['stage1_reduction_percent']}%), latency(b=1) {m['latency_baseline_ms']} -> "
+        f"{m['latency_stage1_ms']} ms")
+    with open(masks["consensus"]) as f:
+        ones = sum(np.asarray(list(json.load(f)["ffn"].values())))
+    log(f"[MASK] consensus mask: {int(ones)} neurons marked over 12 blocks")
+    return launches
+
+
+def profile_token_forward(params, cfg, px) -> None:
+    """Where the device time of one ViT-B/16 forward at b=64 (bf16) goes,
+    unpruned and under TOKEN_SCHEDULE: ``torch.profiler`` over one forward of
+    each after a warm-up; the scoring and pruning (``cls_attention_scores``
+    and ``prune_tokens``, profiler ranges here) apart from the blocks; the
+    largest kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ssp_x_vit_tpu_torch.models import token_pruning as tp
+
+    saved = tp.cls_attention_scores, tp.prune_tokens
+
+    def ranged(name, fn):
+        def wrapper(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapper
+
+    tp.cls_attention_scores = ranged("chip_smoke.scores", saved[0])
+    tp.prune_tokens = ranged("chip_smoke.prune", saved[1])
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        for label, sched in (("unpruned", ()), ("pruned", TOKEN_SCHEDULE)):
+            with torch.inference_mode():
+                def run():
+                    return tp.vit_forward_token_pruned(params, px, cfg, sched,
+                                                       compute_dtype=torch.bfloat16)
+                run()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages() if e.device_type == cuda and _device_us(e) > 0
+                    and not e.key.startswith("chip_smoke.")]
+            total = sum(_device_us(e) for e in rows) / 1e3
+            if total <= 0:
+                log(f"[PROFILE] token forward {label}: no device time in the trace; not measured")
+                continue
+            ranges = {name: sum(_event_device_us(e) for e in prof.events()
+                                if e.device_type != cuda and e.name == f"chip_smoke.{name}") / 1e3
+                      for name in ("scores", "prune")}
+            blocks = sum(_device_us(e) for e in rows if "ssp::" in e.key) / 1e3
+            rest = total - blocks - ranges["scores"] - ranges["prune"]
+            log(f"[PROFILE] token forward ViT-B/16 b=64 bf16 {label}: {total:.3f} ms of device "
+                f"time; block kernels (ssp::) {blocks:.3f} ms, scoring {ranges['scores']:.3f} "
+                f"ms, pruning {ranges['prune']:.3f} ms, the rest {rest:.3f} ms")
+            for e in sorted(rows, key=_device_us, reverse=True)[:10]:
+                ms = _device_us(e) / 1e3
+                log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+    finally:
+        tp.cls_attention_scores, tp.prune_tokens = saved
+
+
+def phase_token_pruning(device) -> dict:
+    """ViT-B/16 at 224 (the CLI's random weights), b=64, bf16, keep schedule
+    ((3, 139), (6, 98), (9, 69)): logits of the kernel path within 5e-2 of
+    max(1, max |logit|) of the plain blocks on the card; rows 1 and 3 launched
+    12 times per forward at the schedule's lengths, no plain block on the
+    card; latency with and without the schedule (``measure_latency``'s
+    protocol, CUDA events) at b=1 and b=64. Then ``vit_procgen`` in fp32 under
+    ((3, 49), (6, 33)): the card's top-1 equals the host CPU's (differences
+    only where the host's top-2 margin is under 1e-3), beside the unpruned
+    top-1. Returns the phase's launches (the plain comparisons launch none)."""
+    import contextlib
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli.common import resolve_model
+    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, load_procgen_slice
+    from ssp_x_vit_tpu_torch.evaluation.latency import measure_latency_fn
+    from ssp_x_vit_tpu_torch.models import vit
+    from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
+    from ssp_x_vit_tpu_torch.models.token_pruning import vit_forward_token_pruned
+    from ssp_x_vit_tpu_torch.models.vit import cast_params
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ff
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    @contextlib.contextmanager
+    def plain_blocks():
+        saved = vit.fused_attn_block_v2, vit.fused_ffn_block
+        vit.fused_attn_block_v2, vit.fused_ffn_block = (fab.fused_attn_block_v2_plain,
+                                                        ff.fused_ffn_block_plain)
+        try:
+            yield
+        finally:
+            vit.fused_attn_block_v2, vit.fused_ffn_block = saved
+
+    params, cfg = resolve_model("vit-b16", device=device)
+    bf16 = cast_params(params, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(13)
+    px = torch.randn(64, 224, 224, 3, generator=gen, device=device)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with torch.inference_mode():
+        with watch_vit_blocks() as seen:
+            got = vit_forward_token_pruned(bf16, px, cfg, TOKEN_SCHEDULE,
+                                           compute_dtype=torch.bfloat16)
+        launches = dict(launch_counts)
+        with plain_blocks():
+            ref = vit_forward_token_pruned(bf16, px, cfg, TOKEN_SCHEDULE,
+                                           compute_dtype=torch.bfloat16)
+        dense = vit_forward_token_pruned(bf16, px, cfg, (), compute_dtype=torch.bfloat16)
+    err, rel = scaled_err(got, ref)
+    lens = sorted({s for (_, s) in seen["attn"]}, reverse=True)
+    log(f"[TOKEN] ViT-B/16 b=64 bf16 schedule {TOKEN_SCHEDULE}: kernel path vs plain blocks "
+        f"on the card max_abs_err={err:.3e} scaled={rel:.3e} tol=5e-2; top-1 agreement "
+        f"{(got.argmax(-1) == ref.argmax(-1)).float().mean().item():.4f}, with the unpruned "
+        f"forward {(got.argmax(-1) == dense.argmax(-1)).float().mean().item():.4f}; "
+        f"sequence lengths {lens}; launches {json.dumps({k: n for k, n in launches.items() if n})}")
+    if not torch.isfinite(got.float()).all() or rel > 5e-2:
+        raise AssertionError("token-pruned logits disagree with the plain blocks")
+    want_lens = {197: 3, 139: 3, 98: 3, 69: 3}
+    if launches["fused_attn_block_v2"] != 12 or launches["fused_ffn_block"] != 12 or \
+            {s: n for (_, s), n in seen["attn"].items()} != want_lens or \
+            {s: n for (s, _), n in seen["ffn"].items()} != want_lens or \
+            sum(seen["plain_on_card"].values()):
+        raise AssertionError(f"token-pruned forward: launches {launches}, attention "
+                             f"{dict(seen['attn'])}, FFN {dict(seen['ffn'])}, plain on the card "
+                             f"{dict(seen['plain_on_card'])}")
+    for b in (1, 64):
+        x = px[:b].to(torch.bfloat16)
+        times = {}
+        for label, sched in (("dense", ()), ("pruned", TOKEN_SCHEDULE)):
+            with torch.inference_mode():
+                times[label] = measure_latency_fn(
+                    lambda: vit_forward_token_pruned(bf16, x, cfg, sched,
+                                                     compute_dtype=torch.bfloat16), device)
+        log(f"[TOKEN] ViT-B/16 bf16 b={b} latency (3 warm-up + 10 timed, CUDA events): "
+            f"{times['dense']:.4f} ms unpruned, {times['pruned']:.4f} ms with the schedule "
+            f"({times['pruned'] / times['dense']:.3f}x)")
+    profile_token_forward(bf16, cfg, px)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pparams, pcfg = load_pruned_model(os.path.join(here, "ckpts", "vit_procgen"), device=device)
+    host = load_pruned_model(os.path.join(here, "ckpts", "vit_procgen"), device="cpu")[0]
+    sl = load_procgen_slice()
+    tests = DataPipeline(sl["test_images"], sl["test_labels"], img_size=pcfg.image_size,
+                         batch_size=64, device=device).batches()
+    hits = {"pruned": 0, "dense": 0, "host": 0}
+    near_ties = 0
+    with torch.inference_mode():
+        for batch in tests:
+            card = vit_forward_token_pruned(pparams, batch["pixel_values"], pcfg,
+                                            PROCGEN_SCHEDULE).cpu()
+            ref = vit_forward_token_pruned(host, batch["pixel_values"].cpu(), pcfg,
+                                           PROCGEN_SCHEDULE)
+            dense = vit_forward_token_pruned(pparams, batch["pixel_values"], pcfg, ()).cpu()
+            labels = batch["labels"].cpu()
+            top2 = ref.topk(2, dim=-1).values
+            differ = card.argmax(-1) != ref.argmax(-1)
+            if (differ & ((top2[:, 0] - top2[:, 1]) >= 1e-3)).any():
+                raise AssertionError("vit_procgen token-pruned top-1: card and host CPU differ "
+                                     "beyond a near-tie")
+            near_ties += int(differ.sum())
+            hits["pruned"] += int((card.argmax(-1) == labels).sum())
+            hits["host"] += int((ref.argmax(-1) == labels).sum())
+            hits["dense"] += int((dense.argmax(-1) == labels).sum())
+    n = len(sl["test_labels"])
+    log(f"[TOKEN] vit_procgen fp32 schedule {PROCGEN_SCHEDULE}: top-1 card {hits['pruned'] / n:.4f}"
+        f", host CPU {hits['host'] / n:.4f} ({near_ties} near-tie differences), unpruned "
+        f"{hits['dense'] / n:.4f}; phase {time.perf_counter() - t0:.1f} s")
+    return dict(launch_counts)
+
+
+def check_resize(device) -> None:
+    """A CIFAR batch (64 images, uint8) resized 32 -> 224 and normalized on the
+    card (``preprocess_batch``: JAX's cubic weights, two fp32 products) against
+    the host CPU: within 1e-5."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.data.pipeline import preprocess_batch
+
+    u8 = np.random.default_rng(17).integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)
+    host = preprocess_batch(torch.from_numpy(u8), 224)
+    card = preprocess_batch(torch.from_numpy(u8).to(device), 224)
+    err = (card.cpu() - host).abs().max().item()
+    ms = time_ms(lambda: preprocess_batch(torch.from_numpy(u8).to(device), 224))
+    log(f"[RESIZE] 64 x 32x32 uint8 -> 224 on the card vs host CPU (fp32): max_abs_err="
+        f"{err:.3e} tol=1e-5; {ms:.4f} ms a batch incl. the host-to-card copy")
+    if err > 1e-5:
+        raise AssertionError("the card's cubic resize differs from the host's")
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -3901,9 +4431,15 @@ def main() -> int:
                         "paged_attention_write call instead", n)
     phase_done("kernels (phase 3)")
     cli_launches = {name: 0 for name in KERNEL_NAMES}
+    a7c_work = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as out_root:
         for name, n in phase_main(out_root, device).items():
             cli_launches[name] += n
+        b16_scores = os.path.join(a7c_work.name, "phase4_b16_ffn_importances.json")
+        found = [os.path.join(base, n)
+                 for base, _, names in os.walk(os.path.join(out_root, "vit-b16"))
+                 for n in names if n == "iterative_vit_b16_ffn_importances.json"]
+        os.replace(found[0], b16_scores)   # the mask grids' first score file
     phase_done("main, ViT (phase 4)")
     llama = make_llama_7b(device)
     for name, n in phase_main_llm(device, *llama).items():
@@ -3927,6 +4463,29 @@ def main() -> int:
     for name, n in phase_hf_llama_7b(device).items():
         cli_launches[name] += n
     phase_done("main, HF round trips: ViT-B/16, Llama-2-7B width (phase 4)")
+    cwd = os.getcwd()
+    os.chdir(a7c_work.name)          # the CLIs look for CIFAR under ./data
+    try:
+        t0 = time.perf_counter()
+        models = make_srp_work(a7c_work.name)
+        launches, srp_b16_scores = phase_srp(a7c_work.name, models, device)
+        for name, n in launches.items():
+            cli_launches[name] += n
+        log(f"[SRP] phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, n in phase_mask_grid(a7c_work.name, models, (b16_scores, srp_b16_scores),
+                                       device).items():
+            cli_launches[name] += n
+        log(f"[MASK] phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.chdir(cwd)
+        a7c_work.cleanup()
+    t0 = time.perf_counter()
+    for name, n in phase_token_pruning(device).items():
+        cli_launches[name] += n
+    check_resize(device)
+    log(f"[TOKEN] phase (with the resize check): {time.perf_counter() - t0:.1f} s")
+    phase_done("main, SRP checkpoints, mask grids, token pruning (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)

@@ -13,8 +13,13 @@ the head, ``--quantize int8`` evaluates the int8 weight-only model.
 ``--model`` also takes a local HF ViT directory, ``--checkpoint`` an AugReg
 ``.npz`` or an HF state dict, and ``--save-pruned-model --save-format hf``
 writes the pruned model as an HF directory where it has an HF form (else the
-native one, with the JAX CLI's notice). Flags of parts not ported yet raise
-NotImplementedError naming the ROADMAP.md item.
+native one, with the JAX CLI's notice). ``--use-srp-checkpoint`` loads a local
+SRP AugReg checkpoint chosen from ``index.csv`` (``data/srp.py``; nothing is
+downloaded), ``--dataset cifar10|cifar100`` (``--load-cifar``) reads CIFAR
+from its on-disk batch files, ``--export-framework-prefix`` writes the
+Pures-framework score and mask files, and ``--data-parallel`` is a no-op on
+one device, as the JAX CLI on one chip; with more than one CUDA device it
+raises (sharding is ROADMAP.md A.11).
 
 ``run(args, model=None)`` runs on ``model=(params, cfg)`` when the caller built
 one (the CLI's setup otherwise), and also returns, beside the report, under
@@ -35,8 +40,6 @@ from pathlib import Path
 from typing import Any, Dict
 
 import numpy as np
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md A.7)"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -98,20 +101,7 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _reject_unported(args) -> None:
-    unported = {
-        "--use-srp-checkpoint": args.use_srp_checkpoint,
-        "--data-parallel": args.data_parallel,
-        "--export-framework-prefix": args.export_framework_prefix is not None,
-        "--dataset cifar10/cifar100 (--load-cifar)": args.dataset != "synthetic" or args.load_cifar,
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} {_NOT_PORTED}")
-
-
 def run(args, model=None) -> Dict[str, Any]:
-    _reject_unported(args)
     import torch
 
     from ssp_x_vit_tpu_torch.cli.common import resolve_dataset, resolve_model
@@ -129,6 +119,10 @@ def run(args, model=None) -> Dict[str, Any]:
     import dataclasses
 
     device = resolve_device(args.backend)
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            f"--data-parallel over {torch.cuda.device_count()} CUDA devices is not ported yet "
+            "(ROADMAP.md A.11, parallel/); with one device it is a no-op")
     set_seed(args.seed)
     run_id = time.strftime("%Y%m%d-%H%M%S")
     print(f"[INFO] Using backend: {device.type}"
@@ -148,9 +142,23 @@ def run(args, model=None) -> Dict[str, Any]:
         seconds[name] = time.perf_counter() - t0
         launches[name] = {k: launch_counts[k] - before[k] for k in launch_counts}
 
-    num_classes = args.num_classes or 10
+    ds_name = "cifar10" if args.load_cifar and args.dataset == "synthetic" else args.dataset
+    num_classes = args.num_classes or {"cifar10": 10, "cifar100": 100, "synthetic": 10}[ds_name]
     with phase("setup"):
-        if model is None:
+        if args.use_srp_checkpoint:
+            from ssp_x_vit_tpu_torch.data.srp import load_srp_model
+
+            params, cfg = load_srp_model(
+                args.srp_model_type, args.srp_dataset,
+                top10_idx=args.srp_top10_idx, index_csv=args.srp_index_csv,
+                models_dir=args.srp_models_dir, checkpoint_npz=args.srp_checkpoint_npz,
+                num_classes=num_classes, verbose=True, device=device,
+            )
+            # SRP models skip head/adapter changes + finetuning (reference :536-539)
+            args.use_adapter = args.replace_classifier = args.do_finetune = False
+            args.load_adapter = None
+            print("[INFO] Using SRP checkpoint; skipping head/adapter changes.")
+        elif model is None:
             params, cfg = resolve_model(args.model, num_classes=num_classes,
                                         checkpoint=args.checkpoint, seed=args.seed, device=device)
         else:
@@ -176,7 +184,7 @@ def run(args, model=None) -> Dict[str, Any]:
             print(f"[INFO] Replaced classifier for {num_classes} classes")
 
         train, test, calib = resolve_dataset(
-            args.dataset, cfg, train_pct=args.cifar_train_pct, test_pct=args.cifar_test_pct,
+            ds_name, cfg, train_pct=args.cifar_train_pct, test_pct=args.cifar_test_pct,
             calib_per_class=args.calib_per_class, seed=args.seed, device=device)
         test_batches = test.batches(args.eval_batches)
         calib_batches = calib.batches()
@@ -225,6 +233,7 @@ def run(args, model=None) -> Dict[str, Any]:
     if reapply_attn is not None and reapply_mlp_imp is not None:
         att_imp = np.zeros((cfg.num_layers,), np.float32)
         mlp_imp_arr = reapply_mlp_imp
+        mlp_imp = list(mlp_imp_arr)
     else:
         iface = Auto2SSPInterface(
             params, cfg, calib_batches or test_batches,
@@ -377,6 +386,13 @@ def run(args, model=None) -> Dict[str, Any]:
             save_pruned_model(str(qdir), quant_params, work_cfg)
             artifacts["pruned_model_int8_dir"] = str(qdir)
 
+    if args.export_framework_prefix:
+        from ssp_x_vit_tpu_torch.masks.export import build_framework_exports
+
+        build_framework_exports(args.export_framework_prefix, cfg, mlp_imp,
+                                att_imp, ffn_masks, pruned_indices)
+        artifacts["framework_export_prefix"] = args.export_framework_prefix
+
     report = {
         "config": {
             "model": args.model,
@@ -390,7 +406,7 @@ def run(args, model=None) -> Dict[str, Any]:
             "adapter_reduction": args.adapter_reduction if args.use_adapter else None,
             "eval_batches": args.eval_batches,
             "min_remaining": args.min_remaining,
-            "dataset": args.dataset,
+            "dataset": ds_name,
             "backend": device.type,
         },
         "metrics": {

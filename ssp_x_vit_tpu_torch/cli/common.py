@@ -2,7 +2,8 @@
 ``ssp_x_vit_tpu/cli/common.py``). Offline only: named architectures with
 random weights, framework model directories, local HF ViT directories, and
 ``--checkpoint`` files (framework ``.npz``, AugReg ``.npz``, HF state dicts as
-``.safetensors`` / ``.bin`` / ``.pt``); the synthetic dataset."""
+``.safetensors`` / ``.bin`` / ``.pt``); CIFAR-10/100 from their on-disk batch
+files (the synthetic stand-in without them) and the synthetic dataset."""
 
 from __future__ import annotations
 
@@ -97,13 +98,15 @@ def resolve_dataset(
     seed: int = 0,
     device: DeviceLike = None,
 ):
-    """--dataset synthetic -> (train, test, calib) pipelines on ``device``."""
-    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, synthetic_dataset
+    """--dataset cifar10|cifar100|synthetic -> (train, test, calib) pipelines on
+    ``device``."""
+    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, load_cifar, synthetic_dataset
 
     ds = dataset.lower()
     if ds in ("cifar10", "cifar100"):
-        raise NotImplementedError("CIFAR loading (with cubic resize) is not ported yet "
-                                  "(ROADMAP.md A.7); use --dataset synthetic")
+        return load_cifar(ds, train_pct=train_pct, test_pct=test_pct,
+                          calib_per_class=calib_per_class, img_size=cfg.image_size, seed=seed,
+                          device=device)
     if ds != "synthetic":
         raise ValueError(f"unknown dataset {dataset}")
     dev = resolve_device(device)

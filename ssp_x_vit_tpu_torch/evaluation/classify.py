@@ -20,6 +20,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ssp_x_vit_tpu_torch.models.token_pruning import vit_forward_token_pruned
 from ssp_x_vit_tpu_torch.models.vit import (
     ViTConfig, cast_params, params_device, vit_forward, vit_forward_materialized,
 )
@@ -42,11 +43,10 @@ def evaluate_top1(
 ) -> float:
     """Top-1 accuracy over (up to max_batches of) a batch iterator.
 
-    ``token_keep_schedule`` (the JAX package's EViT-style token pruning,
-    ((layer, kept_seq_len), ...)) is not ported: a non-empty one raises."""
-    if token_keep_schedule:
-        raise NotImplementedError("token pruning (token_keep_schedule) is not ported yet "
-                                  "(ROADMAP.md A.7)")
+    ``token_keep_schedule``: optional EViT-style static token-pruning schedule
+    (``models/token_pruning.py``), ((layer, kept_seq_len), ...), for the
+    token-pruned accuracy."""
+    sched = tuple(tuple(p) for p in token_keep_schedule)
     dtype = _eval_dtype(params_device(params))
     params = cast_params(params, dtype)
     correct = None
@@ -55,7 +55,9 @@ def evaluate_top1(
         if max_batches is not None and i >= max_batches:
             break
         px, labels = batch["pixel_values"], batch["labels"]
-        if cfg.pruned_attention_blocks:
+        if sched:
+            logits = vit_forward_token_pruned(params, px, cfg, sched, compute_dtype=dtype)
+        elif cfg.pruned_attention_blocks:
             logits = vit_forward_materialized(params, px, cfg, compute_dtype=dtype)
         else:
             logits, _ = vit_forward(params, px, cfg, compute_dtype=dtype)

@@ -40,7 +40,7 @@ def test_port_and_chip_smoke_never_import_jax():
 
 
 FORBIDDEN = ("jax", "jaxlib", "ssp_x_vit_tpu", "regex", "transformers", "tokenizers",
-             "safetensors", "datasets", "ml_dtypes")
+             "safetensors", "datasets", "ml_dtypes", "torchvision", "PIL", "pyarrow", "pandas")
 
 
 def test_no_import_statement_names_a_package_the_card_machine_lacks():
@@ -48,7 +48,8 @@ def test_no_import_statement_names_a_package_the_card_machine_lacks():
     at any depth (a function's lazy import included), read with ``ast``:
     none names JAX, the JAX package, or a package the card's machine does not
     have (``regex``, ``transformers``, ``tokenizers``, ``safetensors``,
-    ``datasets``, ``ml_dtypes``)."""
+    ``datasets``, ``ml_dtypes``, ``torchvision``, ``PIL``, ``pyarrow``,
+    ``pandas``)."""
     import ast
 
     files = [os.path.join(ROOT, "chip_smoke.py")]
@@ -79,10 +80,11 @@ def test_chip_smoke_fails_without_a_gpu():
     assert '"ok"' not in out.stdout
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
-    from ssp_x_vit_tpu_torch.cli import auto_2ssp
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    from ssp_x_vit_tpu_torch.cli import apply_mask_prune, auto_2ssp, grid
     from ssp_x_vit_tpu_torch.cli.common import resolve_model
-    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline
+    from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, load_cifar
+    from ssp_x_vit_tpu_torch.data.srp import load_srp_dataset, load_srp_model
     from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
     from ssp_x_vit_tpu_torch.models.vit import ViTConfig, init_vit_params
 
@@ -90,15 +92,30 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     tiny = ViTConfig(image_size=16, patch_size=8, hidden_size=16, num_layers=1,
                      num_heads=2, intermediate_size=32)
     imgs = np.zeros((2, 16, 16, 3), np.uint8)
+    (tmp_path / "mask.json").write_text('{"ffn": {"0:0": 1}}')
+    (tmp_path / "a.json").write_text('{"ffn": {"0:0": 0.5}}')
+    (tmp_path / "b.json").write_text('{"ffn": {"0:0": 0.25}}')
+    mask_args = ["--mask", str(tmp_path / "mask.json"), "--model", "tiny",
+                 "--dataset", "synthetic"]
     for call in (lambda: init_vit_params(tiny),
                  lambda: resolve_model("tiny"),
                  lambda: DataPipeline(imgs, np.zeros(2, np.int32), img_size=16),
+                 lambda: load_cifar("cifar10", img_size=16),
+                 lambda: load_srp_dataset("cifar100", res=16),
+                 lambda: load_srp_model("Ti/16", checkpoint_npz=str(tmp_path / "x.npz")),
                  lambda: load_pruned_model(os.path.join(ROOT, "ckpts", "vit_procgen")),
                  lambda: auto_2ssp.run(auto_2ssp.build_argparser().parse_args(
-                     ["--model", "tiny", "--target", "0.25"]))):
+                     ["--model", "tiny", "--target", "0.25"])),
+                 lambda: apply_mask_prune.run(apply_mask_prune.build_argparser().parse_args(
+                     mask_args)),
+                 lambda: grid.run_grid("summation", [tmp_path / "a.json", tmp_path / "b.json"],
+                                       {2}, [20], tmp_path / "grid",
+                                       apply_args=["--model", "tiny"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert init_vit_params(tiny, device="cpu")["blocks"]["fc1_kernel"].device.type == "cpu"
+    assert not (tmp_path / "grid" / "logs").exists() or \
+        not any((tmp_path / "grid" / "logs").iterdir())    # no subprocess was started
 
 
 def test_llm_entry_points_raise_without_a_gpu(monkeypatch):
@@ -171,15 +188,24 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
         ServingEngine({}, object())
 
 
-def test_unported_cli_flags_name_the_roadmap_item():
+def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
+    """What the ViT side still refuses names its item: an Oxford-IIIT-Pet
+    directory on disk (A.7d: JPEGs, no image decoder on the card's machine),
+    and --data-parallel over more than one CUDA device (A.11), faked here by
+    claiming two devices (the check comes before any CUDA work)."""
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
+    from ssp_x_vit_tpu_torch.data.srp import load_srp_dataset
 
-    for flags in (["--data-parallel"], ["--dataset", "cifar10"],
-                  ["--load-cifar"], ["--use-srp-checkpoint"],
-                  ["--export-framework-prefix", "x"]):
-        args = auto_2ssp.build_argparser().parse_args(["--backend", "cpu", *flags])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            auto_2ssp.run(args)
+    (tmp_path / "oxford-iiit-pet" / "images").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.7d"):
+        load_srp_dataset("oxford-iiit-pet", root=str(tmp_path), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    args = auto_2ssp.build_argparser().parse_args(["--model", "tiny", "--target", "0.25",
+                                                   "--data-parallel"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.11"):
+        auto_2ssp.run(args)
 
 
 def test_unported_llm_flags_name_the_roadmap_item(tmp_path):

@@ -227,12 +227,20 @@ def test_attention_block_kernels_raise_under_autograd(monkeypatch, row):
 
 
 def test_evaluate_top1_token_keep_schedule(tiny_batches):
+    """A token-pruned evaluation is the top-1 of the token-pruned forward's
+    logits (the schedule used to raise before token pruning was ported); an
+    empty schedule is the plain evaluation."""
+    from ssp_x_vit_tpu_torch.models.token_pruning import vit_forward_token_pruned
+
     cfg, params, _, _ = _tiny_vit()
     tcfg = dataclasses.replace(tvit.ViTConfig(**dataclasses.asdict(cfg)), image_size=32)
     tparams = tvit.init_vit_params(tcfg, seed=1, device="cpu")
     batches = [{"pixel_values": torch.tensor(np.asarray(b["pixel_values"])),
                 "labels": torch.tensor(np.asarray(b["labels"]))} for b in tiny_batches[:2]]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.7"):
-        evaluate_top1(tparams, tcfg, batches, token_keep_schedule=((1, 8),))
+    sched = ((1, 8),)
+    hits = sum(int((vit_forward_token_pruned(tparams, b["pixel_values"], tcfg, sched)
+                    .argmax(-1) == b["labels"]).sum()) for b in batches)
+    total = sum(len(b["labels"]) for b in batches)
+    assert evaluate_top1(tparams, tcfg, batches, token_keep_schedule=sched) == hits / total
     assert evaluate_top1(tparams, tcfg, batches, token_keep_schedule=()) == \
         evaluate_top1(tparams, tcfg, batches)
