@@ -83,7 +83,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             98), (9, 69)); logits against the plain blocks on the card, launches
             at the shortened lengths, latency with and without the schedule),
             ``vit_procgen`` token-pruned top-1 on the card against the host CPU,
-            and the cubic resize on the card against the host. Kernel launches
+            and the cubic resize on the card against the host; then the LLM
+            comparison methods through ``cli.main_llm.run`` at Llama-2-7B
+            widths (random bf16 weights; depth cut to 4 layers, 8 for
+            EvoPress; 16 calibration windows of 2048 where the CLI defaults to
+            256): SliceGPT rotation only (``slicegpt`` itself: fp32 logits
+            within 5e-3 of max(1, |dense|) of the dense model's) and at 25%
+            (``new_dim`` 3072, the sliced perplexity; seconds of capture,
+            covariance, eigh and rotation), EvoPress with 2 generations (2
+            blocks in each mask; the chosen masks' fitness recomputed over the
+            last selection's minibatch, targets through pinned host memory,
+            within 1e-5; no worse than generation 1's best; target bytes,
+            forwards and seconds per generation), ``--ablation
+            --ablation-quick`` (every row finite) and a 32-example code-cloze
+            task pack built from the port's sources (byte ids). Kernel launches
             per run, each driven path with the counts set to 0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
             top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
@@ -101,7 +114,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             (perplexity against the ``.npz`` directory's and the pinned value,
             the answers as text, the saved directory bit for bit), and
             ``serve_http`` on that directory serves string prompts, a chat and
-            a stop string with the host CPU's greedy text.
+            a stop string with the host CPU's greedy text; then the LLM
+            comparison methods on ``code_llm_small`` at s=256 in fp32, card
+            against host CPU: SliceGPT 25% (sliced perplexity, rtol 1e-4),
+            EvoPress seed 0 with one generation (the same masks, fitnesses
+            within rtol 1e-4), ``run_ablations(quick=True)`` (each perplexity
+            within rtol 1e-4) and a task pack through the committed
+            ``tokenizer.json`` (the same accuracy, every score within 1e-3).
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -4302,6 +4321,305 @@ def check_resize(device) -> None:
         raise AssertionError("the card's cubic resize differs from the host's")
 
 
+LLM_METHOD_CALIB = 16   # calibration windows of s=2048 for SliceGPT and EvoPress (CLI default 256)
+
+
+def _llm_methods_argv(*flags, calibration=LLM_METHOD_CALIB):
+    return ["--model", "llama-2-7b-width", "--synthetic-data", "--seq-len", "2048",
+            "--num-calibration", str(calibration), "--num-calibration-2ssp", "4",
+            "--backend", "cuda", "--logging", "WARNING", *flags]
+
+
+def _run_llm_cli(label, argv, model) -> tuple:
+    """One ``main_llm.run`` with the counts set to 0 just before it; returns
+    (report, launches per kernel, seconds)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    log(f"[METHODS] main_llm {' '.join(argv)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main_llm.run(main_llm.build_argparser().parse_args(argv), model=model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    flash = {ph: n["flash_attention"] for ph, n in out["kernel_launches"].items()
+             if n["flash_attention"]}
+    log(f"[METHODS] {label}: {seconds:.1f} s; seconds by phase "
+        f"{json.dumps({k: round(v, 3) for k, v in out['phase_seconds'].items()})}; "
+        f"flash_attention launches by phase {json.dumps(flash)}")
+    return out, launches, seconds
+
+
+def phase_llm_methods(device) -> dict:
+    """SliceGPT, EvoPress, the ablation suite and an offline task pack through
+    ``cli.main_llm.run`` at Llama-2-7B widths (random bf16 weights made on the
+    card; depth cut to 4 layers for SliceGPT, the ablations and the task
+    pack, 8 for EvoPress; 16 calibration windows of s=2048 where the CLI
+    defaults to 256). SliceGPT rotation-only (sparsity 0, "pca") through
+    ``slicegpt`` itself: fp32 logits of one window within 5e-3 of max(1,
+    |dense|) of the dense model's. Returns the launches of the CLI runs."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm import datasets as D
+    from ssp_x_vit_tpu_torch.llm.evopress import _logits, compute_kl_div
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params, llama_forward
+    from ssp_x_vit_tpu_torch.llm.slicegpt import slicegpt, sliced_llama_forward
+    from ssp_x_vit_tpu_torch.llm.taskpack import build_code_cloze_pack
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    t_phase = time.perf_counter()
+    cfg8 = LlamaConfig(**dict(LLAMA_2_7B, num_layers=8))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    params8 = init_llama_params(gen, cfg8, dtype=torch.bfloat16, device=device)
+    cfg4 = LlamaConfig(**dict(LLAMA_2_7B, num_layers=4))
+    params4 = dict(params8, blocks={k: v[:4] for k, v in params8["blocks"].items()})
+    totals = {name: 0 for name in KERNEL_NAMES}
+
+    def add(launches):
+        for name in KERNEL_NAMES:
+            totals[name] += launches[name]
+
+    # SliceGPT, rotation only, against the dense model (fp32 on both sides)
+    stream = D.synthetic_token_stream(2048 * (LLM_METHOD_CALIB + 8), cfg4.vocab_size, seed=4)
+    calib = D.get_calibration(stream, LLM_METHOD_CALIB, seq_len=2048)
+    t0 = time.perf_counter()
+    parts = main_llm._Phases(device)   # seconds per part, synchronized where each ends
+    sliced, scfg = slicegpt(params4, cfg4, 0.0, calib, final_orientation="pca",
+                            on_phase=parts.start)
+    rot_s = time.perf_counter() - t0
+    seconds = parts.seconds
+    tokens = torch.from_numpy(calib[0].astype(np.int64)).to(device)
+    with torch.no_grad():
+        dense, _ = llama_forward(params4, tokens, cfg4, compute_dtype=torch.float32)
+        got = sliced_llama_forward(sliced, tokens, scfg)
+    err = float((got - dense).abs().max()) / max(1.0, float(dense.abs().max()))
+    log(f"[METHODS] SliceGPT rotation only (4 layers, {LLM_METHOD_CALIB} x 2048 tokens, sparsity 0, "
+        f"pca): {rot_s:.1f} s (seconds by part {json.dumps({k: round(v, 3) for k, v in seconds.items()})}); "
+        f"fp32 logits vs the dense model's: max abs err {err:.3e} of max(1, |dense|) (limit 5e-3)")
+    if not err <= 5e-3 or scfg.new_dim != cfg4.hidden_size:
+        raise AssertionError(f"rotation-only SliceGPT is not lossless: {err} (new_dim {scfg.new_dim})")
+    del sliced, dense, got
+    torch.cuda.empty_cache()
+
+    # SliceGPT at 25% through the CLI
+    out, launches, s_slice = _run_llm_cli("slicegpt", _llm_methods_argv(
+        "--pruning_method", "slicegpt", "--sparsity_rate", "0.25", "--evaluate_perplexity"),
+        (params4, cfg4))
+    add(launches)
+    (entry,) = out["runs"]
+    log(f"[METHODS] slicegpt 25%: new_dim {entry['new_dim']}, sliced ppl {entry['ppl']:.3f}, "
+        f"pruning {entry['pruning_seconds']:.1f} s; flash_attention {launches['flash_attention']}")
+    if entry["new_dim"] != 3072 or not math.isfinite(entry["ppl"]):
+        raise AssertionError(f"slicegpt 25%: new_dim {entry['new_dim']}, ppl {entry['ppl']}")
+    for phase in ("capture", "evaluation"):
+        if out["kernel_launches"][phase]["flash_attention"] <= 0:
+            raise AssertionError(f"flash_attention not launched in slicegpt's {phase} phase")
+
+    # EvoPress through the CLI, 8 layers, bf16
+    out, launches, s_evo = _run_llm_cli("evopress", _llm_methods_argv(
+        "--pruning_method", "evopress", "--sparsity_rate", "0.25", "--evopress-generations", "2",
+        "--evaluate_perplexity"), (params8, cfg8))
+    add(launches)
+    (entry,) = out["runs"]
+    records = entry["evopress"]
+    tsb = 2
+    attn, mlp = entry["attn_mask"], entry["mlp_mask"]
+    if sum(attn) != tsb or sum(mlp) != tsb:
+        raise AssertionError(f"evopress masks {attn} / {mlp} do not hold {tsb} blocks each")
+    for gen_id in sorted({r["generation"] for r in records[1:]}):
+        recs = [r for r in records[1:] if r["generation"] == gen_id]
+        fwd = sum(r["candidates"] * len(r["minibatch_ids"]) for r in recs)
+        log(f"[METHODS] evopress generation {gen_id}: {len(recs)} selection(s), {fwd} one-window "
+            f"forwards, {sum(r['seconds'] for r in recs):.2f} s, best fitness "
+            f"{recs[-1]['fitnesses'][0]:.6e}")
+    log(f"[METHODS] evopress: target logits {records[0]['target_bytes'] / 1e9:.3f} GB fp32 on "
+        f"{records[0]['target_device']}; masks attn {attn} mlp {mlp}; gated ppl {entry['ppl']:.3f}")
+    # the last selection's minibatch is every window (32768 tokens): recompute
+    # the chosen masks' fitness there, targets copied through pinned host memory
+    last = records[-1]
+    data = [calib[i] for i in last["minibatch_ids"]]
+    with torch.no_grad():
+        targets = [torch.empty((1, 2048, cfg8.vocab_size), pin_memory=True).copy_(
+            _logits(params8, torch.from_numpy(np.asarray(c, np.int64)).to(device), None, None,
+                    cfg8, torch.bfloat16)) for c in data]
+    fit = compute_kl_div(params8, cfg8, data, targets, attn, mlp)
+    del targets
+    # both generations end on every window; generation 2's last selection holds
+    # generation 1's best (elitism), so its best is no worse, up to the order
+    # in which the windows were summed. The initial selection saw one window.
+    gen1 = [r for r in records[1:] if r["generation"] == 1][-1]["fitnesses"][0]
+    log(f"[METHODS] evopress: chosen masks' fitness recomputed {fit:.8e} vs recorded "
+        f"{last['fitnesses'][0]:.8e}; generation 1's best {gen1:.8e}; the initial selection's "
+        f"best {records[1]['fitnesses'][0]:.6e} (one window)")
+    if abs(fit - last["fitnesses"][0]) > 1e-5 * abs(last["fitnesses"][0]):
+        raise AssertionError(f"evopress fitness {fit} vs recorded {last['fitnesses'][0]}")
+    if not last["fitnesses"][0] <= gen1 * (1 + 1e-9):
+        raise AssertionError(f"evopress final best {last['fitnesses'][0]} > generation 1's {gen1}")
+    for phase in ("targets", "selection", "evaluation"):
+        if out["kernel_launches"][phase]["flash_attention"] <= 0:
+            raise AssertionError(f"flash_attention not launched in evopress's {phase} phase")
+
+    # the ablation suite (quick), 4 layers
+    out, launches, s_abl = _run_llm_cli("ablation", _llm_methods_argv("--ablation", "--ablation-quick"),
+                                        (params4, cfg4))
+    add(launches)
+    rows = out["ablation"]
+    log(f"[METHODS] ablation --ablation-quick rows: {json.dumps(rows)}")
+    if not all(math.isfinite(r["ppl"]) for key in rows for r in rows[key]) or not all(rows.values()):
+        raise AssertionError(f"ablation rows missing or not finite: {rows}")
+    if out["kernel_launches"]["ablation"]["flash_attention"] <= 0:
+        raise AssertionError("flash_attention not launched in the ablation suite")
+
+    # an offline task pack built from the port's own sources, byte ids
+    here = os.path.dirname(os.path.abspath(__file__))
+    sources = sorted(os.path.join(base, n) for base, _, names in
+                     os.walk(os.path.join(here, "ssp_x_vit_tpu_torch")) for n in names
+                     if n.endswith(".py"))
+    with tempfile.TemporaryDirectory() as pack:
+        build_code_cloze_pack(sources, pack, n_examples=32, seed=0)
+        out, launches, s_pack = _run_llm_cli("task pack", _llm_methods_argv(
+            "--dense", "--evaluate_downstream", "--task-pack", pack), (params4, cfg4))
+    add(launches)
+    res = out["dense"]["downstream"]["results"]["code_cloze"]
+    log(f"[METHODS] task pack: {res['count']} code-cloze examples, acc {res['acc']:.4f} "
+        f"(4 choices; chance 0.25), flash_attention {launches['flash_attention']}")
+    if res["count"] != 32 or not np.isfinite(np.asarray(res["scores"])).all():
+        raise AssertionError(f"task pack results {res}")
+    if out["kernel_launches"]["evaluation"]["flash_attention"] < 32 * 4 * cfg4.num_layers:
+        raise AssertionError("the task pack's scoring did not launch flash_attention per layer")
+    log(f"[METHODS] phase: {time.perf_counter() - t_phase:.1f} s (slicegpt {rot_s:.1f} + "
+        f"{s_slice:.1f}, evopress {s_evo:.1f}, ablation {s_abl:.1f}, task pack {s_pack:.1f})")
+    del params8, params4
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_anchor_llm_methods(device) -> None:
+    """``ckpts/code_llm_small`` at s=256, each method on the card against the
+    same call on the host CPU, both in fp32: SliceGPT 25% (sliced perplexity,
+    rtol 1e-4), EvoPress seed 0 with one generation (the same masks and
+    fitnesses within rtol 1e-4; where a selection's top two lie within that,
+    only the chosen fitness), ``run_ablations(quick=True)`` (each perplexity
+    within rtol 1e-4) and a code-cloze task pack through the committed
+    ``tokenizer.json`` (the same number correct, every choice's score within
+    1e-3). EvoPress takes 2 of the 8 calibration windows, so its budgets are
+    capped (the warning is expected and silenced); the ablations score 4
+    windows with 2 calibration windows, to keep the host's side short."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.ablations import run_ablations
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.downstream import evaluation_downstream
+    from ssp_x_vit_tpu_torch.llm.evopress import evopress
+    from ssp_x_vit_tpu_torch.llm.slicegpt import evaluate_perplexity_sliced, slicegpt
+    from ssp_x_vit_tpu_torch.llm.taskpack import build_code_cloze_pack
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "ckpts", "code_llm_small")
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    s = 256
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:8 * s],
+                     np.int32)
+    train = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "train.bin"), np.uint16,
+                                 "r")[:16 * s], np.int32)
+    calib = [train[i * s:(i + 1) * s].reshape(1, s) for i in range(8)]
+    f32 = torch.float32
+    both = ((params, "card"), (host, "host"))
+
+    def close(a, b, rtol):
+        return abs(a - b) <= rtol * abs(b)
+
+    # SliceGPT 25%
+    ppl = {}
+    for p, where in both:
+        t0 = time.perf_counter()
+        sp, sc = slicegpt(p, cfg, 0.25, calib)
+        ppl[where] = evaluate_perplexity_sliced(sp, sc, val, seq_len=s)
+        log(f"[ANCHOR] code_llm_small SliceGPT 25% on the {where}: new_dim {sc.new_dim}, sliced ppl "
+            f"{ppl[where]:.6f} ({time.perf_counter() - t0:.2f} s)")
+    if not close(ppl["card"], ppl["host"], 1e-4):
+        raise AssertionError(f"SliceGPT ppl card {ppl['card']} vs host {ppl['host']}")
+
+    # EvoPress, seed 0, one generation, fp32
+    runs = {}
+    for p, where in both:
+        hist = []
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # 8 windows: the budgets are capped, as expected
+            masks = evopress(p, cfg, 2, calib[:2], seed=0, num_generations=1, verbose=False,
+                             compute_dtype=f32, history=hist)
+        runs[where] = (masks, hist)
+        log(f"[ANCHOR] code_llm_small EvoPress (2 of 8 blocks, 1 generation, fp32) on the {where}: "
+            f"attn {masks[0]} mlp {masks[1]}, best fitnesses "
+            f"{[r['fitnesses'][0] for r in hist[1:]]} ({time.perf_counter() - t0:.2f} s)")
+    (cm, ch), (hm, hh) = runs["card"], runs["host"]
+    ties = [i for i, r in enumerate(hh[1:]) if len(r["fitnesses"]) > 1
+            and close(r["fitnesses"][1], r["fitnesses"][0], 1e-4)]
+    if cm == hm:
+        for a, b in zip(ch[1:], hh[1:]):
+            if not np.allclose(a["fitnesses"], b["fitnesses"], rtol=1e-4, atol=0):
+                raise AssertionError(f"EvoPress fitnesses card {a['fitnesses']} vs host {b['fitnesses']}")
+    elif ties:
+        log(f"[ANCHOR] EvoPress: the host's selections {ties} hold top-two fitnesses within 1e-4; "
+            f"masks differ, comparing the chosen fitness only")
+        if not close(ch[-1]["fitnesses"][0], hh[-1]["fitnesses"][0], 1e-4):
+            raise AssertionError("EvoPress chosen fitness card vs host")
+    else:
+        raise AssertionError(f"EvoPress masks card {cm} vs host {hm}")
+
+    # the ablation suite, quick
+    rows = {}
+    for p, where in both:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # the suite's printed lines
+            rows[where] = run_ablations(p, cfg, train.reshape(1, -1), val[:4 * s], calib[:2],
+                                        seq_len=s, quick=True, compute_dtype=f32)
+        log(f"[ANCHOR] code_llm_small run_ablations(quick) on the {where}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    for key in rows["card"]:
+        a = [r["ppl"] for r in rows["card"][key]]
+        b = [r["ppl"] for r in rows["host"][key]]
+        log(f"[ANCHOR] ablation {key}: card {np.round(a, 4).tolist()} host {np.round(b, 4).tolist()}")
+        if len(a) != len(b) or not np.allclose(a, b, rtol=1e-4, atol=0):
+            raise AssertionError(f"ablation {key} perplexities card {a} vs host {b}")
+
+    # a code-cloze task pack through the committed tokenizer.json
+    sources = sorted(os.path.join(here, "ssp_x_vit_tpu_torch", "llm", n)
+                     for n in os.listdir(os.path.join(here, "ssp_x_vit_tpu_torch", "llm"))
+                     if n.endswith(".py"))
+    res = {}
+    with tempfile.TemporaryDirectory() as pack:
+        build_code_cloze_pack(sources, pack, n_examples=24, seed=0)
+        for p, where in both:
+            res[where] = evaluation_downstream(p, cfg, ckpt, task_pack=pack,
+                                               compute_dtype=f32)["results"]["code_cloze"]
+    a, b = np.asarray(res["card"]["scores"]), np.asarray(res["host"]["scores"])
+    log(f"[ANCHOR] code_llm_small task pack (24 examples, tokenizer.json): acc card "
+        f"{res['card']['acc']:.4f} host {res['host']['acc']:.4f}; max score difference "
+        f"{float(np.abs(a - b).max()):.3e}")
+    if res["card"]["acc"] != res["host"]["acc"] or not np.allclose(a, b, rtol=0, atol=1e-3):
+        raise AssertionError("task pack on the card vs the host")
+    log(f"[ANCHOR] LLM methods phase: {time.perf_counter() - t_phase:.1f} s")
+    del params, host
+    torch.cuda.empty_cache()
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -4486,6 +4804,9 @@ def main() -> int:
     check_resize(device)
     log(f"[TOKEN] phase (with the resize check): {time.perf_counter() - t0:.1f} s")
     phase_done("main, SRP checkpoints, mask grids, token pruning (phase 4)")
+    for name, n in phase_llm_methods(device).items():
+        cli_launches[name] += n
+    phase_done("main, SliceGPT, EvoPress, ablations, task pack at Llama-2-7B width (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)
@@ -4502,6 +4823,8 @@ def main() -> int:
         for name, n in phase_anchor_text_serving(device, hf_dir).items():
             cli_launches[name] += n
     phase_done("anchors: tokenizer, HF directory, text serving (phase 5)")
+    phase_anchor_llm_methods(device)
+    phase_done("anchors: SliceGPT, EvoPress, ablations, task pack (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
                if (direct[name][1] if name in direct else cli_launches[name]) <= 0]

@@ -105,7 +105,8 @@ def run(args, model=None) -> Dict[str, Any]:
     import torch
 
     from ssp_x_vit_tpu_torch.cli.common import resolve_dataset, resolve_model
-    from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
+    from ssp_x_vit_tpu_torch.device import resolve_device
+    from ssp_x_vit_tpu_torch.utils.seeding import set_seed
     from ssp_x_vit_tpu_torch.evaluation import evaluate_top1, measure_latency, save_report
     from ssp_x_vit_tpu_torch.models.adapter import load_cifar_adapter, save_cifar_adapter
     from ssp_x_vit_tpu_torch.models.vit import init_head_params, params_device

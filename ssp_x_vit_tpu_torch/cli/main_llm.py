@@ -1,14 +1,17 @@
 """LLM pruning CLI on PyTorch (counterpart of the repository's ``main_llm.py``;
-reference main.py:18-253): the same flags and flow: method dispatch, sparsity
-sweeps -1/-2, pruning-time measurement, perplexity, inference-time and
-qualitative evaluation, weight-only quantized evaluation, native and HF model
-saving.
+reference main.py:18-253): the same flags and flow: method dispatch (2SSP,
+the depth baselines, EvoPress, SliceGPT), sparsity sweeps -1/-2,
+pruning-time measurement, perplexity, inference-time, downstream and
+qualitative evaluation, the ablation suite, weight-only quantized evaluation,
+native and HF model saving.
 
 Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
   python -m ssp_x_vit_tpu_torch.cli.main_llm --model tiny-random \\
       --pruning_method 2ssp --sparsity_rate 0.375 --evaluate_perplexity --synthetic-data
   python -m ssp_x_vit_tpu_torch.cli.main_llm --model ckpts/code_llm_small --dense \\
       --quantize int4 --evaluate_perplexity --seq-len 1024
+  python -m ssp_x_vit_tpu_torch.cli.main_llm --model tiny-random --synthetic-data \\
+      --ablation --ablation-quick --seq-len 128
 
 ``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}``, a
 native directory (``model.npz`` + ``config.json``) or a local HF directory
@@ -16,15 +19,20 @@ native directory (``model.npz`` + ``config.json``) or a local HF directory
 ``--evaluate_qualitative`` generates text for two prompts with the
 directory's byte-level ``tokenizer.json`` (without one it warns and skips, as
 the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
-directory. Every run uses the deterministic synthetic token streams: the
-corpora are not in the repository. Flags of parts not ported yet raise
-NotImplementedError naming the ROADMAP.md item.
+directory; a sliced (SliceGPT) model is evaluated for perplexity only, and
+not saved. ``--evaluate_downstream`` scores the offline task pack of
+``--task-pack`` (or $SSP_X_VIT_TASK_PACK; the lm-eval harness leg is not
+ported, ROADMAP.md A.10e). Every run uses the deterministic synthetic token
+streams: the corpora are not in the repository. ``--local_datasets`` and the
+DeepSeek models raise NotImplementedError naming their ROADMAP.md item.
 
 ``run(args, model=None)`` returns a dict: perplexities, the qualitative
-(prompt, answer) pairs, pruned blocks, kept width, achieved sparsity, and the
-wall seconds and kernel launches of each
-phase (setup, stats, stage1, candidates, materialize, search, evaluation).
-``model=(params, cfg)`` runs on a model the caller built.
+(prompt, answer) pairs, the downstream results, pruned blocks, kept width,
+achieved sparsity, SliceGPT's ``new_dim``, EvoPress's masks and selection
+records, the ablation rows, and the wall seconds and kernel launches of each
+phase (setup, stats, stage1, candidates, materialize, search; SliceGPT's
+capture, covariance, eigh, rotation; EvoPress's targets, selection;
+ablation; evaluation). ``model=(params, cfg)`` runs on a model the caller built.
 """
 
 from __future__ import annotations
@@ -108,13 +116,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _reject_unported(args) -> None:
     unported = {
-        "--pruning_method evopress (llm/evopress.py, ROADMAP.md A.10)":
-            args.pruning_method == "evopress",
-        "--pruning_method slicegpt (llm/slicegpt.py, ROADMAP.md A.10)":
-            args.pruning_method == "slicegpt",
-        "--ablation (llm/ablations.py, ROADMAP.md A.10)": args.ablation or args.ablation_quick,
-        "--evaluate_downstream (llm/zeroshot.py, llm/taskpack.py, ROADMAP.md A.10)":
-            args.evaluate_downstream or args.task_pack is not None,
         "--local_datasets (the corpus readers, ROADMAP.md A.10a)": args.local_datasets,
         "--model tiny-random-deepseek* (llm/deepseek.py, ROADMAP.md A.11)":
             args.model.startswith("tiny-random-deepseek"),
@@ -195,7 +196,8 @@ class _Phases:
 
 def run(args, model=None) -> Dict[str, Any]:
     _reject_unported(args)
-    from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
+    from ssp_x_vit_tpu_torch.device import resolve_device
+    from ssp_x_vit_tpu_torch.utils.seeding import set_seed
     from ssp_x_vit_tpu_torch.llm import datasets as D
     from ssp_x_vit_tpu_torch.llm import pruning as P
     from ssp_x_vit_tpu_torch.llm.checkpoints import export_hf_llama, save_llm_model
@@ -203,6 +205,7 @@ def run(args, model=None) -> Dict[str, Any]:
         evaluate_inference_time, evaluate_perplexity, evaluation_ppl,
     )
     from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4, quantize_llm_params_int8
+    from ssp_x_vit_tpu_torch.llm.slicegpt import SlicedLlamaConfig, evaluate_perplexity_sliced
     from ssp_x_vit_tpu_torch.ops import dispatch
 
     device = resolve_device(args.backend)
@@ -227,6 +230,12 @@ def run(args, model=None) -> Dict[str, Any]:
     def run_evals(p, c, attn_gate=None, mlp_gate=None) -> Dict[str, Any]:
         phases.start("evaluation")
         out: Dict[str, Any] = {}
+        if isinstance(c, SlicedLlamaConfig):   # perplexity only, never quantized
+            if args.evaluate_perplexity or args.main_table_results:
+                out["ppl"] = evaluate_perplexity_sliced(p, c, wikitext_ids, seq_len=args.seq_len)
+                logging.info(f"Perplexity (wikitext2): {out['ppl']}")
+            phases.stop()
+            return out
         if args.quantize != 'none':
             q = quantize_llm_params_int8 if args.quantize == 'int8' else quantize_llm_params_int4
             p = q(p, c)
@@ -242,6 +251,10 @@ def run(args, model=None) -> Dict[str, Any]:
         if args.evaluate_inference:
             out["inference_ms"] = evaluate_inference_time(p, c, first_sample)
             logging.info(f"Average Inference Time: {out['inference_ms']:.3f} ms")
+        if args.evaluate_downstream:
+            from ssp_x_vit_tpu_torch.llm.downstream import evaluation_downstream
+
+            out["downstream"] = evaluation_downstream(p, c, args.model, task_pack=args.task_pack)
         if args.main_table_results:
             out["main_table"] = evaluation_ppl(p, c, wikitext_ids, c4_val_ids, fineweb_ids,
                                                seq_len=args.seq_len, attn_gate=attn_gate,
@@ -259,7 +272,13 @@ def run(args, model=None) -> Dict[str, Any]:
 
     def save_artifact(p, c, suffix=None):
         """Persist a materialized model per --save-format; a form the format
-        cannot hold (attention-removed blocks in HF) warns and skips."""
+        cannot hold (sliced shortcut matrices; attention-removed blocks in HF)
+        warns and skips."""
+        if isinstance(c, SlicedLlamaConfig):
+            logging.warning("--save-model skipped: sliced models carry "
+                            "shortcut matrices with no HF/native encoding "
+                            "(re-slice from the saved rotation instead)")
+            return None
         out = args.save_model if not suffix else os.path.join(args.save_model, suffix)
         try:
             path = (export_hf_llama if args.save_format == 'hf' else save_llm_model)(out, p, c)
@@ -293,6 +312,15 @@ def run(args, model=None) -> Dict[str, Any]:
             if args.save_model:
                 save_artifact(params, cfg)
 
+        if args.ablation:
+            from ssp_x_vit_tpu_torch.llm.ablations import run_ablations
+
+            phases.start("ablation")
+            result["ablation"] = run_ablations(params, cfg, c4_train_ids, wikitext_ids,
+                                               calibration_2ssp, seq_len=args.seq_len,
+                                               quick=args.ablation_quick)
+            phases.stop()
+
         L = cfg.num_layers
         sr = args.sparsity_rate
         if args.pruning_method is None:
@@ -312,7 +340,7 @@ def run(args, model=None) -> Dict[str, Any]:
             attn_mask = mlp_mask = None
             entry: Dict[str, Any] = {"method": args.pruning_method}
 
-            if args.pruning_method in ("window_based", "shortgpt", "blockpruner"):
+            if args.pruning_method in ("window_based", "shortgpt", "blockpruner", "evopress"):
                 tsb = target_sparsity * L
                 if not float(tsb).is_integer():
                     logging.warning(f"Invalid sparsity rate for {args.pruning_method}: must be a "
@@ -334,6 +362,23 @@ def run(args, model=None) -> Dict[str, Any]:
             elif args.pruning_method == "blockpruner":
                 attn_mask, mlp_mask = P.blockpruner(params, cfg, tsb, first_sample,
                                                     seq_len=args.seq_len)
+            elif args.pruning_method == "evopress":
+                from ssp_x_vit_tpu_torch.llm.evopress import DEFAULT_ARGS, evopress
+
+                # reference protocol: the calibration pool holds calibration_tokens
+                # (131072) so the 2048/32768-token selection minibatches draw uncapped
+                # (src/evopress.py:152-160); fewer windows fire selection()'s cap warning
+                n_cal = max(1, DEFAULT_ARGS["calibration_tokens"] // args.seq_len)
+                entry["evopress"] = []
+                attn_mask, mlp_mask = evopress(
+                    params, cfg, tsb, calibration[:n_cal], num_generations=args.evopress_generations,
+                    seed=args.seed, on_phase=phases.start, history=entry["evopress"])
+            elif args.pruning_method == "slicegpt":
+                from ssp_x_vit_tpu_torch.llm.slicegpt import slicegpt
+
+                work_params, work_cfg = slicegpt(params, cfg, target_sparsity, calibration,
+                                                 on_phase=phases.start)
+                entry["new_dim"] = work_cfg.new_dim
             else:  # 2ssp: its own phases (stats, stage1, candidates, materialize)
                 out = P.two_stage_2ssp(params, cfg, calibration_2ssp, target_sparsity,
                                        seq_len=args.seq_len, on_phase=phases.start)

@@ -142,7 +142,8 @@ def run(args) -> Dict[str, Any]:
     _reject_unported(args)
     import torch
 
-    from ssp_x_vit_tpu_torch.device import resolve_device, set_seed
+    from ssp_x_vit_tpu_torch.device import resolve_device
+    from ssp_x_vit_tpu_torch.utils.seeding import set_seed
     from ssp_x_vit_tpu_torch.llm.checkpoints import (
         config_from_dict, export_hf_llama, save_llm_model,
     )

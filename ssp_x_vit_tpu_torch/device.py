@@ -1,4 +1,4 @@
-"""Device resolution and seeding (replaces ``ssp_x_vit_tpu/utils/seeding.py``).
+"""Device resolution (seeding is ``utils/seeding.py``).
 
 Entry points call :func:`resolve_device`: ``cuda`` unless told otherwise, and
 an error, never a silent fall back to the CPU, when no GPU is present.
@@ -6,11 +6,8 @@ an error, never a silent fall back to the CPU, when no GPU is present.
 
 from __future__ import annotations
 
-import logging
-import random
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -28,14 +25,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
-
-
-def set_seed(seed: int, device: Optional[torch.device] = None) -> torch.Generator:
-    """Seed python, numpy and torch; return a fresh generator seeded with ``seed``."""
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-    logging.info(f"Seed for reproducibility: {seed}")
-    gen = torch.Generator(device=device if device is not None else "cpu")
-    gen.manual_seed(seed)
-    return gen

@@ -60,6 +60,20 @@ def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
     return convert(tree)
 
 
+def sliced_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
+                           dtype=torch.float32) -> Params:
+    """The JAX package's SliceGPT tree (``embed``, OPT's ``pos_embed``, the
+    list ``layers`` of per-layer dicts with their shortcut matrices,
+    ``lm_head`` and phi-2 / OPT's ``lm_head_bias``) -> the same tree of
+    tensors on ``device`` in ``dtype``, as ``llm.slicegpt.slicegpt`` returns it."""
+    dev = resolve_device(device)
+    out: Params = {k: to_tensor(np.asarray(v), dev, dtype) for k, v in tree.items()
+                   if k != "layers"}
+    out["layers"] = [{k: to_tensor(np.asarray(v), dev, dtype) for k, v in lp.items()}
+                     for lp in tree["layers"]]
+    return out
+
+
 def pools_from_jax(pool, *, device: DeviceLike = None):
     """A paged KV pool of the JAX package (an array, or the int8 pool
     ``{"q": int8 codes, "s": fp32 scales}``) -> the port's pool on ``device``,

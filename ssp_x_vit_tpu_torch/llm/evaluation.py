@@ -51,6 +51,7 @@ def evaluate_perplexity_candidates(
     *,
     seq_len: int = 2048,
     chunk: int = 8,
+    compute_dtype=torch.bfloat16,
 ) -> np.ndarray:
     """Perplexity of C gate candidates over the calibration stream -> [C].
 
@@ -75,7 +76,8 @@ def evaluate_perplexity_candidates(
             # [c, L] -> [L, c, 1, 1]: row c of the batch runs under candidate c's gates
             logits, _ = llama_forward(params, tokens, cfg,
                                       attn_gate=ga[c0:c1].t()[:, :, None, None],
-                                      mlp_gate=gm[c0:c1].t()[:, :, None, None])
+                                      mlp_gate=gm[c0:c1].t()[:, :, None, None],
+                                      compute_dtype=compute_dtype)
             totals[c0:c1] += _nll_sums(logits, tokens).double()
     tokens_per_window = seq_len - 1
     return np.exp(totals.cpu().numpy() / max(1, num_samples * tokens_per_window))
@@ -93,10 +95,12 @@ def evaluate_perplexity(
     mlp_gate=None,
     neuron_mask=None,
     enable_tqdm: bool = True,
+    compute_dtype=torch.bfloat16,
 ) -> float:
     """Perplexity over ``input_ids`` ([1, N] or [N]) in ``seq_len`` windows:
     exp of the global token-mean NLL (the reference's running weighted mean
-    of per-window means is the same value)."""
+    of per-window means is the same value). ``compute_dtype`` is the
+    forward's (the JAX function always runs bf16)."""
     require_llama_config(cfg)
     device = _param_device(params)
     ids = np.asarray(input_ids).reshape(-1)
@@ -114,10 +118,10 @@ def evaluate_perplexity(
         window = ids[i * seq_len:j * seq_len].reshape(j - i, seq_len)
         tokens = torch.from_numpy(window.astype(np.int64)).to(device)
         if materialized:
-            logits = llama_forward_materialized(params, tokens, cfg)
+            logits = llama_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)
         else:
             logits, _ = llama_forward(params, tokens, cfg, attn_gate=ga, mlp_gate=gm,
-                                      neuron_mask=nm)
+                                      neuron_mask=nm, compute_dtype=compute_dtype)
         total_nll += float(_nll_sums(logits, tokens).sum())  # one host sync per window
         total_tokens += (j - i) * (seq_len - 1)
     return float(np.exp(total_nll / max(1, total_tokens)))

@@ -10,7 +10,8 @@ All search phases run on the same forward via gate and mask arguments:
   minimizes 1-sample perplexity by flipping gate values.
 - ``window_based`` (sliding-window cosine similarity), ``shortgpt`` (block
   influence 1 - cos(in, out)), ``blockpruner`` (greedy attention-or-MLP
-  submodule removal). EvoPress and SliceGPT are not ported (ROADMAP.md A.10).
+  submodule removal). EvoPress, SliceGPT and the ablation variants of 2SSP
+  are ``llm/evopress.py``, ``llm/slicegpt.py`` and ``llm/ablations.py``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def count_main_params(cfg: LlamaConfig) -> Tuple[int, int, int]:
 
 @torch.no_grad()
 def mlp_hidden_importance(params: Params, cfg: LlamaConfig,
-                          calibration: Sequence[np.ndarray]) -> np.ndarray:
+                          calibration: Sequence[np.ndarray], *,
+                          compute_dtype=torch.bfloat16) -> np.ndarray:
     """Mean over samples of the token-L2 of down_proj inputs: [L, f]
     (reference src/pruning.py:270-279). The sum over samples stays on the
     device and comes to the host once."""
@@ -67,7 +69,8 @@ def mlp_hidden_importance(params: Params, cfg: LlamaConfig,
     device = params["embed"].device
     sums = None
     for sample in calibration:
-        _, aux = llama_forward(params, _tokens(sample, device), cfg, collect_mlp_stats=True)
+        _, aux = llama_forward(params, _tokens(sample, device), cfg, collect_mlp_stats=True,
+                               compute_dtype=compute_dtype)
         norms = torch.sqrt(aux["mlp_stats"][:, 0, :])  # [L, f]
         sums = norms if sums is None else sums + norms
     return sums.cpu().numpy() / max(1, len(calibration))
@@ -127,6 +130,7 @@ def second_stage_attention(
     calibration_input_ids: np.ndarray,
     *,
     seq_len: int = 2048,
+    compute_dtype=torch.bfloat16,
 ) -> Tuple[List[int], List[int]]:
     """Greedy attention-submodule removal minimizing perplexity
     (reference src/utilities.py:446-505). Returns (attnMask, mlpMask)."""
@@ -135,7 +139,7 @@ def second_stage_attention(
     mlp_mask = [0] * L
 
     ppl = evaluate_perplexity(params, cfg, calibration_input_ids, seq_len=seq_len,
-                              enable_tqdm=False)
+                              enable_tqdm=False, compute_dtype=compute_dtype)
     logging.debug(f"Original perplexity: {ppl}")
 
     for _ in range(num_prune):
@@ -146,7 +150,8 @@ def second_stage_attention(
             gates[row] = 1.0 - np.asarray(attn_mask, np.float32)
             gates[row, c] = 0.0
         ppls = evaluate_perplexity_candidates(
-            params, cfg, calibration_input_ids, gates, seq_len=seq_len)
+            params, cfg, calibration_input_ids, gates, seq_len=seq_len,
+            compute_dtype=compute_dtype)
         for c, p in zip(cands, ppls):
             logging.debug(f"[Attention] When pruning {c} perplexity is {p}")
         best_idx = int(np.argmin(ppls))  # first minimum, like the reference '<'
@@ -168,12 +173,14 @@ def two_stage_2ssp(
     num_calibration_second_stage: int = 1,
     seq_len: int = 2048,
     on_phase: Optional[Callable[[str], None]] = None,
+    compute_dtype=torch.bfloat16,
 ):
     """Full 2SSP (reference src/pruning.py:228-294). Returns
     (params, cfg, info) with the width materialized and the attention
     depth-pruned, or False when the rate cannot be reached. ``on_phase`` is
     called with the name of each phase as it starts (stats, stage1,
-    candidates, materialize), for callers that time or count per phase."""
+    candidates, materialize), for callers that time or count per phase.
+    ``compute_dtype`` is the forwards' (the JAX function always runs bf16)."""
     on_phase = on_phase or (lambda name: None)
     L = cfg.num_layers
     main_total, attn_total, mlp_total = count_main_params(cfg)
@@ -203,7 +210,8 @@ def two_stage_2ssp(
     num_preserve = int(round(cfg.intermediate_size * (1 - mlp_pruning_rate)))
 
     on_phase("stats")
-    importance = mlp_hidden_importance(params, cfg, calibration)  # [L, f]
+    importance = mlp_hidden_importance(params, cfg, calibration,
+                                       compute_dtype=compute_dtype)  # [L, f]
     on_phase("stage1")
     keep_indices = []
     for li in range(L):
@@ -216,7 +224,8 @@ def two_stage_2ssp(
     calib_cat = np.concatenate(
         [np.asarray(c).reshape(-1) for c in calibration[:num_calibration_second_stage]])
     attn_mask, mlp_mask = second_stage_attention(
-        params, cfg, num_attn_submodules_to_prune, calib_cat, seq_len=seq_len)
+        params, cfg, num_attn_submodules_to_prune, calib_cat, seq_len=seq_len,
+        compute_dtype=compute_dtype)
 
     on_phase("materialize")
     pruned_blocks = [i for i, m in enumerate(attn_mask) if m == 1]

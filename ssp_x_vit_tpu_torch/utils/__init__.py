@@ -1,1 +1,1 @@
-"""Training-state checkpointing (counterpart of ``ssp_x_vit_tpu/utils``)."""
+"""Training-state checkpointing and seeding (counterpart of ``ssp_x_vit_tpu/utils``)."""

@@ -32,6 +32,16 @@ BASE = ["--backend", "cpu", "--synthetic-data", "--seq-len", "128", "--num-calib
         "--num-calibration-2ssp", "3", "--logging", "WARNING"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def parse(*flags, model="tiny-random"):
     return tcli.build_argparser().parse_args(["--model", model, *BASE, *flags])
 

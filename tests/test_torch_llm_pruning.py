@@ -39,6 +39,16 @@ MARGIN = 5 * TOL
 SEQ = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trained():
     """(numpy tree in fp32, config kwargs, val tokens) of the committed checkpoint."""
