@@ -49,7 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             ([PART] lines) beside ``torch.mm`` and SDPA. The op-level
             ``ops.ffn.ffn_forward`` and the standalone paged write and
             attention are driven on the card against the same call on CPU
-            copies and against the write-and-attend launch.
+            copies and against the write-and-attend launch. The MLA decode
+            kernel (``paged_mla_attention`` / ``_q8``) after the latent-row
+            write (pools bit for bit the plain write's) at DeepSeek-V3 decode
+            (b=8, 128 heads, D=576, 2048 keys), 16 heads over ~520 ragged keys
+            in pages of 16 and 256, and D=40, fp32 / bf16 / int8 pools, timed
+            beside page gather + SDPA and the bound.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, finetuned first
             (``--do-finetune``: one epoch, 32 steps at b=32, bf16, every step
@@ -96,8 +101,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             within 1e-5; no worse than generation 1's best; target bytes,
             forwards and seconds per generation), ``--ablation
             --ablation-quick`` (every row finite) and a 32-example code-cloze
-            task pack built from the port's sources (byte ids). Kernel launches
-            per run, each driven path with the counts set to 0 just before it.
+            task pack built from the port's sources (byte ids); then the
+            DeepSeek-V3 family at its published widths cut to 4 layers (3 dense
+            + 1 MoE; random bf16 weights): through ``main_llm.run`` dense
+            perplexity, shortGPT 25%, ``--quantize int4`` (row 10 must launch)
+            and 25% 2SSP on the all-dense variant, ``deepseek_generate`` at
+            b=8, and ``ServingEngine`` over ``MLAPagedServer`` (8 slots, bf16
+            pools, int8 pools with chunked prefill: the MLA kernel and the row
+            write once per layer and decode step, each served token within
+            5e-2 of the prompt run alone), a decode-step measurement and
+            profiler splits. Kernel launches per run, each driven path with
+            the counts set to 0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
             top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
             top-1; 4 LoRA and 4 KD steps with falling losses), the ViT-B/16
@@ -120,7 +134,12 @@ Phases, in order; any failure raises and the script exits non-zero:
             EvoPress seed 0 with one generation (the same masks, fitnesses
             within rtol 1e-4), ``run_ablations(quick=True)`` (each perplexity
             within rtol 1e-4) and a task pack through the committed
-            ``tokenizer.json`` (the same accuracy, every score within 1e-3).
+            ``tokenizer.json`` (the same accuracy, every score within 1e-3);
+            then the tiny DeepSeek models, card against host CPU in fp32
+            through ``main_llm.run`` (dense, shortGPT, window_based,
+            blockpruner, 2SSP on the all-dense variant: perplexities within
+            rtol 1e-4, the same choices), EvoPress with a small search (the
+            same masks), and paged MLA greedy tokens == ``deepseek_generate``.
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -508,11 +527,11 @@ def check_vit_block_gradients(device) -> dict:
             log(f"[TIME] fused_ffn under autograd b=32 s={s} d={d} f={f} bf16 (the finetune "
                 f"call), CUDA events (host dispatch included) / profiler device time per call: "
                 f"forward {timing['autograd_fwd_ms']:.4f} / "
-                f"{timing['autograd_fwd_device_ms']:.4f} ms, forward + backward "
-                f"{timing['autograd_fwd_bwd_ms']:.4f} / {timing['autograd_fwd_bwd_device_ms']:.4f} "
-                f"ms (the backward recomputes the plain FFN); the plain version's autodiff "
+                f"{_ms(timing['autograd_fwd_device_ms'])}, forward + backward "
+                f"{timing['autograd_fwd_bwd_ms']:.4f} / {_ms(timing['autograd_fwd_bwd_device_ms'])} "
+                f"(the backward recomputes the plain FFN); the plain version's autodiff "
                 f"{timing['autograd_plain_fwd_bwd_ms']:.4f} / "
-                f"{timing['autograd_plain_fwd_bwd_device_ms']:.4f} ms")
+                f"{_ms(timing['autograd_plain_fwd_bwd_device_ms'])}")
     x = torch.randn(2, s, d, generator=gen).to(device, torch.bfloat16).requires_grad_()
     attn = [t.to(device, torch.bfloat16) for t in (
         torch.ones(d), torch.zeros(d), torch.randn(d, 3 * d, generator=gen) * 0.03,
@@ -1164,20 +1183,54 @@ def host_us(fn, iters: int = 200) -> float:
     return seconds * 1e6 / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+_PROFILER_WARM = []
+
+
+def device_ms(fn, iters: int = 20):
     """Device milliseconds per call from a ``torch.profiler`` trace of
-    ``iters`` calls (the kernels' own time; 0 if the trace holds none)."""
+    ``iters`` calls (the kernels' own time), or None: not measured. The first
+    trace of a process is taken once untimed (it can miss kernels while CUPTI
+    starts its activity buffers). A trace that holds no device time is taken
+    again, up to twice; if all come back empty a line says so, with what the
+    traces held, and the result is None: CUDA-event time, which includes the
+    launches, is the records' ``ms`` and never their device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    if not _PROFILER_WARM:
+        with profile(activities=[ProfilerActivity.CUDA]):
             fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+            torch.cuda.synchronize()
+        _PROFILER_WARM.append(True)
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        ms = sum(_device_us(e) for e in rows
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+        if ms > 0:
+            return ms
+        on_device = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in rows)
+        seen.append(f"{len(rows)} rows, {on_device} on the device")
+    log(f"[TIME] three profiler traces held no device time ({'; '.join(seen)}): device time "
+        f"not measured")
+    return None
+
+
+def _ms(x) -> str:
+    """A time in ms, or 'not measured' for None."""
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _rate(amount, ms, unit: str, per_ms: float) -> str:
+    """amount / ms in ``unit`` (``per_ms``: the amount per ms that is one unit), or
+    'not measured'."""
+    return "rate not measured" if ms is None else f"{amount / max(ms, 1e-9) / per_ms:.2f} {unit}"
 
 
 def _without_trash(pool, layered):
@@ -1407,11 +1460,12 @@ def phase_paged_kernels(device) -> dict:
                 (" queries, int8 pools" if q8 else "")
 
             def stamp(k):
-                return (f"{t[k]['ms']:.4f} ms (events), device {t[k]['device_ms']:.4f} ms, host "
+                return (f"{t[k]['ms']:.4f} ms (events), device {_ms(t[k]['device_ms'])}, host "
                         f"{t[k]['host_us']:.1f} us a call to enqueue")
 
             log(f"[TIME] paged_attention{suffix} {shape}: kernel {stamp('attend')} "
-                f"({a_bytes / t['attend']['device_ms'] / 1e9:.1f} TB/s of the bytes it must move), "
+                f"({_rate(a_bytes, t['attend']['device_ms'], 'TB/s', 1e9)} of the bytes it must "
+                f"move), "
                 f"plain {ap_ms:.4f} ms, library page gather + SDPA {al_ms:.4f} ms, bound "
                 f"{a_bound:.4f} ms ({a_by})")
             log(f"[TIME] paged_pool_write{suffix} {shape}: kernel {stamp('write')} (K and V in one "
@@ -4620,6 +4674,723 @@ def phase_anchor_llm_methods(device) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- DeepSeek-V3 family (MLA) ---
+
+# HF deepseek-ai/DeepSeek-V3 config.json (the fields config_from_hf_deepseek
+# reads), cut to 4 layers below: 3 dense and 1 MoE, so both groups exist.
+DEEPSEEK_V3_HF = {
+    "model_type": "deepseek_v3", "vocab_size": 129280, "hidden_size": 7168,
+    "intermediate_size": 18432, "moe_intermediate_size": 2048, "num_hidden_layers": 61,
+    "num_attention_heads": 128, "num_key_value_heads": 128, "q_lora_rank": 1536,
+    "kv_lora_rank": 512, "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128,
+    "n_routed_experts": 256, "n_shared_experts": 1, "num_experts_per_tok": 8, "n_group": 8,
+    "topk_group": 4, "routed_scaling_factor": 2.5, "norm_topk_prob": True,
+    "first_k_dense_replace": 3, "rms_norm_eps": 1e-6, "rope_theta": 10000,
+    "rope_scaling": {"type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1,
+                     "mscale": 1.0, "mscale_all_dim": 1.0,
+                     "original_max_position_embeddings": 4096},
+    "tie_word_embeddings": False,
+}
+DEEPSEEK_LAYERS = 4      # depth cut: 3 dense + 1 MoE (the all-dense variant: 4 dense)
+MLA_PAGE = 64            # page size of the served MLA runs
+
+
+# scores of std 3: a few keys carry each head and max |plain| is ~2-4, so the
+# limits below are relative to the outputs; scores much larger than this grow
+# fp32's own rounding of the softmax toward its 1e-5 limit
+MLA_Q_SCALE = 3.0
+
+
+def _mla_setup(gen, device, kind, b, nq, D, ps, lens):
+    """q [b, nq, D] (normal, times MLA_Q_SCALE), a 2-layer latent pool of
+    normal rows (layer 1 used), shuffled distinct pages, int32 lengths: the
+    decode layer's operands before the new row. Unscaled queries would spread
+    each softmax over hundreds of keys and leave outputs of ~0.04, under the
+    tolerance's floor of 1."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import quantize_token_kv
+
+    mp = max(-(-(n + 1) // ps) for n in lens)
+    num_pages = 1 + b * mp
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    rows = torch.randn((2, 1, num_pages, ps, D), generator=gen, device=device)
+    if kind == "int8":
+        codes, scales = quantize_token_kv(rows)
+        pool = {"q": codes, "s": scales}
+    else:
+        pool = rows.to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=device) + 1
+    table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+    q = (torch.randn((b, nq, D), generator=gen, device=device) * MLA_Q_SCALE).to(dtype)
+    new = torch.randn((b, 1, D), generator=gen, device=device).to(dtype)
+    return q, new, pool, table, torch.as_tensor(lens, dtype=torch.int32, device=device)
+
+
+def _mla_planted_faults(q, pool, table, lens1, rope: int, ps: int):
+    """What a faulty kernel would return, made by the plain version from
+    altered operands: (what, output) for one page of keys left out (the
+    middle page of every sequence that fills it; a 64-key tile at pages of
+    64), the last ``rope`` columns left out of the scores, and one page read
+    from another sequence's table."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_mla as tpm
+
+    mp = table.shape[1]
+    j = mp // 2
+    full = lens1 >= (j + 1) * ps
+    shifted = torch.cat([table[:, :j], table[:, j + 1:], table[:, j:j + 1]], dim=1)
+    dropped = tpm.paged_mla_attention_plain(
+        q, pool, torch.where(full[:, None], shifted, table).contiguous(),
+        torch.where(full, lens1 - ps, lens1), layer_idx=1)
+    q_cut = q.clone()
+    q_cut[..., -rope:] = 0
+    no_rope = tpm.paged_mla_attention_plain(q_cut, pool, table, lens1, layer_idx=1)
+    wrong = table.clone()
+    wrong[:, j] = table[:, j].roll(1)
+    misread = tpm.paged_mla_attention_plain(q, pool, wrong, lens1, layer_idx=1)
+    return [(f"page {j} of the table left out", dropped),
+            (f"the last {rope} columns left out of the scores", no_rope),
+            (f"page {j} read from the previous sequence's table", misread)]
+
+
+def _sdpa_backend(q, k) -> str:
+    """The first SDPA backend that takes these operands (flash, memory
+    efficient, cuDNN, math), in PyTorch's order of preference."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, k)
+            torch.cuda.synchronize()
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def phase_mla_kernels(device) -> dict:
+    """paged_mla_attention (and _q8) against its plain version, with the new
+    latent row written first by row 9's standalone write (the pools bit for bit
+    the plain write's): DeepSeek-V3 decode (b=8, 128 heads, D=576, pages of 64,
+    2048 keys), 16 heads over ~520 ragged keys in pages of 16 and 256, and the
+    tiny D=40; fp32 within 1e-5, bf16 and int8 pools within 3e-2 of max(1,
+    |plain|). The same limits reject the plain version's output with a page
+    of keys left out, the rope columns left out of the scores, or a page read
+    from another sequence (``_mla_planted_faults``). Timed at the V3 shape:
+    kernel, plain, library (page gather + one SDPA over the gathered rows) and
+    bound. Returns the kernels-line records."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_mla as tpm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(15)
+    tol = {"float32": 1e-5, "bfloat16": 3e-2, "int8": 3e-2}
+    cases = [  # label, b, nq, D, ps, lens, timed
+        ("DeepSeek-V3 decode, 2047 cached keys", 8, 128, 576, 64, [2047] * 8, True),
+        ("16 heads, ~520 ragged keys, pages of 16", 8, 16, 576, 16,
+         [519 + 3 * i for i in range(8)], False),
+        ("16 heads, ~520 ragged keys, pages of 256", 8, 16, 576, 256,
+         [519 + 3 * i for i in range(8)], False),
+        ("tiny D=40 (kv_lora_rank 32 + rope 8)", 3, 4, 40, 16, [0, 17, 63], False),
+    ]
+    records = {}
+    for label, b, nq, D, ps, lens, timed in cases:
+        for kind in ("float32", "bfloat16", "int8"):
+            q, new, pool, table, seq = _mla_setup(gen, device, kind, b, nq, D, ps, lens)
+            plain_pool = _clone_pool(pool)
+            tpa.paged_pool_write(pool, new, table, seq, layer_idx=1)
+            tpa.paged_pool_write_plain(plain_pool, new, table, seq, layer_idx=1)
+            if _pools_differ(pool, plain_pool):
+                raise AssertionError(f"MLA {label} {kind}: the written pool differs from the plain write")
+            lens1 = seq + 1
+            suffix = "_q8" if kind == "int8" else ""
+            before = launch_counts["paged_mla_attention" + suffix]
+            got = tpm.paged_mla_attention(q, pool, table, lens1, layer_idx=1)
+            again = tpm.paged_mla_attention(q, pool, table, lens1, layer_idx=1)
+            if launch_counts["paged_mla_attention" + suffix] != before + 2:
+                raise AssertionError(f"MLA {label} {kind}: not one launch per call")
+            ref = tpm.paged_mla_attention_plain(q, pool, table, lens1, layer_idx=1)
+            err, rel = scaled_err(got, ref)
+            log(f"[KERNEL] paged_mla_attention{suffix} {label}: b={b} nq={nq} D={D} ps={ps} "
+                f"{kind}: max abs err {err:.3e}, scaled {rel:.3e} (tol {tol[kind]}), "
+                f"same bits twice {torch.equal(got, again)}")
+            if rel > tol[kind] or not torch.equal(got, again):
+                raise AssertionError(f"paged_mla_attention {label} {kind}: scaled err {rel}")
+            planted = []
+            for what, bad in _mla_planted_faults(q, pool, table, lens1, 8 if D == 40 else 64, ps):
+                bad_rel = scaled_err(bad, ref)[1]
+                if bad_rel <= tol[kind]:
+                    raise AssertionError(f"MLA {label} {kind}: the limit {tol[kind]} accepts the "
+                                         f"plain output with {what} (scaled err {bad_rel:.3e})")
+                planted.append(f"{what} {bad_rel:.3e}")
+            log(f"[KERNEL] paged_mla_attention{suffix} {label} {kind}: max |plain| "
+                f"{ref.float().abs().max().item():.3f}; planted faults rejected, scaled err "
+                f"{'; '.join(planted)}")
+            if not timed or kind == "float32":
+                continue
+            keys = lens[0] + 1
+            ms = time_ms(lambda: tpm.paged_mla_attention(q, pool, table, lens1, layer_idx=1),
+                         iters=50)
+            dev_ms = device_ms(lambda: tpm.paged_mla_attention(q, pool, table, lens1,
+                                                               layer_idx=1))
+            plain_ms = time_ms(lambda: tpm.paged_mla_attention_plain(q, pool, table, lens1,
+                                                                     layer_idx=1), iters=5)
+            codes = pool["q"] if kind == "int8" else pool
+            mp = table.shape[1]
+
+            def gathered():
+                rows = codes[1, 0][table.long()].reshape(b, mp * ps, D)[:, :keys]
+                if kind == "int8":
+                    s = pool["s"][1, 0][table.long()].reshape(b, mp * ps)[:, :keys]
+                    rows = (rows.float() * s[..., None]).to(torch.bfloat16)
+                return rows[:, None].expand(b, nq, keys, D)
+
+            q4 = q[:, :, None]
+            backend = _sdpa_backend(q4, gathered())
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, gathered(), gathered()),
+                             iters=10)
+            elem = 1 if kind == "int8" else 2
+            nbytes = b * keys * D * elem + (b * keys * 4 if kind == "int8" else 0) + \
+                2 * b * nq * D * 2 + b * mp * 4 + b * 4
+            flops = 4 * b * nq * keys * D
+            bound, by = _bound(flops, nbytes, "bfloat16")
+            log(f"[TIME] paged_mla_attention{suffix} {label} ({kind} pool, bf16 queries): kernel "
+                f"{ms:.4f} ms (events), device {_ms(dev_ms)} ({_rate(nbytes, dev_ms, 'TB/s', 1e9)}, "
+                f"{_rate(flops, dev_ms, 'TFLOP/s', 1e9)}), plain {plain_ms:.4f} ms, "
+                f"library page gather + SDPA ({backend}) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({by}; {nbytes} bytes, {flops} FLOPs)")
+            records["paged_mla_attention" + suffix] = dict(
+                name="paged_mla_attention" + suffix, route="cuda",
+                source="ssp_x_vit_tpu_torch/ops/kernels/csrc/paged_mla.cu",
+                replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("349" if suffix else "243"),
+                tpu_kernel=("_paged_pallas_grouped_q8" if suffix else "_paged_pallas_grouped") +
+                           " as llm/paged_mla.py:290 calls it (nkv=1, the pool as K and V)",
+                shape=f"b={b} nq={nq} D={D} ps={ps}, {keys} keys each, {kind} pool",
+                tol=tol[kind], max_abs_err=err, scaled_err=rel, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library=f"page gather + F.scaled_dot_product_attention ({backend})",
+                flops=flops, bytes=nbytes)
+            del q, new, pool, plain_pool, table, seq
+        torch.cuda.empty_cache()
+    return records
+
+
+def make_deepseek_v3(device, dense: bool = False):
+    """(params, cfg) at DeepSeek-V3's published widths (``config_from_hf_deepseek``
+    of its config.json), depth cut to 4 layers: 3 dense + 1 MoE, or all 4
+    dense (``n_routed_experts`` 0, the 2SSP target). Random bf16 weights made
+    on the card from a seed."""
+    import dataclasses
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.deepseek import config_from_hf_deepseek, init_deepseek_params
+
+    cfg = dataclasses.replace(config_from_hf_deepseek(DEEPSEEK_V3_HF), num_layers=DEEPSEEK_LAYERS)
+    if dense:
+        cfg = dataclasses.replace(cfg, n_routed_experts=0, n_shared_experts=0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    t0 = time.perf_counter()
+    params = init_deepseek_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in _flat(params).values())
+    experts = sum(params["moe_blocks"][k].numel() for k in ("gate_kernel", "up_kernel",
+                                                              "down_kernel")) if not dense else 0
+    log(f"[DEEPSEEK] DeepSeek-V3 widths, {cfg.num_layers} layers ({cfg.n_dense_layers} dense, "
+        f"{cfg.n_moe_layers} MoE): {n / 1e9:.3f} B parameters ({experts / 1e9:.3f} B in the routed "
+        f"experts) in bf16 made on the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)")
+    return params, cfg
+
+
+def _ds_run(label, argv, model) -> tuple:
+    """One ``cli.main_llm.run`` on a DeepSeek model with the counts set to 0
+    just before it; returns (result, launches, seconds, peak GiB)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    log(f"[DEEPSEEK] {label}: main_llm {' '.join(argv)}")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = main_llm.run(main_llm.build_argparser().parse_args(argv), model=model)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: v for k, v in launch_counts.items() if v}
+    log(f"[DEEPSEEK] {label}: {seconds:.1f} s, peak {peak:.1f} GiB; seconds by phase "
+        f"{json.dumps({k: round(v, 3) for k, v in out['phase_seconds'].items()})}; launches "
+        f"{json.dumps(launches)}")
+    return out, dict(launch_counts), seconds, peak
+
+
+class _ExpertRouting:
+    """While ``armed``, wraps ``deepseek._deepseek_route``: each call's chosen
+    experts ([T, E] bool) go to ``seen``; with ``pins`` holding masks, each
+    call takes the next one and routes to those experts instead, weighted as
+    the router weights its own choice (the un-biased scores, renormalized,
+    times routed_scaling_factor); ``moved`` counts the calls whose own choice
+    differed."""
+
+    def __init__(self):
+        self.armed, self.seen, self.pins, self.moved = False, [], [], 0
+
+    def __enter__(self):
+        from ssp_x_vit_tpu_torch.llm import deepseek as ds
+
+        self._ds, self._orig = ds, ds._deepseek_route
+        ds._deepseek_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self._ds._deepseek_route = self._orig
+
+    def _route(self, xt, bp, cfg):
+        import torch
+
+        w = self._orig(xt, bp, cfg)
+        if not self.armed:
+            return w
+        own = w > 0
+        if not self.pins:
+            self.seen.append(own)
+            return w
+        pin = self.pins.pop(0)
+        if torch.equal(own, pin):
+            return w
+        self.moved += 1
+        scores = torch.sigmoid(xt.float() @ bp["router"].float())
+        w = torch.where(pin, scores, torch.zeros_like(scores))
+        if cfg.norm_topk_prob:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return w * cfg.routed_scaling_factor
+
+
+def _mla_prefill(params, cfg, pool, prompt, table, device, chunked):
+    """One prompt's paged MLA prefill as the served run made it: whole, or in
+    chunks of ``chunked`` tokens. Returns the next-token logits."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm import paged_mla as tpm
+
+    if chunked:
+        return tpm.mla_paged_prefill_chunked(params, prompt, pool, cfg, table,
+                                             chunk_size=chunked)[0]
+    return tpm.mla_paged_prefill(params, torch.as_tensor([prompt], device=device), pool, cfg,
+                                 table, len(prompt))[0]
+
+
+def _mla_replay(params, cfg, device, prompts, served, cache_dtype, chunked) -> tuple:
+    """The served computation again: each prompt prefilled as served, then
+    all decoded together at the served batch's 8 rows and fed the served
+    tokens, the MoE layers' expert choices recorded. Returns (steps where the
+    served token is the replay's argmax, worst gap over max(1, max |logit|),
+    per decode step the choices [8, E] of each MoE layer)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm import paged_mla as tpm
+
+    b, steps = len(prompts), len(served[0])
+    pages = max(-(-(len(p) + steps + 1) // MLA_PAGE) for p in prompts)
+    pool = tpm.init_mla_pool(cfg, 1 + b * pages, MLA_PAGE, cache_dtype, device)
+    tables = (1 + torch.arange(b * pages, dtype=torch.int32, device=device)).reshape(b, pages)
+    logits = torch.stack([_mla_prefill(params, cfg, pool, p, tables[i], device, chunked)
+                          for i, p in enumerate(prompts)])
+    toks = torch.as_tensor(served, dtype=torch.int64, device=device)       # [b, steps]
+    lens = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32, device=device)
+    gaps, peaks, experts = [], [], []
+    with _ExpertRouting() as routing:
+        for t in range(steps):
+            gaps.append(logits.max(dim=-1).values - logits.gather(-1, toks[:, t:t + 1])[:, 0])
+            peaks.append(logits.abs().max())
+            if t + 1 < steps:
+                routing.armed, routing.seen = True, []
+                logits = tpm.mla_paged_decode_step(params, toks[:, t], pool, cfg, tables,
+                                                   lens + t)[0]
+                routing.armed = False
+                experts.append(routing.seen)
+    gaps = torch.stack(gaps)
+    return (int((gaps == 0).sum()), float(gaps.max()) / max(1.0, float(torch.stack(peaks).max())),
+            experts)
+
+
+def _mla_alone_gaps(params, cfg, prompt, tokens, cache_dtype, device, chunked=None,
+                    experts=None) -> tuple:
+    """The request alone through the paged MLA path (the served run's
+    prefill, then one-sequence decode steps fed the served tokens), its MoE
+    layers routed at each decode step to ``experts`` (the served batch's
+    choices for this request, ``[1, E]`` per MoE layer) when given: (steps
+    where the served token is the alone argmax, worst logit gap, largest
+    |logit|, decode steps whose router chose other experts)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm import paged_mla as tpm
+
+    n = len(prompt)
+    pages = -(-(n + len(tokens) + 1) // MLA_PAGE)
+    pool = tpm.init_mla_pool(cfg, 1 + pages, MLA_PAGE, cache_dtype, device)
+    table = torch.arange(1, 1 + pages, dtype=torch.int32, device=device)
+    toks = torch.as_tensor(tokens, dtype=torch.int64, device=device)
+    logits = _mla_prefill(params, cfg, pool, prompt, table, device, chunked)
+    gaps, peaks, moved = [], [], 0
+    with _ExpertRouting() as routing:
+        for t in range(len(tokens)):
+            gaps.append(logits.max() - logits[toks[t]])
+            peaks.append(logits.abs().max())
+            if t + 1 < len(tokens):
+                before = routing.moved
+                routing.armed, routing.pins = experts is not None, list(experts[t]) if experts else []
+                lens = torch.full((1,), n + t, dtype=torch.int32, device=device)
+                logits = tpm.mla_paged_decode_step(params, toks[t:t + 1], pool, cfg, table[None],
+                                                   lens)[0][0]
+                routing.armed = False
+                moved += routing.moved > before
+    gaps = torch.stack(gaps)
+    return int((gaps == 0).sum()), float(gaps.max()), float(torch.stack(peaks).max()), moved
+
+
+def _mla_prompts(cfg, seed: int = 31) -> list:
+    """8 prompts of 64-512 tokens from the synthetic stream of ``seed``."""
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+
+    stream = synthetic_token_stream(8 * 512, cfg.vocab_size, seed=seed).reshape(-1)
+    return [stream[i * 512: i * 512 + n].tolist() for i, n in
+            enumerate((64, 512, 130, 257, 320, 77, 448, 200))]
+
+
+def _mla_served(params, cfg, device, prompts, cache_dtype, chunked) -> tuple:
+    """The prompts (16 greedy tokens each) through ``ServingEngine`` over
+    ``MLAPagedServer`` (8 slots, pages of 64), the counts set to 0 just
+    before: (served tokens, decode steps, launches, seconds)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
+    from ssp_x_vit_tpu_torch.llm.paged_mla import MLAPagedServer
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ServingEngine(params, cfg, max_batch=8, num_pages=8 * 10 + 1, page_size=MLA_PAGE,
+                       max_context=640, cache_dtype=cache_dtype, chunked_prefill=chunked) as eng:
+        if not isinstance(eng._server, MLAPagedServer):
+            raise AssertionError("the engine did not pick MLAPagedServer for a DeepSeek model")
+        handles = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        served = [h.result(timeout=600) for h in handles]
+        steps = eng._server.decode_steps
+    torch.cuda.synchronize()
+    return served, steps, dict(launch_counts), time.perf_counter() - t0
+
+
+def _mla_serve(params, cfg, device, label, cache_dtype, chunked) -> dict:
+    """8 requests (``_mla_prompts``) through ``_mla_served``;
+    paged_mla_attention (and the row write) launched once per layer and
+    decode step, no other paged kernel; each served token within 5e-2 of
+    max(1, max |logit|) of the best logit of the served batch replayed
+    (``_mla_replay``) and of the same prompt run alone with the same prefill
+    and, at each decode step, the batch's experts (``_mla_alone_gaps``). The
+    router's top-8 of 256 is a near-tie that the batch's other bf16 rounding
+    flips at ~10-15% of steps (``scripts/torch_mla_served_gap.py``): with other
+    experts a step's logits are another model's. Returns the launches."""
+    import torch
+
+    prompts = _mla_prompts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    served, steps, launches, seconds = _mla_served(params, cfg, device, prompts, cache_dtype,
+                                                   chunked)
+    q8 = "_q8" if cache_dtype == torch.int8 else ""
+    want = steps * cfg.num_layers
+    for name in ("paged_mla_attention", "paged_mla_attention_q8", "paged_pool_write",
+                 "paged_pool_write_q8", "paged_attention", "paged_attention_q8",
+                 "paged_attention_write", "paged_attention_write_q8"):
+        expect = want if name in ("paged_mla_attention" + q8, "paged_pool_write" + q8) else 0
+        if launches[name] != expect or want <= 0:
+            raise AssertionError(f"MLA {label}: {name} launched {launches[name]} times over "
+                                 f"{steps} decode steps of {cfg.num_layers} layers, expected {expect}")
+    tokens = sum(len(s) for s in served)
+    log(f"[DEEPSEEK] served {label}: {len(prompts)} requests, {tokens} tokens in {seconds:.1f} s "
+        f"({tokens / seconds:.1f} tokens/s over the run, prefills included), {steps} decode steps, "
+        f"paged_mla_attention{q8} launches {launches['paged_mla_attention' + q8]} = layers x steps, "
+        f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    if any(len(s) != 16 for s in served):
+        raise AssertionError(f"MLA {label}: a request ended early: {[len(s) for s in served]}")
+    r_exact, r_worst, experts = _mla_replay(params, cfg, device, prompts, served, cache_dtype,
+                                            chunked)
+    exact = total = moved = 0
+    worst = 0.0
+    for i, (p, s) in enumerate(zip(prompts, served)):
+        mine = [[m[i:i + 1] for m in step] for step in experts] if cfg.n_moe_layers else None
+        same, gap, peak, k = _mla_alone_gaps(params, cfg, p, s, cache_dtype, device, chunked, mine)
+        exact, total, moved = exact + same, total + len(s), moved + k
+        worst = max(worst, gap / max(1.0, peak))
+    log(f"[DEEPSEEK] served {label}: the served batch replayed (8 rows, the served tokens fed): "
+        f"{r_exact} of {total} served tokens are its argmax, worst gap {r_worst:.3e}; each prompt "
+        f"alone (the same prefill; at each decode step the MoE routed to the batch's experts, "
+        f"which its own router left at {moved} of {total - len(served)} steps): {exact} of {total} "
+        f"are the alone argmax; worst logit gap {worst:.3e} of max(1, max |logit|), tol 5e-2")
+    if max(worst, r_worst) > 5e-2:
+        raise AssertionError(f"MLA {label}: a served token is not the best token of its replay "
+                             f"({r_worst:.3e}) or of its prompt run alone ({worst:.3e})")
+    return launches
+
+
+def measure_mla_decode(params, cfg, device) -> None:
+    """Eight live slots of 512-token prompts on an ``MLAPagedServer`` (bf16
+    pools): ms per decode step over blocks of 8 steps, tokens/s, and a
+    ``torch.profiler`` split of one block."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.paged_mla import MLAPagedServer
+
+    server = MLAPagedServer(params, cfg, max_batch=8, num_pages=8 * 10 + 1, page_size=MLA_PAGE,
+                            max_context=640)
+    stream = synthetic_token_stream(8 * 512, cfg.vocab_size, seed=22).reshape(-1)
+    for i in range(8):
+        server.add_request(np.asarray(stream[i * 512:(i + 1) * 512]), max_new_tokens=100)
+    server.step_many(8)  # warm-up
+    torch.cuda.synchronize()
+    blocks = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        server.step_many(8)
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t0) * 1e3 / 8)
+    step_ms = sum(blocks) / len(blocks)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.step_many(8)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    total_ms = sum(_device_us(e) for e in kernels) / 1e3 / 8
+    weights = sum(v.numel() * v.element_size() for k, v in _flat(params).items()
+                  if k.startswith(("dense_blocks", "moe_blocks")) or k == "lm_head")
+    log(f"[DEEPSEEK] MLA decode at 8 live slots (~520 cached tokens each), bf16 pools: "
+        f"{step_ms:.2f} ms per step over {len(blocks)} blocks of 8 (host clock; blocks "
+        f"{', '.join(f'{x:.2f}' for x in blocks)}) = {8e3 / step_ms:.1f} tokens/s; the dense "
+        f"all-expert MoE reads every weight each step: {weights / 1e9:.1f} GB, "
+        f"{weights / PEAK_BYTES * 1e3:.2f} ms at the data-sheet rate")
+    if total_ms <= 0:
+        log("[PROFILE] MLA decode block: the trace holds no device time: not measured")
+        return
+    log(f"[PROFILE] MLA decode block of 8 steps: {sum(e.count for e in kernels) / 8:.0f} device "
+        f"kernels and {total_ms:.2f} ms of device activity per step ({100 * total_ms / step_ms:.0f}% "
+        f"of the step's wall time)")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        ms = _device_us(e) / 1e3 / 8
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count // 8:<4d} {e.key[:90]}")
+
+
+def profile_moe_forward(params, cfg, device) -> None:
+    """Where the time of one bf16 forward of 512 tokens goes (the 3 dense
+    layers, the MoE layer, the lm_head): a ``torch.profiler`` split."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_forward
+
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), device=device,
+                         generator=torch.Generator(device=device).manual_seed(5))
+    deepseek_forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deepseek_forward(params, toks, cfg)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        deepseek_forward(params, toks, cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    total = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"[PROFILE] DeepSeek-V3-width bf16 forward, 512 tokens, 4 layers (dense all-expert MoE): "
+        f"{wall:.1f} ms wall, {total:.1f} ms device")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        ms = _device_us(e) / 1e3
+        log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
+def phase_deepseek(device) -> dict:
+    """The DeepSeek-V3 family at its published widths (4 layers): through
+    ``cli.main_llm.run`` dense perplexity, shortGPT 25%, ``--quantize int4``
+    (row 10 must launch) on the MoE model; ``deepseek_generate`` at b=8; the
+    model served through ``ServingEngine`` / ``MLAPagedServer`` with bf16 pools
+    and with int8 pools and chunked prefill, with a decode-step measurement;
+    then 25% 2SSP on the all-dense variant. Returns launches per kernel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_generate
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    totals = {name: 0 for name in KERNEL_NAMES}
+
+    def add(counts):
+        for k in KERNEL_NAMES:
+            totals[k] += counts.get(k, 0)
+
+    parts = {}
+    t0 = time.perf_counter()
+    params, cfg = make_deepseek_v3(device)
+    parts["make MoE model"] = time.perf_counter() - t0
+    common = ["--model", "deepseek-v3-width", "--synthetic-data", "--seq-len", "256",
+              "--num-calibration", "2", "--backend", "cuda", "--evaluate_perplexity",
+              "--logging", "WARNING"]
+    t0 = time.perf_counter()
+    out, counts, _, _ = _ds_run("dense", common + ["--dense"], (params, cfg))
+    dense = out["dense"]["ppl"]
+    add(counts)
+    out, counts, _, _ = _ds_run("shortgpt 25%", common + ["--pruning_method", "shortgpt",
+                                                          "--sparsity_rate", "0.25"],
+                                (params, cfg))
+    (entry,) = out["runs"]
+    add(counts)
+    log(f"[DEEPSEEK] dense ppl {dense:.2f} (fp32, 10 windows of 256); shortGPT 25% drops blocks "
+        f"{[i for i, m in enumerate(entry['attn_mask']) if m]}: ppl {entry['ppl']:.2f}")
+    if not (math.isfinite(dense) and math.isfinite(entry["ppl"])) or sum(entry["attn_mask"]) != 1:
+        raise AssertionError(f"DeepSeek dense {dense} / shortgpt {entry}")
+    out, counts, _, _ = _ds_run("int4", common + ["--dense", "--quantize", "int4"], (params, cfg))
+    add(counts)
+    ppl4 = out["dense"]["ppl"]
+    log(f"[DEEPSEEK] int4 ppl {ppl4:.2f} (bf16 weights {dense:.2f}); quant4_matmul launches "
+        f"{counts['quant4_matmul']}")
+    if counts["quant4_matmul"] <= 0:
+        raise AssertionError("quant4_matmul (row 10) did not launch in the DeepSeek int4 run")
+    if not math.isfinite(ppl4) or abs(math.log(ppl4) - math.log(dense)) > 0.05 * math.log(dense):
+        raise AssertionError(f"DeepSeek int4 perplexity {ppl4} vs dense {dense}")
+    parts["main_llm: dense, shortgpt, int4"] = time.perf_counter() - t0
+    profile_moe_forward(params, cfg, device)
+
+    t0 = time.perf_counter()
+    stream = synthetic_token_stream(8 * 64, cfg.vocab_size, seed=41).reshape(8, 64)
+    torch.cuda.reset_peak_memory_stats()
+    gen = deepseek_generate(params, cfg, stream, max_new_tokens=16)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    if any(len(g) != 80 or not ((0 <= g) & (g < cfg.vocab_size)).all() for g in gen):
+        raise AssertionError("deepseek_generate gave malformed sequences")
+    log(f"[DEEPSEEK] deepseek_generate b=8, prompts of 64, 16 new tokens: {g_s:.2f} s "
+        f"({8 * 16 / g_s:.1f} tokens/s, prefill and compile-free eager steps included), peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    parts["deepseek_generate"] = g_s
+
+    t0 = time.perf_counter()
+    add(_mla_serve(params, cfg, device, "bf16 pools", torch.bfloat16, None))
+    add(_mla_serve(params, cfg, device, "int8 pools, chunked prefill 128", torch.int8, 128))
+    measure_mla_decode(params, cfg, device)
+    parts["served (engine, bf16 and int8 pools) + decode measurement"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params, cfg = make_deepseek_v3(device, dense=True)
+    out, counts, _, _ = _ds_run("2ssp 25% (all-dense variant)",
+                                common + ["--pruning_method", "2ssp", "--sparsity_rate", "0.25",
+                                          "--num-calibration-2ssp", "2"], (params, cfg))
+    add(counts)
+    (entry,) = out["runs"]
+    log(f"[DEEPSEEK] 2SSP 25% on the all-dense variant: pruned attention "
+        f"{entry['pruned_attention_blocks']}, kept FFN width {entry['num_preserve_mlp']} of "
+        f"{cfg.intermediate_size}, achieved sparsity {entry['achieved_sparsity']:.4f}, ppl "
+        f"{entry['ppl']:.2f}")
+    if abs(entry["achieved_sparsity"] - 0.25) > 0.02 or not math.isfinite(entry["ppl"]):
+        raise AssertionError(f"DeepSeek 2SSP: {entry}")
+    parts["all-dense variant: make + 2SSP"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    log(f"[DEEPSEEK] seconds by part {json.dumps({k: round(v, 1) for k, v in parts.items()})}")
+    return totals
+
+
+def phase_anchor_deepseek(device) -> None:
+    """The tiny DeepSeek models in fp32, card against the host CPU, through
+    ``cli.main_llm.run``: dense perplexity, shortGPT / window_based /
+    blockpruner on the MoE model (the same masks), 2SSP on the all-dense
+    variant (the same pruned blocks and width), perplexities within rtol 1e-4;
+    EvoPress with a small search (the CLI's 64 distinct initial candidates are
+    more than 4 layers hold) gives the same masks; paged MLA greedy tokens on
+    the card equal contiguous ``deepseek_generate`` tokens."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm import evopress as tevo
+    from ssp_x_vit_tpu_torch.llm import datasets as D
+    from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_generate
+    from ssp_x_vit_tpu_torch.llm.paged_mla import mla_paged_generate
+
+    base = ["--synthetic-data", "--seq-len", "64", "--num-calibration", "3",
+            "--num-calibration-2ssp", "2", "--evaluate_perplexity", "--logging", "WARNING"]
+    runs = [("tiny-random-deepseek", ["--dense"]),
+            ("tiny-random-deepseek", ["--pruning_method", "shortgpt", "--sparsity_rate", "0.25"]),
+            ("tiny-random-deepseek", ["--pruning_method", "window_based", "--sparsity_rate", "0.5"]),
+            ("tiny-random-deepseek", ["--pruning_method", "blockpruner", "--sparsity_rate", "0.25"]),
+            ("tiny-random-deepseek-dense", ["--pruning_method", "2ssp", "--sparsity_rate", "0.25"])]
+    models = {}
+    for name, flags in runs:
+        if name not in models:
+            host = main_llm.load_model(main_llm.build_argparser().parse_args(
+                ["--model", name, "--backend", "cpu"]), torch.device("cpu"))
+            models[name] = (host, (_tree_to(host[0], device), host[1]))
+        host, card = models[name]
+        res = {}
+        for where, model in (("cpu", host), (device.type, card)):
+            args = main_llm.build_argparser().parse_args(["--model", name, "--backend", where,
+                                                          *base, *flags])
+            res[where] = main_llm.run(args, model=model)
+        c, h = res[device.type], res["cpu"]
+        if "--dense" in flags:
+            pc, ph, same = c["dense"]["ppl"], h["dense"]["ppl"], True
+        else:
+            (ec,), (eh,) = c["runs"], h["runs"]
+            pc, ph = ec["ppl"], eh["ppl"]
+            keys = ("pruned_attention_blocks", "num_preserve_mlp") if "2ssp" in flags else \
+                ("attn_mask", "mlp_mask")
+            same = all(ec[k] == eh[k] for k in keys)
+        log(f"[ANCHOR] {name} {' '.join(flags)}: ppl card {pc:.6f}, host CPU {ph:.6f}, "
+            f"same choices {same}")
+        if not same or abs(pc - ph) > 1e-4 * ph:
+            raise AssertionError(f"{name} {flags}: card {pc} vs host {ph}, same choices {same}")
+    host, card = models["tiny-random-deepseek"]
+    stream = D.synthetic_token_stream(8 * 64, host[1].vocab_size, seed=4)
+    calib = D.get_calibration(stream, 3, seq_len=64)
+    args = dict(initially_generated=4, offspring=3, initial_tokens=64,
+                tokens_per_selection=(64, 192))
+    masks = [tevo.evopress(p, c, 1, calib, args=args, seed=3, num_generations=2, verbose=False,
+                           compute_dtype=torch.float32) for p, c in (host, card)]
+    log(f"[ANCHOR] tiny-random-deepseek EvoPress (small search, fp32): card {masks[1]}, host "
+        f"{masks[0]}")
+    if masks[0] != masks[1]:
+        raise AssertionError("EvoPress on the card chose other masks than on the host")
+    prompts = [np.arange(5) % 500 + 1, np.asarray([7, 9]), np.arange(40) * 7 % 500]
+    paged = mla_paged_generate(card[0], card[1], prompts, max_new_tokens=12, page_size=16,
+                               cache_dtype=torch.float32)
+    contiguous = [deepseek_generate(card[0], card[1], p, max_new_tokens=12,
+                                    compute_dtype=torch.float32) for p in prompts]
+    same = all(a.tolist() == b.tolist() for a, b in zip(paged, contiguous))
+    log(f"[ANCHOR] tiny-random-deepseek paged MLA greedy tokens on the card == contiguous "
+        f"deepseek_generate: {same}")
+    if not same:
+        raise AssertionError("paged MLA tokens differ from deepseek_generate's on the card")
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -4732,6 +5503,7 @@ def main() -> int:
     records.update(phase_flash_backward(device))
     records.update(phase_paged_kernels(device))
     records.update(phase_fused_mlp(device))
+    records.update(phase_mla_kernels(device))
     for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
@@ -4745,8 +5517,10 @@ def main() -> int:
               "quant_matmul": ("direct wrapper call, no caller in the package",
                                drive_quant_matmul(device))}
     for name, n in drive_paged_standalone(device).items():
-        direct[name] = ("direct wrapper calls; the served decode layer makes one "
-                        "paged_attention_write call instead", n)
+        direct[name] = ("direct wrapper calls; the served llama decode layer makes one "
+                        "paged_attention_write call instead" +
+                        ("; the served MLA decode layer writes its latent row with it"
+                         if name.startswith("paged_pool_write") else ""), n)
     phase_done("kernels (phase 3)")
     cli_launches = {name: 0 for name in KERNEL_NAMES}
     a7c_work = tempfile.TemporaryDirectory()
@@ -4807,6 +5581,9 @@ def main() -> int:
     for name, n in phase_llm_methods(device).items():
         cli_launches[name] += n
     phase_done("main, SliceGPT, EvoPress, ablations, task pack at Llama-2-7B width (phase 4)")
+    for name, n in phase_deepseek(device).items():
+        cli_launches[name] += n
+    phase_done("main, DeepSeek-V3 widths: main_llm, generation, MLA serving (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)
@@ -4825,6 +5602,8 @@ def main() -> int:
     phase_done("anchors: tokenizer, HF directory, text serving (phase 5)")
     phase_anchor_llm_methods(device)
     phase_done("anchors: SliceGPT, EvoPress, ablations, task pack (phase 5)")
+    phase_anchor_deepseek(device)
+    phase_done("anchors: tiny DeepSeek models, card against host CPU (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
                if (direct[name][1] if name in direct else cli_launches[name]) <= 0]
@@ -4833,7 +5612,8 @@ def main() -> int:
     kernels = []
     for name in KERNEL_NAMES:
         driven_by, n_direct = direct.get(name, (
-            "served runs over HTTP" if name.startswith("paged_")
+            "ServingEngine over MLAPagedServer at DeepSeek-V3 widths" if name.startswith("paged_mla")
+            else "served runs over HTTP" if name.startswith("paged_")
             else "generate_kv_scan (contiguous serving)" if name == "fused_mlp_int8"
             else "cli runs", 0))
         kernels.append(dict(records[name], launches=cli_launches[name] + n_direct,

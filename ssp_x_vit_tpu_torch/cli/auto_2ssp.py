@@ -19,7 +19,7 @@ downloaded), ``--dataset cifar10|cifar100`` (``--load-cifar``) reads CIFAR
 from its on-disk batch files, ``--export-framework-prefix`` writes the
 Pures-framework score and mask files, and ``--data-parallel`` is a no-op on
 one device, as the JAX CLI on one chip; with more than one CUDA device it
-raises (sharding is ROADMAP.md A.11).
+raises (sharding is ROADMAP.md A.11d).
 
 ``run(args, model=None)`` runs on ``model=(params, cfg)`` when the caller built
 one (the CLI's setup otherwise), and also returns, beside the report, under
@@ -123,7 +123,7 @@ def run(args, model=None) -> Dict[str, Any]:
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             f"--data-parallel over {torch.cuda.device_count()} CUDA devices is not ported yet "
-            "(ROADMAP.md A.11, parallel/); with one device it is a no-op")
+            "(ROADMAP.md A.11d, parallel/); with one device it is a no-op")
     set_seed(args.seed)
     run_id = time.strftime("%Y%m%d-%H%M%S")
     print(f"[INFO] Using backend: {device.type}"

@@ -13,9 +13,13 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead):
   python -m ssp_x_vit_tpu_torch.cli.main_llm --model tiny-random --synthetic-data \\
       --ablation --ablation-quick --seq-len 128
 
-``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}``, a
-native directory (``model.npz`` + ``config.json``) or a local HF directory
-(``config.json`` + ``*.safetensors``, read by ``load_hf_llama``).
+``--model`` is ``tiny-random``, ``tiny-random-{phi,opt,gemma,gemma2,qwen3}``,
+``tiny-random-deepseek`` (MLA + MoE) or ``tiny-random-deepseek-dense``, a native
+directory (``model.npz`` + ``config.json``; DeepSeek ones carry ``kv_lora_rank``)
+or a local HF directory (``config.json`` + ``*.safetensors``, read by
+``load_hf_llama``, or ``load_hf_deepseek`` for ``model_type`` ``deepseek_v3``).
+DeepSeek models take every method but SliceGPT, 2SSP only on dense-GLU
+configs, and no ``--ablation``, each refused with the JAX CLI's message.
 ``--evaluate_qualitative`` generates text for two prompts with the
 directory's byte-level ``tokenizer.json`` (without one it warns and skips, as
 the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
@@ -23,8 +27,8 @@ directory; a sliced (SliceGPT) model is evaluated for perplexity only, and
 not saved. ``--evaluate_downstream`` scores the offline task pack of
 ``--task-pack`` (or $SSP_X_VIT_TASK_PACK; the lm-eval harness leg is not
 ported, ROADMAP.md A.10e). Every run uses the deterministic synthetic token
-streams: the corpora are not in the repository. ``--local_datasets`` and the
-DeepSeek models raise NotImplementedError naming their ROADMAP.md item.
+streams: the corpora are not in the repository. ``--local_datasets`` raises
+NotImplementedError naming its ROADMAP.md item.
 
 ``run(args, model=None)`` returns a dict: perplexities, the qualitative
 (prompt, answer) pairs, the downstream results, pruned blocks, kept width,
@@ -63,13 +67,26 @@ _TINY_VARIANTS = {
     "tiny-random-qwen3": dict(model_type="qwen3", qk_norm=True),
 }
 
+# the JAX CLI's DeepSeek test models (main_llm.py): MLA + sigmoid-routed MoE,
+# and the all-dense variant that 2SSP targets
+_TINY_DEEPSEEK_BASE = dict(vocab_size=512, hidden_size=64, num_layers=4, num_heads=4,
+                           q_lora_rank=24, kv_lora_rank=32, qk_nope_head_dim=16,
+                           qk_rope_head_dim=8, v_head_dim=16, intermediate_size=172)
+_TINY_DEEPSEEK = {
+    "tiny-random-deepseek": dict(moe_intermediate_size=48, n_routed_experts=4,
+                                 n_shared_experts=1, num_experts_per_tok=2,
+                                 first_k_dense_replace=1),
+    "tiny-random-deepseek-dense": dict(n_routed_experts=0),
+}
+
 
 def build_argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Pruning of transformer models (PyTorch/CUDA)")
     parser.add_argument('--model', type=str, required=True,
                         help="Native model directory (model.npz + config.json), a local HF "
                              "directory (config.json + *.safetensors), or "
-                             "'tiny-random[-phi|-opt|-gemma|-gemma2|-qwen3]' for an offline test model")
+                             "'tiny-random[-phi|-opt|-gemma|-gemma2|-qwen3|-deepseek|"
+                             "-deepseek-dense]' for an offline test model")
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--cache_dir', type=str, required=False)
     parser.add_argument('--dense', action='store_true',
@@ -117,8 +134,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def _reject_unported(args) -> None:
     unported = {
         "--local_datasets (the corpus readers, ROADMAP.md A.10a)": args.local_datasets,
-        "--model tiny-random-deepseek* (llm/deepseek.py, ROADMAP.md A.11)":
-            args.model.startswith("tiny-random-deepseek"),
     }
     for flag, used in unported.items():
         if used:
@@ -128,26 +143,54 @@ def _reject_unported(args) -> None:
 def load_model(args, device):
     import torch
 
+    from ssp_x_vit_tpu_torch.llm import deepseek as DS
     from ssp_x_vit_tpu_torch.llm.checkpoints import load_hf_llama, load_llm_model
     from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
     if os.path.isdir(args.model):
-        if not os.path.exists(os.path.join(args.model, "model.npz")):
-            return load_hf_llama(args.model, device=device)
         import json
 
-        with open(os.path.join(args.model, "config.json")) as f:
-            if "kv_lora_rank" in json.load(f):
-                raise NotImplementedError("DeepSeek/MLA models are not ported yet "
-                                          "(llm/deepseek.py, ROADMAP.md A.11)")
+        cfg_path = os.path.join(args.model, "config.json")
+        raw = {}
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                raw = json.load(f)
+        if raw.get("model_type") == "deepseek_v3":
+            return DS.load_hf_deepseek(args.model, device=device)
+        if not os.path.exists(os.path.join(args.model, "model.npz")):
+            return load_hf_llama(args.model, device=device)
+        if "kv_lora_rank" in raw:
+            return DS.load_deepseek_model(args.model, device=device)
         return load_llm_model(args.model, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
     if args.model in _TINY_VARIANTS:
         cfg = LlamaConfig(**TINY_RANDOM, **_TINY_VARIANTS[args.model])
-        gen = torch.Generator(device=device)
-        gen.manual_seed(args.seed)
         return init_llama_params(gen, cfg, dtype=torch.float32, device=device), cfg
+    if args.model in _TINY_DEEPSEEK:
+        cfg = DS.DeepseekConfig(**_TINY_DEEPSEEK_BASE, **_TINY_DEEPSEEK[args.model])
+        return DS.init_deepseek_params(gen, cfg, dtype=torch.float32, device=device), cfg
     raise SystemExit("--model must be a native or HF model directory or one of "
-                     f"{sorted(_TINY_VARIANTS)}; got {args.model}")
+                     f"{sorted(_TINY_VARIANTS) + sorted(_TINY_DEEPSEEK)}; got {args.model}")
+
+
+def _reject_for_deepseek(args, cfg) -> None:
+    """The JAX CLI's refusals for DeepSeek models, with its message: SliceGPT
+    (the rotation does not commute with the low-rank kv_a / kv_b
+    factorization), 2SSP on a MoE config (stage 1 needs dense GLU MLPs) and
+    the ablation suite (it assumes the llama layout)."""
+    unsupported = [f for f, on in (
+        ("--pruning_method slicegpt", args.pruning_method == "slicegpt"),
+        ("--pruning_method 2ssp on a MoE deepseek (stage-1 FFN width "
+         "needs dense GLU MLPs; use the depth baselines or a "
+         "first_k_dense_replace==num_layers config)",
+         args.pruning_method == "2ssp" and cfg.n_routed_experts > 0),
+        ("--ablation", args.ablation)) if on]
+    if unsupported:
+        raise SystemExit("unsupported for deepseek models: "
+                         f"{unsupported} (slicegpt rotation does not "
+                         "commute with the MLA factorization; the "
+                         "ablation suite assumes the llama layout)")
 
 
 def load_corpora(args, cfg):
@@ -200,11 +243,15 @@ def run(args, model=None) -> Dict[str, Any]:
     from ssp_x_vit_tpu_torch.utils.seeding import set_seed
     from ssp_x_vit_tpu_torch.llm import datasets as D
     from ssp_x_vit_tpu_torch.llm import pruning as P
+    from ssp_x_vit_tpu_torch.llm import deepseek as DS
     from ssp_x_vit_tpu_torch.llm.checkpoints import export_hf_llama, save_llm_model
     from ssp_x_vit_tpu_torch.llm.evaluation import (
         evaluate_inference_time, evaluate_perplexity, evaluation_ppl,
     )
-    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4, quantize_llm_params_int8
+    from ssp_x_vit_tpu_torch.llm.quant import (
+        quantize_deepseek_params_int4, quantize_deepseek_params_int8, quantize_llm_params_int4,
+        quantize_llm_params_int8,
+    )
     from ssp_x_vit_tpu_torch.llm.slicegpt import SlicedLlamaConfig, evaluate_perplexity_sliced
     from ssp_x_vit_tpu_torch.ops import dispatch
 
@@ -218,14 +265,18 @@ def run(args, model=None) -> Dict[str, Any]:
         params, cfg = model
         if params["embed"].device.type != device.type:
             raise ValueError(f"the model is on {params['embed'].device}, --backend is {device.type}")
-    logging.info(f"Model: {cfg.model_type} L={cfg.num_layers} d={cfg.hidden_size} "
+    model_type = getattr(cfg, "model_type", "deepseek_v3")
+    logging.info(f"Model: {model_type} L={cfg.num_layers} d={cfg.hidden_size} "
                  f"f={cfg.intermediate_size}")
+    is_deepseek = DS.is_deepseek(cfg)
+    if is_deepseek:
+        _reject_for_deepseek(args, cfg)
 
     wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids = load_corpora(args, cfg)
     calibration = D.get_calibration(c4_train_ids, args.num_calibration, seq_len=args.seq_len)
     calibration_2ssp = calibration[: args.num_calibration_2ssp]
     first_sample = calibration[0]
-    result: Dict[str, Any] = {"model_type": cfg.model_type, "quantize": args.quantize, "runs": []}
+    result: Dict[str, Any] = {"model_type": model_type, "quantize": args.quantize, "runs": []}
 
     def run_evals(p, c, attn_gate=None, mlp_gate=None) -> Dict[str, Any]:
         phases.start("evaluation")
@@ -238,6 +289,9 @@ def run(args, model=None) -> Dict[str, Any]:
             return out
         if args.quantize != 'none':
             q = quantize_llm_params_int8 if args.quantize == 'int8' else quantize_llm_params_int4
+            if is_deepseek:
+                q = (quantize_deepseek_params_int8 if args.quantize == 'int8'
+                     else quantize_deepseek_params_int4)
             p = q(p, c)
             logging.info(f"Evaluating {args.quantize}-quantized weights")
             if args.w8a8:
@@ -280,8 +334,12 @@ def run(args, model=None) -> Dict[str, Any]:
                             "(re-slice from the saved rotation instead)")
             return None
         out = args.save_model if not suffix else os.path.join(args.save_model, suffix)
+        if is_deepseek:
+            fn = DS.export_hf_deepseek if args.save_format == 'hf' else DS.save_deepseek_model
+        else:
+            fn = export_hf_llama if args.save_format == 'hf' else save_llm_model
         try:
-            path = (export_hf_llama if args.save_format == 'hf' else save_llm_model)(out, p, c)
+            path = fn(out, p, c)
         except ValueError as e:
             logging.warning(f"--save-model skipped: {e}")
             return None
@@ -331,7 +389,8 @@ def run(args, model=None) -> Dict[str, Any]:
             pruning_rates = [0.25, 0.375, 0.5]
         else:
             pruning_rates = [sr]
-        main_before = P.count_main_params(cfg)[0]
+        # 2SSP's accounting (MoE DeepSeek configs have none; 2SSP refuses them)
+        main_before = P.count_main_params(cfg)[0] if args.pruning_method == "2ssp" else None
 
         for target_sparsity in pruning_rates:
             set_seed(args.seed)

@@ -11,8 +11,10 @@ directories (``config.json`` + ``*.safetensors``) of the families the model
 runs: llama, mistral, qwen2, qwen3, gemma, gemma2, phi, phi3 (loaded as
 llama) and opt. The loader reads one tensor at a time and converts it on the
 target device; the exporter writes F32, byte for byte the JAX exporter's file
-for the same parameters. MoE (mixtral, qwen3_moe) and DeepSeek/MLA
-checkpoints raise (ROADMAP.md A.11).
+for the same parameters. MoE (mixtral, qwen3_moe) checkpoints raise
+(ROADMAP.md A.11c); DeepSeek-V3 directories load through
+``llm/deepseek.py`` (``load_hf_deepseek``), and ``config_from_hf_dict``
+refuses ``deepseek_v3`` as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ssp_x_vit_tpu_torch.models.checkpoints import (
 )
 
 _MOE_NOT_PORTED = ("MoE checkpoints (mixtral, qwen3_moe) are not ported yet "
-                   "(parallel/moe.py, ROADMAP.md A.11)")
+                   "(parallel/moe.py, ROADMAP.md A.11c)")
 
 
 def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
@@ -58,6 +60,16 @@ def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
         return out
 
     return convert(tree)
+
+
+def deepseek_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
+                             dtype=torch.float32) -> Params:
+    """The JAX package's DeepSeek tree (``embed``, ``ln_final``, ``lm_head``
+    and the ``dense_blocks`` / ``moe_blocks`` groups of stacked leaves;
+    plain, ``_q``, ``_q4`` and ``_scale``) -> the same nested dict of tensors
+    on ``device``, converted as :func:`llm_params_from_jax` converts a llama
+    tree."""
+    return llm_params_from_jax(tree, device=device, dtype=dtype)
 
 
 def sliced_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
@@ -137,9 +149,6 @@ def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
     mt = d.get("model_type", "llama")
     if mt in ("mixtral", "qwen3_moe"):
         raise NotImplementedError(_MOE_NOT_PORTED)
-    if mt == "deepseek_v3":
-        raise NotImplementedError("DeepSeek/MLA checkpoints are not ported yet "
-                                  "(llm/deepseek.py, ROADMAP.md A.11)")
     if mt not in ("llama", "mistral", "qwen2", "phi3", "phi", "opt", "gemma", "gemma2", "qwen3"):
         raise ValueError(f"unsupported model_type {mt}")
     heads = d["num_attention_heads"]

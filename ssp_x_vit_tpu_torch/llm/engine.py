@@ -36,7 +36,8 @@ import numpy as np
 
 import torch
 
-from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params, require_llama_config
+from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
+from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params
 from ssp_x_vit_tpu_torch.llm.paged import PagedServer
 
 __all__ = ["GenerationEvent", "RequestHandle", "ServingEngine"]
@@ -126,9 +127,13 @@ class ServingEngine:
                  page_size: int = 64, max_context: int = 1024,
                  cache_dtype=None, chunked_prefill: Optional[int] = None,
                  prefix_cache: bool = False, decode_block: int = 8):
-        # the DeepSeek/MLA family (compressed-latent pool server) is ROADMAP.md A.11
-        require_llama_config(cfg)
-        self._server = PagedServer(
+        server_cls = PagedServer
+        if is_deepseek(cfg):
+            # the MLA family: the compressed-latent pool server, same machinery and API
+            from ssp_x_vit_tpu_torch.llm.paged_mla import MLAPagedServer
+
+            server_cls = MLAPagedServer
+        self._server = server_cls(
             params, cfg, max_batch=max_batch, num_pages=num_pages, page_size=page_size,
             max_context=max_context, cache_dtype=cache_dtype or torch.bfloat16,
             chunked_prefill=chunked_prefill, prefix_cache=prefix_cache)

@@ -6,7 +6,8 @@ NLL, for gated / masked and for depth-materialized models. The stage-2
 candidate loop only changes gate values: ``evaluate_perplexity_candidates``
 scores a chunk of skip patterns as one batch (``[C, 1, 1]`` gates per layer
 over C copies of the window). NLL sums stay on the device and come to the
-host once per window. The DeepSeek/MLA family is not ported (ROADMAP.md A.11).
+host once per window. DeepSeek/MLA models evaluate through ``llm/deepseek.py``'s
+forwards in fp32, as the JAX package's ``_window_nll_deepseek*`` do.
 """
 
 from __future__ import annotations
@@ -24,6 +25,16 @@ from ssp_x_vit_tpu_torch.llm.model import (
 
 def _param_device(params) -> torch.device:
     return params["embed"].device
+
+
+def _deepseek_logits(params, tokens, cfg, attn_gate=None, mlp_gate=None) -> torch.Tensor:
+    """fp32 logits of a DeepSeek/MLA model (gated, or materialized)."""
+    from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_forward, deepseek_forward_materialized
+
+    if cfg.pruned_attention_blocks:
+        return deepseek_forward_materialized(params, tokens, cfg, compute_dtype=torch.float32)
+    return deepseek_forward(params, tokens, cfg, compute_dtype=torch.float32,
+                            attn_gate=attn_gate, mlp_gate=mlp_gate)
 
 
 def _nll_sums(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -58,8 +69,13 @@ def evaluate_perplexity_candidates(
     ``attn_gates`` / ``mlp_gates`` are ``[C, L]``. Candidates are evaluated
     ``chunk`` at a time as one batch (``chunk=1``: one at a time, same numbers
     up to the matmuls' summation order); all windows stream through each chunk.
+    DeepSeek/MLA models run in fp32 whatever ``compute_dtype`` says.
     """
-    require_llama_config(cfg)
+    from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
+
+    mla = is_deepseek(cfg)
+    if not mla:
+        require_llama_config(cfg)
     device = _param_device(params)
     ids = np.asarray(input_ids).reshape(-1)
     num_samples = ids.size // seq_len
@@ -74,10 +90,12 @@ def evaluate_perplexity_candidates(
             c1 = min(C, c0 + chunk)
             tokens = window[None].expand(c1 - c0, -1)
             # [c, L] -> [L, c, 1, 1]: row c of the batch runs under candidate c's gates
-            logits, _ = llama_forward(params, tokens, cfg,
-                                      attn_gate=ga[c0:c1].t()[:, :, None, None],
-                                      mlp_gate=gm[c0:c1].t()[:, :, None, None],
-                                      compute_dtype=compute_dtype)
+            gates = (ga[c0:c1].t()[:, :, None, None], gm[c0:c1].t()[:, :, None, None])
+            if mla:
+                logits = _deepseek_logits(params, tokens, cfg, *gates)
+            else:
+                logits, _ = llama_forward(params, tokens, cfg, attn_gate=gates[0],
+                                          mlp_gate=gates[1], compute_dtype=compute_dtype)
             totals[c0:c1] += _nll_sums(logits, tokens).double()
     tokens_per_window = seq_len - 1
     return np.exp(totals.cpu().numpy() / max(1, num_samples * tokens_per_window))
@@ -100,8 +118,16 @@ def evaluate_perplexity(
     """Perplexity over ``input_ids`` ([1, N] or [N]) in ``seq_len`` windows:
     exp of the global token-mean NLL (the reference's running weighted mean
     of per-window means is the same value). ``compute_dtype`` is the
-    forward's (the JAX function always runs bf16)."""
-    require_llama_config(cfg)
+    forward's (the JAX function always runs bf16); DeepSeek/MLA models run in
+    fp32 and take no ``neuron_mask``, as in the JAX package."""
+    from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
+
+    mla = is_deepseek(cfg)
+    if mla and neuron_mask is not None:
+        raise ValueError("neuron masks don't apply to the MLA family "
+                         "(stage-1 width materializes directly)")
+    if not mla:
+        require_llama_config(cfg)
     device = _param_device(params)
     ids = np.asarray(input_ids).reshape(-1)
     num_samples = ids.size // seq_len
@@ -117,7 +143,9 @@ def evaluate_perplexity(
         j = min(i + batch_size, num_samples)
         window = ids[i * seq_len:j * seq_len].reshape(j - i, seq_len)
         tokens = torch.from_numpy(window.astype(np.int64)).to(device)
-        if materialized:
+        if mla:
+            logits = _deepseek_logits(params, tokens, cfg, ga, gm)
+        elif materialized:
             logits = llama_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)
         else:
             logits, _ = llama_forward(params, tokens, cfg, attn_gate=ga, mlp_gate=gm,
@@ -147,14 +175,12 @@ def evaluate_inference_time(params, cfg: LlamaConfig, sample: np.ndarray,
     """Mean forward latency (ms) over one sample (reference
     src/evaluation.py:119-146): CUDA events on the card, the host clock on the CPU."""
     from ssp_x_vit_tpu_torch.evaluation.latency import measure_latency_fn
+    from ssp_x_vit_tpu_torch.llm.generate import full_logits
 
-    require_llama_config(cfg)
     device = _param_device(params)
     tokens = torch.from_numpy(np.asarray(sample).reshape(1, -1).astype(np.int64)).to(device)
-    if cfg.pruned_attention_blocks:
-        def fwd():
-            return llama_forward_materialized(params, tokens, cfg)
-    else:
-        def fwd():
-            return llama_forward(params, tokens, cfg)[0]
+
+    def fwd():
+        return full_logits(params, tokens, cfg, torch.bfloat16)
+
     return measure_latency_fn(fwd, device, warmup=1, iters=max(1, iters))

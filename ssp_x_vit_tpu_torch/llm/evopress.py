@@ -73,7 +73,13 @@ def _tokens(sample, device) -> torch.Tensor:
 
 
 def _logits(params, tokens, attn_gate, mlp_gate, cfg: LlamaConfig, compute_dtype):
-    """Gated forward -> fp32 logits (the DeepSeek/MLA family is not ported)."""
+    """Gated forward -> fp32 logits, llama or MLA (both families take
+    attention / MLP gates)."""
+    from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_forward, is_deepseek
+
+    if is_deepseek(cfg):
+        return deepseek_forward(params, tokens, cfg, attn_gate=attn_gate, mlp_gate=mlp_gate,
+                                compute_dtype=compute_dtype)
     require_llama_config(cfg)
     return llama_forward(params, tokens, cfg, attn_gate=attn_gate, mlp_gate=mlp_gate,
                          compute_dtype=compute_dtype)[0]
@@ -201,7 +207,10 @@ def evopress(
     start; ``history`` receives first ``{"target_bytes", "target_device"}``,
     then one record per selection (see :func:`selection`), each tagged with
     its generation (0: the initial population)."""
-    require_llama_config(cfg)
+    from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
+
+    if not is_deepseek(cfg):
+        require_llama_config(cfg)
     on_phase = on_phase or (lambda name: None)
     a = dict(DEFAULT_ARGS)
     if args:

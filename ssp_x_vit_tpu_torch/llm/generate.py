@@ -33,7 +33,16 @@ def full_logits(params, tokens: torch.Tensor, cfg, compute_dtype, *,
     """[b, s] -> [b, s, V] fp32 logits, picking the gated or the materialized
     forward from the config. ``remat=True`` checkpoints each layer (training
     under autograd); the materialized (pruned) forward ignores it, as in the
-    JAX package. DeepSeek/MLA configs raise (ROADMAP.md A.11)."""
+    JAX package. DeepSeek/MLA configs take ``llm/deepseek.py``'s forwards (their
+    training, where ``remat`` matters, is not ported)."""
+    from ssp_x_vit_tpu_torch.llm.deepseek import (
+        deepseek_forward, deepseek_forward_materialized, is_deepseek,
+    )
+
+    if is_deepseek(cfg):
+        if cfg.pruned_attention_blocks:
+            return deepseek_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)
+        return deepseek_forward(params, tokens, cfg, compute_dtype=compute_dtype)
     require_llama_config(cfg)
     if cfg.pruned_attention_blocks:
         return llama_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)

@@ -12,7 +12,8 @@ Architectures: llama / mistral (sliding window) / qwen2 (``qkv_bias``) / qwen3
 gemma2 (post-norms, softcaps, mixed per-layer windows) share the pre-RMSNorm
 GLU block; ``phi`` is the parallel-residual LayerNorm + GELU block with partial
 rotary; ``opt`` the sequential LayerNorm block with learned positions and a
-ReLU MLP. MoE configs raise (ROADMAP.md A.11).
+ReLU MLP. MoE configs raise (ROADMAP.md A.11c); the DeepSeek/MLA family is
+``llm/deepseek.py``.
 
 The large projections are ``torch.matmul`` (quantized ones go through
 ``ops.common.mm_quant``); attention goes to the hand-written flash kernel for
@@ -38,8 +39,7 @@ from ssp_x_vit_tpu_torch.ops.common import gelu, mm_quant, pick_param_variants
 Params = Dict[str, Any]
 
 _MOE_NOT_PORTED = ("mixture-of-experts configs (num_experts > 0) are not ported yet: "
-                   "parallel/moe.py is ROADMAP.md A.11")
-_MLA_NOT_PORTED = "the DeepSeek/MLA family is not ported yet (llm/deepseek.py, ROADMAP.md A.11)"
+                   "parallel/moe.py is ROADMAP.md A.11c")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +138,14 @@ class LlamaConfig:
 
 
 def require_llama_config(cfg) -> None:
-    """The LLM entry points take a ``LlamaConfig``; the JAX package's other
-    config class (DeepSeek/MLA) has no counterpart here yet."""
+    """The llama-family entry points take a ``LlamaConfig``. DeepSeek/MLA
+    models run through ``llm/deepseek.py`` and ``llm/paged_mla.py`` and the
+    family-generic entry points; the rest (training) does not take them yet."""
     if not isinstance(cfg, LlamaConfig):
-        raise NotImplementedError(_MLA_NOT_PORTED)
+        raise NotImplementedError(
+            f"this entry point takes a LlamaConfig, got {type(cfg).__name__}: DeepSeek/MLA "
+            "models run through llm/deepseek.py and llm/paged_mla.py; their training is "
+            "not ported yet (llm/train.py, ROADMAP.md A.11b)")
 
 
 def _glu_act(cfg: LlamaConfig):

@@ -25,7 +25,8 @@ tokens to the host once per block. Everything runs under ``torch.no_grad()``.
 
 Covers llama-layout models (llama/mistral/qwen2/qwen3/gemma/gemma-2), phi's
 parallel block, and width/depth-materialized pruned models (pool rows only for
-surviving attention layers). OPT, MoE and the DeepSeek/MLA family raise.
+surviving attention layers). OPT and MoE raise; the DeepSeek/MLA family
+serves through ``llm/paged_mla.py``'s subclass of :class:`PagedServer`.
 """
 
 from __future__ import annotations
@@ -470,10 +471,9 @@ class PagedServer:
                  num_pages: int = 128, page_size: int = 64, max_context: int = 1024,
                  cache_dtype=torch.bfloat16, chunked_prefill: Optional[int] = None,
                  prefix_cache: bool = False):
-        _check_servable(cfg)
         self.params, self.cfg = params, cfg
+        self._setup_model()
         self.device = params["embed"].device
-        self._layers = split_layers(params, cfg)
         # per-request sampling: lazily activated device state; None = every
         # request greedy through a device argmax
         self.sampler_state: Optional[SamplerState] = None
@@ -496,6 +496,11 @@ class PagedServer:
         self.decode_steps = 0                  # stat: batched decode steps run
 
     # ---------------- model hooks ----------------
+
+    def _setup_model(self):
+        """Check the config and make the per-layer parameter views once."""
+        _check_servable(self.cfg)
+        self._layers = split_layers(self.params, self.cfg)
 
     def _init_pools(self, num_pages: int, page_size: int, cache_dtype):
         self.k_pools, self.v_pools = init_paged_pools(self.cfg, num_pages, page_size,

@@ -12,6 +12,9 @@ All search phases run on the same forward via gate and mask arguments:
   influence 1 - cos(in, out)), ``blockpruner`` (greedy attention-or-MLP
   submodule removal). EvoPress, SliceGPT and the ablation variants of 2SSP
   are ``llm/evopress.py``, ``llm/slicegpt.py`` and ``llm/ablations.py``.
+
+DeepSeek/MLA configs take the same methods through ``llm/deepseek.py``'s
+forward and ``llm/pruning_deepseek.py``'s surgery, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 from ssp_x_vit_tpu_torch.llm.evaluation import (
     evaluate_perplexity, evaluate_perplexity_candidates,
 )
+from ssp_x_vit_tpu_torch.llm import pruning_deepseek as PD
+from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_forward, is_deepseek
 from ssp_x_vit_tpu_torch.llm.model import (
     LlamaConfig, Params, llama_forward, require_llama_config,
 )
@@ -38,6 +43,8 @@ def count_main_params(cfg: LlamaConfig) -> Tuple[int, int, int]:
     """(main_layers_total, attn_per_block, mlp_per_block): the reference counts
     model.model.layers / self_attn / mlp parameters (src/pruning.py:234-241),
     norm scales included in the block total."""
+    if is_deepseek(cfg):
+        return PD.count_main_params_deepseek(cfg)
     require_llama_config(cfg)
     d, f = cfg.hidden_size, cfg.effective_intermediate
     hq = cfg.num_heads * cfg.head_dim
@@ -65,12 +72,15 @@ def mlp_hidden_importance(params: Params, cfg: LlamaConfig,
     """Mean over samples of the token-L2 of down_proj inputs: [L, f]
     (reference src/pruning.py:270-279). The sum over samples stays on the
     device and comes to the host once."""
-    require_llama_config(cfg)
     device = params["embed"].device
+    mla = is_deepseek(cfg)
+    if not mla:
+        require_llama_config(cfg)
     sums = None
     for sample in calibration:
-        _, aux = llama_forward(params, _tokens(sample, device), cfg, collect_mlp_stats=True,
-                               compute_dtype=compute_dtype)
+        fwd = deepseek_forward if mla else llama_forward
+        _, aux = fwd(params, _tokens(sample, device), cfg, collect_mlp_stats=True,
+                     compute_dtype=compute_dtype)
         norms = torch.sqrt(aux["mlp_stats"][:, 0, :])  # [L, f]
         sums = norms if sums is None else sums + norms
     return sums.cpu().numpy() / max(1, len(calibration))
@@ -82,6 +92,8 @@ def materialize_llm_width_pruning(
     """Slice gate/up columns and down rows to the kept neurons per block
     (reference prune_mlp, src/utilities.py:392-425). Uniform keep count; the
     gather runs on the parameters' device."""
+    if is_deepseek(cfg):
+        return PD.materialize_deepseek_width_pruning(params, cfg, keep_indices)
     require_llama_config(cfg)
     keeps = [np.asarray(k) for k in keep_indices]
     n_keep = len(keeps[0])
@@ -246,6 +258,8 @@ def materialize_llm_depth_pruning(
 ) -> Tuple[Params, LlamaConfig]:
     """Physically drop pruned blocks' attention weights (the reference deletes
     the q/k/v/o projections, src/utilities.py:486-503)."""
+    if is_deepseek(cfg):
+        return PD.materialize_deepseek_attention_pruning(params, cfg, blocks_to_prune)
     require_llama_config(cfg)
     pruned = tuple(sorted(set(int(i) for i in blocks_to_prune)))
     if not pruned:
@@ -281,6 +295,8 @@ def materialize_llm_block_removal(
     deployment artifact of the depth baselines. The result is a plain
     shallower model. Mixed per-layer window indices are remapped to the
     surviving positions."""
+    if is_deepseek(cfg):
+        return PD.materialize_deepseek_block_removal(params, cfg, blocks_to_remove)
     require_llama_config(cfg)
     removed = tuple(sorted(set(int(i) for i in blocks_to_remove)))
     if not removed:
@@ -320,11 +336,14 @@ def compute_intermediate_outputs(
 ) -> List[np.ndarray]:
     """Per-sample stacked block outputs (reference src/utilities.py:188-221),
     captured from one forward per sample: [L, d] (last token) or [L, s, d]."""
-    require_llama_config(cfg)
     device = params["embed"].device
+    mla = is_deepseek(cfg)
+    if not mla:
+        require_llama_config(cfg)
     outs = []
     for sample in calibration:
-        _, aux = llama_forward(params, _tokens(sample, device), cfg, return_block_outputs=True)
+        fwd = deepseek_forward if mla else llama_forward
+        _, aux = fwd(params, _tokens(sample, device), cfg, return_block_outputs=True)
         o = aux["block_outputs"]  # [L, b, s, d]
         o = o[:, 0, -1, :] if last_token else o[:, 0]
         outs.append(o.float().cpu().numpy())

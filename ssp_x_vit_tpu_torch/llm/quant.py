@@ -45,11 +45,11 @@ def dequantize_weight(w_q: torch.Tensor, scale: torch.Tensor, dtype=torch.float3
 
 
 def _quantize_stacked(v: torch.Tensor, quantize) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize a stacked [L, K, N] kernel one layer at a time, which bounds
-    the fp32 temporaries to one layer of a full-size model."""
+    """Quantize a stacked [L, (E,) K, N] kernel one [K, N] matrix at a time,
+    which bounds the fp32 temporaries to one matrix of a full-size model."""
     if v.dim() < 3:
         return quantize(v)
-    parts = [quantize(v[i]) for i in range(v.shape[0])]
+    parts = [_quantize_stacked(v[i], quantize) for i in range(v.shape[0])]
     return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
 
 
@@ -81,6 +81,47 @@ def quantize_llm_params_int4(params: Params, cfg: LlamaConfig) -> Params:
     int8: the 15-level grid is coarse and the head is a small share of the
     weight bytes."""
     return _quantize_tree(params, quantize_weight_int4, "_q4")
+
+
+# DeepSeek/MLA projection kernels: the low-rank a / b projections, kv_b, o,
+# the dense and shared-expert GLUs and the routed expert stacks ([L, E, K, N],
+# per (expert, out-channel)); router, e_bias and norms stay float.
+DS_QUANT_KEYS = ("q_kernel", "q_a_kernel", "q_b_kernel", "kv_a_kernel",
+                 "kv_b_kernel", "o_kernel", "gate_kernel", "up_kernel",
+                 "down_kernel", "shared_gate", "shared_up", "shared_down")
+
+
+def _quantize_deepseek_tree(params: Params, quantize, suffix: str) -> Params:
+    out = {k: v for k, v in params.items() if k not in ("dense_blocks", "moe_blocks")}
+    for grp in ("dense_blocks", "moe_blocks"):
+        if grp not in params:
+            continue
+        blocks = {}
+        for k, v in params[grp].items():
+            if k in DS_QUANT_KEYS:
+                blocks[k + suffix], blocks[k + "_scale"] = _quantize_stacked(v, quantize)
+            else:
+                blocks[k] = v
+        out[grp] = blocks
+    if "lm_head" in out:  # untied head only; a tied embed.T stays float
+        out["lm_head_q"], out["lm_head_scale"] = quantize_weight_int8(out.pop("lm_head"))
+    return out
+
+
+def quantize_deepseek_params_int8(params: Params, cfg) -> Params:
+    """int8 weights for the DeepSeek/MLA family: every projection kernel of
+    ``dense_blocks`` / ``moe_blocks`` becomes ``k + "_q"`` and ``k + "_scale"``
+    (the codes and scales of the JAX quantizer, bit for bit); the lm_head int8."""
+    return _quantize_deepseek_tree(params, quantize_weight_int8, "_q")
+
+
+def quantize_deepseek_params_int4(params: Params, cfg) -> Params:
+    """int4 weights for the DeepSeek/MLA family: projections and the routed
+    expert stacks become ``k + "_q4"`` packed nibbles and ``k + "_scale"``
+    (projections through the dequant GEMM, expert stacks unpacked in the
+    expert product, ``kv_b`` unpacked in the absorbed paths); the lm_head
+    stays int8, as in the llama family."""
+    return _quantize_deepseek_tree(params, quantize_weight_int4, "_q4")
 
 
 def quantized_param_bytes(params: Params) -> int:

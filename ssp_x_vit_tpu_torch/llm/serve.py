@@ -23,7 +23,8 @@ JAX package leaves it to XLA. Everything runs under ``torch.no_grad()``.
 Also kept here for the paged path: the prompt buckets, rotary embedding at
 per-sequence positions, the QKV projection of one block, the final norm + lm
 head, ``split_layers`` and ``pack_llm_params_for_serving``. Multi-LoRA
-(``lora_ids``) raises naming ROADMAP.md A.10, MoE and DeepSeek/MLA A.11.
+(``lora_ids``) raises naming ROADMAP.md A.10, MoE A.11c; DeepSeek/MLA generation is
+``llm/deepseek.py`` (``deepseek_generate``).
 ``llm/aot.py`` (XLA ahead-of-time compilation) has no counterpart.
 """
 

@@ -28,13 +28,13 @@ from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params, require_llama_con
 from ssp_x_vit_tpu_torch.llm.optim import AdamW, tree_leaves
 
 _MOE_NOT_PORTED = ("training mixture-of-experts configs (num_experts > 0) is not ported yet: "
-                   "parallel/moe.py is ROADMAP.md A.11")
+                   "parallel/moe.py is ROADMAP.md A.11c")
 
 Step = Callable[[Params, Dict, torch.Tensor], Tuple[Params, Dict, torch.Tensor]]
 
 
 def _check_trainable(cfg) -> None:
-    require_llama_config(cfg)  # DeepSeek/MLA raises naming ROADMAP.md A.11
+    require_llama_config(cfg)  # DeepSeek/MLA raises naming ROADMAP.md A.11b
     if cfg.num_experts:
         raise NotImplementedError(_MOE_NOT_PORTED)
 

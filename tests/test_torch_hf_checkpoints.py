@@ -210,10 +210,15 @@ def test_refusals_leave_no_partial_directory(tmp_path):
         with pytest.raises(err, match=match):
             tckpt.export_hf_llama(str(out), p, c)
         assert not out.exists(), match
-    for model_type in ("mixtral", "qwen3_moe", "deepseek_v3"):
+    for model_type in ("mixtral", "qwen3_moe"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.11"):
             tckpt.config_from_hf_dict({"model_type": model_type, "num_attention_heads": 4,
                                        "hidden_size": 32})
+    # deepseek_v3 directories load through llm/deepseek.py; the llama reader
+    # refuses the type as the JAX package's does
+    for reader in (tckpt.config_from_hf_dict, jckpt.config_from_hf_dict):
+        with pytest.raises(ValueError, match="unsupported model_type deepseek_v3"):
+            reader({"model_type": "deepseek_v3", "num_attention_heads": 4, "hidden_size": 32})
     with pytest.raises(ValueError, match="unsupported model_type"):
         tckpt.config_from_hf_dict({"model_type": "bert", "num_attention_heads": 4,
                                    "hidden_size": 32})

@@ -176,7 +176,8 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
     """What stays unported on the serving paths raises naming its item:
     tokenizers other than byte-level BPE (A.10f: a ``--tokenizer`` directory
     without a byte-level ``tokenizer.json``), multi-LoRA (A.10: ``lora_ids``)
-    and the MLA engine (A.11)."""
+    and a config that is neither family (the DeepSeek/MLA engine is tested in
+    tests/test_torch_paged_mla.py)."""
     from ssp_x_vit_tpu_torch.cli import serve_http
     from ssp_x_vit_tpu_torch.llm import serve
     from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
@@ -191,7 +192,7 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         serve.generate_kv_scan(params, tiny, [[1, 2, 3]], max_length=8, lora_ids=[0])
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):   # the MLA config class
-        ServingEngine({}, object())
+        ServingEngine({}, object())   # neither a LlamaConfig nor a DeepseekConfig
 
 
 def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
@@ -215,20 +216,26 @@ def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
 
 
 def test_unported_llm_flags_name_the_roadmap_item(tmp_path):
+    """--local_datasets still raises naming its item; the DeepSeek models
+    (the two tiny names and a native directory with kv_lora_rank) now load
+    and run."""
     from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm import deepseek
 
     base = ["--backend", "cpu", "--model", "tiny-random"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10a"):
         main_llm.run(main_llm.build_argparser().parse_args(base + ["--local_datasets"]))
     for model in ("tiny-random-deepseek", "tiny-random-deepseek-dense"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-            main_llm.run(main_llm.build_argparser().parse_args(["--backend", "cpu", "--model", model]))
-    (tmp_path / "mla").mkdir()
-    (tmp_path / "mla" / "model.npz").write_bytes(b"")
-    (tmp_path / "mla" / "config.json").write_text('{"kv_lora_rank": 32}')
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-        main_llm.run(main_llm.build_argparser().parse_args(
-            ["--backend", "cpu", "--model", str(tmp_path / "mla")]))
+        args = main_llm.build_argparser().parse_args(["--backend", "cpu", "--model", model])
+        params, cfg = main_llm.load_model(args, torch.device("cpu"))
+        assert isinstance(cfg, deepseek.DeepseekConfig)
+        assert ("moe_blocks" in params) == (model == "tiny-random-deepseek")
+    deepseek.save_deepseek_model(str(tmp_path / "mla"), params, cfg)
+    assert '"kv_lora_rank": 32' in (tmp_path / "mla" / "config.json").read_text()
+    out = main_llm.run(main_llm.build_argparser().parse_args(
+        ["--backend", "cpu", "--model", str(tmp_path / "mla"), "--dense", "--evaluate_perplexity",
+         "--synthetic-data", "--seq-len", "16", "--num-calibration", "1"]))
+    assert out["model_type"] == "deepseek_v3" and np.isfinite(out["dense"]["ppl"])
 
 
 def test_llm_kernel_wrappers_check_their_operands():
@@ -424,7 +431,8 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
     if os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
     assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "flash_attention_bwd",
-                                  "quant_gemm", "paged_attention", "quant_fused_mlp"}
+                                  "quant_gemm", "paged_attention", "quant_fused_mlp",
+                                  "paged_mla"}
     assert set(build.SIGNATURES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
