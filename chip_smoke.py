@@ -54,7 +54,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             write (pools bit for bit the plain write's) at DeepSeek-V3 decode
             (b=8, 128 heads, D=576, 2048 keys), 16 heads over ~520 ragged keys
             in pages of 16 and 256, and D=40, fp32 / bf16 / int8 pools, timed
-            beside page gather + SDPA and the bound.
+            beside page gather + SDPA and the bound. The MLA decode layer's
+            one launch (``paged_mla_attention_write``: the row write, then
+            the attention) against its plain version, on the Hopper kernel
+            (``paged_mla_write_hopper`` / ``_q8``; bf16 and int8 pools, 128
+            heads) at DeepSeek-V3 decode, at the served shape (8 slots of ~520
+            ragged keys) and over ragged 1-2048 keys in pages of 16 and 256,
+            and on the mma.sync kernel (fp32 pools, 16 and 4 heads): pools bit
+            for bit outside trash page 0, the same bits twice, planted faults
+            rejected, timed (events, device, host enqueue) at both V3 shapes;
+            the standalone row write + attention driven against it.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, finetuned first
             (``--do-finetune``: one epoch, 32 steps at b=32, bf16, every step
@@ -107,8 +116,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             perplexity, shortGPT 25%, ``--quantize int4`` (row 10 must launch)
             and 25% 2SSP on the all-dense variant, ``deepseek_generate`` at
             b=8, and ``ServingEngine`` over ``MLAPagedServer`` (8 slots, bf16
-            pools, int8 pools with chunked prefill: the MLA kernel and the row
-            write once per layer and decode step, each served token within
+            pools, int8 pools with chunked prefill: the Hopper write-and-attend
+            kernel once per layer and decode step, no standalone row write or
+            MLA attention, each served token within
             5e-2 of the prompt run alone), a decode-step measurement and
             profiler splits. Kernel launches per run, each driven path with
             the counts set to 0 just before it.
@@ -4885,6 +4895,228 @@ def phase_mla_kernels(device) -> dict:
     return records
 
 
+def _mla_write_setup(gen, device, kind, b, nq, D, ps, positions, mp=None):
+    """The write-and-attend operands: q [b, nq, D] (normal, times
+    MLA_Q_SCALE), a 2-layer latent pool of normal rows (layer 1 used) with
+    shuffled distinct pages (``mp`` a row, at least the positions' pages; page
+    0 is the trash page no table names), the new rows [b, 1, D] and int32
+    positions (one past the table writes to trash page 0)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import quantize_token_kv
+
+    need = max(-(-(min(n, 1 << 30) + 1) // ps) for n in positions if n < (1 << 30))
+    mp = max(mp or 1, need)
+    num_pages = 1 + b * mp
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    rows = torch.randn((2, 1, num_pages, ps, D), generator=gen, device=device)
+    if kind == "int8":
+        codes, scales = quantize_token_kv(rows)
+        pool = {"q": codes, "s": scales}
+    else:
+        pool = rows.to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=device) + 1
+    table = perm[: b * mp].reshape(b, mp).to(torch.int32).contiguous()
+    q = (torch.randn((b, nq, D), generator=gen, device=device) * MLA_Q_SCALE).to(dtype)
+    new = torch.randn((b, 1, D), generator=gen, device=device).to(dtype)
+    pos = torch.as_tensor([min(n, mp * ps + 3) for n in positions], dtype=torch.int32,
+                          device=device)
+    return q, new, pool, table, pos
+
+
+def _mla_write_cost(kind, b, nq, D, v_cols, keys) -> tuple:
+    """(bytes, FLOPs) of one write-and-attend call: each live row read once
+    (codes and scale for int8), q and the new rows read, the output and the
+    written rows stored; 2 * nq * (D + v_cols) operations a live row."""
+    row = D + 4 if kind == "int8" else D * (4 if kind == "float32" else 2)
+    elem = 4 if kind == "float32" else 2
+    keys_all = sum(keys)
+    nbytes = keys_all * row + b * nq * D * elem + b * nq * v_cols * elem + b * D * elem + \
+        b * row + b * 8
+    return nbytes, 2 * nq * (D + v_cols) * keys_all
+
+
+def phase_mla_write_kernels(device) -> dict:
+    """The MLA decode layer's one launch, ``paged_mla_attention_write``, against
+    its plain version (the row write, then the attention over positions + 1
+    keys, the first v_cols columns): on the Hopper kernel (bf16 and int8
+    pools, 128 heads, D=576, v_cols 512) at DeepSeek-V3 decode (b=8, 2047
+    cached keys, pages of 64), at the served shape (8 slots of ~520 ragged
+    keys, a 10-page table), with pages of 16 and 256 over ragged lengths from
+    1 to 2048 and a slot past its table; on the mma.sync kernel (fp32 pools,
+    16 and 4 heads, D=40) likewise. Outputs within 1e-5 (fp32) or 3e-2 (bf16,
+    int8) of max(1, max |plain|), the same bits on a second call, one launch of
+    the expected counter per call, the pools bit for bit the plain write's
+    outside trash page 0, and the limits reject the planted faults. The
+    Hopper kernel timed at both V3 shapes (events, device, host enqueue,
+    plain, page gather + SDPA, bound), the mma.sync write-and-attend at the
+    16-head shape. Returns the kernels-line records."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_mla as tpm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(16)
+    tol = {"float32": 1e-5, "bfloat16": 3e-2, "int8": 3e-2}
+    ragged = [0, 1, 63, 64, 520, 1000, 1500, 2047]
+    cases = [  # label, b, nq, D, v_cols, ps, positions, mp, timed, kinds
+        ("DeepSeek-V3 decode, 2047 cached keys", 8, 128, 576, 512, 64, [2047] * 8, None, True,
+         ("bfloat16", "int8", "float32")),
+        ("served shape, 8 slots of ~520 ragged keys", 8, 128, 576, 512, 64,
+         [519 + 3 * i for i in range(8)], 10, True, ("bfloat16", "int8")),
+        ("128 heads, ragged 1-2048 keys, pages of 16, a slot past its table", 8, 128, 576, 512,
+         16, ragged[:7] + [1 << 30], None, False, ("bfloat16", "int8")),
+        ("128 heads, ragged 1-2048 keys, pages of 256", 8, 128, 576, 512, 256, ragged, None,
+         False, ("bfloat16", "int8")),
+        ("16 heads, ~520 ragged keys, pages of 64", 8, 16, 576, 512, 64,
+         [519 + 3 * i for i in range(8)], None, True, ("float32", "bfloat16", "int8")),
+        ("tiny D=40 (kv_lora_rank 32 + rope 8), a slot past its table", 3, 4, 40, 32, 16,
+         [0, 17, 1 << 30], None, False, ("float32", "bfloat16", "int8")),
+    ]
+    records = {}
+    for label, b, nq, D, v_cols, ps, positions, mp, timed, kinds in cases:
+        for kind in kinds:
+            q, new, pool, table, pos = _mla_write_setup(gen, device, kind, b, nq, D, ps,
+                                                        positions, mp)
+            codes = pool["q"] if kind == "int8" else pool
+            hopper = tpm.hopper_takes(nq, D, v_cols, ps, codes.dtype)
+            q8 = "_q8" if kind == "int8" else ""
+            counter = ("paged_mla_write_hopper" if hopper else "paged_mla_attention_write") + q8
+            plain_pool = _clone_pool(pool)
+            ref = tpm.paged_mla_attention_write_plain(q, new, plain_pool, table, pos, layer_idx=1,
+                                                      v_cols=v_cols)
+            before = dict(launch_counts)
+            got = tpm.paged_mla_attention_write(q, new, pool, table, pos, layer_idx=1,
+                                                v_cols=v_cols)
+            again = tpm.paged_mla_attention_write(q, new, pool, table, pos, layer_idx=1,
+                                                  v_cols=v_cols)
+            moved = {k: launch_counts[k] - before[k] for k in launch_counts
+                     if launch_counts[k] != before[k]}
+            if moved != {counter: 2}:
+                raise AssertionError(f"MLA write {label} {kind}: launches {moved}, expected "
+                                     f"{counter} twice")
+            differ = sum(_pools_differ(x, y) for x, y in zip(_without_trash(pool, True),
+                                                             _without_trash(plain_pool, True)))
+            err, rel = scaled_err(got, ref)
+            log(f"[KERNEL] {counter} {label}: b={b} nq={nq} D={D} v_cols={v_cols} ps={ps} "
+                f"{kind}: max abs err {err:.3e}, scaled {rel:.3e} (tol {tol[kind]}), same bits "
+                f"twice {torch.equal(got, again)}, pool elements unlike the plain write's "
+                f"outside trash page 0: {differ}")
+            if rel > tol[kind] or not torch.equal(got, again) or differ:
+                raise AssertionError(f"{counter} {label} {kind}: scaled err {rel}, pools differ "
+                                     f"in {differ}")
+            planted = []
+            for what, bad in _mla_planted_faults(q, plain_pool, table, pos + 1,
+                                                 8 if D == 40 else 64, ps):
+                bad_rel = scaled_err(bad[..., :v_cols], ref)[1]
+                if bad_rel <= tol[kind]:
+                    raise AssertionError(f"MLA write {label} {kind}: the limit {tol[kind]} "
+                                         f"accepts the plain output with {what} ({bad_rel:.3e})")
+                planted.append(f"{what} {bad_rel:.3e}")
+            log(f"[KERNEL] {counter} {label} {kind}: max |plain| "
+                f"{ref.float().abs().max().item():.3f}; planted faults rejected, scaled err "
+                f"{'; '.join(planted)}")
+            if not timed or kind == "float32":
+                continue
+            call = lambda: tpm.paged_mla_attention_write(q, new, pool, table, pos, layer_idx=1,
+                                                         v_cols=v_cols)
+            ms = time_ms(call, iters=50)
+            dev_ms = device_ms(call)
+            host = host_us(call)
+            plain_ms = time_ms(lambda: tpm.paged_mla_attention_write_plain(
+                q, new, plain_pool, table, pos, layer_idx=1, v_cols=v_cols), iters=5)
+            keys = [int(n) + 1 for n in pos.tolist()]
+            mpt = table.shape[1]
+
+            def gathered():
+                rows = codes[1, 0][table.long()].reshape(b, mpt * ps, D)[:, :max(keys)]
+                if kind == "int8":
+                    s = pool["s"][1, 0][table.long()].reshape(b, mpt * ps)[:, :max(keys)]
+                    rows = (rows.float() * s[..., None]).to(torch.bfloat16)
+                return rows[:, None].expand(b, nq, max(keys), D)
+
+            q4 = q[:, :, None]
+            mask = None  # ragged lengths: the keys past each length masked
+            if min(keys) < max(keys):
+                mask = (torch.arange(max(keys), device=device)[None, :] <
+                        torch.as_tensor(keys, device=device)[:, None])[:, None, None]
+            backend = _sdpa_backend(q4, gathered())
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, gathered(), gathered(),
+                                                                    attn_mask=mask), iters=10)
+            nbytes, flops = _mla_write_cost(kind, b, nq, D, v_cols, keys)
+            bound, by = _bound(flops, nbytes, "bfloat16")
+            log(f"[TIME] {counter} {label} ({kind} pool, bf16 queries): kernel {ms:.4f} ms "
+                f"(events), device {_ms(dev_ms)} ({_rate(nbytes, dev_ms, 'TB/s', 1e9)}, "
+                f"{_rate(flops, dev_ms, 'TFLOP/s', 1e9)}), host enqueue {host:.1f} us a call, "
+                f"plain {plain_ms:.4f} ms, library page gather + SDPA ({backend}) "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; {nbytes} bytes, {flops} FLOPs)")
+            if counter in records:
+                records[counter]["served_shape"] = dict(
+                    shape=f"b={b} nq={nq} ps={ps}, {min(keys)}-{max(keys)} keys", ms=ms,
+                    device_ms=dev_ms, host_us=host, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound, bound_by=by)
+                continue
+            src = "paged_mla_hopper.cu" if hopper else "paged_mla.cu"
+            records[counter] = dict(
+                name=counter, route="cuda", source="ssp_x_vit_tpu_torch/ops/kernels/csrc/" + src,
+                replaces="ssp_x_vit_tpu/ops/pallas/paged_attention.py:" + ("349" if q8 else "243"),
+                tpu_kernel=("_paged_pallas_grouped_q8" if q8 else "_paged_pallas_grouped") +
+                           " as llm/paged_mla.py:290 calls it, after paged_pool_write (:280; "
+                           "Pallas :541 / :587)",
+                shape=f"b={b} nq={nq} D={D} v_cols={v_cols} ps={ps}, {min(keys)}-{max(keys)} "
+                      f"keys, {kind} pool",
+                tol=tol[kind], max_abs_err=err, scaled_err=rel, ms=ms, device_ms=dev_ms,
+                host_us=host, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library=f"page gather + F.scaled_dot_product_attention ({backend})",
+                flops=flops, bytes=nbytes)
+            del call
+        del q, new, pool, plain_pool, table, pos
+        torch.cuda.empty_cache()
+    return records
+
+
+def drive_mla_standalone(device) -> dict:
+    """The served MLA decode layer makes one ``paged_mla_attention_write`` call;
+    the standalone ``paged_mla_attention`` (and ``_q8``) stays for direct
+    calls, and the mma.sync write-and-attend serves fp32 pools and head counts
+    that are not a multiple of 64 (the tiny models). Both are driven here at
+    DeepSeek-V2-Lite's 16 heads over ~520 keys, pages of 64: the row write
+    then the standalone attention against the write-and-attend call from the
+    same pools (the same pools bit for bit, outputs within the dtype's limit).
+    Returns the launches this drive made."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_attention as tpa
+    from ssp_x_vit_tpu_torch.ops.kernels import paged_mla as tpm
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    tol = {"float32": 1e-5, "bfloat16": 3e-2, "int8": 3e-2}
+    reset_launch_counts()
+    for kind in ("float32", "bfloat16", "int8"):
+        q, new, pool, table, pos = _mla_write_setup(gen, device, kind, 8, 16, 576, 64,
+                                                    [519 + 3 * i for i in range(8)])
+        fused = _clone_pool(pool)
+        tpa.paged_pool_write(pool, new, table, pos, layer_idx=1)
+        got = tpm.paged_mla_attention(q, pool, table, pos + 1, layer_idx=1)
+        ref = tpm.paged_mla_attention_write(q, new, fused, table, pos, layer_idx=1)
+        torch.cuda.synchronize()
+        err, rel = scaled_err(got, ref)
+        same = _pools_differ(pool, fused) == 0
+        log(f"[KERNEL] paged_pool_write + paged_mla_attention ({kind} pool), the standalone "
+            f"calls, vs paged_mla_attention_write: pools identical {same}, max_abs_err={err:.3e} "
+            f"scaled={rel:.3e} tol={tol[kind]}")
+        if not same or rel > tol[kind]:
+            raise AssertionError(f"the standalone MLA calls ({kind} pool) disagree with "
+                                 "paged_mla_attention_write")
+    names = ("paged_mla_attention", "paged_mla_attention_q8", "paged_mla_attention_write",
+             "paged_mla_attention_write_q8")
+    return {name: launch_counts[name] for name in names}
+
+
 def make_deepseek_v3(device, dense: bool = False):
     """(params, cfg) at DeepSeek-V3's published widths (``config_from_hf_deepseek``
     of its config.json), depth cut to 4 layers: 3 dense + 1 MoE, or all 4
@@ -5094,9 +5326,10 @@ def _mla_served(params, cfg, device, prompts, cache_dtype, chunked) -> tuple:
 
 
 def _mla_serve(params, cfg, device, label, cache_dtype, chunked) -> dict:
-    """8 requests (``_mla_prompts``) through ``_mla_served``;
-    paged_mla_attention (and the row write) launched once per layer and
-    decode step, no other paged kernel; each served token within 5e-2 of
+    """8 requests (``_mla_prompts``) through ``_mla_served``; the Hopper
+    write-and-attend kernel (``paged_mla_write_hopper`` / ``_q8``) launched
+    once per layer and decode step, no other paged kernel (no standalone row
+    write or MLA attention); each served token within 5e-2 of
     max(1, max |logit|) of the best logit of the served batch replayed
     (``_mla_replay``) and of the same prompt run alone with the same prefill
     and, at each decode step, the batch's experts (``_mla_alone_gaps``). The
@@ -5111,17 +5344,20 @@ def _mla_serve(params, cfg, device, label, cache_dtype, chunked) -> dict:
                                                    chunked)
     q8 = "_q8" if cache_dtype == torch.int8 else ""
     want = steps * cfg.num_layers
-    for name in ("paged_mla_attention", "paged_mla_attention_q8", "paged_pool_write",
+    for name in ("paged_mla_write_hopper", "paged_mla_write_hopper_q8",
+                 "paged_mla_attention_write", "paged_mla_attention_write_q8",
+                 "paged_mla_attention", "paged_mla_attention_q8", "paged_pool_write",
                  "paged_pool_write_q8", "paged_attention", "paged_attention_q8",
                  "paged_attention_write", "paged_attention_write_q8"):
-        expect = want if name in ("paged_mla_attention" + q8, "paged_pool_write" + q8) else 0
+        expect = want if name == "paged_mla_write_hopper" + q8 else 0
         if launches[name] != expect or want <= 0:
             raise AssertionError(f"MLA {label}: {name} launched {launches[name]} times over "
                                  f"{steps} decode steps of {cfg.num_layers} layers, expected {expect}")
     tokens = sum(len(s) for s in served)
     log(f"[DEEPSEEK] served {label}: {len(prompts)} requests, {tokens} tokens in {seconds:.1f} s "
         f"({tokens / seconds:.1f} tokens/s over the run, prefills included), {steps} decode steps, "
-        f"paged_mla_attention{q8} launches {launches['paged_mla_attention' + q8]} = layers x steps, "
+        f"paged_mla_write_hopper{q8} launches {launches['paged_mla_write_hopper' + q8]} = layers x "
+        f"steps (one write-and-attend launch a layer; no standalone row write or attention), "
         f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     if any(len(s) != 16 for s in served):
         raise AssertionError(f"MLA {label}: a request ended early: {[len(s) for s in served]}")
@@ -5504,6 +5740,7 @@ def main() -> int:
     records.update(phase_paged_kernels(device))
     records.update(phase_fused_mlp(device))
     records.update(phase_mla_kernels(device))
+    records.update(phase_mla_write_kernels(device))
     for b, dtype in ((64, torch.bfloat16), (64, torch.float32), (1, torch.float32)):
         time_kernel_parts(device, b, dtype)
     time_llm_parts(device)
@@ -5518,9 +5755,11 @@ def main() -> int:
                                drive_quant_matmul(device))}
     for name, n in drive_paged_standalone(device).items():
         direct[name] = ("direct wrapper calls; the served llama decode layer makes one "
-                        "paged_attention_write call instead" +
-                        ("; the served MLA decode layer writes its latent row with it"
-                         if name.startswith("paged_pool_write") else ""), n)
+                        "paged_attention_write call instead", n)
+    for name, n in drive_mla_standalone(device).items():
+        direct[name] = ("direct wrapper calls at 16 heads; the served DeepSeek-V3 decode layer makes "
+                        "one paged_mla_attention_write call, on the Hopper kernel" +
+                        ("" if "write" in name else ", instead of the row write and this"), n)
     phase_done("kernels (phase 3)")
     cli_launches = {name: 0 for name in KERNEL_NAMES}
     a7c_work = tempfile.TemporaryDirectory()

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s DeepSeek-V3 phases alone on one card: the MLA
-decode kernel against its plain version with its timings
-(``phase_mla_kernels``), the DeepSeek-V3-width runs through
+decode kernels against their plain versions with their timings
+(``phase_mla_kernels``: the standalone attention; ``phase_mla_write_kernels``
+and ``drive_mla_standalone``: the decode layer's write-and-attend launch on
+both kernels), the DeepSeek-V3-width runs through
 ``cli.main_llm.run``, ``deepseek_generate`` and the ``MLAPagedServer`` served
 through ``ServingEngine`` (``phase_deepseek``), and the tiny DeepSeek models,
 card against host CPU (``phase_anchor_deepseek``).
@@ -48,6 +50,8 @@ def main() -> int:
     if "kernels" in which:
         t0 = time.perf_counter()
         cs.log(json.dumps(cs.phase_mla_kernels(device)))
+        cs.log(json.dumps(cs.phase_mla_write_kernels(device)))
+        cs.log(json.dumps(cs.drive_mla_standalone(device)))
         cs.log(f"[PHASE] MLA kernels: {time.perf_counter() - t0:.1f} s")
     if "deepseek" in which:
         t0 = time.perf_counter()

@@ -13,9 +13,11 @@ Absorbed decode is one-KV-head attention over that pool: the query is
 (``probs @ cat(c, kr)`` sliced to the first kv_lora_rank columns is the
 context in compressed space); the query is pre-multiplied by
 ``sqrt(D) * mla_softmax_scale(cfg)`` since the attention scales by
-``1 / sqrt(D)``. On the card each decode layer writes its new row with row 9's
-``paged_pool_write`` and attends with ``paged_mla_attention``
-(``ops/kernels/paged_mla.py``); on the CPU both run their plain versions. The
+``1 / sqrt(D)``. On the card each decode layer writes its new row and attends
+in one ``paged_mla_attention_write`` launch (``ops/kernels/paged_mla.py``; the
+Hopper kernel at DeepSeek-V2/V3 widths), which returns the kv_lora_rank
+columns the layer reads; on the CPU it runs the plain write then the plain
+attention. The
 int8 pool is ``{"q": codes, "s": one fp32 scale per row}``.
 
 As elsewhere in the port: the pools are written in place, the layer loop is a
@@ -39,9 +41,9 @@ from ssp_x_vit_tpu_torch.llm.deepseek import (
 )
 from ssp_x_vit_tpu_torch.llm.paged import _NEG_INF, PagedServer, masked_decode_scan
 from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import (
-    layer_of, paged_pool_write, paged_pool_write_many,
+    layer_of, paged_pool_write_many,
 )
-from ssp_x_vit_tpu_torch.ops.kernels.paged_mla import paged_mla_attention
+from ssp_x_vit_tpu_torch.ops.kernels.paged_mla import paged_mla_attention_write
 
 __all__ = ["MLAPagedServer", "init_mla_pool", "mla_paged_prefill", "mla_prefill_chunk",
            "mla_paged_prefill_chunked", "mla_paged_decode_step", "mla_paged_generate"]
@@ -169,15 +171,14 @@ def mla_paged_prefill_chunked(params: Params, prompt, pool, cfg: DeepseekConfig,
 
 
 def _absorbed_paged_attention(h, bp, cfg: DeepseekConfig, dt, pool, page_tables, seq_lens,
-                              attend_lens, cos, sin, layer_idx: int):
+                              cos, sin, layer_idx: int):
     """One decode position per slot against the latent pool. h [b, d]
-    post-ln1; cos/sin [b, rd] at each slot's position ``seq_lens``;
-    ``attend_lens`` = seq_lens + 1. Writes the new rows (row 9) and attends
-    (``paged_mla_attention``). Returns attn_out [b, d]."""
+    post-ln1; cos/sin [b, rd] at each slot's position ``seq_lens``. Writes
+    the new rows at ``seq_lens`` and attends ``seq_lens + 1`` keys in one
+    ``paged_mla_attention_write`` call. Returns attn_out [b, d]."""
     c_new, kr_raw = _mla_compressed(h[:, None], bp, cfg, dt)  # [b, 1, .]
     kr_new = _apply_rope(kr_raw, cos[:, None], sin[:, None], cfg.rope_interleave)
     vec = torch.cat([c_new, kr_new], dim=-1)                  # [b, 1, D]
-    paged_pool_write(pool, vec, page_tables, seq_lens, layer_idx=layer_idx)
 
     wkv = _absorbed_kv_b(bp, cfg, dt)
     q_c, q_rot = _absorbed_q(h, bp, cfg, dt, cos[:, None], sin[:, None], wkv)
@@ -185,8 +186,9 @@ def _absorbed_paged_attention(h, bp, cfg: DeepseekConfig, dt, pool, page_tables,
     # the kernel divides by sqrt(D); MLA wants mla_softmax_scale
     D = q_cat.shape[-1]
     q_cat = (q_cat * (D ** 0.5 * mla_softmax_scale(cfg))).contiguous()
-    ctx = paged_mla_attention(q_cat, pool, page_tables, attend_lens, layer_idx=layer_idx)
-    return _absorbed_out(ctx[..., :cfg.kv_lora_rank], bp, cfg, dt, wkv)
+    ctx = paged_mla_attention_write(q_cat, vec, pool, page_tables, seq_lens, layer_idx=layer_idx,
+                                    v_cols=cfg.kv_lora_rank)
+    return _absorbed_out(ctx, bp, cfg, dt, wkv)
 
 
 def _mla_decode_body(params: Params, tokens: torch.Tensor, pool, cfg: DeepseekConfig,
@@ -196,12 +198,11 @@ def _mla_decode_body(params: Params, tokens: torch.Tensor, pool, cfg: DeepseekCo
     dt = _pool_compute_dtype(pool)
     x = _embed(params, tokens, dt)                             # [b, d]
     cos, sin = _rope_tables(cfg, seq_lens)                     # [b, rd]
-    attend_lens = seq_lens + 1
     for li, (moe, bp, mp) in enumerate(layers if layers is not None
                                        else deepseek_layers(params, cfg)):
         h = _rms(x, bp["ln1"], cfg.rms_eps)
-        x = x + _absorbed_paged_attention(h, bp, cfg, dt, pool, page_tables, seq_lens,
-                                          attend_lens, cos, sin, li)
+        x = x + _absorbed_paged_attention(h, bp, cfg, dt, pool, page_tables, seq_lens, cos,
+                                          sin, li)
         h2 = _rms(x, mp["ln2"], cfg.rms_eps)
         x = x + (_deepseek_moe(h2[:, None], mp, cfg, dt)[:, 0] if moe else _glu(h2, mp, dt))
     x = _rms(x, params["ln_final"], cfg.rms_eps)

@@ -1,7 +1,7 @@
 """Build the CUDA sources in ``csrc/`` with nvcc at first use, bind them with
 ctypes, and launch them (``layer_norm``, ``gemm``, ``attention``,
 ``flash_attention``, ``quant_gemm``, ``paged_attention``, ``paged_pool_write``,
-``paged_attention_write``, ``paged_mla_attention``;
+``paged_attention_write``, ``paged_mla_attention``, ``paged_mla_hopper_write``;
 ``quant_fused_mlp`` is launched by ``ops/kernels/quant_fused_mlp.py``).
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<hash>/lib<name>.so`` at the
@@ -29,13 +29,14 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gemm", "attention", "flash_attention", "flash_attention_bwd", "quant_gemm",
-           "paged_attention", "quant_fused_mlp", "paged_mla")
+           "paged_attention", "quant_fused_mlp", "paged_mla", "paged_mla_hopper")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Must match enum DType in csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Must match enum PoolType in csrc/paged_attention.cu and csrc/paged_mla.cu.
+# Must match enum PoolType in csrc/paged_attention.cu, csrc/paged_mla.cu and
+# csrc/paged_mla_hopper.cu.
 POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -74,8 +75,13 @@ SIGNATURES = {
                                        _P], _I),
     },
     "paged_mla": {
-        "ssp_paged_mla_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I,
-                                     _F, _I, _I, _P, _P, _P], _I),
+        "ssp_paged_mla_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _L, _I, _F, _I, _I, _P, _P, _P], _I),
+    },
+    "paged_mla_hopper": {
+        "ssp_paged_mla_hopper_write": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
+                                        _F, _I, _I, _P], _I),
+        "ssp_paged_mla_hopper_clusters": ([_I, _I], _I),
     },
     "quant_fused_mlp": {
         "ssp_fused_mlp_int8": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
@@ -377,20 +383,53 @@ def paged_attention_write(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Ten
 
 
 def paged_mla_attention(q: torch.Tensor, pool: torch.Tensor, scales: Optional[torch.Tensor],
-                        page_table: torch.Tensor, seq_lens: torch.Tensor, out: torch.Tensor, *,
-                        layer: int, scale: float, pages_per_split: int, splits: int,
-                        workspace: Optional[torch.Tensor], tickets: Optional[torch.Tensor]
-                        ) -> torch.Tensor:
-    """out[b, nq, D] = decode attention of q [b, nq, D] over layer ``layer`` of the MLA
-    pool [A, 1, P, ps, D] (int8 pools with fp32 ``scales`` [A, 1, P, ps]), the pool
-    both keys and values, keys ``pos < seq_lens`` through ``page_table`` [b, mp]. The
-    keys run in ``splits`` runs of ``pages_per_split`` pages; more than one run takes
-    the fp32 ``workspace`` and the zeroed int32 ``tickets`` of the plan."""
+                        page_table: torch.Tensor, lens: torch.Tensor,
+                        new_row: Optional[torch.Tensor], out: torch.Tensor, *, layer: int,
+                        scale: float, pages_per_split: int, splits: int,
+                        workspace: Optional[torch.Tensor], tickets: Optional[torch.Tensor],
+                        stream: Optional[int] = None) -> torch.Tensor:
+    """out[b, nq, v_cols] = the first v_cols columns of the decode attention of q [b, nq,
+    D] over layer ``layer`` of the MLA pool [A, 1, P, ps, D] (int8 pools with fp32
+    ``scales`` [A, 1, P, ps]), the pool both keys and values, through ``page_table``
+    [b, mp]: keys ``pos < lens``, or, with ``new_row`` [b, 1, D], row ``lens[i]`` (the
+    positions) written first and keys ``pos <= lens``. The keys run in ``splits`` runs
+    of ``pages_per_split`` pages; more than one run takes the fp32 ``workspace`` and the
+    zeroed int32 ``tickets`` of the plan."""
     b, nq, D = q.shape
     _, _, num_pages, ps, _ = pool.shape
     check(library("paged_mla").ssp_paged_mla_attention(
         DTYPE_CODES[q.dtype], POOL_CODES[pool.dtype], q.data_ptr(), pool.data_ptr(),
-        _ptr(scales), page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, nq, D, ps,
-        page_table.shape[1], num_pages, layer, scale, pages_per_split, splits, _ptr(workspace),
-        _ptr(tickets), _stream()), "ssp_paged_mla_attention")
+        _ptr(scales), page_table.data_ptr(), lens.data_ptr(), _ptr(new_row), out.data_ptr(), b,
+        nq, D, out.shape[2], ps, page_table.shape[1], num_pages, layer, scale, pages_per_split,
+        splits, _ptr(workspace), _ptr(tickets), _stream() if stream is None else stream),
+        "ssp_paged_mla_attention")
+    return out
+
+
+def paged_mla_hopper_clusters(pool_dtype: torch.dtype, size: int) -> int:
+    """The most clusters of ``size`` CTAs of the Hopper MLA kernel for pools of
+    ``pool_dtype`` that the current card holds at once."""
+    n = library("paged_mla_hopper").ssp_paged_mla_hopper_clusters(POOL_CODES[pool_dtype], size)
+    if n <= 0:
+        raise RuntimeError(f"ssp_paged_mla_hopper_clusters: no cluster of {size} fits")
+    return n
+
+
+def paged_mla_hopper_write(q: torch.Tensor, new_row: torch.Tensor, pool: torch.Tensor,
+                           scales: Optional[torch.Tensor], page_table: torch.Tensor,
+                           positions: torch.Tensor, out: torch.Tensor, *, layer: int,
+                           scale: float, pages_per_split: int, splits: int,
+                           stream: int) -> torch.Tensor:
+    """The MLA decode layer in one launch of ``csrc/paged_mla_hopper.cu``: ``new_row`` [b,
+    1, 576] into slot ``positions[i]`` of layer ``layer`` of the pool [A, 1, P, ps, 576]
+    (bf16, or int8 codes with fp32 ``scales`` [A, 1, P, ps]), then out [b, nq, 512] = the
+    first 512 columns of the attention of q [b, nq, 576] over keys ``pos <= positions``,
+    in ``splits`` runs (at most 8: one cluster) of ``pages_per_split`` pages."""
+    b, nq, _ = q.shape
+    layers, _, num_pages, ps, _ = pool.shape
+    check(library("paged_mla_hopper").ssp_paged_mla_hopper_write(
+        POOL_CODES[pool.dtype], q.data_ptr(), new_row.data_ptr(), pool.data_ptr(), _ptr(scales),
+        page_table.data_ptr(), positions.data_ptr(), out.data_ptr(), b, nq, ps,
+        page_table.shape[1], num_pages, layers, layer, scale, pages_per_split, splits, stream),
+        "ssp_paged_mla_hopper_write")
     return out

@@ -5,10 +5,23 @@
 //
 // What it computes, as paged_attention_plain(q, pool, pool, ...): for each
 // sequence i and head h, softmax over the keys pos < seq_lens[i] (through the
-// page table) of scale * q[i, h] . row(pos), times row(pos). The pool is
-// [A, 1, P, ps, D] (layer `layer`); fp32 and bf16 pools hold values, int8
-// pools codes with one fp32 scale per row (a row's value is code * scale,
-// rounded to bf16, as the plain version dequantizes).
+// page table) of scale * q[i, h] . row(pos), times row(pos), of which the
+// first v_cols columns are written. The pool is [A, 1, P, ps, D] (layer
+// `layer`); fp32 and bf16 pools hold values, int8 pools codes with one fp32
+// scale per row (a row's value is code * scale, rounded to bf16, as the plain
+// version dequantizes).
+//
+// Write-and-attend (with new_row; the MLA decode layer in one launch): row
+// pos = positions[i] gets new_row[i] first (int8 pools: the quantizer of
+// csrc/paged_attention.cu; a slot outside the table: row 0 of trash page 0,
+// by run 0), and the keys are pos <= positions[i]. The blocks of the run
+// that holds pos build the row as the pool will hold it, head group 0's
+// block writes it, and each puts it into its own staged tile over what it
+// read. This kernel serves the write-and-attend call for fp32 pools (their
+// 1e-5 limit rules out bf16 tensor cores), head counts that are not a
+// multiple of 64 and widths other than DeepSeek-V2/V3's 576 / 512; the rest
+// goes to csrc/paged_mla_hopper.cu (ops/kernels/paged_mla.py dispatches by
+// shape and dtype alone).
 //
 // What bounds it: every live row is read once and used for 4 * nq * D
 // operations. At DeepSeek-V3 widths (nq 128, D 576) that is 242 FLOP per
@@ -37,8 +50,9 @@
 // rows of a tile's keys are looked up once, then fp32 and bf16 rows arrive by
 // 16-byte cp.async copies all in flight at once, int8 codes through registers
 // four loads at a time; two blocks share an SM (the largest shared-memory
-// carveout). Double buffering, wgmma, TMA and a persistent grid are later
-// work. Keys past a sequence's length are zero-filled and masked.
+// carveout). Keys past a sequence's length are zero-filled and masked. The
+// served DeepSeek-V3 shapes take the wgmma kernel (csrc/paged_mla_hopper.cu);
+// this one stays simple for the shapes it serves.
 #include "common.cuh"
 
 #include <cfloat>
@@ -64,11 +78,12 @@ struct Params {
   const void* pool;
   const float* scales;    // int8 pools, else null
   const int* page_table;
-  const int* seq_lens;
-  void* out;
-  float* partial;         // [b, groups, splits, kHeads * (D + 2)] when splits > 1
+  const int* seq_lens;    // with new_row: the positions of the new rows
+  const void* new_row;    // write-and-attend: [b, 1, D] in q's dtype, else null
+  void* out;              // [b, nq, v_cols]
+  float* partial;         // [b, groups, splits, kHeads * (v_cols + 2)] when splits > 1
   int* tickets;           // [b, groups] when splits > 1, 0 on entry and on exit
-  int nq, groups, D, Dp, ps, mp;
+  int nq, groups, D, Dp, v_cols, ps, mp;
   long long num_pages;
   int layer;
   float scale;
@@ -90,7 +105,14 @@ __host__ __device__ inline size_t smem_bytes(int Dp) {
   const int ps = kTile + Tile<TT>::kPad;
   return static_cast<size_t>(kTile + kHeads) * rs * sizeof(TT) + kHeads * ps * sizeof(TT) +
          kHeads * kTile * sizeof(float) + 3 * kHeads * sizeof(float) +
-         kTile * sizeof(long long);
+         kTile * sizeof(long long) + rs * sizeof(TT);
+}
+
+// The quantizer of int8 pools, as csrc/paged_attention.cu's: scale = amax /
+// 127 (1 where amax == 0), code = clip(round-half-to-even(x / scale), +-127).
+__device__ __forceinline__ float kv_scale(float amax) { return amax > 0.f ? amax / 127.0f : 1.0f; }
+__device__ __forceinline__ float kv_code(float x, float scale) {
+  return fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -135,6 +157,7 @@ mla_kernel(Params p) {
   float* s_l = s_m + kHeads;
   float* s_a = s_l + kHeads;
   long long* s_row = reinterpret_cast<long long*>(s_a + kHeads);  // [kTile], 8-byte aligned
+  TT* s_new = reinterpret_cast<TT*>(s_row + kTile);  // write-and-attend: the new row as read back
 
   // the head groups of one (sequence, run) are neighbours in launch order, so
   // the run's rows come from L2 after the first group reads them
@@ -160,19 +183,56 @@ mla_kernel(Params p) {
     s_l[tid] = 0.f;
   }
 
-  const int len = min(p.seq_lens[i], p.mp * p.ps);
-  const int k_lo = split * p.pages_per_split * p.ps;
-  const int k_hi = min(len, k_lo + p.pages_per_split * p.ps);
+  // write-and-attend: key pos = positions[i] lies in one run, whose blocks
+  // put the new row into their tile (fold) and whose head group 0 writes it to
+  // the pool (a slot outside the table: row 0 of trash page 0, by run 0)
+  const int cap = p.mp * p.ps, span = p.pages_per_split * p.ps;
+  const int pos = p.seq_lens[i];
+  const bool write = p.new_row != nullptr, in_table = pos >= 0 && pos < cap;
+  const int len = !write ? min(pos, cap) : pos >= cap ? cap : pos + 1;
+  const bool fold = write && in_table && pos / span == split;
+  const bool writer = write && grp == 0 && (in_table ? fold : split == 0);
+  const int k_lo = split * span;
+  const int k_hi = min(len, k_lo + span);
   const int* table = p.page_table + static_cast<long long>(i) * p.mp;
   const TP* pool = static_cast<const TP*>(p.pool) +
                    static_cast<long long>(p.layer) * p.num_pages * p.ps * D;
   const float* scales = p.scales == nullptr ? nullptr
                         : p.scales + static_cast<long long>(p.layer) * p.num_pages * p.ps;
+  if (fold || writer) {
+    // the new row as the pool will hold it (int8: quantized, then read back
+    // as code * scale in bf16), written to the pool by the writer
+    const TQ* src = static_cast<const TQ*>(p.new_row) + static_cast<long long>(i) * D;
+    const long long row = in_table ? static_cast<long long>(table[pos / p.ps]) * p.ps + pos % p.ps : 0;
+    TP* dst = const_cast<TP*>(pool) + row * D;
+    if constexpr (std::is_same<TP, int8_t>::value) {
+      float amax = 0.f;
+      for (int d = tid; d < D; d += kThreads) amax = fmaxf(amax, fabsf(to_f(src[d])));
+      amax = warp_max(amax);
+      if (lane == 0) s_s[warp] = amax;
+      __syncthreads();
+      for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, s_s[w]);
+      const float sc = kv_scale(amax);
+      for (int d = tid; d < D; d += kThreads) {
+        const float code = kv_code(to_f(src[d]), sc);
+        if (writer) dst[d] = static_cast<int8_t>(code);
+        s_new[d] = from_f<TT>(code * sc);
+      }
+      if (writer && tid == 0) const_cast<float*>(scales)[row] = sc;
+    } else {
+      for (int d = tid; d < D; d += kThreads) {
+        const TP v = from_f<TP>(to_f(src[d]));
+        if (writer) dst[d] = v;
+        s_new[d] = v;
+      }
+    }
+    __syncthreads();  // s_new is whole, and s_s free again
+  }
 
   float acc[kMaxNt][4];
 #pragma unroll
   for (int n = 0; n < kMaxNt; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const int n_tiles_out = D / 8;
+  const int n_tiles_out = p.v_cols / 8;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
     __syncthreads();  // the previous tile's products are done with s_k, s_p, s_row
@@ -220,6 +280,10 @@ mla_kernel(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
+    if (fold && pos >= k0 && pos < k0 + kTile) {  // key pos: the new row over what was read
+      for (int d = tid; d < D; d += kThreads) s_k[(pos - k0) * rs + d] = s_new[d];
+      __syncthreads();
+    }
 
     // S = Q K^T for keys 8 * warp .. 8 * warp + 7 of the tile
     float s[4] = {0.f, 0.f, 0.f, 0.f};
@@ -328,7 +392,7 @@ mla_kernel(Params p) {
       for (int j = 0; j < 4; ++j) {
         const int h = h0 + g + (j >> 1) * 8;
         if (h < p.nq)
-          out[(static_cast<long long>(i) * p.nq + h) * D + col + (j & 1)] =
+          out[(static_cast<long long>(i) * p.nq + h) * p.v_cols + col + (j & 1)] =
               from_f<TQ>(acc[n][j] * ((j >> 1) ? inv1 : inv0));
       }
     }
@@ -336,8 +400,8 @@ mla_kernel(Params p) {
   }
 
   // a run's partial state: m [kHeads], l [kHeads], then the unnormalized
-  // output [kHeads][D]
-  const int stride = kHeads * (D + 2);
+  // output [kHeads][v_cols]
+  const int VC = p.v_cols, stride = kHeads * (VC + 2);
   const long long base = static_cast<long long>(i) * p.groups + grp;
   float* part = p.partial + (base * p.splits + split) * stride;
   if (tid < kHeads) {
@@ -351,7 +415,7 @@ mla_kernel(Params p) {
     const int col = nt * 8 + 2 * t;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      part[2 * kHeads + (g + (j >> 1) * 8) * D + col + (j & 1)] = acc[n][j];
+      part[2 * kHeads + (g + (j >> 1) * 8) * VC + col + (j & 1)] = acc[n][j];
   }
   __threadfence();
   __syncthreads();
@@ -381,15 +445,15 @@ mla_kernel(Params p) {
     s_l[tid] = l > 0.f ? 1.f / l : 0.f;
   }
   __syncthreads();
-  for (int idx = tid; idx < kHeads * D; idx += kThreads) {
-    const int r = idx / D;
+  for (int idx = tid; idx < kHeads * VC; idx += kThreads) {
+    const int r = idx / VC;
     if (h0 + r >= p.nq) continue;
     float v = 0.f;
     for (int z = 0; z < p.splits; ++z) {
       const float w = s_s[z * kHeads + r];
       if (w != 0.f) v += w * __ldcg(part0 + z * stride + 2 * kHeads + idx);
     }
-    out[(static_cast<long long>(i) * p.nq + h0 + r) * D + idx % D] = from_f<TQ>(v * s_l[r]);
+    out[(static_cast<long long>(i) * p.nq + h0 + r) * VC + idx % VC] = from_f<TQ>(v * s_l[r]);
   }
 }
 
@@ -409,21 +473,27 @@ cudaError_t launch(const Params& p, int b, cudaStream_t stream) {
 }  // namespace ssp
 
 // Decode attention over layer `layer` of the MLA latent pool [A, 1, P, ps, D]:
-// out[b, nq, D] (q's dtype) = softmax_pos(scale * q . row(pos)) row(pos) over
-// the keys pos < seq_lens[i] through page_table [b, mp]. fp32 pools take fp32
-// q, bf16 pools bf16 q, int8 pools (codes with `scales` [A, 1, P, ps]) bf16 q.
-// D <= 576 and a multiple of 8. The keys run in `splits` runs of
-// `pages_per_split` pages (splits * pages_per_split >= mp, at most 64 runs);
-// splits > 1 takes `workspace` (fp32, b * groups * splits * 16 * (D + 2), groups
-// = ceil(nq / 16)) and `tickets` (int32 [b * groups], all 0; 0 again after).
+// out[b, nq, v_cols] (q's dtype) = the first v_cols columns of
+// softmax_pos(scale * q . row(pos)) row(pos) over the keys pos < seq_lens[i]
+// through page_table [b, mp]. With new_row ([b, 1, D] in q's dtype), seq_lens
+// holds positions: row positions[i] is written first (int8 pools quantize it;
+// a slot outside the table: row 0 of trash page 0) and the keys are pos <=
+// positions[i]. fp32 pools take fp32 q, bf16 pools bf16 q, int8 pools (codes
+// with `scales` [A, 1, P, ps]) bf16 q. D <= 576 and v_cols <= D multiples of
+// 8. The keys run in `splits` runs of `pages_per_split` pages (splits *
+// pages_per_split >= mp, at most 64 runs); splits > 1 takes `workspace` (fp32,
+// b * groups * splits * 16 * (v_cols + 2), groups = ceil(nq / 16)) and
+// `tickets` (int32 [b * groups], all 0; 0 again after).
 extern "C" int ssp_paged_mla_attention(int q_dtype, int pool_type, const void* q,
                                        const void* pool, const void* scales,
-                                       const void* page_table, const void* seq_lens, void* out,
-                                       int b, int nq, int D, int ps, int mp, long long num_pages,
+                                       const void* page_table, const void* seq_lens,
+                                       const void* new_row, void* out, int b, int nq, int D,
+                                       int v_cols, int ps, int mp, long long num_pages,
                                        int layer, float scale, int pages_per_split, int splits,
                                        float* workspace, int* tickets, void* stream_ptr) {
   using namespace ssp;
   if (b <= 0 || b > 65535 || nq <= 0 || D <= 0 || D > kMaxDim || D % 8 || ps <= 0 || mp <= 0 ||
+      v_cols <= 0 || v_cols > D || v_cols % 8 ||
       pages_per_split <= 0 || splits <= 0 || splits > kTile || splits > 65535 ||
       (long long)pages_per_split * splits < mp || (long long)mp * ps > 0x7fffffff ||
       (splits > 1 && (workspace == nullptr || tickets == nullptr)) ||
@@ -432,8 +502,9 @@ extern "C" int ssp_paged_mla_attention(int q_dtype, int pool_type, const void* q
   const int groups = (nq + kHeads - 1) / kHeads;
   if (groups > 65535) return cudaErrorInvalidValue;
   const Params p{q, pool, static_cast<const float*>(scales), static_cast<const int*>(page_table),
-                 static_cast<const int*>(seq_lens), out, workspace, tickets, nq, groups, D,
-                 round_up(D, 16), ps, mp, num_pages, layer, scale, pages_per_split, splits};
+                 static_cast<const int*>(seq_lens), new_row, out, workspace, tickets, nq, groups,
+                 D, round_up(D, 16), v_cols, ps, mp, num_pages, layer, scale, pages_per_split,
+                 splits};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (pool_type == kPoolI8)
     return q_dtype == kBF16 ? launch<__nv_bfloat16, int8_t>(p, b, stream) : cudaErrorInvalidValue;

@@ -432,7 +432,7 @@ def test_kernel_modules_import_and_build_needs_nvcc(monkeypatch, tmp_path):
         pytest.skip("this machine has nvcc at /usr/local/cuda")
     assert set(build.SOURCES) == {"gemm", "attention", "flash_attention", "flash_attention_bwd",
                                   "quant_gemm", "paged_attention", "quant_fused_mlp",
-                                  "paged_mla"}
+                                  "paged_mla", "paged_mla_hopper"}
     assert set(build.SIGNATURES) == set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()

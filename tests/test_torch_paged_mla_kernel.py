@@ -8,10 +8,16 @@ split plan's invariants and the wrapper's refusals. On the card: every pool
 kind at D = 40 and 576, nq = 4, 16, 20 and 128, pages of 16, 64 and 256,
 ragged lengths, runs of one page to many, within 1e-5 (fp32) or 3e-2 (bf16,
 int8 pools) of max(1, max |plain|), the same bits on a second call, one launch
-per call; and the MLA row write (row 9's ``paged_pool_write`` at nkv = 1)
-bit for bit the plain write. The card's queries are scaled by ``Q_SCALE`` so
-that a few keys carry each head and max |plain| is ~2-4: the CPU test of the
-limits shows they reject planted faults at those inputs.
+per call; the MLA row write (row 9's ``paged_pool_write`` at nkv = 1) bit for
+bit the plain write; and the decode layer's one launch,
+``paged_mla_attention_write``, on both kernels (the Hopper kernel for bf16 and
+int8 pools at 64 and 128 heads, D = 576, 512 columns, pages of 8 to 256,
+ragged lengths from 1 to 2048 keys and a slot past the table; the mma.sync
+kernel for fp32 pools and the other shapes): within the same limits, the same
+bits twice, one launch of the expected counter per call, the pools bit for
+bit the plain write's outside trash page 0. The card's queries are scaled by
+``Q_SCALE`` so that a few keys carry each head and max |plain| is ~2-4: the
+CPU test of the limits shows they reject planted faults at those inputs.
 """
 
 import math
@@ -229,3 +235,57 @@ def test_mla_row_write_matches_plain_write_on_the_card(cuda_device, kind):
             assert torch.equal(pool["q"], clone["q"]) and torch.equal(pool["s"], clone["s"])
         else:
             assert torch.equal(pool, clone)
+
+
+PAST = 1 << 30  # a position past the table: the row goes to trash page 0
+WRITE_CASES = [  # b, nq, D, v_cols, ps, positions
+    (8, 128, 576, 512, 64, [2047] * 8),
+    (8, 128, 576, 512, 64, [519 + 3 * i for i in range(8)]),
+    (8, 128, 576, 512, 16, [0, 1, 63, 64, 520, 1000, 1500, PAST]),
+    (8, 128, 576, 512, 256, [0, 1, 63, 64, 520, 1000, 1500, 2047]),
+    (2, 64, 576, 512, 8, [5, 300]),
+    (8, 16, 576, 512, 64, [519 + 3 * i for i in range(8)]),
+    (3, 4, 40, 32, 16, [0, 17, PAST]),
+    (2, 128, 576, 576, 64, [70, 2047]),
+]
+
+
+def _without_trash(pool):
+    return [t[:, :, 1:] for t in (pool.values() if isinstance(pool, dict) else [pool])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_mla_write_and_attend_matches_plain_version_on_the_card(cuda_device, kind):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q8 = "_q8" if kind == "int8" else ""
+    for b, nq, D, v_cols, ps, positions in WRITE_CASES:
+        q, pool, table, _, layer = _setup(gen, cuda_device, kind, b=b, nq=nq, D=D, ps=ps,
+                                          lens=[p + 1 for p in positions if p != PAST] or [1],
+                                          q_scale=Q_SCALE)
+        mp = table.shape[1]
+        pos = torch.as_tensor([mp * ps + 3 if p == PAST else p for p in positions],
+                              dtype=torch.int32, device=cuda_device)
+        new = torch.randn((b, 1, D), generator=gen, device=cuda_device).to(q.dtype)
+        codes = pool["q"] if isinstance(pool, dict) else pool
+        hopper = tpm.hopper_takes(nq, D, v_cols, ps, codes.dtype)
+        assert hopper == (kind != "float32" and nq % 64 == 0 and v_cols == 512)
+        counter = ("paged_mla_write_hopper" if hopper else "paged_mla_attention_write") + q8
+        clone = ({k: v.clone() for k, v in pool.items()} if isinstance(pool, dict)
+                 else pool.clone())
+        ref = tpm.paged_mla_attention_write_plain(q, new, clone, table, pos, layer_idx=layer,
+                                                  v_cols=v_cols)
+        before = dict(launch_counts)
+        got = tpm.paged_mla_attention_write(q, new, pool, table, pos, layer_idx=layer,
+                                            v_cols=v_cols)
+        again = tpm.paged_mla_attention_write(q, new, pool, table, pos, layer_idx=layer,
+                                              v_cols=v_cols)
+        moved = {k: launch_counts[k] - before[k] for k in launch_counts
+                 if launch_counts[k] != before[k]}
+        assert moved == {counter: 2}, (kind, b, nq, ps, moved)
+        assert got.shape == (b, nq, v_cols) and got.dtype == q.dtype
+        err = _scaled_err(got, ref)
+        assert err <= TOL[kind], (kind, b, nq, D, ps, err)
+        assert torch.equal(got, again), (kind, b, nq, D, ps)
+        for x, y in zip(_without_trash(pool), _without_trash(clone)):
+            assert torch.equal(x, y), (kind, b, nq, D, ps)
