@@ -120,8 +120,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             kernel once per layer and decode step, no standalone row write or
             MLA attention, each served token within
             5e-2 of the prompt run alone), a decode-step measurement and
-            profiler splits. Kernel launches per run, each driven path with
-            the counts set to 0 just before it.
+            profiler splits; then Mixtral-8x7B widths (random bf16 weights, 8
+            experts, top-2): ``main_llm`` dense and ``--quantize int4`` at 4
+            layers (row 10 must launch), the 8-layer model served over HTTP
+            with bf16 pools and with int8 pools and chunked prefill (12
+            requests of 64-512 tokens x 16; the write-and-attend kernel once
+            per layer and decode step and no other paged kernel; each token
+            within 5e-2 of its prompt run alone with the served run's expert
+            choices, the flips counted), a decode-step measurement,
+            ``generate_kv_scan`` at b=8, ``train_llm --init-json`` at 2 layers
+            (flash forward / dq / dk-dv launches = 2 x updates x 2 / x 1 / x 1),
+            and DeepSeek-V3 widths cut to 4 layers and 32 routed experts
+            trained through ``Trainer`` (``e_bias`` bit for bit unchanged).
+            Kernel launches per run, each driven path with the counts set to
+            0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
             top-1 after 25% 2SSP, then after 2 epochs of finetuning; int8
             top-1; 4 LoRA and 4 KD steps with falling losses), the ViT-B/16
@@ -149,7 +161,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             through ``main_llm.run`` (dense, shortGPT, window_based,
             blockpruner, 2SSP on the all-dense variant: perplexities within
             rtol 1e-4, the same choices), EvoPress with a small search (the
-            same masks), and paged MLA greedy tokens == ``deepseek_generate``.
+            same masks), and paged MLA greedy tokens == ``deepseek_generate``;
+            then tiny llama-MoE (top-1, top-2) and DeepSeek models in fp32,
+            card against host CPU: first-update gradients, three updates'
+            losses and fp32-pool served tokens.
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -2597,32 +2612,52 @@ def _post(port: int, body: dict) -> dict:
     return dict(finish=finish, tokens=tokens, first_s=first, total_s=time.perf_counter() - t0)
 
 
-def _alone_gaps(params, cfg, prompt, tokens, cache_dtype, device) -> tuple:
-    """The request run alone through the paged path (whole-prompt prefill, then
-    one-sequence decode steps) and fed the served tokens: at every step, how far
-    the served token's logit lies below the alone run's best logit. Returns
-    (steps where the served token is the alone argmax, worst gap, largest |logit|).
-    All gaps 0 means ``paged_generate`` on this prompt alone emits these tokens."""
+def _alone_gaps(params, cfg, prompt, tokens, cache_dtype, device, routing=None,
+                chunked=None) -> tuple:
+    """The request run alone through the paged path (its prefill whole, or in
+    chunks of ``chunked`` as a chunked server made it; then one-sequence
+    decode steps) and fed the served tokens: at every step, how far the served
+    token's logit lies below the alone run's best logit. ``routing``: a
+    ``_ServedRouting`` of the served run, whose experts each MoE layer is
+    routed to. Returns (steps where the served token is the alone argmax,
+    worst gap, largest |logit|, MoE calls whose own choice differed from the
+    served one). All gaps 0 means ``paged_generate`` on this prompt alone
+    emits these tokens."""
     import torch
 
-    from ssp_x_vit_tpu_torch.llm.paged import init_paged_pools, paged_decode_step, paged_prefill
+    from ssp_x_vit_tpu_torch.llm.paged import (
+        init_paged_pools, paged_decode_step, paged_prefill, paged_prefill_chunked,
+    )
 
     n = len(prompt)
     pages = -(-(n + len(tokens) + 1) // PAGE)
     kp, vp = init_paged_pools(cfg, 1 + pages, PAGE, cache_dtype, device)
     table = torch.arange(1, 1 + pages, dtype=torch.int32, device=device)
     toks = torch.as_tensor(tokens, dtype=torch.int64, device=device)
-    logits, _, _ = paged_prefill(params, torch.as_tensor([prompt], dtype=torch.int64, device=device),
-                                 kp, vp, cfg, table, n)
-    gaps, peaks = [], []
-    for t in range(len(tokens)):
-        gaps.append(logits.max() - logits[toks[t]])
-        peaks.append(logits.abs().max())
-        if t + 1 < len(tokens):
-            lens = torch.full((1,), n + t, dtype=torch.int32, device=device)
-            logits = paged_decode_step(params, toks[t:t + 1], kp, vp, cfg, table[None], lens)[0][0]
+    with _Routing() as pinned:
+        if routing is not None:
+            key = tuple(prompt)
+            steps = (len(tokens) - 1) * cfg.num_layers
+            pinned.pins = list(routing.prefill[key]) + list(routing.decode.get(key, [])[:steps])
+        if chunked:
+            logits = paged_prefill_chunked(params, prompt, kp, vp, cfg, table,
+                                           chunk_size=chunked)[0]
+        else:
+            logits = paged_prefill(params, torch.as_tensor([prompt], dtype=torch.int64,
+                                                           device=device), kp, vp, cfg, table, n)[0]
+        gaps, peaks = [], []
+        for t in range(len(tokens)):
+            gaps.append(logits.max() - logits[toks[t]])
+            peaks.append(logits.abs().max())
+            if t + 1 < len(tokens):
+                lens = torch.full((1,), n + t, dtype=torch.int32, device=device)
+                logits = paged_decode_step(params, toks[t:t + 1], kp, vp, cfg, table[None],
+                                           lens)[0][0]
+        if pinned.pins:
+            raise AssertionError(f"{len(pinned.pins)} recorded routings were not used")
     gaps = torch.stack(gaps)
-    return int((gaps == 0).sum()), float(gaps.max()), float(torch.stack(peaks).max())
+    return (int((gaps == 0).sum()), float(gaps.max()), float(torch.stack(peaks).max()),
+            pinned.moved)
 
 
 def _serve(params, cfg, device, flags, requests, label) -> dict:
@@ -2710,7 +2745,8 @@ def _check_greedy_alone(params, cfg, device, requests, responses, cache_dtype, l
     for req, r in zip(requests, responses):
         if req.get("temperature", 1.0) != 0:
             continue
-        same, gap, peak = _alone_gaps(params, cfg, req["prompt"], r["tokens"], cache_dtype, device)
+        same, gap, peak, _ = _alone_gaps(params, cfg, req["prompt"], r["tokens"], cache_dtype,
+                                         device)
         exact, total = exact + same, total + len(r["tokens"])
         worst_rel = max(worst_rel, gap / max(1.0, peak))
     log(f"[SERVE] {label}: greedy tokens against each prompt run alone: {exact} of {total} are the "
@@ -3310,12 +3346,14 @@ def profile_train_step(params, cfg, device) -> None:
         log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
 
 
-def phase_main_train(device) -> dict:
-    """The training CLI (``cli.train_llm``) on a fresh bf16 model of Llama-2-7B
-    width and depth (``--init-json``): b=1, s=2048, remat on, the synthetic
-    stream, ``TRAIN_UPDATES`` updates. Losses finite at every update; flash
-    forward launches = layers x updates x 2 (forward and remat recompute),
-    each backward kernel = layers x updates. Returns the run's launches."""
+def train_cli_run(model_cfg: dict, what: str, tag: str) -> tuple:
+    """The training CLI (``cli.train_llm``) on a fresh bf16 model of the
+    ``LlamaConfig`` fields ``model_cfg`` (``--init-json``): b=1, s=2048, remat
+    on, the synthetic stream, ``TRAIN_UPDATES`` updates, the counts set to 0
+    just before it. Losses (an MoE model's load-balance term included) finite
+    at every update; flash forward launches = layers x updates x 2 (forward
+    and remat recompute), each backward kernel = layers x updates. Returns
+    (the run's result, its launches)."""
     import math
 
     import torch
@@ -3323,10 +3361,10 @@ def phase_main_train(device) -> dict:
     from ssp_x_vit_tpu_torch.cli import train_llm
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
-    argv = ["--init-json", json.dumps(LLAMA_2_7B), "--steps", str(TRAIN_UPDATES),
+    argv = ["--init-json", json.dumps(model_cfg), "--steps", str(TRAIN_UPDATES),
             "--batch-size", "1", "--seq-len", "2048", "--synthetic-data", "--log-every", "1",
             "--backend", "cuda"]
-    log(f"[MAIN] train_llm {' '.join(argv)}")
+    log(f"[{tag}] train_llm {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -3337,21 +3375,28 @@ def phase_main_train(device) -> dict:
     hist = [h for h in out["history"] if "loss" in h]
     elapsed = [h["tokens_seen"] / h["tok_per_s"] for h in hist]
     per_update = [b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)]
-    n_params = sum(v.numel() for v in out["params"]["blocks"].values()) + sum(
-        v.numel() for k, v in out["params"].items() if k != "blocks")
-    log(f"[MAIN] train_llm Llama-2-7B width ({n_params / 1e9:.3f} B bf16 parameters, bf16 AdamW "
-        f"moments): {seconds:.1f} s for the CLI run, {out['seconds']:.1f} s in fit; s/update "
-        f"{', '.join(f'{t:.3f}' for t in per_update)}; {hist[-1]['tok_per_s']} tokens/s over the "
-        f"run ({2048 / per_update[-1]:.0f} at the last update); peak {peak:.1f} GiB")
-    log(f"[MAIN] train_llm launches {json.dumps({k: n for k, n in counts.items() if n})}")
+    n_params = sum(v.numel() for v in _flat(out["params"]).values())
+    log(f"[{tag}] train_llm {what} ({n_params / 1e9:.3f} B bf16 parameters, bf16 AdamW "
+        f"moments): {seconds:.1f} s for the CLI run, {out['seconds']:.1f} s in fit; losses "
+        f"{[h['loss'] for h in hist]}; s/update {', '.join(f'{t:.3f}' for t in per_update)}; "
+        f"{hist[-1]['tok_per_s']} tokens/s over the run ({2048 / per_update[-1]:.0f} at the last "
+        f"update); peak {peak:.1f} GiB")
+    log(f"[{tag}] train_llm launches {json.dumps({k: n for k, n in counts.items() if n})}")
     if len(hist) != TRAIN_UPDATES or not all(math.isfinite(h["loss"]) for h in hist):
-        raise AssertionError(f"train_llm: losses {[h['loss'] for h in hist]}")
-    layers = LLAMA_2_7B["num_layers"]
+        raise AssertionError(f"train_llm {what}: losses {[h['loss'] for h in hist]}")
+    layers = model_cfg["num_layers"]
     want = {"flash_attention": layers * TRAIN_UPDATES * 2,
             "flash_attention_bwd_dq": layers * TRAIN_UPDATES,
             "flash_attention_bwd_dkv": layers * TRAIN_UPDATES}
     if any(counts[k] != n for k, n in want.items()):
-        raise AssertionError(f"train_llm launches {counts} != {want}")
+        raise AssertionError(f"train_llm {what} launches {counts} != {want}")
+    return out, counts
+
+
+def phase_main_train(device) -> dict:
+    """``train_cli_run`` at Llama-2-7B width and depth, then a profiler split
+    of one update. Returns the run's launches."""
+    out, counts = train_cli_run(LLAMA_2_7B, "Llama-2-7B width", "MAIN")
     profile_train_step(out["params"], out["cfg"], device)
     return counts
 
@@ -5146,15 +5191,16 @@ def make_deepseek_v3(device, dense: bool = False):
     return params, cfg
 
 
-def _ds_run(label, argv, model) -> tuple:
-    """One ``cli.main_llm.run`` on a DeepSeek model with the counts set to 0
-    just before it; returns (result, launches, seconds, peak GiB)."""
+def _main_llm_run(label, argv, model, tag: str = "DEEPSEEK") -> tuple:
+    """One ``cli.main_llm.run`` (a DeepSeek model, or any other the ``[tag]``
+    lines name) with the counts set to 0 just before it; returns (result,
+    launches, seconds, peak GiB)."""
     import torch
 
     from ssp_x_vit_tpu_torch.cli import main_llm
     from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log(f"[DEEPSEEK] {label}: main_llm {' '.join(argv)}")
+    log(f"[{tag}] {label}: main_llm {' '.join(argv)}")
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5162,7 +5208,7 @@ def _ds_run(label, argv, model) -> tuple:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {k: v for k, v in launch_counts.items() if v}
-    log(f"[DEEPSEEK] {label}: {seconds:.1f} s, peak {peak:.1f} GiB; seconds by phase "
+    log(f"[{tag}] {label}: {seconds:.1f} s, peak {peak:.1f} GiB; seconds by phase "
         f"{json.dumps({k: round(v, 3) for k, v in out['phase_seconds'].items()})}; launches "
         f"{json.dumps(launches)}")
     return out, dict(launch_counts), seconds, peak
@@ -5490,19 +5536,20 @@ def phase_deepseek(device) -> dict:
               "--num-calibration", "2", "--backend", "cuda", "--evaluate_perplexity",
               "--logging", "WARNING"]
     t0 = time.perf_counter()
-    out, counts, _, _ = _ds_run("dense", common + ["--dense"], (params, cfg))
+    out, counts, _, _ = _main_llm_run("dense", common + ["--dense"], (params, cfg))
     dense = out["dense"]["ppl"]
     add(counts)
-    out, counts, _, _ = _ds_run("shortgpt 25%", common + ["--pruning_method", "shortgpt",
-                                                          "--sparsity_rate", "0.25"],
-                                (params, cfg))
+    out, counts, _, _ = _main_llm_run("shortgpt 25%", common + ["--pruning_method", "shortgpt",
+                                                               "--sparsity_rate", "0.25"],
+                                      (params, cfg))
     (entry,) = out["runs"]
     add(counts)
     log(f"[DEEPSEEK] dense ppl {dense:.2f} (fp32, 10 windows of 256); shortGPT 25% drops blocks "
         f"{[i for i, m in enumerate(entry['attn_mask']) if m]}: ppl {entry['ppl']:.2f}")
     if not (math.isfinite(dense) and math.isfinite(entry["ppl"])) or sum(entry["attn_mask"]) != 1:
         raise AssertionError(f"DeepSeek dense {dense} / shortgpt {entry}")
-    out, counts, _, _ = _ds_run("int4", common + ["--dense", "--quantize", "int4"], (params, cfg))
+    out, counts, _, _ = _main_llm_run("int4", common + ["--dense", "--quantize", "int4"],
+                                      (params, cfg))
     add(counts)
     ppl4 = out["dense"]["ppl"]
     log(f"[DEEPSEEK] int4 ppl {ppl4:.2f} (bf16 weights {dense:.2f}); quant4_matmul launches "
@@ -5537,9 +5584,10 @@ def phase_deepseek(device) -> dict:
 
     t0 = time.perf_counter()
     params, cfg = make_deepseek_v3(device, dense=True)
-    out, counts, _, _ = _ds_run("2ssp 25% (all-dense variant)",
-                                common + ["--pruning_method", "2ssp", "--sparsity_rate", "0.25",
-                                          "--num-calibration-2ssp", "2"], (params, cfg))
+    out, counts, _, _ = _main_llm_run("2ssp 25% (all-dense variant)",
+                                      common + ["--pruning_method", "2ssp", "--sparsity_rate",
+                                                "0.25", "--num-calibration-2ssp", "2"],
+                                      (params, cfg))
     add(counts)
     (entry,) = out["runs"]
     log(f"[DEEPSEEK] 2SSP 25% on the all-dense variant: pruned attention "
@@ -5625,6 +5673,505 @@ def phase_anchor_deepseek(device) -> None:
         f"deepseek_generate: {same}")
     if not same:
         raise AssertionError("paged MLA tokens differ from deepseek_generate's on the card")
+
+
+# ------------------------------------------- mixture of experts and training ---
+
+# mistralai/Mixtral-8x7B-v0.1 config.json (the fields the loader reads)
+MIXTRAL_HF = {
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "intermediate_size": 14336,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "rms_norm_eps": 1e-5, "rope_theta": 1e6,
+    "sliding_window": None, "router_aux_loss_coef": 0.02, "max_position_embeddings": 32768,
+    "tie_word_embeddings": False,
+}
+MOE_SERVE_LAYERS = 8     # Mixtral depth cut of the served and generated runs (11.87 B parameters)
+MOE_CLI_LAYERS = 4       # ... of the main_llm runs (the served model's first 4 layers)
+MOE_TRAIN_LAYERS = 2     # ... of the training run (3.16 B parameters, bf16 AdamW moments)
+DEEPSEEK_TRAIN_EXPERTS = 32   # V3's 256 routed experts cut so weights, grads and moments fit
+def make_mixtral(device, layers: int):
+    """(params, cfg) at Mixtral-8x7B's published widths (``config_from_hf_dict``
+    of its config.json), depth cut to ``layers``; random bf16 weights made on
+    the card from a seed."""
+    import dataclasses
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import config_from_hf_dict
+    from ssp_x_vit_tpu_torch.llm.model import init_llama_params
+
+    cfg = dataclasses.replace(config_from_hf_dict(MIXTRAL_HF), num_layers=layers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    t0 = time.perf_counter()
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in _flat(params).values())
+    experts = sum(params["blocks"][k].numel() for k in ("gate_kernel", "up_kernel", "down_kernel"))
+    log(f"[MOE] Mixtral-8x7B widths, {layers} layers (8 experts, top-2): {n / 1e9:.3f} B "
+        f"parameters ({experts / 1e9:.3f} B in the experts) in bf16 made on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB "
+        f"allocated)")
+    return params, cfg
+
+
+def _first_layers(params, cfg, n: int):
+    """The first ``n`` layers of a stacked llama tree (views) and their config."""
+    import dataclasses
+
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: v[:n] for k, v in params["blocks"].items()}
+    return out, dataclasses.replace(cfg, num_layers=n)
+
+
+class _Routing:
+    """Wraps ``parallel.moe._top_k`` (the top-k of the dropless MoE) while
+    entered. ``rows``: when set, a callable that files each call's chosen
+    experts ``[T, k]``. ``pins``: a list of ``[T, k]`` expert tensors that
+    the next calls take in order instead of their own choice, weighted as the
+    router weights its own (its probabilities at the pinned experts,
+    renormalized); ``moved`` counts the calls whose own choice differed."""
+
+    def __init__(self):
+        self.rows, self.pins, self.moved = None, [], 0
+
+    def __enter__(self):
+        from ssp_x_vit_tpu_torch.parallel import moe
+
+        self._moe, self._orig = moe, moe._top_k
+        moe._top_k = self._top_k
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._top_k = self._orig
+
+    def _top_k(self, probs, k):
+        import torch
+
+        gates, experts = self._orig(probs, k)
+        if self.rows is not None:
+            self.rows(experts)
+        if not self.pins:
+            return gates, experts
+        pin = self.pins.pop(0)
+        if torch.equal(experts.sort(dim=-1).values, pin.sort(dim=-1).values):
+            return gates, experts
+        self.moved += 1
+        gates = torch.gather(probs, 1, pin)
+        return gates / gates.sum(dim=-1, keepdim=True), pin
+
+
+class _ServedRouting(_Routing):
+    """``_Routing`` that files what a ``PagedServer`` chose, by request: while
+    entered, the server's prefills and decode blocks are watched; ``prefill``
+    maps a prompt (a tuple) to its prefill's per-call choices, ``decode`` a
+    prompt to its slot's row ``[1, k]`` of every decode call (layer by layer,
+    step by step; the steps of a block after the request ended come last)."""
+
+    def __enter__(self):
+        from ssp_x_vit_tpu_torch.llm import paged
+
+        self.prefill, self.decode = {}, {}
+        cls = self._cls = paged.PagedServer
+        self._saved = {n: getattr(cls, n) for n in ("_prefill", "_decode", "_decode_multi")}
+        watcher = self
+
+        def prefill(srv, prompt, pt, m):
+            key = tuple(int(t) for t in prompt)
+            watcher.prefill[key] = []
+            watcher.rows = watcher.prefill[key].append
+            try:
+                return watcher._saved["_prefill"](srv, prompt, pt, m)
+            finally:
+                watcher.rows = None
+
+        def decoding(name):
+            def run(srv, tokens, *rest):
+                keys = [tuple(s.prompt) if s.active else None for s in srv.slots]
+
+                def file(experts):
+                    for i, key in enumerate(keys):
+                        if key is not None:
+                            watcher.decode.setdefault(key, []).append(experts[i:i + 1])
+
+                watcher.rows = file
+                try:
+                    return watcher._saved[name](srv, tokens, *rest)
+                finally:
+                    watcher.rows = None
+            return run
+
+        cls._prefill, cls._decode, cls._decode_multi = (
+            prefill, decoding("_decode"), decoding("_decode_multi"))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for n, f in self._saved.items():
+            setattr(self._cls, n, f)
+        return super().__exit__(*exc)
+
+
+def _moe_check_alone(params, cfg, device, requests, responses, routing, cache_dtype, chunked,
+                     label) -> None:
+    """Each served greedy request against its prompt run alone, routed as the
+    served run routed it (``_alone_gaps``): the served token within 5e-2
+    of max(1, max |logit|) of the alone run's best logit at every step. The
+    batch of 8 rounds bf16 elsewhere than a run alone, which can flip a
+    near-tie of the top-2 router; the flips are counted."""
+    exact = total = moved = calls = 0
+    worst = 0.0
+    for req, r in zip(requests, responses):
+        same, gap, peak, k = _alone_gaps(params, cfg, req["prompt"], r["tokens"], cache_dtype,
+                                         device, routing, chunked)
+        exact, total, moved = exact + same, total + len(r["tokens"]), moved + k
+        calls += (len(r["tokens"]) - 1) * cfg.num_layers
+        worst = max(worst, gap / max(1.0, peak))
+    log(f"[SERVE] {label}: each prompt alone, routed as served ({moved} of {calls} decode-step "
+        f"MoE calls would have picked other experts alone): {exact} of {total} served tokens are "
+        f"the alone argmax; worst logit gap {worst:.3e} of max(1, max |logit|), tol 5e-2")
+    if worst > 5e-2:
+        raise AssertionError(f"{label}: a served token is not the best token of its prompt alone")
+
+
+def _moe_generate_alone(params, cfg, device, outs, lens, p_pad, routing, limit: int) -> tuple:
+    """The first ``limit`` tokens of each row of a b=8 ``generate_kv_scan``
+    alone at b=1 (``serve.prefill`` of the unpadded prompt, then
+    ``decode_step`` fed the batch's tokens), each MoE layer routed as the
+    batch routed that row: the prefill's choices at the row's unpadded
+    positions, each decode call's choice for the row. Returns (exact, total,
+    worst gap over max(1, max |logit|), moved calls)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm import serve
+
+    L = cfg.num_layers
+    calls = routing.calls
+    b = len(outs)
+    exact = total = moved = 0
+    worst = 0.0
+    for i, (seq, n) in enumerate(zip(outs, lens)):
+        gen = min(len(seq) - n, limit)
+        pins = [calls[l].reshape(b, p_pad, -1)[i, p_pad - n:] for l in range(L)]
+        pins += [calls[L + j][i:i + 1] for j in range((gen - 1) * L)]
+        toks = torch.as_tensor(seq.astype("int64"), device=device)
+        ck, cv = serve.init_cache(cfg, 1, len(seq), torch.bfloat16, device)
+        pads = torch.zeros(1, dtype=torch.int64, device=device)
+        with _Routing() as pinned:
+            pinned.pins = pins
+            logits = serve.prefill(params, toks[None, :n], ck, cv, cfg, pads)[0][0]
+            for t in range(gen):
+                chosen = toks[n + t]
+                gap = float(logits.max() - logits[chosen]) / max(1.0, float(logits.abs().max()))
+                exact, total, worst = exact + (gap == 0), total + 1, max(worst, gap)
+                if t + 1 < gen:
+                    logits = serve.decode_step(params, chosen[None], ck, cv, cfg, n + t, pads)[0][0]
+            moved += pinned.moved
+        del ck, cv
+    return exact, total, worst, moved
+
+
+def _moe_generate(params, cfg, device) -> dict:
+    """``generate_kv_scan`` at b=8 on left-padded prompts of 64-512 tokens, up
+    to max_length 528 (16 new tokens on the longest prompt, 463 decode steps
+    for the shortest; greedy, bf16 cache); the first 32 tokens of every row
+    held to the same sequence run alone at b=1, routed as the batch routed it
+    (``_moe_generate_alone``; within 5e-2 of max(1, max |logit|) of the best
+    logit). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.serve import bucket_prompt_pad, generate_kv_scan
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(37)
+    lo, hi = GEN_PROMPTS
+    lens = [lo, hi] + sorted(rng.integers(lo + 1, hi, 6).tolist())
+    stream = synthetic_token_stream(sum(lens), cfg.vocab_size, seed=39).reshape(-1)
+    cuts = np.cumsum([0] + lens)
+    prompts = [stream[cuts[i]:cuts[i + 1]].astype(np.int64) for i in range(len(lens))]
+    max_length = hi + 16
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with _Routing() as routing:
+        routing.calls = []
+        routing.rows = routing.calls.append
+        t0 = time.perf_counter()
+        outs = generate_kv_scan(params, cfg, prompts, max_length=max_length,
+                                cache_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    steps = max_length - lo - 1
+    n_gen = sum(len(o) - n for o, n in zip(outs, lens))
+    log(f"[MOE] generate_kv_scan b=8, prompts of {lo}-{hi} tokens (left-padded), max_length "
+        f"{max_length}: {steps} decode steps, {n_gen} tokens kept in {seconds:.2f} s = "
+        f"{n_gen / seconds:.1f} tokens/s ({8 * (steps + 1) / seconds:.1f} counting every row's "
+        f"step; the b=8 prefill of 8 x {hi} tokens included); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    for o, p in zip(outs, prompts):
+        if len(o) != max_length or not (o[:len(p)] == p).all() or \
+                not ((0 <= o) & (o < cfg.vocab_size)).all():
+            raise AssertionError("MoE generate_kv_scan: a row is not its prompt + tokens")
+    exact, total, worst, moved = _moe_generate_alone(params, cfg, device, outs, lens,
+                                                     bucket_prompt_pad(hi), routing, 32)
+    log(f"[MOE] generate_kv_scan b=8: the first 32 tokens of each row alone at b=1, routed as "
+        f"the batch routed it ({moved} of {8 * 31 * cfg.num_layers} decode-step MoE calls would "
+        f"have picked other experts alone): {exact} of {total} tokens are the alone argmax; "
+        f"worst logit gap "
+        f"{worst:.3e} of max(1, max |logit|), tol 5e-2")
+    if worst > 5e-2:
+        raise AssertionError("MoE generate_kv_scan: a batch token is not the best token alone")
+    return launches
+
+
+def _deepseek_train(device) -> None:
+    """``Trainer`` on DeepSeek-V3 widths cut to 4 layers (3 dense + 1 MoE) and
+    ``DEEPSEEK_TRAIN_EXPERTS`` routed experts, params made on the card (the
+    e_score_correction biases nonzero): b=1, s=2048, remat, bf16,
+    ``TRAIN_UPDATES`` updates with weight decay; every loss finite and every
+    ``e_bias`` bit for bit unchanged. Then ``cli.train_llm`` on
+    ``tiny-random-deepseek`` on the card."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import train_llm
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.deepseek import config_from_hf_deepseek, init_deepseek_params
+    from ssp_x_vit_tpu_torch.llm.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(config_from_hf_deepseek(DEEPSEEK_V3_HF), num_layers=DEEPSEEK_LAYERS,
+                              n_routed_experts=DEEPSEEK_TRAIN_EXPERTS)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    params = init_deepseek_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    bias = params["moe_blocks"]["e_bias"]
+    bias.copy_((torch.rand(bias.shape, generator=gen, device=device) - 0.5) * 0.1)
+    before = bias.clone()
+    n = sum(v.numel() for v in _flat(params).values())
+    stream = synthetic_token_stream(TRAIN_UPDATES * 2049, cfg.vocab_size, seed=8)
+    batches = list(stream.reshape(TRAIN_UPDATES, 1, 2049))
+    tc = TrainConfig(total_steps=TRAIN_UPDATES, weight_decay=0.1, log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = Trainer(cfg, tc).fit(params, batches, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    elapsed = [h["tokens_seen"] / h["tok_per_s"] for h in hist]
+    per_update = [b - a for a, b in zip([0.0] + elapsed[:-1], elapsed)]
+    same = torch.equal(params["moe_blocks"]["e_bias"], before)
+    log(f"[MOE] DeepSeek-V3 widths trained through Trainer: {cfg.num_layers} layers "
+        f"({cfg.n_dense_layers} dense + {cfg.n_moe_layers} MoE), {cfg.n_routed_experts} routed "
+        f"experts of 256, {n / 1e9:.3f} B bf16 parameters, bf16 AdamW moments, b=1 s=2048 remat: "
+        f"{seconds:.1f} s; losses {[h['loss'] for h in hist]}; s/update "
+        f"{', '.join(f'{t:.3f}' for t in per_update)}; {2048 / per_update[-1]:.0f} tokens/s at "
+        f"the last update; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; e_bias "
+        f"unchanged bit for bit: {same}")
+    if len(hist) != TRAIN_UPDATES or not all(math.isfinite(h["loss"]) for h in hist) or not same:
+        raise AssertionError(f"DeepSeek training: losses {[h['loss'] for h in hist]}, e_bias "
+                             f"unchanged {same}")
+    del params, batches
+    torch.cuda.empty_cache()
+
+    argv = ["--model", "tiny-random-deepseek", "--steps", str(TRAIN_UPDATES), "--batch-size", "2",
+            "--seq-len", "64", "--synthetic-data", "--log-every", "1", "--backend", "cuda"]
+    before = train_llm._load_any("tiny-random-deepseek", 0, device)[0]["moe_blocks"]["e_bias"]
+    out = train_llm.run(train_llm.build_argparser().parse_args(argv))
+    losses = [h["loss"] for h in out["history"] if "loss" in h]
+    same = torch.equal(out["params"]["moe_blocks"]["e_bias"], before)
+    log(f"[MOE] train_llm {' '.join(argv)}: losses {losses}, e_bias unchanged {same}")
+    if len(losses) != TRAIN_UPDATES or not all(math.isfinite(x) for x in losses) or not same:
+        raise AssertionError("train_llm on tiny-random-deepseek on the card")
+
+
+def phase_moe(device) -> dict:
+    """Mixtral-8x7B widths (random bf16 weights made on the card): through
+    ``cli.main_llm.run`` on the first 4 layers dense perplexity and
+    ``--quantize int4`` (row 10 must launch); the 8-layer model served over
+    HTTP with bf16 pools and with int8 pools and chunked prefill (12 requests,
+    prompts of 64-512 tokens, 16 greedy tokens each; the write-and-attend
+    kernel once per layer and decode step, no other paged kernel; each token
+    held to its prompt run alone and routed as served), a decode-step
+    measurement, and
+    ``generate_kv_scan`` at b=8; then training: ``train_llm`` at Mixtral
+    widths and ``Trainer`` at DeepSeek-V3 widths. Returns launches per kernel."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import config_from_hf_dict, config_to_dict
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
+
+    totals = {name: 0 for name in KERNEL_NAMES}
+
+    def add(counts):
+        for k in KERNEL_NAMES:
+            totals[k] += counts.get(k, 0)
+
+    parts = {}
+    t0 = time.perf_counter()
+    params, cfg = make_mixtral(device, MOE_SERVE_LAYERS)
+    cli_model = _first_layers(params, cfg, MOE_CLI_LAYERS)
+    common = ["--model", "mixtral-8x7b-width", "--synthetic-data", "--seq-len", "256",
+              "--num-calibration", "2", "--backend", "cuda", "--evaluate_perplexity",
+              "--logging", "WARNING"]
+    out, counts, _, _ = _main_llm_run(f"dense, {MOE_CLI_LAYERS} layers", common + ["--dense"],
+                                cli_model, "MOE")
+    dense = out["dense"]["ppl"]
+    add(counts)
+    if not math.isfinite(dense) or counts["flash_attention"] <= 0:
+        raise AssertionError(f"MoE dense ppl {dense}, flash launches {counts['flash_attention']}")
+    out, counts, _, _ = _main_llm_run(f"int4, {MOE_CLI_LAYERS} layers",
+                                common + ["--dense", "--quantize", "int4"], cli_model, "MOE")
+    add(counts)
+    ppl4 = out["dense"]["ppl"]
+    log(f"[MOE] Mixtral-8x7B widths ({MOE_CLI_LAYERS} layers): dense ppl {dense:.2f}, int4 ppl "
+        f"{ppl4:.2f} (10 windows of 256); quant4_matmul launches {counts['quant4_matmul']}")
+    if counts["quant4_matmul"] <= 0:
+        raise AssertionError("quant4_matmul (row 10) did not launch in the Mixtral int4 run")
+    if not math.isfinite(ppl4) or abs(math.log(ppl4) - math.log(dense)) > 0.05 * math.log(dense):
+        raise AssertionError(f"Mixtral int4 perplexity {ppl4} vs dense {dense}")
+    del cli_model
+    torch.cuda.empty_cache()
+    parts["make + main_llm dense, int4"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    stream = [int(t) for t in synthetic_token_stream(8192, cfg.vocab_size, seed=13).reshape(-1)]
+    lens = (64, 512, 130, 257, 320, 77, 448, 200, 96, 384, 150, 500)
+    requests = [dict(prompt=stream[600 * i:600 * i + n], max_tokens=16, temperature=0)
+                for i, n in enumerate(lens)]
+    for flags, label, cache_dtype, chunked, kernel in (
+            ([], "bf16 pools", torch.bfloat16, None, "paged_attention_write"),
+            (["--kv-dtype", "int8", "--chunked-prefill", "128"], "int8 pools, chunked prefill 128",
+             torch.int8, 128, "paged_attention_write_q8")):
+        label = f"Mixtral-8x7B widths, {MOE_SERVE_LAYERS} layers, {label}"
+        with _ServedRouting() as routing:
+            run = _serve(params, cfg, device, flags, requests, label)
+        _expect_decode_launches(label, run, cfg, (kernel,))
+        log(f"[SERVE] {label}: {kernel} launches {run['launches'][kernel]} = {cfg.num_layers} "
+            f"layers x {run['decode_steps']} decode steps; no other paged kernel")
+        add(run["launches"])
+        _moe_check_alone(params, cfg, device, requests, run["responses"], routing, cache_dtype,
+                         chunked, label)
+    log(f"[SERVE] Mixtral-8x7B widths, {MOE_SERVE_LAYERS} layers, decode measurement:")
+    measure_decode(params, cfg, device)
+    parts["served (bf16, int8 pools) + decode measurement"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add(_moe_generate(params, cfg, device))
+    parts["generate_kv_scan b=8"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mixtral = dataclasses.replace(config_from_hf_dict(MIXTRAL_HF), num_layers=MOE_TRAIN_LAYERS)
+    out, counts = train_cli_run(config_to_dict(mixtral),
+                                f"Mixtral-8x7B widths, {MOE_TRAIN_LAYERS} layers", "MOE")
+    add(counts)
+    del out
+    torch.cuda.empty_cache()
+    parts["train_llm, Mixtral widths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _deepseek_train(device)
+    parts["Trainer, DeepSeek-V3 widths + train_llm tiny"] = time.perf_counter() - t0
+    log(f"[MOE] seconds by part {json.dumps({k: round(v, 1) for k, v in parts.items()})}")
+    return totals
+
+
+def _served_margin_check(label, got, ref, start, host, cfg) -> int:
+    """Tokens of ``got`` from ``start`` equal to ``ref`` before the first
+    difference; at a difference the host's own top-2 logit margin (fp32,
+    ``full_logits``, any family) must be under 1e-3, else it raises."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.generate import full_logits
+
+    if list(got) == list(ref):
+        return len(ref) - start
+    at = next(i for i, (x, y) in enumerate(zip(got, ref)) if x != y)
+    with torch.no_grad():
+        logits = full_logits(host, torch.tensor([list(ref[:at])]), cfg, torch.float32)[0, -1]
+    top2 = logits.topk(2).values
+    margin = float(top2[0] - top2[1])
+    log(f"[ANCHOR] {label}: token {at - start} differs from the host's where the host's top-2 "
+        f"margin is {margin:.2e}")
+    if margin > 1e-3:
+        raise AssertionError(f"{label}: served tokens differ from the host CPU's")
+    return at - start
+
+
+def phase_anchor_moe(device) -> None:
+    """Tiny llama-MoE models (top-1 and top-2) and ``tiny-random-deepseek`` /
+    ``-dense`` in fp32, card against the host CPU: the first update's
+    gradients (1e-4 of max(1, max |grad|)), three ``Trainer`` updates' losses
+    (1e-4 relative) and greedy tokens served with fp32 pools (``paged_generate``
+    / ``mla_paged_generate``) token for token, except after a host top-2 logit
+    margin under 1e-3."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.llm.paged import paged_generate
+    from ssp_x_vit_tpu_torch.llm.paged_mla import mla_paged_generate
+    from ssp_x_vit_tpu_torch.llm.train import next_token_loss, trainable_tree
+    from ssp_x_vit_tpu_torch.llm.trainer import TrainConfig, Trainer
+
+    models = {}
+    for top_k in (1, 2):
+        cfg = LlamaConfig(vocab_size=512, hidden_size=64, num_layers=4, num_heads=4,
+                          num_kv_heads=2, intermediate_size=96, num_experts=4, moe_top_k=top_k)
+        gen = torch.Generator().manual_seed(10 + top_k)
+        models[f"tiny MoE top-{top_k}"] = (init_llama_params(gen, cfg, device="cpu"), cfg)
+    for name in ("tiny-random-deepseek", "tiny-random-deepseek-dense"):
+        models[name] = main_llm.load_model(main_llm.build_argparser().parse_args(
+            ["--model", name, "--backend", "cpu"]), torch.device("cpu"))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, 500, n).tolist() for n in (5, 17, 40)]
+    for name, (host, cfg) in models.items():
+        card = _tree_to(host, device)
+        toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+        grads = {}
+        for place, tree in (("card", card), ("host", host)):
+            t, leaves = trainable_tree(_clone_tree(tree))
+            next_token_loss(t, torch.from_numpy(toks).long().to(tree["embed"].device), cfg,
+                            compute_dtype=torch.float32).backward()
+            grads[place] = [(leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)).cpu()
+                            for leaf in leaves]
+        scale = max(1.0, max(g.abs().max().item() for g in grads["host"]))
+        gerr = max((a - b).abs().max().item()
+                   for a, b in zip(grads["card"], grads["host"])) / scale
+        losses = {}
+        batches = [rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32) for _ in range(3)]
+        for place, tree in (("card", card), ("host", host)):
+            tc = TrainConfig(learning_rate=1e-3, total_steps=3, compute_dtype="float32",
+                             log_every=1)
+            _, hist = Trainer(cfg, tc).fit(_clone_tree(tree), batches,
+                                           verbose=False)
+            losses[place] = [h["loss"] for h in hist]
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["host"]))
+        if name.startswith("tiny-random-deepseek"):
+            gen_fn = lambda p: mla_paged_generate(p, cfg, prompts, max_new_tokens=16,
+                                                  page_size=16, cache_dtype=torch.float32)
+        else:
+            gen_fn = lambda p: paged_generate(p, cfg, prompts, max_new_tokens=16, page_size=16,
+                                              cache_dtype=torch.float32)
+        served = [list(map(int, o)) for o in gen_fn(card)]
+        ref = [list(map(int, o)) for o in gen_fn(host)]
+        checked = sum(_served_margin_check(name, g, r, len(p), host, cfg)
+                      for g, r, p in zip(served, ref, prompts))
+        log(f"[ANCHOR] {name} fp32: first-update grads card vs host CPU scaled {gerr:.3e} (tol "
+            f"1e-4); 3 updates' losses card {losses['card']} host {losses['host']} (max rel "
+            f"{lerr:.3e}, tol 1e-4); served tokens (fp32 pools) equal on {checked} of "
+            f"{16 * len(prompts)}")
+        if gerr > 1e-4 or lerr > 1e-4 or len(losses["card"]) != 3:
+            raise AssertionError(f"{name}: training on the card disagrees with the host CPU")
 
 
 def flash_build_summary(build_log) -> list:
@@ -5823,6 +6370,10 @@ def main() -> int:
     for name, n in phase_deepseek(device).items():
         cli_launches[name] += n
     phase_done("main, DeepSeek-V3 widths: main_llm, generation, MLA serving (phase 4)")
+    for name, n in phase_moe(device).items():
+        cli_launches[name] += n
+    phase_done("main, Mixtral-8x7B widths: main_llm, HTTP serving, generation, training; "
+               "DeepSeek-V3 widths trained (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)
@@ -5843,6 +6394,9 @@ def main() -> int:
     phase_done("anchors: SliceGPT, EvoPress, ablations, task pack (phase 5)")
     phase_anchor_deepseek(device)
     phase_done("anchors: tiny DeepSeek models, card against host CPU (phase 5)")
+    phase_anchor_moe(device)
+    phase_done("anchors: tiny MoE and DeepSeek models trained and served, card against host "
+               "CPU (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
                if (direct[name][1] if name in direct else cli_launches[name]) <= 0]

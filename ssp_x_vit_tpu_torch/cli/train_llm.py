@@ -14,11 +14,12 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead)::
     python -m ssp_x_vit_tpu_torch.cli.train_llm --model pruned_dir --teacher dense_dir
 
 ``--model`` / ``--teacher`` take a native model directory (``model.npz`` +
-``config.json``), a local HF directory (``config.json`` + ``*.safetensors``)
-or a ``tiny-random*`` alias; ``--init-json`` takes a JSON
-dict of ``LlamaConfig`` fields (or a file holding one) and makes a fresh bf16
-model. Checkpoints are ``torch.save`` files (params, optimizer state,
-update); rerunning with the same ``--checkpoint-dir`` resumes where the
+``config.json``), a local HF directory (``config.json`` + ``*.safetensors``;
+mixtral and qwen3_moe included) or a ``tiny-random*`` alias (the DeepSeek/MLA
+``tiny-random-deepseek[-dense]`` too); ``--init-json`` takes a JSON dict of
+``LlamaConfig`` fields (or a file holding one; ``num_experts`` > 0 makes an
+MoE model) and makes a fresh bf16 model. Checkpoints are ``torch.save``
+files (params, optimizer state, update); rerunning with the same ``--checkpoint-dir`` resumes where the
 previous run stopped. ``--save-model`` writes the trained model as a native
 directory, or with ``--save-format hf`` as an HF one (``export_hf_llama``). Flags of parts not ported yet raise NotImplementedError
 naming the ROADMAP.md item.

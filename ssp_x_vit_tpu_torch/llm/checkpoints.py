@@ -9,10 +9,11 @@ package writes, so a model saved by either package loads in the other.
 ``load_hf_llama`` / ``export_hf_llama`` read and write local HF causal-LM
 directories (``config.json`` + ``*.safetensors``) of the families the model
 runs: llama, mistral, qwen2, qwen3, gemma, gemma2, phi, phi3 (loaded as
-llama) and opt. The loader reads one tensor at a time and converts it on the
-target device; the exporter writes F32, byte for byte the JAX exporter's file
-for the same parameters. MoE (mixtral, qwen3_moe) checkpoints raise
-(ROADMAP.md A.11c); DeepSeek-V3 directories load through
+llama), opt and the mixtures of experts mixtral and qwen3_moe (router
+``[L, d, E]`` and expert stacks ``[L, E, d, f]`` / ``[L, E, f, d]``). The
+loader reads one tensor at a time and converts it on the target device; the
+exporter writes F32, byte for byte the JAX exporter's file for the same
+parameters. DeepSeek-V3 directories load through
 ``llm/deepseek.py`` (``load_hf_deepseek``), and ``config_from_hf_dict``
 refuses ``deepseek_v3`` as the JAX package's does.
 """
@@ -36,8 +37,13 @@ from ssp_x_vit_tpu_torch.models.checkpoints import (
     to_tensor,
 )
 
-_MOE_NOT_PORTED = ("MoE checkpoints (mixtral, qwen3_moe) are not ported yet "
-                   "(parallel/moe.py, ROADMAP.md A.11c)")
+# HF MoE naming per model_type: (submodule, ((leaf, expert projection), ...))
+_MOE_NAMES = {
+    "mixtral": ("block_sparse_moe", (("gate_kernel", "w1"), ("up_kernel", "w3"),
+                                     ("down_kernel", "w2"))),
+    "qwen3_moe": ("mlp", (("gate_kernel", "gate_proj"), ("up_kernel", "up_proj"),
+                          ("down_kernel", "down_proj"))),
+}
 
 
 def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
@@ -147,9 +153,8 @@ def load_llm_model(model_dir: str, *, device: DeviceLike = None,
 def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
     """An HF ``config.json`` dict -> LlamaConfig, as the JAX package reads it."""
     mt = d.get("model_type", "llama")
-    if mt in ("mixtral", "qwen3_moe"):
-        raise NotImplementedError(_MOE_NOT_PORTED)
-    if mt not in ("llama", "mistral", "qwen2", "phi3", "phi", "opt", "gemma", "gemma2", "qwen3"):
+    if mt not in ("llama", "mistral", "qwen2", "phi3", "phi", "opt", "gemma", "gemma2", "qwen3",
+                  "mixtral", "qwen3_moe"):
         raise ValueError(f"unsupported model_type {mt}")
     heads = d["num_attention_heads"]
     head_dim = d.get("head_dim", d["hidden_size"] // heads)
@@ -168,15 +173,15 @@ def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
             intermediate_size=d["ffn_dim"], tie_embeddings=d.get("tie_word_embeddings", True),
             model_type="opt", qkv_bias=d.get("enable_bias", True), layer_norm_eps=1e-5,
             max_position_embeddings=d.get("max_position_embeddings", 2048))
-    # Sliding windows as HF applies them: mistral and phi3 whenever set; qwen2
-    # and qwen3 only under use_sliding_window and only for the layers from
-    # max_window_layers on (a mixed stack keeps per-layer bounds); gemma-2 on
-    # the even layers.
+    # Sliding windows as HF applies them: mistral, phi3 and mixtral whenever
+    # set; qwen2 and qwen3(_moe) only under use_sliding_window and only for the
+    # layers from max_window_layers on (a mixed stack keeps per-layer bounds);
+    # gemma-2 on the even layers.
     sliding_window, window_layers = None, None
     if d.get("sliding_window") is not None:
-        if mt in ("mistral", "phi3"):
+        if mt in ("mistral", "phi3", "mixtral"):
             sliding_window = d["sliding_window"]
-        elif mt in ("qwen2", "qwen3") and d.get("use_sliding_window", False):
+        elif mt in ("qwen2", "qwen3", "qwen3_moe") and d.get("use_sliding_window", False):
             mwl = d.get("max_window_layers", d["num_hidden_layers"])
             L = d["num_hidden_layers"]
             if mwl < L:
@@ -186,14 +191,50 @@ def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
         elif mt == "gemma2":
             sliding_window = d["sliding_window"]
             window_layers = tuple(range(0, d["num_hidden_layers"], 2))
+    num_experts, moe_top_k, aux_coef = 0, 1, 0.01
+    intermediate = d["intermediate_size"]
+    if mt == "qwen3_moe":
+        # HF Qwen3Moe: softmax -> top-k -> renormalize (norm_topk_prob) is the
+        # dropless top-k gate; the expert width is moe_intermediate_size. The
+        # JAX package's refusals, with its messages.
+        if not d.get("norm_topk_prob", True):
+            raise ValueError("qwen3_moe with norm_topk_prob=False keeps "
+                             "un-renormalized gates; the dropless top-k "
+                             "path here renormalizes — refusing instead of "
+                             "silently diverging")
+        if d.get("decoder_sparse_step", 1) != 1 or d.get("mlp_only_layers"):
+            raise ValueError("qwen3_moe with dense-MLP layers interleaved "
+                             "(decoder_sparse_step/mlp_only_layers) is not "
+                             "representable in the uniform MoE block stack")
+        num_experts = d["num_experts"]
+        moe_top_k = d.get("num_experts_per_tok", 8)
+        aux_coef = d.get("router_aux_loss_coef", 0.001)
+        intermediate = d["moe_intermediate_size"]
+    if mt == "mixtral":
+        # HF MixtralSparseMoeBlock: softmax over all experts -> top-k ->
+        # renormalize over the k. Top-1 would renormalize to a unit gate where
+        # the switch path keeps the raw probability, so it is refused.
+        num_experts = d["num_local_experts"]
+        moe_top_k = d.get("num_experts_per_tok", 2)
+        aux_coef = d.get("router_aux_loss_coef", 0.02)
+        if moe_top_k < 2:
+            raise ValueError(
+                "mixtral with num_experts_per_tok=1 renormalizes the single "
+                "gate to 1.0 (HF semantics); the switch-MoE path here keeps "
+                "the raw router probability — refusing instead of silently "
+                "diverging")
     gemma = mt in ("gemma", "gemma2")
+    qwen3 = mt in ("qwen3", "qwen3_moe")
     return LlamaConfig(
         vocab_size=d["vocab_size"],
         hidden_size=d["hidden_size"],
         num_layers=d["num_hidden_layers"],
         num_heads=heads,
         num_kv_heads=d.get("num_key_value_heads", heads),
-        intermediate_size=d["intermediate_size"],
+        intermediate_size=intermediate,
+        num_experts=num_experts,
+        moe_top_k=moe_top_k,
+        router_aux_coef=aux_coef,
         rms_eps=d.get("rms_norm_eps", 1e-5),
         rope_theta=d.get("rope_theta", 10000.0),
         rope_scaling=parse_rope_scaling(d.get("rope_scaling")),
@@ -201,11 +242,11 @@ def config_from_hf_dict(d: Dict[str, Any]) -> LlamaConfig:
         model_type=mt,
         max_position_embeddings=d.get("max_position_embeddings", 2048),
         sliding_window=sliding_window,
-        qkv_bias=(mt == "qwen2" or (mt == "qwen3" and d.get("attention_bias", False))),
+        qkv_bias=(mt == "qwen2" or (qwen3 and d.get("attention_bias", False))),
         rotary_dim=rotary_dim,
         layer_norm_eps=d.get("layer_norm_eps", 1e-5),
-        explicit_head_dim=d.get("head_dim") if mt in ("gemma", "gemma2", "qwen3") else None,
-        qk_norm=(mt == "qwen3"),
+        explicit_head_dim=d.get("head_dim") if gemma or qwen3 else None,
+        qk_norm=qwen3,
         hidden_act="gelu_tanh" if gemma else "silu",
         scale_embeddings=gemma,
         window_layers=window_layers,
@@ -242,9 +283,11 @@ def _layer_names(cfg: LlamaConfig) -> Tuple[str, List[Tuple[str, str, str]]]:
             ("fc2_kernel", "mlp.fc2.weight", _T), ("fc2_bias", "mlp.fc2.bias", _ID)]
     names = [("ln1", "input_layernorm.weight", _NORM),
              ("q_kernel", "self_attn.q_proj.weight", _T), ("k_kernel", "self_attn.k_proj.weight", _T),
-             ("v_kernel", "self_attn.v_proj.weight", _T), ("o_kernel", "self_attn.o_proj.weight", _T),
-             ("gate_kernel", "mlp.gate_proj.weight", _T), ("up_kernel", "mlp.up_proj.weight", _T),
-             ("down_kernel", "mlp.down_proj.weight", _T)]
+             ("v_kernel", "self_attn.v_proj.weight", _T), ("o_kernel", "self_attn.o_proj.weight", _T)]
+    if not cfg.num_experts:  # the expert stacks are _moe_tensor_names'
+        names += [("gate_kernel", "mlp.gate_proj.weight", _T),
+                  ("up_kernel", "mlp.up_proj.weight", _T),
+                  ("down_kernel", "mlp.down_proj.weight", _T)]
     if cfg.is_gemma2:  # ln2 is the PRE-feedforward norm; the post norms are their own leaves
         names += [("ln1_post", "post_attention_layernorm.weight", _NORM),
                   ("ln2", "pre_feedforward_layernorm.weight", _NORM),
@@ -258,6 +301,18 @@ def _layer_names(cfg: LlamaConfig) -> Tuple[str, List[Tuple[str, str, str]]]:
         names += [("q_norm", "self_attn.q_norm.weight", _ID),
                   ("k_norm", "self_attn.k_norm.weight", _ID)]
     return "model.layers.{i}.", names
+
+
+def _moe_tensor_names(cfg: LlamaConfig, i: int) -> List[Tuple[str, str, Any]]:
+    """[(leaf, HF name, expert index or None)] of layer ``i``'s router and expert
+    projections, in the JAX exporter's order: the router (HF ``gate``, [E, d]),
+    then each projection for every expert ([out, in])."""
+    pre, names = _MOE_NAMES[cfg.model_type]
+    out = [("router", f"model.layers.{i}.{pre}.gate.weight", None)]
+    for ours, theirs in names:
+        out += [(ours, f"model.layers.{i}.{pre}.experts.{e}.{theirs}.weight", e)
+                for e in range(cfg.num_experts)]
+    return out
 
 
 def _top_names(cfg: LlamaConfig) -> List[Tuple[str, str, str]]:
@@ -336,6 +391,17 @@ def load_hf_llama(model_dir: str, *, device: DeviceLike = None,
             scale = float(cfg.head_dim ** 0.5 / qps ** 0.5)
             get = lambda i, get=get, scale=scale: get(i) * scale
         blocks[ours] = _stack(L, get, dev, dtype)
+    if cfg.num_experts:
+        moe = [_moe_tensor_names(cfg, i) for i in range(L)]
+
+        def moe_leaf(i, ours):
+            hf = [name for leaf, name, _ in moe[i] if leaf == ours]
+            if ours == "router":
+                return _t(_fp32(sd, hf[0], dev))
+            return _stack(len(hf), lambda e: _t(_fp32(sd, hf[e], dev)), dev, torch.float32)
+
+        for ours in ("router",) + tuple(leaf for leaf, _ in _MOE_NAMES[cfg.model_type][1]):
+            blocks[ours] = _stack(L, lambda i, ours=ours: moe_leaf(i, ours), dev, dtype)
     params: Params = {"blocks": blocks}
     for ours, theirs, kind in _top_names(cfg):
         if ours == "lm_head" and not cfg.is_phi and theirs not in sd:
@@ -348,8 +414,6 @@ def hf_dict_from_config(cfg: LlamaConfig) -> Dict[str, Any]:
     """Inverse of :func:`config_from_hf_dict`: the HF config.json dict of
     ``cfg``, as the JAX package writes it. Raises ValueError where the config
     has no HF encoding."""
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
     if cfg.is_opt:
         return {
             "model_type": "opt", "architectures": ["OPTForCausalLM"],
@@ -393,14 +457,30 @@ def hf_dict_from_config(cfg: LlamaConfig) -> Dict[str, Any]:
         d["rope_scaling"] = export_rope_scaling(cfg.rope_scaling)
     arch = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM",
             "qwen2": "Qwen2ForCausalLM", "gemma": "GemmaForCausalLM",
-            "gemma2": "Gemma2ForCausalLM", "qwen3": "Qwen3ForCausalLM"}.get(cfg.model_type)
+            "gemma2": "Gemma2ForCausalLM", "mixtral": "MixtralForCausalLM",
+            "qwen3": "Qwen3ForCausalLM",
+            "qwen3_moe": "Qwen3MoeForCausalLM"}.get(cfg.model_type)
     if arch is None:
         raise ValueError(f"model_type {cfg.model_type!r} has no HF export "
                          "encoding (phi3 loads normalize to llama layout)")
     d["architectures"] = [arch]
-    if cfg.model_type == "qwen3":
+    if cfg.model_type == "mixtral":
+        d["num_local_experts"] = cfg.num_experts
+        d["num_experts_per_tok"] = cfg.moe_top_k
+        d["router_aux_loss_coef"] = cfg.router_aux_coef
+    if cfg.model_type in ("qwen3", "qwen3_moe"):
         d["head_dim"] = cfg.head_dim
         d["attention_bias"] = cfg.qkv_bias
+    if cfg.model_type == "qwen3_moe":
+        d["num_experts"] = cfg.num_experts
+        d["num_experts_per_tok"] = cfg.moe_top_k
+        d["router_aux_loss_coef"] = cfg.router_aux_coef
+        d["norm_topk_prob"] = True
+        d["decoder_sparse_step"] = 1
+        d["mlp_only_layers"] = []
+        # the loader read moe_intermediate_size into intermediate_size; every
+        # layer is sparse, so the dense width is unused
+        d["moe_intermediate_size"] = cfg.effective_intermediate
     if _gemma(cfg):
         d["head_dim"] = cfg.head_dim
         d["hidden_activation"] = "gelu_pytorch_tanh"
@@ -419,7 +499,7 @@ def hf_dict_from_config(cfg: LlamaConfig) -> Dict[str, Any]:
             # MistralConfig defaults sliding_window to 4096 when the key is absent
             d["sliding_window"] = None
     else:
-        if cfg.model_type == "mistral" and cfg.uniform_window:
+        if cfg.model_type in ("mistral", "mixtral") and cfg.uniform_window:
             d["sliding_window"] = cfg.sliding_window
         elif cfg.model_type == "qwen2":
             wl = cfg.window_layers
@@ -441,11 +521,16 @@ def export_hf_llama(out_dir: str, params: Params, cfg: LlamaConfig) -> str:
     gemma-2 with the folded q_proj under query_pre_attn_scalar == head_dim).
     The tensors are converted and written one at a time. Quantized trees,
     depth-materialized attention removal and windows without an HF encoding
-    raise ValueError (MoE: NotImplementedError) before anything is written."""
+    raise ValueError before anything is written. MoE trees export the router
+    and expert stacks of mixtral / qwen3_moe configs (other model types raise)."""
     blocks = params["blocks"]
     if any(k.endswith(("_q", "_q4", "_scale")) for k in blocks) or "lm_head_q" in params:
         raise ValueError("quantized pytrees have no HF encoding — export the "
                          "dense params and quantize after from_pretrained")
+    if cfg.num_experts and cfg.model_type not in _MOE_NAMES:
+        raise ValueError("MoE export to HF needs an HF MoE layout "
+                         "(model_type 'mixtral' or 'qwen3_moe'); native "
+                         "MoE-llama configs use save_llm_model")
     if cfg.pruned_attention_blocks:
         raise ValueError("depth-materialized attention removal is not "
                          "representable in vanilla HF blocks; use save_llm_model")
@@ -459,6 +544,10 @@ def export_hf_llama(out_dir: str, params: Params, cfg: LlamaConfig) -> str:
 
     prefix, names = _layer_names(cfg)
     tensors: Dict[str, torch.Tensor] = {}
+    if cfg.num_experts:  # the JAX exporter writes every layer's experts first
+        for i in range(cfg.num_layers):
+            for ours, theirs, e in _moe_tensor_names(cfg, i):
+                tensors[theirs] = _t(blocks[ours][i] if e is None else blocks[ours][i][e])
     for i in range(cfg.num_layers):
         for ours, theirs, kind in names:
             tensors[prefix.format(i=i) + theirs] = convert(blocks[ours][i], kind)

@@ -15,7 +15,12 @@ MoE (counterpart of ``ssp_x_vit_tpu/llm/deepseek.py``).
   first ``first_k_dense_replace`` layers are dense GLU MLPs. Dropless: every
   expert runs on every token, weighted by the dense ``[T, E]`` combine matrix,
   as the JAX package computes it; the experts are taken in chunks so neither
-  the ``[T, E, d]`` products nor an fp32 copy of the expert stack exist whole.
+  the ``[T, E, d]`` products nor an fp32 copy of the expert stack exist whole
+  (``parallel/moe.py`` ``dropless_experts``, shared with the llama-family MoE).
+- **Training**: both forwards run under autograd (the router's top-k indices
+  carry no gradient, its weights do); ``remat=True`` checkpoints each layer
+  (``torch.utils.checkpoint``, non-reentrant). Inference callers take
+  ``torch.no_grad()`` themselves.
 
 Parameters keep the JAX tree: ``dense_blocks`` and ``moe_blocks`` groups of
 stacked ``[L, ...]`` leaves (plain, ``_q`` int8, ``_q4`` packed int4 with
@@ -36,19 +41,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.rope import (
     RopeScaling, export_rope_scaling, parse_rope_scaling, rope_freqs, yarn_get_mscale,
 )
 from ssp_x_vit_tpu_torch.ops.common import mm_quant, pick_param_variants
+from ssp_x_vit_tpu_torch.parallel.moe import dropless_experts, top_k_indices
 
 Params = Dict[str, Any]
-
-# bytes of the [chunk, T, f] / [chunk, T, d] expert products, and of a chunk's
-# weights in the compute dtype, held at once
-_EXPERT_CHUNK_BYTES = 1 << 30
-
 
 @dataclasses.dataclass(frozen=True)
 class DeepseekConfig:
@@ -369,13 +371,6 @@ def _glu(x, bp, dt, names=("gate_kernel", "up_kernel", "down_kernel")):
     return _mm(F.silu(g) * u, bp, names[2], dt)
 
 
-def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest along the last axis, the lower index first
-    among equal values (``lax.top_k``'s rule; ``torch.topk`` promises no
-    order on the card): a stable descending sort."""
-    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
 def _deepseek_route(xt, bp, cfg: DeepseekConfig):
     """HF DeepseekV3TopkRouter: fp32 sigmoid scores; selection on scores +
     e_bias with the group-limited top-k (groups scored by their top-2 sum;
@@ -392,11 +387,11 @@ def _deepseek_route(xt, bp, cfg: DeepseekConfig):
         grouped = choice.reshape(T, cfg.n_group, per)
         top2 = torch.sort(grouped, dim=-1, descending=True).values[..., :min(2, per)]
         group_scores = top2.sum(dim=-1)                      # [T, G]
-        gidx = _top_k_indices(group_scores, cfg.topk_group)
+        gidx = top_k_indices(group_scores, cfg.topk_group)
         gmask = torch.zeros_like(group_scores).scatter_(1, gidx, 1.0)
         choice = torch.where(gmask.repeat_interleave(per, dim=-1) > 0, choice,
                              torch.zeros_like(choice))
-    top_e = _top_k_indices(choice, k)                        # [T, k]
+    top_e = top_k_indices(choice, k)                        # [T, k]
     w = torch.gather(scores, 1, top_e)                       # un-biased
     if cfg.norm_topk_prob:
         w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
@@ -404,50 +399,13 @@ def _deepseek_route(xt, bp, cfg: DeepseekConfig):
     return torch.zeros_like(scores).scatter_(1, top_e, w)    # [T, E]
 
 
-def _expert_weights(bp, name, e0, e1, dt):
-    """Experts [e0, e1) of a stacked ``[E, K, N]`` kernel in ``dt`` and their
-    per-(expert, out-channel) scales in ``dt`` (None for float stacks);
-    packed int4 stacks unpack here, one chunk at a time."""
-    if name in bp:
-        return bp[name][e0:e1].to(dt), None
-    if name + "_q4" in bp:
-        from ssp_x_vit_tpu_torch.ops.kernels.quant_matmul import unpack_int4
-
-        w = unpack_int4(bp[name + "_q4"][e0:e1])
-    else:
-        w = bp[name + "_q"][e0:e1]
-    return w.to(dt), bp[name + "_scale"][e0:e1].to(dt)
-
-
 def _deepseek_moe(x, bp, cfg: DeepseekConfig, dt):
     """Dropless routed experts (every expert on every token, weighted by the
     dense combine matrix) plus the always-on shared experts."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    T = xt.shape[0]
     sel = _deepseek_route(xt, bp, cfg).to(dt)                # [T, E]
-    E, fm = cfg.n_routed_experts, cfg.moe_intermediate_size
-    elem = torch.empty((), dtype=dt).element_size()
-    # a chunk's products and its weights (converted to dt) each within the budget
-    chunk = max(1, min(E, _EXPERT_CHUNK_BYTES // max(1, T * (2 * fm + d) * elem),
-                       _EXPERT_CHUNK_BYTES // (3 * d * fm * elem)))
-    routed = None
-    for e0 in range(0, E, chunk):
-        e1 = min(E, e0 + chunk)
-
-        def expert_mm(t, name):
-            w, scale = _expert_weights(bp, name, e0, e1, dt)
-            y = torch.matmul(t, w)                           # [n, T, N]
-            return y if scale is None else y * scale[:, None, :]
-
-        g = expert_mm(xt, "gate_kernel")
-        u = expert_mm(xt, "up_kernel")
-        y = expert_mm(F.silu(g) * u, "down_kernel")          # [n, T, d]
-        # the combine over experts accumulates in fp32 across the chunks and
-        # rounds once, as the JAX package's one einsum over E does
-        part = torch.einsum("te,etd->td", sel[:, e0:e1].float(), y.float())
-        routed = part if routed is None else routed + part
-    routed = routed.to(dt).reshape(b, s, d)
+    routed = dropless_experts(xt, sel, bp, dt).reshape(b, s, d)
     if cfg.n_shared_experts:
         routed = routed + _glu(x, bp, dt, ("shared_gate", "shared_up", "shared_down"))
     return routed
@@ -494,30 +452,47 @@ def _embed(params, input_ids, dt):
     return F.embedding(input_ids, params["embed"]).to(dt)
 
 
+def _layer(x, moe, ap, mp, cfg: DeepseekConfig, dt, ga, gm, collect_mlp_stats):
+    """One block: (x out, c and k_rot of its attention or None, MLP stats or None)."""
+    c = kr = stats = None
+    if ap is not None:
+        attn_out, c, kr = _mla_attention(_rms(x, ap["ln1"], cfg.rms_eps), ap, cfg, dt)
+        x = x + _gate(attn_out, ga, x.dtype)
+    h = _rms(x, mp["ln2"], cfg.rms_eps)
+    if moe:
+        mlp_out = _deepseek_moe(h, mp, cfg, dt)
+    else:
+        g = _mm(h, mp, "gate_kernel", dt)
+        u = _mm(h, mp, "up_kernel", dt)
+        hidden = F.silu(g) * u
+        if collect_mlp_stats:
+            stats = hidden.float().square().sum(dim=1)
+        mlp_out = _mm(hidden, mp, "down_kernel", dt)
+    return x + _gate(mlp_out, gm, x.dtype), c, kr, stats
+
+
 def _run_forward(params, input_ids, cfg: DeepseekConfig, dt, *, attn_gate=None,
                  mlp_gate=None, collect_mlp_stats=False, return_block_outputs=False,
-                 logit_position=None):
+                 logit_position=None, remat=False):
     """The per-layer loop shared by both forwards: (logits, c [La, b, s, kvr],
-    kr [La, b, s, rd] of the layers with attention, aux)."""
+    kr [La, b, s, rd] of the layers with attention, aux). ``remat``
+    checkpoints each layer (non-reentrant): the backward recomputes it."""
     x = _embed(params, input_ids, dt)
     cs, krs, stats, outs = [], [], [], []
     for i, (moe, ap, mp) in enumerate(deepseek_layers(params, cfg)):
+        ga = None if attn_gate is None else attn_gate[i]
+        gm = None if mlp_gate is None else mlp_gate[i]
+        args = (moe, ap, mp, cfg, dt, ga, gm, collect_mlp_stats and not moe)
+        if remat:
+            x, c, kr, st = checkpoint(_layer, x, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, c, kr, st = _layer(x, *args)
         if ap is not None:
-            attn_out, c, kr = _mla_attention(_rms(x, ap["ln1"], cfg.rms_eps), ap, cfg, dt)
-            x = x + _gate(attn_out, None if attn_gate is None else attn_gate[i], x.dtype)
             cs.append(c)
             krs.append(kr)
-        h = _rms(x, mp["ln2"], cfg.rms_eps)
-        if moe:
-            mlp_out = _deepseek_moe(h, mp, cfg, dt)
-        else:
-            g = _mm(h, mp, "gate_kernel", dt)
-            u = _mm(h, mp, "up_kernel", dt)
-            hidden = F.silu(g) * u
-            if collect_mlp_stats:
-                stats.append(hidden.float().square().sum(dim=1))
-            mlp_out = _mm(hidden, mp, "down_kernel", dt)
-        x = x + _gate(mlp_out, None if mlp_gate is None else mlp_gate[i], x.dtype)
+        if st is not None:
+            stats.append(st)
         if return_block_outputs:
             outs.append(x)
     x = _rms(x, params["ln_final"], cfg.rms_eps)
@@ -537,11 +512,11 @@ def _as_gates(g, device):
     return torch.as_tensor(np.asarray(g, np.float32), device=device)
 
 
-@torch.no_grad()
 def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfig, *,
                      compute_dtype=torch.bfloat16, return_caches: bool = False,
                      logit_position: Optional[int] = None, attn_gate=None, mlp_gate=None,
-                     collect_mlp_stats: bool = False, return_block_outputs: bool = False):
+                     collect_mlp_stats: bool = False, return_block_outputs: bool = False,
+                     remat: bool = False):
     """input_ids [b, s] -> logits [b, s, V] fp32. ``return_caches`` also
     returns the serving-cache tensors (c [L, b, s, kvr], k_rot [L, b, s, rd],
     rope applied); ``logit_position`` computes logits at that position only
@@ -549,7 +524,8 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
     one per batch row, a batch of skip-pattern candidates over the same
     tokens); ``collect_mlp_stats`` / ``return_block_outputs`` add an aux dict
     as a second output: ``mlp_stats`` [L, b, f] (dense-GLU configs only) and
-    ``block_outputs`` [L, b, s, d]."""
+    ``block_outputs`` [L, b, s, d]. ``remat=True`` (training under autograd)
+    checkpoints each layer; the backward recomputes its forward."""
     if cfg.pruned_attention_blocks:
         raise ValueError("use deepseek_forward_materialized for "
                          "attention-materialized configs")
@@ -561,7 +537,7 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
     logits, cs, krs, aux = _run_forward(
         params, input_ids, cfg, compute_dtype, attn_gate=_as_gates(attn_gate, dev),
         mlp_gate=_as_gates(mlp_gate, dev), collect_mlp_stats=collect_mlp_stats,
-        return_block_outputs=return_block_outputs, logit_position=logit_position)
+        return_block_outputs=return_block_outputs, logit_position=logit_position, remat=remat)
     want_aux = collect_mlp_stats or return_block_outputs
     if not return_caches:
         return (logits, aux) if want_aux else logits
@@ -569,7 +545,6 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
     return (logits, caches, aux) if want_aux else (logits, caches)
 
 
-@torch.no_grad()
 def deepseek_forward_materialized(params: Params, input_ids: torch.Tensor,
                                   cfg: DeepseekConfig, *, compute_dtype=torch.bfloat16,
                                   return_caches: bool = False,

@@ -32,9 +32,8 @@ def full_logits(params, tokens: torch.Tensor, cfg, compute_dtype, *,
                 remat: bool = False) -> torch.Tensor:
     """[b, s] -> [b, s, V] fp32 logits, picking the gated or the materialized
     forward from the config. ``remat=True`` checkpoints each layer (training
-    under autograd); the materialized (pruned) forward ignores it, as in the
-    JAX package. DeepSeek/MLA configs take ``llm/deepseek.py``'s forwards (their
-    training, where ``remat`` matters, is not ported)."""
+    under autograd); the materialized (pruned) forwards ignore it, as in the
+    JAX package. DeepSeek/MLA configs take ``llm/deepseek.py``'s forwards."""
     from ssp_x_vit_tpu_torch.llm.deepseek import (
         deepseek_forward, deepseek_forward_materialized, is_deepseek,
     )
@@ -42,7 +41,7 @@ def full_logits(params, tokens: torch.Tensor, cfg, compute_dtype, *,
     if is_deepseek(cfg):
         if cfg.pruned_attention_blocks:
             return deepseek_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)
-        return deepseek_forward(params, tokens, cfg, compute_dtype=compute_dtype)
+        return deepseek_forward(params, tokens, cfg, compute_dtype=compute_dtype, remat=remat)
     require_llama_config(cfg)
     if cfg.pruned_attention_blocks:
         return llama_forward_materialized(params, tokens, cfg, compute_dtype=compute_dtype)

@@ -12,8 +12,11 @@ Architectures: llama / mistral (sliding window) / qwen2 (``qkv_bias``) / qwen3
 gemma2 (post-norms, softcaps, mixed per-layer windows) share the pre-RMSNorm
 GLU block; ``phi`` is the parallel-residual LayerNorm + GELU block with partial
 rotary; ``opt`` the sequential LayerNorm block with learned positions and a
-ReLU MLP. MoE configs raise (ROADMAP.md A.11c); the DeepSeek/MLA family is
-``llm/deepseek.py``.
+ReLU MLP. ``num_experts > 0`` (mixtral, qwen3_moe) replaces the llama-layout
+MLP with the dropless mixture of experts of ``parallel/moe.py``: a router
+``[L, d, E]`` and expert stacks ``[L, E, d, f]`` / ``[L, E, f, d]``, each
+layer's switch load-balance loss returned as ``moe_aux_loss``. The
+DeepSeek/MLA family is ``llm/deepseek.py``.
 
 The large projections are ``torch.matmul`` (quantized ones go through
 ``ops.common.mm_quant``); attention goes to the hand-written flash kernel for
@@ -37,10 +40,6 @@ from ssp_x_vit_tpu_torch.ops.attention import flash_attention
 from ssp_x_vit_tpu_torch.ops.common import gelu, mm_quant, pick_param_variants
 
 Params = Dict[str, Any]
-
-_MOE_NOT_PORTED = ("mixture-of-experts configs (num_experts > 0) are not ported yet: "
-                   "parallel/moe.py is ROADMAP.md A.11c")
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -69,7 +68,7 @@ class LlamaConfig:
     layer_norm_eps: float = 1e-5       # phi/opt use LayerNorm (with bias)
     # opt specifics
     max_position_embeddings: int = 2048  # learned positional table size
-    # MoE fields are kept so configs round-trip; num_experts > 0 raises here.
+    # MoE (mixtral-style FFN; llama layout only). 0 = dense MLP.
     num_experts: int = 0
     expert_capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
@@ -139,13 +138,13 @@ class LlamaConfig:
 
 def require_llama_config(cfg) -> None:
     """The llama-family entry points take a ``LlamaConfig``. DeepSeek/MLA
-    models run through ``llm/deepseek.py`` and ``llm/paged_mla.py`` and the
-    family-generic entry points; the rest (training) does not take them yet."""
+    models run through ``llm/deepseek.py``, ``llm/paged_mla.py`` and the
+    family-generic entry points (evaluation, pruning, generation, training)."""
     if not isinstance(cfg, LlamaConfig):
-        raise NotImplementedError(
+        raise TypeError(
             f"this entry point takes a LlamaConfig, got {type(cfg).__name__}: DeepSeek/MLA "
-            "models run through llm/deepseek.py and llm/paged_mla.py; their training is "
-            "not ported yet (llm/train.py, ROADMAP.md A.11b)")
+            "models run through llm/deepseek.py, llm/paged_mla.py and the family-generic "
+            "entry points")
 
 
 def _glu_act(cfg: LlamaConfig):
@@ -174,8 +173,6 @@ def init_llama_params(gen: Optional[torch.Generator], cfg: LlamaConfig,
     device (None: a fresh one seeded with 0). Each leaf is drawn in float32
     and cast, one leaf at a time, so a full-size model never exists on the
     host."""
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev)
@@ -185,7 +182,7 @@ def init_llama_params(gen: Optional[torch.Generator], cfg: LlamaConfig,
     hkv = cfg.num_kv_heads * cfg.head_dim
 
     def nrm(*shape, std=0.02):
-        if len(shape) == 3:  # stacked kernels: one layer at a time bounds the fp32 temporary
+        if len(shape) >= 3:  # stacked kernels: one layer at a time bounds the fp32 temporary
             out = torch.empty(shape, dtype=dtype, device=dev)
             for i in range(shape[0]):
                 out[i] = torch.randn(shape[1:], generator=gen, device=dev) * std
@@ -234,13 +231,18 @@ def init_llama_params(gen: Optional[torch.Generator], cfg: LlamaConfig,
             "v_kernel": nrm(L, d, hkv),
             "o_kernel": nrm(L, hq, d),
             "ln2": ones(L, d),
-            "gate_kernel": nrm(L, d, f),
-            "up_kernel": nrm(L, d, f),
-            "down_kernel": nrm(L, f, d),
         },
         "ln_final": ones(d),
     }
     blocks = params["blocks"]
+    if cfg.num_experts:
+        # the per-layer slices are parallel/moe.py's parameters
+        E = cfg.num_experts
+        blocks.update({"router": nrm(L, d, E), "gate_kernel": nrm(L, E, d, f),
+                       "up_kernel": nrm(L, E, d, f), "down_kernel": nrm(L, E, f, d)})
+    else:
+        blocks.update({"gate_kernel": nrm(L, d, f), "up_kernel": nrm(L, d, f),
+                       "down_kernel": nrm(L, f, d)})
     if cfg.is_gemma2:
         blocks["ln1_post"] = ones(L, d)
         blocks["ln2_post"] = ones(L, d)
@@ -367,6 +369,22 @@ def _layer_norm(x, scale, bias, eps):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def _moe_mlp(x, bp, cfg: LlamaConfig, compute_dtype):
+    """The mixture-of-experts block MLP: the dropless formulation of
+    ``parallel/moe.py`` (every token through its routed experts, no capacity
+    overflow), so a cached decode equals the full forward. The layer's slice
+    holds the router and the expert stacks (float, ``_q`` or ``_q4`` with
+    ``_scale``). Returns (output, the layer's switch load-balance loss)."""
+    from ssp_x_vit_tpu_torch.parallel.moe import MoEConfig, moe_ffn_dropless
+
+    mcfg = MoEConfig(cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
+                     cfg.expert_capacity_factor, top_k=cfg.moe_top_k)
+    p = {k: v for k, v in bp.items() if k == "router" or k.startswith(
+        ("gate_kernel", "up_kernel", "down_kernel"))}
+    y, aux = moe_ffn_dropless(p, x.to(compute_dtype), mcfg)
+    return y.to(compute_dtype), aux["aux_loss"]
+
+
 def _mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", act=F.silu):
     g = _mm(x, bp, "gate_kernel", compute_dtype)
     u = _mm(x, bp, "up_kernel", compute_dtype)
@@ -420,13 +438,13 @@ def _gated(branch: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
 def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
                  collect_mlp_stats: bool, mlp_stats_kind: str):
     """One block of ``llama_forward``: (x out, MLP stats or None, MLP input, MLP
-    output before gemma-2's post-norm)."""
+    output before gemma-2's post-norm, the MoE load-balance loss or None)."""
     if cfg.is_phi:
         # phi-2 parallel residual: one LayerNorm feeds both branches
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
         attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
         mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind)
-        return x + _gated(attn_out, ga) + _gated(mlp_out, gm), stats, h, mlp_out
+        return x + _gated(attn_out, ga) + _gated(mlp_out, gm), stats, h, mlp_out, None
     if cfg.is_opt:
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
     else:
@@ -436,16 +454,21 @@ def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
         # gemma-2 post-norms: the residual deltas are RMS-normalized before the adds
         attn_out = rms_norm(attn_out, bp["ln1_post"], cfg.rms_eps)
     x = x + _gated(attn_out, ga)
+    moe_loss = None
     if cfg.is_opt:
         mlp_in = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
         mlp_out, stats = _phi_mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
                                   mlp_stats_kind, act="relu")
+    elif cfg.num_experts:
+        mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
+        mlp_out, moe_loss = _moe_mlp(mlp_in, bp, cfg, compute_dtype)
+        stats = None
     else:
         mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
         mlp_out, stats = _mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
                               mlp_stats_kind, act=_glu_act(cfg))
     post = rms_norm(mlp_out, bp["ln2_post"], cfg.rms_eps) if cfg.is_gemma2 else mlp_out
-    return x + _gated(post, gm), stats, mlp_in, mlp_out
+    return x + _gated(post, gm), stats, mlp_in, mlp_out, moe_loss
 
 
 def llama_forward(
@@ -473,18 +496,26 @@ def llama_forward(
     ``[L, b, f]`` fp32: the 2SSP stage-1 statistic. ``collect_mlp_io_stats``
     adds the sums of squares of the MLP's input and output hidden dims;
     ``return_block_outputs`` each block's output hidden states ``[L, b, s, d]``.
+    MoE configs add each layer's switch load-balance loss, ``moe_aux_loss``
+    ``[L]`` fp32, and take no neuron mask or MLP statistics (ValueError).
 
     ``params["blocks"]`` leaves are stacked ``[L, ...]`` tensors or lists of
     per-layer tensors (the train step's per-layer leaves). ``remat=True``
     (training under autograd) checkpoints each layer
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes the
     layer's forward, flash kernel included, instead of keeping its
-    activations; it takes no aux outputs.
+    activations; it takes no MLP statistics or block outputs (an MoE layer's
+    load-balance loss comes out of the checkpointed layer beside its output).
     """
     if cfg.pruned_attention_blocks:
         raise ValueError("use llama_forward_materialized for depth-materialized configs")
     if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
+        if cfg.is_phi or cfg.is_opt:
+            raise ValueError("MoE is supported on the llama block layout only")
+        if collect_mlp_stats or collect_mlp_io_stats or neuron_mask is not None:
+            raise ValueError(
+                "2SSP width instrumentation targets dense MLPs; MoE configs "
+                "route tokens per-expert and do not support neuron masks/stats")
     if remat and (collect_mlp_stats or collect_mlp_io_stats or return_block_outputs):
         raise ValueError("remat=True takes no aux outputs")
     x = _embed(params, input_ids, cfg, compute_dtype)
@@ -500,13 +531,18 @@ def llama_forward(
         ga, gm = _gate(attn_gate, i, x), _gate(mlp_gate, i, x)
         nm = None if neuron_mask is None else neuron_mask[i]
         if remat:
-            x = checkpoint(
+            x, moe_loss = checkpoint(
                 lambda x_, bp=bp, i=i, ga=ga, gm=gm, nm=nm: _llama_layer(
-                    x_, bp, i, cfg, compute_dtype, rope, ga, gm, nm, False, mlp_stats_kind)[0],
+                    x_, bp, i, cfg, compute_dtype, rope, ga, gm, nm, False,
+                    mlp_stats_kind)[::4],
                 x, use_reentrant=False, preserve_rng_state=False)
+            if moe_loss is not None:
+                record("moe_aux_loss", moe_loss)
             continue
-        x, stats, mlp_in, mlp_out = _llama_layer(x, bp, i, cfg, compute_dtype, rope, ga, gm, nm,
-                                                 collect_mlp_stats, mlp_stats_kind)
+        x, stats, mlp_in, mlp_out, moe_loss = _llama_layer(
+            x, bp, i, cfg, compute_dtype, rope, ga, gm, nm, collect_mlp_stats, mlp_stats_kind)
+        if moe_loss is not None:
+            record("moe_aux_loss", moe_loss)
         if collect_mlp_stats:
             record("mlp_stats", stats)
         if collect_mlp_io_stats:
@@ -532,7 +568,11 @@ def llama_forward_materialized(
     blocks are physically absent and the stacked attention leaves are indexed
     by the compacted attention index (cf. ``vit_forward_materialized``)."""
     if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
+        raise ValueError(
+            "MoE configs do not support depth materialization (2SSP depth "
+            "pruning targets the dense block layout); this guard prevents "
+            "the 4-D expert kernels from silently broadcasting through the "
+            "dense _mlp contraction")
     x = _embed(params, input_ids, cfg, compute_dtype)
     rope = rope_tables(input_ids.shape[1], cfg, x.device)
     blocks = params["blocks"]

@@ -28,7 +28,7 @@ What it keeps from optax, and what ``torch.optim`` would change:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -112,10 +112,13 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def apply(self, params: Dict, grads: Sequence[torch.Tensor], state: Dict) -> bool:
+    def apply(self, params: Dict, grads: Sequence[torch.Tensor], state: Dict,
+              frozen: Optional[Sequence[bool]] = None) -> bool:
         """Take one microbatch's gradients (aligned with ``tree_leaves(params)``;
         fp32 ones are overwritten); update ``params`` and ``state`` in place.
-        True when an update was applied."""
+        ``frozen`` (aligned the same way): leaves whose update is zeroed, so
+        neither the step nor the weight decay moves them; their moments
+        still tick. True when an update was applied."""
         p_leaves = tree_leaves(params)
         if len(grads) != len(p_leaves):
             raise ValueError(f"{len(grads)} gradients for {len(p_leaves)} parameter leaves")
@@ -147,7 +150,9 @@ class AdamW:
         bc1 = float(np.float32(1) - b1 ** np.float32(count))
         bc2 = float(np.float32(1) - b2 ** np.float32(count))
         lr = float(self.schedule(state["count"]))
-        for p, g, m, v in zip(p_leaves, grads, tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+        frozen = frozen if frozen is not None else [False] * len(p_leaves)
+        for p, g, m, v, is_frozen in zip(p_leaves, grads, tree_leaves(state["mu"]),
+                                         tree_leaves(state["nu"]), frozen):
             g32 = _fp32(g)
             if clip is not None:
                 g32.div_(clip[0]).mul_(clip[1])
@@ -156,6 +161,8 @@ class AdamW:
             for stored, value in ((m, m32), (v, v32)):
                 if value is not stored:
                     stored.copy_(value)
+            if is_frozen:
+                continue
             u = torch.div(m32, bc1).div_(torch.div(v32, bc2).sqrt_().add_(self.eps))
             p32 = _fp32(p)
             p32.add_(u.add_(p32, alpha=self.weight_decay), alpha=-lr)

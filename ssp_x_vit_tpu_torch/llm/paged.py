@@ -23,9 +23,10 @@ prefill chunk is not padded to the chunk size. The multi-step decode keeps the
 tokens, lengths, liveness and budgets on the device and copies the emitted
 tokens to the host once per block. Everything runs under ``torch.no_grad()``.
 
-Covers llama-layout models (llama/mistral/qwen2/qwen3/gemma/gemma-2), phi's
+Covers llama-layout models (llama/mistral/qwen2/qwen3/gemma/gemma-2, and the
+mixtral / qwen3_moe mixture of experts through the dropless expert MLP), phi's
 parallel block, and width/depth-materialized pruned models (pool rows only for
-surviving attention layers). OPT and MoE raise; the DeepSeek/MLA family
+surviving attention layers). OPT raises; the DeepSeek/MLA family
 serves through ``llm/paged_mla.py``'s subclass of :class:`PagedServer`.
 """
 
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from ssp_x_vit_tpu_torch.llm.model import (
-    _MOE_NOT_PORTED, LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm,
+    LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm, _moe_mlp,
     require_llama_config, rms_norm,
 )
 from ssp_x_vit_tpu_torch.llm.sampling import (
@@ -61,8 +62,6 @@ def _check_servable(cfg) -> None:
     require_llama_config(cfg)
     if cfg.is_opt:
         raise ValueError("paged serving covers llama-layout and phi models")
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
 
 
 def init_paged_pools(cfg: LlamaConfig, num_pages: int, page_size: int,
@@ -82,6 +81,9 @@ def init_paged_pools(cfg: LlamaConfig, num_pages: int, page_size: int,
 
 
 def _mlp_branch(h2, bp, cfg: LlamaConfig, compute_dtype):
+    if cfg.num_experts:
+        # the dropless expert MLP, the same path as contiguous serving
+        return _moe_mlp(h2, bp, cfg, compute_dtype)[0]
     if cfg.is_phi:
         hm = _mm(h2, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
         return _mm(gelu(hm), bp, "fc2_kernel", compute_dtype) + bp["fc2_bias"].to(compute_dtype)

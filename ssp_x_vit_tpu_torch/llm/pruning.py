@@ -262,6 +262,9 @@ def materialize_llm_depth_pruning(
         return PD.materialize_deepseek_attention_pruning(params, cfg, blocks_to_prune)
     require_llama_config(cfg)
     pruned = tuple(sorted(set(int(i) for i in blocks_to_prune)))
+    if cfg.num_experts:
+        raise ValueError("depth materialization targets dense-MLP configs; "
+                         "MoE models are not 2SSP targets")
     if not pruned:
         return params, cfg
     if cfg.pruned_attention_blocks:

@@ -70,16 +70,18 @@ def _quantize_tree(params: Params, quantize, suffix: str) -> Params:
 def quantize_llm_params_int8(params: Params, cfg: LlamaConfig) -> Params:
     """A tree where every projection kernel ``k`` is replaced by ``k + "_q"``
     (int8) and ``k + "_scale"`` (fp32 per output channel); the original
-    kernels are dropped. Works on dense, width-pruned and depth-materialized
-    trees."""
+    kernels are dropped. Works on dense, width-pruned, depth-materialized and
+    MoE trees (expert stacks ``[L, E, d_in, d_out]`` per (expert, out-channel);
+    the router stays float: it is tiny and decides the routing)."""
     return _quantize_tree(params, quantize_weight_int8, "_q")
 
 
 def quantize_llm_params_int4(params: Params, cfg: LlamaConfig) -> Params:
     """int4 variant: projection kernels become ``k + "_q4"`` (packed [K/2, N]
-    int8 nibbles, ``pack_int4`` layout) and ``k + "_scale"``. The lm_head stays
-    int8: the 15-level grid is coarse and the head is a small share of the
-    weight bytes."""
+    int8 nibbles, ``pack_int4`` layout) and ``k + "_scale"``; MoE expert stacks
+    pack per (layer, expert, out-channel) and unpack inside the expert
+    product (``parallel/moe.py``). The lm_head stays int8: the 15-level grid
+    is coarse and the head is a small share of the weight bytes."""
     return _quantize_tree(params, quantize_weight_int4, "_q4")
 
 

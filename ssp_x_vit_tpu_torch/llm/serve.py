@@ -19,11 +19,15 @@ once at the end (``decode_while`` reads one flag back every
 llama trees goes through the hand-written ``fused_mlp_int8`` kernel (its plain
 version for CPU tensors); everything else here is plain PyTorch ops, as the
 JAX package leaves it to XLA. Everything runs under ``torch.no_grad()``.
+MoE configs take the dropless expert MLP of ``llm/model.py`` (``_moe_mlp``):
+it holds no cache state, so a cached decode equals the full forward; their
+4-D expert stacks stay out of ``fused_mlp_int8`` and out of the packed
+``gateup_kernel``, as in the JAX package.
 
 Also kept here for the paged path: the prompt buckets, rotary embedding at
 per-sequence positions, the QKV projection of one block, the final norm + lm
 head, ``split_layers`` and ``pack_llm_params_for_serving``. Multi-LoRA
-(``lora_ids``) raises naming ROADMAP.md A.10, MoE A.11c; DeepSeek/MLA generation is
+(``lora_ids``) raises naming ROADMAP.md A.10; DeepSeek/MLA generation is
 ``llm/deepseek.py`` (``deepseek_generate``).
 ``llm/aot.py`` (XLA ahead-of-time compilation) has no counterpart.
 """
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.model import (
-    _MOE_NOT_PORTED, LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm,
+    LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm, _moe_mlp,
     require_llama_config, rms_norm,
 )
 from ssp_x_vit_tpu_torch.llm.rope import rope_freqs
@@ -506,9 +510,11 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
         if cfg.is_gemma2:
             attn = rms_norm(attn, bp["ln1_post"], cfg.rms_eps)
         x = x + attn
+    h2 = rms_norm(x, bp["ln2"], cfg.rms_eps)
     if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
-    mlp = _swiglu_mlp(rms_norm(x, bp["ln2"], cfg.rms_eps), bp, cfg, compute_dtype)
+        # the dropless expert MLP (float, int8 or int4 expert stacks)
+        return x + _moe_mlp(h2, bp, cfg, compute_dtype)[0], ck_l, cv_l
+    mlp = _swiglu_mlp(h2, bp, cfg, compute_dtype)
     if cfg.is_gemma2:
         mlp = rms_norm(mlp, bp["ln2_post"], cfg.rms_eps)
     return x + mlp, ck_l, cv_l

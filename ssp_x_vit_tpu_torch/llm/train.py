@@ -14,6 +14,13 @@ share their storage (``trainable_tree``), each layer's gradient is its own
 tensor, and ``optim.AdamW`` writes the new values back through the same
 views. At Llama-2-7B width the parameters, gradients and both moments exist
 once each on the card, as the JAX package's donated buffers do.
+
+Every family trains: the llama family (an MoE config adds ``router_aux_coef``
+times the mean of its layers' switch load-balance losses) and DeepSeek/MLA
+(``deepseek_forward`` with per-layer remat, or the materialized forward of a
+pruned config; no aux term: V3 balances its experts with the
+``e_score_correction_bias``, a buffer whose update the steps zero, so weight
+decay cannot move it either).
 """
 
 from __future__ import annotations
@@ -23,20 +30,36 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
 from ssp_x_vit_tpu_torch.llm.generate import full_logits
-from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params, require_llama_config
+from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, Params, llama_forward, require_llama_config
 from ssp_x_vit_tpu_torch.llm.optim import AdamW, tree_leaves
-
-_MOE_NOT_PORTED = ("training mixture-of-experts configs (num_experts > 0) is not ported yet: "
-                   "parallel/moe.py is ROADMAP.md A.11c")
 
 Step = Callable[[Params, Dict, torch.Tensor], Tuple[Params, Dict, torch.Tensor]]
 
+# leaves of a DeepSeek tree that are buffers, not trained (e_score_correction_bias)
+_BUFFERS = ("e_bias",)
+
 
 def _check_trainable(cfg) -> None:
-    require_llama_config(cfg)  # DeepSeek/MLA raises naming ROADMAP.md A.11b
-    if cfg.num_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
+    if not is_deepseek(cfg):
+        require_llama_config(cfg)
+
+
+def frozen_leaves(params: Params, cfg) -> Optional[List[bool]]:
+    """Per leaf of ``optim.tree_leaves(params)``: True for the buffers whose
+    update the train steps zero (DeepSeek's ``e_bias``, as the JAX package's
+    ``_freeze_buffers``); None when the config has none."""
+    if not is_deepseek(cfg):
+        return None
+    out: List[bool] = []
+    for value in params.values():
+        if isinstance(value, dict):
+            for k, stacked in value.items():
+                out += [k in _BUFFERS] * stacked.shape[0]
+        else:
+            out.append(False)
+    return out
 
 
 def trainable_tree(params: Params) -> Tuple[Params, List[torch.Tensor]]:
@@ -70,20 +93,30 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                     compute_dtype=torch.bfloat16, remat: bool = True) -> torch.Tensor:
     """Mean next-token NLL over tokens [b, s] (logits in fp32 for the softmax).
     Depth-materialized pruned configs train too; their forward has no
-    checkpointed layer loop, so ``remat`` is a no-op there."""
+    checkpointed layer loop, so ``remat`` is a no-op there. DeepSeek/MLA
+    configs take ``deepseek_forward``; a llama MoE config adds
+    ``router_aux_coef`` times the mean over layers of ``moe_aux_loss``."""
     _check_trainable(cfg)
-    logits = full_logits(params, tokens[:, :-1], cfg, compute_dtype, remat=remat)
-    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+    moe = getattr(cfg, "num_experts", 0)
+    if moe and not cfg.pruned_attention_blocks:   # the gated forward returns the aux loss
+        logits, aux = llama_forward(params, tokens[:, :-1], cfg, compute_dtype=compute_dtype,
+                                    remat=remat)
+    else:   # a depth-materialized MoE config raises in the materialized forward, as in JAX
+        logits = full_logits(params, tokens[:, :-1], cfg, compute_dtype, remat=remat)
+    loss = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            tokens[:, 1:].reshape(-1))
+    if moe:
+        loss = loss + cfg.router_aux_coef * aux["moe_aux_loss"].mean()
+    return loss
 
 
-def _make_step(loss_fn, optimizer: AdamW) -> Step:
+def _make_step(loss_fn, optimizer: AdamW, cfg) -> Step:
     def step(params: Params, opt_state: Dict, tokens) -> Tuple[Params, Dict, torch.Tensor]:
         tree, leaves = trainable_tree(params)
         loss = loss_fn(tree, _to_tokens(tokens, params["embed"].device))
         loss.backward()
         grads = [leaf.grad if leaf.grad is not None else torch.zeros_like(leaf) for leaf in leaves]
-        optimizer.apply(params, grads, opt_state)
+        optimizer.apply(params, grads, opt_state, frozen=frozen_leaves(params, cfg))
         return params, opt_state, loss.detach()
 
     return step
@@ -98,7 +131,7 @@ def make_llama_train_step(cfg: LlamaConfig, optimizer: Optional[AdamW] = None, *
     _check_trainable(cfg)
     optimizer = optimizer or AdamW(1e-4)
     return _make_step(lambda tree, tokens: next_token_loss(
-        tree, tokens, cfg, compute_dtype=compute_dtype, remat=remat), optimizer)
+        tree, tokens, cfg, compute_dtype=compute_dtype, remat=remat), optimizer, cfg)
 
 
 def make_distill_train_step(teacher_params: Params, teacher_cfg: LlamaConfig,
@@ -108,9 +141,10 @@ def make_distill_train_step(teacher_params: Params, teacher_cfg: LlamaConfig,
     """Knowledge-distillation step for pruned-model recovery: loss =
     alpha * next-token CE + (1 - alpha) * T^2 * KL(teacher || student) at
     softmax temperature T. The teacher runs forward only, without grad (its
-    flash calls take the no-grad kernel path); the student may be any config
-    sharing the vocabulary (2SSP width- or depth-materialized). Student leaves
-    that share storage with the teacher are copied before the first update."""
+    flash calls take the no-grad kernel path); teacher and student may be any
+    configs sharing the vocabulary (2SSP width- or depth-materialized, MoE,
+    DeepSeek/MLA). Student leaves that share storage with the teacher are
+    copied before the first update."""
     _check_trainable(teacher_cfg)
     _check_trainable(student_cfg)
     optimizer = optimizer or AdamW(1e-4)
@@ -139,7 +173,7 @@ def make_distill_train_step(teacher_params: Params, teacher_cfg: LlamaConfig,
                         value.untyped_storage().data_ptr() in teacher_storages:
                     tree[key] = value.clone()
 
-    step = _make_step(loss_fn, optimizer)
+    step = _make_step(loss_fn, optimizer, student_cfg)
 
     def distill_step(student: Params, opt_state: Dict, tokens):
         unshare(student)

@@ -51,6 +51,16 @@ LR = 1e-3
 REL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_tree(seed):
     """numpy ViT tree: kernels ~ N(0, 0.1), LayerNorm scales ~ 1 + N(0, 0.1)."""
     shapes = jax.eval_shape(lambda: jvit.init_vit_params(jax.random.PRNGKey(0), JCFG))

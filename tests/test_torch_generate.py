@@ -32,6 +32,16 @@ SMALL = dict(vocab_size=96, hidden_size=32, num_layers=3, num_heads=4, num_kv_he
              intermediate_size=48)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     """(jax params, jax cfg, torch params, torch cfg): numpy-seeded weights,

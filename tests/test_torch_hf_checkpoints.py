@@ -203,17 +203,24 @@ def test_refusals_leave_no_partial_directory(tmp_path):
         (tp, dataclasses.replace(tc, model_type="gemma2", sliding_window=4, window_layers=(1,)),
          ValueError, "even layers"),
         (tp, dataclasses.replace(tc, model_type="phi3"), ValueError, "no HF export"),
-        (tp, dataclasses.replace(tc, num_experts=4), NotImplementedError, r"ROADMAP\.md A\.11"),
+        (tp, dataclasses.replace(tc, num_experts=4), ValueError, "HF MoE layout"),
     ]
     for i, (p, c, err, match) in enumerate(cases):
         out = tmp_path / f"refused{i}"
         with pytest.raises(err, match=match):
             tckpt.export_hf_llama(str(out), p, c)
         assert not out.exists(), match
-    for model_type in ("mixtral", "qwen3_moe"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.11"):
-            tckpt.config_from_hf_dict({"model_type": model_type, "num_attention_heads": 4,
-                                       "hidden_size": 32})
+    # the MoE types load (tests/test_torch_moe_io.py) but keep the JAX package's
+    # three refusals, with its exception type
+    moe = dict(num_attention_heads=4, hidden_size=32, vocab_size=64, num_hidden_layers=2,
+               intermediate_size=48, num_local_experts=4, num_experts=4, moe_intermediate_size=24)
+    for bad, match in ((dict(model_type="mixtral", num_experts_per_tok=1), "num_experts_per_tok=1"),
+                       (dict(model_type="qwen3_moe", norm_topk_prob=False), "norm_topk_prob"),
+                       (dict(model_type="qwen3_moe", decoder_sparse_step=2), "interleaved"),
+                       (dict(model_type="qwen3_moe", mlp_only_layers=[1]), "interleaved")):
+        for reader in (tckpt.config_from_hf_dict, jckpt.config_from_hf_dict):
+            with pytest.raises(ValueError, match=match):
+                reader({**moe, **bad})
     # deepseek_v3 directories load through llm/deepseek.py; the llama reader
     # refuses the type as the JAX package's does
     for reader in (tckpt.config_from_hf_dict, jckpt.config_from_hf_dict):

@@ -35,6 +35,16 @@ ARCH = dict(image_size=32, patch_size=8, hidden_size=64, num_layers=3, num_heads
 TINY = dict(ARCH, num_classes=10)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_model(pruned=False, seed=0):
     cfg = jvit.ViTConfig(**TINY)
     params = jvit.init_vit_params(jax.random.PRNGKey(seed), cfg)

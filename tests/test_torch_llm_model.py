@@ -31,6 +31,16 @@ FAMILIES = sorted(_TINY_VARIANTS)
 SMALL = dict(TINY_RANDOM, num_layers=3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_model(family, seed=0, **overrides):
     """(jax params, jax cfg, torch params, torch cfg) with numpy-seeded weights:
     kernels ~ N(0, 0.05), norm scales ~ 1 + N(0, 0.1), biases ~ N(0, 0.1)."""
@@ -189,11 +199,20 @@ def test_rope_scaling_and_mistral_window_match_jax():
 
 
 def test_moe_configs_name_the_roadmap_item():
-    cfg = tmodel.LlamaConfig(**SMALL, num_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-        tmodel.init_llama_params(None, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/moe.py"):
-        tmodel.llama_forward({}, torch.zeros(1, 4, dtype=torch.long), cfg)
+    """MoE configs (once refused naming their ROADMAP item) run: the port's
+    initializer makes the JAX layout, and the fp32 logits and per-layer
+    ``moe_aux_loss`` of a top-2 model match the JAX package's."""
+    jparams, jcfg, tparams, tcfg = make_model("tiny-random", seed=14, num_experts=4, moe_top_k=2)
+    made = tmodel.init_llama_params(None, tcfg, device="cpu")
+    assert {k: tuple(v.shape) for k, v in made["blocks"].items()} == \
+        {k: tuple(v.shape) for k, v in tparams["blocks"].items()}
+    ids = tokens(15, 2, 40)
+    ref, jaux = jmodel.llama_forward(jparams, jnp.asarray(ids), jcfg, compute_dtype=jnp.float32)
+    got, taux = tmodel.llama_forward(tparams, torch.from_numpy(ids).long(), tcfg,
+                                     compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(taux["moe_aux_loss"].numpy(), np.asarray(jaux["moe_aux_loss"]),
+                               atol=1e-4, rtol=0)
 
 
 def test_init_llama_params_layout_matches_jax():

@@ -36,6 +36,16 @@ SMALL = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4, num_kv_h
 PS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_model(family="tiny-random", seed=0, **overrides):
     """(jax params, jax cfg, torch params, torch cfg) with numpy-seeded weights:
     kernels ~ N(0, 0.08), norm scales ~ 1 + N(0, 0.1), biases ~ N(0, 0.1)."""
@@ -400,7 +410,15 @@ def test_unsupported_configs_raise():
     _, _, tparams, tcfg = make_model()
     with pytest.raises(ValueError, match="llama-layout and phi"):
         tpaged.init_paged_pools(dataclasses.replace(tcfg, model_type="opt"), 4, PS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-        tpaged.PagedServer(tparams, dataclasses.replace(tcfg, num_experts=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
+    with pytest.raises(TypeError, match="LlamaConfig"):
         tpaged.paged_generate(tparams, object(), [[1, 2]])
+    # MoE configs (once refused naming ROADMAP.md A.11c) serve: a top-2 model's
+    # paged tokens are the JAX package's
+    jp, jc, tp, tc = make_model(seed=4, num_experts=4, moe_top_k=2)
+    prompts = [np.asarray([3, 5, 7], np.int32), np.asarray([2, 4, 6, 8, 10], np.int32)]
+    want = jpaged.paged_generate(jp, jc, prompts, max_new_tokens=6, cache_dtype=jnp.float32,
+                                 page_size=PS)
+    got = tpaged.paged_generate(tp, tc, prompts, max_new_tokens=6, cache_dtype=torch.float32,
+                                page_size=PS)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

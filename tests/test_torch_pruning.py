@@ -22,6 +22,16 @@ CONFIGS = {"vit-b16": J_NAMED["vit-b16"], "vit-s16": J_NAMED["vit-s16"],
            "vit-ti16": J_NAMED["vit-ti16"], "vit_procgen": PROCGEN}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(kw):
     return JConfig(**kw), TConfig(**kw)
 

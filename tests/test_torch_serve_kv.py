@@ -38,6 +38,16 @@ SMALL = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4, num_kv_h
              intermediate_size=48)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_model(family="tiny-random", seed=0, **overrides):
     """(jax params, jax cfg, torch params, torch cfg) with numpy-seeded weights:
     kernels ~ N(0, 0.08), norm scales ~ 1 + N(0, 0.1), biases ~ N(0, 0.1)."""
@@ -330,7 +340,7 @@ def test_sampled_rows_reproduce_per_seed_and_stay_in_the_filtered_support(llama,
 def test_helpers_and_unported_parts():
     """Prompt preparation and trimming equal the JAX package's; init_cache
     refuses to place a cache without a GPU unless asked for the CPU; lora_ids
-    and MoE raise naming their ROADMAP items."""
+    raises naming its ROADMAP item; an MoE model generates the JAX tokens."""
     for prompts in ([[1, 2, 3], [4]], np.arange(5), [7, 8]):
         for x, y in zip(tserve._prepare_prompts(prompts, 40), jserve._prepare_prompts(prompts, 40)):
             np.testing.assert_array_equal(x, y)
@@ -339,8 +349,12 @@ def test_helpers_and_unported_parts():
     _, _, tparams, tcfg = make_model(seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         tserve.generate_kv_scan(tparams, tcfg, [[1, 2]], max_length=6, lora_ids=[0])
-    moe = dataclasses.replace(tcfg, num_experts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.11"):
-        tserve.generate_kv_scan(tparams, moe, [[1, 2]], max_length=6)
+    # MoE configs (once refused naming ROADMAP.md A.11c) generate: a top-1
+    # model's greedy tokens are the JAX package's
+    jp, jc, tp, tc = make_model(seed=2, num_experts=2)
+    want = jserve.generate_kv_scan(jp, jc, np.asarray([1, 2, 3], np.int32), max_length=10,
+                                   cache_dtype=jnp.float32)
+    got = tserve.generate_kv_scan(tp, tc, [1, 2, 3], max_length=10, cache_dtype=torch.float32)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     with pytest.raises(ValueError, match="sliding_window"):
         tserve.init_rolling_cache(tcfg, 1, device="cpu")

@@ -46,6 +46,16 @@ SMALL = dict(vocab_size=8192, hidden_size=32, num_layers=2, num_heads=4, num_kv_
              intermediate_size=48)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def model():
     """(jax params, jax cfg, torch params, torch cfg) from one numpy seed; a

@@ -39,6 +39,16 @@ _jax_scores = jax.jit(jtp.cls_attention_scores, static_argnums=2)
 _jax_prune = jax.jit(jtp.prune_tokens, static_argnums=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tcfg(jcfg):
     return tvit.ViTConfig(**dataclasses.asdict(jcfg))
 

@@ -45,6 +45,16 @@ TINY = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4, num_kv_he
             intermediate_size=48)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def make_model(seed=0, **overrides):
     """(jax params, jax cfg, torch params, torch cfg): kernels ~ N(0, 0.1),
     norm scales ~ 1 + N(0, 0.1)."""
@@ -255,8 +265,18 @@ def test_resume_from_a_checkpoint_is_bit_exact(tmp_path):
 
 
 def test_unported_configs_name_the_roadmap_item():
-    _, _, params, cfg = make_model()
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ttrain.make_llama_train_step(dataclasses.replace(cfg, num_experts=4))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ttrain.next_token_loss(params, torch.zeros(1, 4, dtype=torch.long), object())
+    """MoE configs (once refused naming ROADMAP.md A.11c) train: the loss of a
+    top-2 MoE model, load-balance term included, and its gradients match the
+    JAX package's; a config of neither family is refused as a TypeError."""
+    jp, jc, tp, tc = make_model(seed=5, num_experts=4, moe_top_k=2, router_aux_coef=0.5)
+    toks = batch(6)
+    loss_j, grads_j = jax.value_and_grad(jtrain.next_token_loss)(
+        jp, jnp.asarray(toks), jc, compute_dtype=jnp.float32, remat=True)
+    loss, grads = grads_of(tp, lambda tree: ttrain.next_token_loss(
+        tree, torch.from_numpy(toks).long(), tc, compute_dtype=torch.float32, remat=True))
+    assert abs(loss.item() - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    want = jax_leaves(grads_j)
+    scale = max(1.0, max(g.abs().max().item() for g in want))
+    assert max((a - b).abs().max().item() for a, b in zip(grads, want)) <= 1e-4 * scale
+    with pytest.raises(TypeError, match="LlamaConfig"):
+        ttrain.next_token_loss(tp, torch.zeros(1, 4, dtype=torch.long), object())

@@ -23,6 +23,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "ckpts", "vit_procgen")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tcfg(jcfg):
     import dataclasses
 

@@ -35,6 +35,16 @@ from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as tfused
 ATOL = 1e-5  # fp32: the same autodiff of the same math, other summation orders
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this file's tiny tensors: the suite runs six
+    workers on the host's cores, where a pool per worker only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ffn_arrays(seed, b, s, d, f, with_bias, with_mask):
     rng = np.random.default_rng(seed)
     arrays = {"x": rng.normal(size=(b, s, d)), "w1": rng.normal(size=(d, f)) * 0.2,
