@@ -132,6 +132,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             (flash forward / dq / dk-dv launches = 2 x updates x 2 / x 1 / x 1),
             and DeepSeek-V3 widths cut to 4 layers and 32 routed experts
             trained through ``Trainer`` (``e_bias`` bit for bit unchanged).
+            Also: every ViT CLI batch through the native
+            ``gather_batch`` (``native/dataloader.cc``), bit for bit the numpy
+            gather's; multi-LoRA on the Llama-2-7B-width int8 tree ([LORA]: 3
+            adapters of rank 16 on q/k/v/o, b=8 prompts of 448-480 tokens,
+            ``lora_ids`` (0, 1, 2, 3, 0, 1, 2, 3), 64 decode steps of
+            ``generate_kv_scan``: id-0 rows bit for bit the batch without ids,
+            every token within 5e-2 of its prompt run alone with its id,
+            ``fused_mlp_int8`` = 32 x 65; ms per decode step with and without
+            ids); then local corpora: ``corpus_slice`` decoded, cut into
+            documents at blank lines and written as ``save_to_disk``
+            directories by ``scripts/arrow_corpus.py`` ([CORPUS], read back
+            equal), ``main_llm --local_datasets`` 25% 2SSP at Llama-2-7B
+            widths cut to 4 layers from a saved directory ([LOCAL]: the
+            corpora used, sparsity within 0.02, flash per phase) and
+            ``train_llm --data`` at Llama-2-7B width and depth ([TRAIN]: the
+            first microbatch == the host tokenization, flash / dq / dk-dv = 32
+            x updates x 2 / x 1 / x 1).
             Kernel launches per run, each driven path with the counts set to
             0 just before it.
 5. anchor   the committed trained checkpoints: ``ckpts/vit_procgen`` (dense top-1,
@@ -164,7 +181,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             same masks), and paged MLA greedy tokens == ``deepseek_generate``;
             then tiny llama-MoE (top-1, top-2) and DeepSeek models in fp32,
             card against host CPU: first-update gradients, three updates'
-            losses and fp32-pool served tokens.
+            losses and fp32-pool served tokens; then ``code_llm_small`` with
+            ``--local_datasets`` on the card and the host CPU (the same token
+            streams, dense perplexity within 1e-4 relative) and with two
+            adapters through ``generate_kv_scan`` (``lora_ids`` (0, 1, 2, 1),
+            fp32, token for token against the host CPU).
 
 The last lines of standard output are the ``{"kernels": [...]}`` line, the card's
 ``name, power.limit`` line and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1949,6 +1970,7 @@ def phase_main(out_root: str, device) -> dict:
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
     totals = {name: 0 for name in KERNEL_NAMES}
+    gathered = watch_gather()
     runs = [
         ("vit-b16", "fused_attn_block_v2", ["--do-finetune", "--quantize", "int8"]),
         ("vit-ti16", "fused_attn_block", ["--use-adapter", "--do-finetune", "--freeze-backbone",
@@ -2003,8 +2025,44 @@ def phase_main(out_root: str, device) -> dict:
             check_adapter_run(report, backbone, built[0], device)
         del report, built
         torch.cuda.empty_cache()
+    calls, images = gathered.stop()
+    log(f"[MAIN] ViT batches: {calls} assembled by the native gather_batch "
+        f"(native/dataloader.cc, g++-built), {images} images, each bit for bit the numpy "
+        f"gather's on the same indices and flips")
+    if calls == 0:
+        raise AssertionError("the ViT CLI runs assembled no batch through gather_batch")
     profile_finetune_step(device)
     return totals
+
+
+class watch_gather:
+    """Wraps ``data.pipeline.gather_batch`` (the native gather every
+    ``DataPipeline`` batch goes through) with a check: each batch it returns
+    must be bit for bit ``gather_batch_plain`` (numpy) on the same indices and
+    flips. ``stop()`` restores it and returns (calls, images)."""
+
+    def __init__(self):
+        import numpy as np
+
+        from ssp_x_vit_tpu_torch.data import native_loader, pipeline
+
+        self.pipeline, self.calls, self.images = pipeline, 0, 0
+        real = pipeline.gather_batch
+
+        def checked(images, idx, flips=None):
+            out = real(images, idx, flips)
+            if not np.array_equal(out, native_loader.gather_batch_plain(images, idx, flips)):
+                raise AssertionError("gather_batch differs from the numpy gather")
+            self.calls += 1
+            self.images += len(out)
+            return out
+
+        self.real = real
+        pipeline.gather_batch = checked
+
+    def stop(self) -> tuple:
+        self.pipeline.gather_batch = self.real
+        return self.calls, self.images
 
 
 def _vit_b16_batch(device, n: int):
@@ -2921,10 +2979,13 @@ def _extend_gaps(params, cfg, seqs, starts, cache_dtype, device) -> tuple:
     return same, total, worst
 
 
-def _profile_decode(params, cfg, device, cache_dtype, prompts) -> dict:
+def _profile_decode(params, cfg, device, cache_dtype, prompts, lora_ids=None) -> dict:
     """The contiguous path split in its parts at b=8: prefill seconds, ms per
     decode step over 16 steps (host clock around synchronized work), and a
-    ``torch.profiler`` split of 4 more steps."""
+    ``torch.profiler`` split of 4 more steps. A step is ``decode_scan``'s loop
+    body (``serve._decode_body``). ``lora_ids``: each row's adapter of the
+    attached bank, checked and its slices gathered once, as ``generate_kv_scan``
+    does."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2933,29 +2994,33 @@ def _profile_decode(params, cfg, device, cache_dtype, prompts) -> dict:
 
     tokens, pad_lens, _, p_pad = serve._prepare_prompts(prompts, GEN_MAX_LENGTH)
     b = tokens.shape[0]
-    layers = serve.split_layers(params, cfg)
     ck, cv = serve.init_cache(cfg, b, GEN_MAX_LENGTH + 1, cache_dtype, device)
+    ids = serve._lora_ids(params, lora_ids, b, device)
+    layers = serve._gathered_layers(serve.split_layers(params, cfg), ids,
+                                    serve.cache_compute_dtype(ck))
     pads = torch.as_tensor(pad_lens.astype(np.int64), device=device)
     toks = torch.as_tensor(tokens.astype(np.int64), device=device)
+    kw = dict(layers=layers, lora_ids=ids)
+    step = torch.no_grad()(serve._decode_body)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, ck, cv = serve.prefill(params, toks, ck, cv, cfg, pads, layers=layers)
+    logits, ck, cv = serve.prefill(params, toks, ck, cv, cfg, pads, **kw)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     tok, pos = logits.argmax(-1), p_pad
     for _ in range(2):  # warm-up
-        logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+        logits, ck, cv = step(params, tok, ck, cv, cfg, pos, pads, **kw)
         tok, pos = logits.argmax(-1), pos + 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(16):
-        logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+        logits, ck, cv = step(params, tok, ck, cv, cfg, pos, pads, **kw)
         tok, pos = logits.argmax(-1), pos + 1
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 16
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(4):
-            logits, ck, cv = serve.decode_step(params, tok, ck, cv, cfg, pos, pads, layers=layers)
+            logits, ck, cv = step(params, tok, ck, cv, cfg, pos, pads, **kw)
             tok, pos = logits.argmax(-1), pos + 1
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -2975,7 +3040,8 @@ def phase_contiguous(device, params, cfg) -> dict:
     32 launches per forward); every batch token held to the same prompt run
     alone at b=1; b=1 on the bf16 tree (no kernel of this package on its
     path); the prefill / decode-step split and a profiler split of decode
-    steps. Returns the launches of the two int8 runs."""
+    steps; then multi-LoRA on the int8 tree (``phase_lora``). Returns the
+    launches of the two int8 runs and the multi-LoRA run."""
     import numpy as np
     import torch
 
@@ -3046,6 +3112,8 @@ def phase_contiguous(device, params, cfg) -> dict:
             log("[PROFILE] contiguous decode step: the trace holds no device time: not measured")
         del outs
         torch.cuda.empty_cache()
+    for name, n in phase_lora(device, params, q8, cfg).items():
+        launches[name] = launches.get(name, 0) + n
     del q8
     torch.cuda.empty_cache()
 
@@ -3346,11 +3414,11 @@ def profile_train_step(params, cfg, device) -> None:
         log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
 
 
-def train_cli_run(model_cfg: dict, what: str, tag: str) -> tuple:
+def train_cli_run(model_cfg: dict, what: str, tag: str, data=None) -> tuple:
     """The training CLI (``cli.train_llm``) on a fresh bf16 model of the
     ``LlamaConfig`` fields ``model_cfg`` (``--init-json``): b=1, s=2048, remat
-    on, the synthetic stream, ``TRAIN_UPDATES`` updates, the counts set to 0
-    just before it. Losses (an MoE model's load-balance term included) finite
+    on, the synthetic stream (``data``: ``--data`` that corpus directory
+    instead), ``TRAIN_UPDATES`` updates, the counts set to 0 just before it. Losses (an MoE model's load-balance term included) finite
     at every update; flash forward launches = layers x updates x 2 (forward
     and remat recompute), each backward kernel = layers x updates. Returns
     (the run's result, its launches)."""
@@ -3361,8 +3429,9 @@ def train_cli_run(model_cfg: dict, what: str, tag: str) -> tuple:
     from ssp_x_vit_tpu_torch.cli import train_llm
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
+    source = ["--data", data] if data else ["--synthetic-data"]
     argv = ["--init-json", json.dumps(model_cfg), "--steps", str(TRAIN_UPDATES),
-            "--batch-size", "1", "--seq-len", "2048", "--synthetic-data", "--log-every", "1",
+            "--batch-size", "1", "--seq-len", "2048", *source, "--log-every", "1",
             "--backend", "cuda"]
     log(f"[{tag}] train_llm {' '.join(argv)}")
     torch.cuda.reset_peak_memory_stats()
@@ -6174,6 +6243,427 @@ def phase_anchor_moe(device) -> None:
             raise AssertionError(f"{name}: training on the card disagrees with the host CPU")
 
 
+# ------------------------------------------------- local corpora, multi-LoRA ---
+
+LORA_RANK = 16
+LORA_IDS = (0, 1, 2, 3, 0, 1, 2, 3)       # 3 adapters and the base model, twice
+LORA_STEPS = 64
+LORA_PROMPTS = (448, 480)   # 64 decode steps keep 33-65 tokens per row (max_length 513)
+LOCAL_LAYERS = 4            # Llama-2-7B widths cut to 4 layers for main_llm --local_datasets
+CORPUS_NAMES = ("wikitext2", "c4_val", "fineweb_edu", "c4_train")
+
+
+def _arrow_corpus():
+    """``scripts/arrow_corpus.py``: the plain-Python ``save_to_disk`` writer."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "arrow_corpus", os.path.join(here, "scripts", "arrow_corpus.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _code_llm_small() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts", "code_llm_small")
+
+
+def _decoded_documents(split: str, start: int = 0, stop=None) -> list:
+    """Committed ids ``corpus_slice/<split>.bin[start:stop]`` decoded with the
+    code tokenizer and cut into documents at blank lines."""
+    import numpy as np
+
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+    ids = np.fromfile(os.path.join(_code_llm_small(), "corpus_slice", f"{split}.bin"), np.uint16)
+    text = load_tokenizer(_code_llm_small()).decode(ids[start:stop].tolist())
+    return _arrow_corpus().documents(text)
+
+
+def write_corpora(work: str, corpora: dict) -> float:
+    """``corpora`` (name -> texts) as ``save_to_disk`` directories under
+    ``work/data``; returns the seconds."""
+    writer = _arrow_corpus()
+    t0 = time.perf_counter()
+    for name, texts in corpora.items():
+        writer.write_dataset(os.path.join(work, "data", name), texts)
+    return time.perf_counter() - t0
+
+
+def phase_corpus(work: str) -> dict:
+    """[CORPUS]: ``corpus_slice/val.bin`` and ``train.bin`` (131072 ids each)
+    decoded with ``ckpts/code_llm_small/tokenizer.json`` and cut into documents
+    at blank lines; wikitext2, c4_val and fineweb_edu take the val documents,
+    c4_train the train documents, written under ``work/data`` by
+    ``scripts/arrow_corpus.py`` and read back through ``llm/datasets.py``
+    (``llm/arrow_ipc.py``): the texts must equal what was written. Returns
+    name -> texts."""
+    from ssp_x_vit_tpu_torch.llm import datasets as D
+
+    t0 = time.perf_counter()
+    docs = {split: _decoded_documents(split) for split in ("val", "train")}
+    decode_s = time.perf_counter() - t0
+    corpora = {"wikitext2": docs["val"], "c4_val": docs["val"], "fineweb_edu": docs["val"],
+               "c4_train": docs["train"]}
+    write_s = write_corpora(work, corpora)
+    loaders = {"wikitext2": D.load_wikitext2, "c4_val": D.load_c4,
+               "fineweb_edu": D.load_fineweb_edu,
+               "c4_train": lambda d: D.load_c4(d, split="train")}
+    for name, texts in corpora.items():
+        path = os.path.join(work, "data", name)
+        nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        got = loaders[name](path)
+        read_s = time.perf_counter() - t0
+        log(f"[CORPUS] {name}: {len(texts)} documents, {nbytes / 1e6:.3f} MB on disk, read by "
+            f"llm/datasets.py in {read_s:.4f} s ({nbytes / 1e6 / read_s:.1f} MB/s)")
+        if got != texts:
+            raise AssertionError(f"{name}: the texts read back differ from those written")
+    log(f"[CORPUS] val.bin and train.bin decoded and cut into documents at blank lines in "
+        f"{decode_s:.2f} s ({len(docs['val'])} / {len(docs['train'])} documents); 4 directories "
+        f"written by scripts/arrow_corpus.py in {write_s:.2f} s; every text read back equal")
+    return corpora
+
+
+def _phase_seconds(out) -> str:
+    return json.dumps({k: round(v, 3) for k, v in out["phase_seconds"].items()})
+
+
+def phase_local(device, work: str) -> dict:
+    """[LOCAL]: random bf16 weights at Llama-2-7B widths cut to 4 layers,
+    saved as a native directory with the code tokenizer's ``tokenizer.json``
+    beside them (its ids lie below 8192, the vocabulary is 32000), then
+    ``main_llm --local_datasets`` 25% 2SSP with dense and pruned perplexity
+    (s=2048, 16 calibration windows, 8 for 2SSP, as the synthetic CLI run)
+    from ``work`` (the current directory, holding ./data): the run must
+    report the local corpora, reach 25% within 0.02 and launch flash in every
+    phase that runs attention. Returns the run's launches."""
+    import math
+    import shutil
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import save_llm_model
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    cfg = LlamaConfig(**dict(LLAMA_2_7B, num_layers=LOCAL_LAYERS))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    model_dir = os.path.join(work, "llama-2-7b-width-4-layers")
+    t0 = time.perf_counter()
+    save_llm_model(model_dir, params, cfg)
+    shutil.copy(os.path.join(_code_llm_small(), "tokenizer.json"), model_dir)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(model_dir, "model.npz"))
+    del params
+    torch.cuda.empty_cache()
+    argv = ["--model", model_dir, "--local_datasets", "--seq-len", "2048", "--num-calibration",
+            "16", "--num-calibration-2ssp", "8", "--backend", "cuda", "--evaluate_perplexity",
+            "--dense", "--pruning_method", "2ssp", "--sparsity_rate", "0.25", "--logging",
+            "WARNING"]
+    log(f"[LOCAL] Llama-2-7B widths, {LOCAL_LAYERS} layers: save_llm_model {nbytes / 1e9:.3f} GB "
+        f"bf16 in {save_s:.2f} s; main_llm {' '.join(argv)}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main_llm.run(main_llm.build_argparser().parse_args(argv))
+    seconds = time.perf_counter() - t0
+    counts = {name: launch_counts[name] for name in KERNEL_NAMES}
+    (entry,) = out["runs"]
+    dense, pruned = out["dense"]["ppl"], entry["ppl"]
+    flash = {ph: c["flash_attention"] for ph, c in out["kernel_launches"].items()
+             if c["flash_attention"]}
+    log(f"[LOCAL] main_llm --local_datasets: {seconds:.1f} s, corpora {out['corpora']}; seconds "
+        f"by phase {_phase_seconds(out)}; flash_attention launches by phase {json.dumps(flash)}")
+    log(f"[LOCAL] dense ppl {dense:.3f}, after 25% 2SSP {pruned:.3f}; pruned attention "
+        f"{entry['pruned_attention_blocks']}, kept FFN width {entry['num_preserve_mlp']} of "
+        f"{cfg.intermediate_size}, achieved sparsity {entry['achieved_sparsity']:.4f}")
+    if out["corpora"] != "local":
+        raise AssertionError(f"main_llm --local_datasets used the {out['corpora']} streams")
+    if not (math.isfinite(dense) and math.isfinite(pruned)):
+        raise AssertionError(f"non-finite perplexity: dense {dense}, pruned {pruned}")
+    if abs(entry["achieved_sparsity"] - 0.25) > 0.02:
+        raise AssertionError(f"achieved sparsity {entry['achieved_sparsity']} vs 0.25")
+    for phase in ("stats", "candidates", "evaluation"):
+        if out["kernel_launches"][phase]["flash_attention"] <= 0:
+            raise AssertionError(f"flash_attention not launched in the {phase} phase")
+    return counts
+
+
+def phase_train_data(work: str, corpora: dict) -> dict:
+    """[TRAIN]: ``train_llm --data <dir>`` at Llama-2-7B width and depth (b=1,
+    s=2048, remat, 4 updates; ``train_cli_run``'s checks: finite losses, flash
+    / dq / dk-dv launches 32 x updates x 2 / x 1 / x 1) on the c4_train
+    documents with the code tokenizer beside them; the first microbatch the
+    CLI cuts must equal the host tokenization of the directory's text.
+    Returns the run's launches."""
+    import shutil
+
+    import numpy as np
+
+    from ssp_x_vit_tpu_torch.cli import train_llm
+    from ssp_x_vit_tpu_torch.llm.datasets import tokenize_corpus
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+    data = os.path.join(work, "train_corpus")
+    _arrow_corpus().write_dataset(data, corpora["c4_train"])
+    shutil.copy(os.path.join(_code_llm_small(), "tokenizer.json"), data)
+    args = train_llm.build_argparser().parse_args(
+        ["--data", data, "--steps", str(TRAIN_UPDATES), "--batch-size", "1", "--seq-len", "2048"])
+    t0 = time.perf_counter()
+    batches, stream = train_llm._token_batches(args, LlamaConfig(**LLAMA_2_7B))
+    cut_s = time.perf_counter() - t0
+    want = tokenize_corpus(corpora["c4_train"], load_tokenizer(data)).reshape(-1)[:2049]
+    if not np.array_equal(np.asarray(batches[0]).reshape(-1), want):
+        raise AssertionError("train_llm --data: the first microbatch is not the host "
+                             "tokenization of the directory's text")
+    log(f"[TRAIN] --data {len(corpora['c4_train'])} documents -> {stream.size} tokens, "
+        f"{len(batches)} microbatches of 1 x 2049 in {cut_s:.2f} s (read + tokenize); the "
+        f"first == the host tokenization of the texts")
+    _, counts = train_cli_run(LLAMA_2_7B, "Llama-2-7B width on --data (local corpus)", "TRAIN",
+                              data=data)
+    return counts
+
+
+def make_adapters(shapes_tree, n: int, rank: int, scale: float, seed: int) -> list:
+    """``n`` LoRA adapters on q/k/v/o for the stacked kernels of
+    ``shapes_tree`` (``init_lora``'s a, and b ~ N(0, scale) so each one binds),
+    on the kernels' device."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.lora import init_lora
+
+    out = []
+    for i in range(n):
+        ad = init_lora(torch.Generator().manual_seed(seed + i), shapes_tree, rank=rank)
+        g = torch.Generator().manual_seed(seed + 1000 + i)
+        for ab in ad.values():
+            ab["b"] = (scale * torch.randn(ab["b"].shape, generator=g)).to(ab["b"].device)
+        out.append(ad)
+    return out
+
+
+def _lora_alone_gaps(params, cfg, seqs, starts, ids, cache_dtype, device) -> tuple:
+    """``_extend_gaps`` with each sequence's adapter: every sequence alone at
+    b=1 through one cached forward over prompt + generated tokens with its
+    row's ``lora_ids`` (the serving layers, logits at every position)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm import serve
+    from ssp_x_vit_tpu_torch.llm.model import _embed_tokens
+
+    same = total = 0
+    worst = 0.0
+    with torch.no_grad():
+        for seq, start, lid in zip(seqs, starts, ids):
+            toks = torch.as_tensor(seq[None].astype("int64"), device=device)
+            ck, cv = serve.init_cache(cfg, 1, len(seq), cache_dtype, device)
+            dt = serve.cache_compute_dtype(ck)
+            pos = torch.arange(len(seq), device=device)[None]
+            x, _, _ = serve._run_layers(
+                params, _embed_tokens(params, toks, cfg, dt), ck, cv, cfg, global_positions=pos,
+                rope_positions=pos, pad_lens=torch.zeros(1, dtype=torch.int64, device=device),
+                write_pos=0, compute_dtype=dt,
+                lora_ids=torch.tensor([lid], dtype=torch.int64, device=device))
+            logits = serve._final_logits(params, x, cfg, dt)[0, start - 1:len(seq) - 1]
+            chosen = logits.gather(1, toks[0, start:, None])[:, 0]
+            gaps = logits.max(dim=-1).values - chosen
+            same += int((gaps == 0).sum())
+            total += len(seq) - start
+            worst = max(worst, float(gaps.max()) / max(1.0, float(logits.abs().max())))
+            del ck, cv, logits
+    return same, total, worst
+
+
+def phase_lora(device, params, q8, cfg) -> dict:
+    """[LORA]: multi-LoRA on the Llama-2-7B-width int8 tree: 3 adapters of
+    rank 16 on q/k/v/o (b ~ N(0, 0.01)) in a bank as ``build_lora_bank(alpha=16)``
+    (fp32), b=8 left-padded prompts of 448-480 tokens with ``lora_ids``
+    (0, 1, 2, 3, 0, 1, 2, 3), 64 decode steps of ``generate_kv_scan`` (bf16
+    cache; prompts of 64-512 tokens cannot give 64 steps: every row decodes
+    max_length - shortest - 1 steps and a prompt must be shorter than
+    max_length). Checks: (a) the id-0 rows bit for bit the same batch without
+    ``lora_ids``; (b) every token within 5e-2 of max(1, max |logit|) of the
+    best logit of its prompt run alone at b=1 with its id; (c)
+    ``fused_mlp_int8`` launches 32 x (1 + steps). Then ms per decode step,
+    host clock and device time, with and without ``lora_ids``. Returns the
+    multi-LoRA run's launches."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.multilora import attach_lora_bank, build_lora_bank
+    from ssp_x_vit_tpu_torch.llm.serve import generate_kv_scan
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    adapters = make_adapters(params, 3, LORA_RANK, 0.01, seed=40)
+    bank = build_lora_bank(adapters, alpha=16.0)
+    served = attach_lora_bank(q8, bank)
+    torch.cuda.synchronize()
+    bank_bytes = sum(v.numel() * v.element_size() for v in bank.values())
+    n_layers, slots = bank["q_kernel_lora_a"].shape[:2]
+    log(f"[LORA] 3 adapters of rank {LORA_RANK} on q/k/v/o, bank {bank_bytes / 2 ** 20:.1f} MiB "
+        f"fp32 ({len(bank)} tensors [{n_layers}, {slots}, d, r] / [{n_layers}, {slots}, r, n]) "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(41)
+    lo, hi = LORA_PROMPTS
+    lens = [lo, hi] + sorted(rng.integers(lo + 1, hi, 6).tolist())
+    stream = synthetic_token_stream(sum(lens), cfg.vocab_size, seed=42).reshape(-1)
+    cuts = np.cumsum([0] + lens)
+    prompts = [stream[cuts[i]:cuts[i + 1]].astype(np.int64) for i in range(len(lens))]
+    max_length = lo + LORA_STEPS + 1
+    runs = {}
+    for label, ids in (("lora_ids", list(LORA_IDS)), ("no lora_ids", None)):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = generate_kv_scan(served, cfg, prompts, max_length=max_length,
+                                cache_dtype=torch.bfloat16, lora_ids=ids)
+        torch.cuda.synchronize()
+        runs[label] = (outs, time.perf_counter() - t0, dict(launch_counts))
+    outs, seconds, launches = runs["lora_ids"]
+    run = {k: v for k, v in launches.items() if v}
+    log(f"[LORA] b=8 generate_kv_scan, prompts of {lo}-{hi} tokens, lora_ids {list(LORA_IDS)}, "
+        f"max_length {max_length}: {LORA_STEPS} decode steps in {seconds:.2f} s (without "
+        f"lora_ids {runs['no lora_ids'][1]:.2f} s); launches {json.dumps(run)}")
+    want = cfg.num_layers * (1 + LORA_STEPS)
+    if run.get("fused_mlp_int8", 0) != want:
+        raise AssertionError(f"[LORA] fused_mlp_int8 launched {run.get('fused_mlp_int8')} times, "
+                             f"expected {cfg.num_layers} x (1 + {LORA_STEPS}) = {want}")
+    base = runs["no lora_ids"][0]
+    zero_rows = [i for i, lid in enumerate(LORA_IDS) if lid == 0]
+    if any(not np.array_equal(outs[i], base[i]) for i in zero_rows):
+        raise AssertionError("[LORA] an id-0 row differs from the batch served without lora_ids")
+    bound = [i for i, lid in enumerate(LORA_IDS) if lid and not np.array_equal(outs[i], base[i])]
+    same, total, worst = _lora_alone_gaps(served, cfg, outs, lens, LORA_IDS, torch.bfloat16,
+                                          device)
+    log(f"[LORA] (a) id-0 rows {zero_rows} == the batch without lora_ids, bit for bit; adapter "
+        f"rows whose tokens differ from the base rows: {bound}; (b) each token against its "
+        f"prompt run alone at b=1 with its id: {same} of {total} are the alone run's argmax, "
+        f"worst logit gap {worst:.3e} of max(1, max |logit|), tol 5e-2; (c) fused_mlp_int8 "
+        f"launches {run['fused_mlp_int8']} = {cfg.num_layers} x (1 + {LORA_STEPS})")
+    if worst > 5e-2:
+        raise AssertionError("[LORA] a batch token is not the alone run's best token")
+    if not bound:
+        raise AssertionError("[LORA] no adapter changed any token: the deltas are not applied")
+    for label, ids in (("with lora_ids", list(LORA_IDS)), ("without lora_ids", None)):
+        part = _profile_decode(served, cfg, device, torch.bfloat16, prompts, lora_ids=ids)
+        busy = (f"{part['busy_ms']:.2f} ms of device activity and {part['n_launch']:.0f} device "
+                f"kernels per step" if part["busy_ms"] > 0 else "device time not measured")
+        log(f"[LORA] decode step b=8 {label}: {part['step_ms']:.2f} ms host clock (16 steps), "
+            f"{busy}; prefill {part['prefill_s']:.3f} s")
+        for key, ms, count in part["top"][:4]:
+            log(f"[PROFILE]   {ms:8.3f} ms x{count:<4d} {key}")
+    del served, bank, runs, outs
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_anchor_local(device, work: str) -> None:
+    """[LOCAL] anchor: ``ckpts/code_llm_small`` (fp32 tree; the CLI computes in
+    bf16) as ``--model`` with ``--local_datasets``, on the card and on the
+    host CPU, from ``work`` holding ./data cut from the committed ids
+    (wikitext2: val[:16384] decoded, c4_val and fineweb_edu: val[16384:20480],
+    c4_train: train[:16384], each cut into documents at blank lines): the
+    same token streams, equal to the host tokenization of the texts, and the
+    dense perplexities within 1e-4 relative. The pinned 115.5756 is printed
+    for information only: the documents are joined with blank lines, so this
+    is not the pinned stream."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.datasets import tokenize_corpus
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+    ckpt = _code_llm_small()
+    corpora = {"wikitext2": _decoded_documents("val", 0, 16384),
+               "c4_val": _decoded_documents("val", 16384, 20480),
+               "c4_train": _decoded_documents("train", 0, 16384)}
+    corpora["fineweb_edu"] = corpora["c4_val"]
+    write_corpora(work, corpora)
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    tok = load_tokenizer(ckpt)
+    out, streams = {}, {}
+    for backend, tree in (("cuda", params), ("cpu", host)):
+        args = main_llm.build_argparser().parse_args(
+            ["--model", ckpt, "--local_datasets", "--dense", "--evaluate_perplexity",
+             "--seq-len", "1024", "--num-calibration", "8", "--backend", backend,
+             "--logging", "WARNING"])
+        streams[backend] = main_llm.load_corpora(args, cfg)
+        t0 = time.perf_counter()
+        out[backend] = main_llm.run(args, model=(tree, cfg))
+        log(f"[LOCAL] anchor code_llm_small --local_datasets on {backend}: "
+            f"{time.perf_counter() - t0:.1f} s, corpora {out[backend]['corpora']}, dense ppl "
+            f"{out[backend]['dense']['ppl']:.6f}")
+    direct = [tokenize_corpus(corpora[name], tok) for name in
+              ("wikitext2", "c4_val", "fineweb_edu", "c4_train")]
+    direct[2] = tokenize_corpus(corpora["fineweb_edu"][:500], tok)
+    for a, b, c in zip(streams["cuda"], streams["cpu"], direct):
+        if not (np.array_equal(a, b) and np.array_equal(a, c)):
+            raise AssertionError("[LOCAL] anchor: the token streams differ")
+    card, cpu = out["cuda"]["dense"]["ppl"], out["cpu"]["dense"]["ppl"]
+    rel = abs(card - cpu) / cpu
+    log(f"[LOCAL] anchor: streams of {[s.shape[1] for s in streams['cuda']]} ids equal on both "
+        f"and to the host tokenization of the texts; dense ppl card {card:.6f}, host CPU "
+        f"{cpu:.6f} (relative {rel:.2e}, tol 1e-4); pinned 115.5756 on the .bin stream, for "
+        f"information only")
+    if any(o["corpora"] != "local" for o in out.values()):
+        raise AssertionError("[LOCAL] anchor: a run did not use the local corpora")
+    if rel > 1e-4:
+        raise AssertionError(f"[LOCAL] anchor: ppl on the card {card} vs the host CPU {cpu}")
+
+
+def phase_anchor_lora_serving(device) -> None:
+    """[LORA] anchor: ``ckpts/code_llm_small`` in fp32 with 2 adapters of rank
+    8 (b ~ N(0, 0.05)) through ``generate_kv_scan``: 4 val prompts x 32 greedy
+    tokens with ``lora_ids`` (0, 1, 2, 1) on the card against the host CPU,
+    token for token; a token may differ only where the host's top-2 margin (of
+    the row's adapter merged into the host model) is under 1e-3."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.lora import merge_lora
+    from ssp_x_vit_tpu_torch.llm.multilora import attach_lora_bank, build_lora_bank
+    from ssp_x_vit_tpu_torch.llm.serve import generate_kv_scan
+
+    ckpt = _code_llm_small()
+    params, cfg = load_llm_model(ckpt, device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    adapters = make_adapters(host, 2, 8, 0.05, seed=60)
+    bank = build_lora_bank(adapters, alpha=16.0)
+    served_host = attach_lora_bank(host, bank)
+    served_card = attach_lora_bank(params, {k: v.to(device) for k, v in bank.items()})
+    val = np.asarray(np.memmap(os.path.join(ckpt, "corpus_slice", "val.bin"), np.uint16, "r")[:4096],
+                     np.int32)
+    prompts = [val[a:a + n].tolist() for a, n in ((0, 48), (500, 100), (1000, 160), (2000, 200))]
+    ids, new = [0, 1, 2, 1], 32
+    kw = dict(max_length=max(len(p) for p in prompts) + new, cache_dtype=torch.float32,
+              lora_ids=ids)
+    got = generate_kv_scan(served_card, cfg, prompts, **kw)
+    ref = generate_kv_scan(served_host, cfg, prompts, **kw)
+    base = generate_kv_scan(params, cfg, prompts, **dict(kw, lora_ids=None))
+    checked = 0
+    for p, g, r, lid in zip(prompts, got, ref, ids):
+        tree = host if lid == 0 else merge_lora(host, adapters[lid - 1], alpha=16.0)
+        checked += _first_divergence(g[:len(p) + new].tolist(), r[:len(p) + new].tolist(),
+                                     len(p), tree, cfg, torch.float32, 1e-3)
+    moved = [i for i, lid in enumerate(ids) if lid and not np.array_equal(got[i], base[i])]
+    log(f"[LORA] anchor code_llm_small fp32, lora_ids {ids}: card == host CPU on {checked} of "
+        f"{4 * new} tokens (the rest follow a near-tie); rows whose adapter changed the tokens: "
+        f"{moved}")
+    if not np.array_equal(got[0], base[0]):
+        raise AssertionError("[LORA] anchor: the id-0 row differs from the base model's")
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -6374,6 +6864,20 @@ def main() -> int:
         cli_launches[name] += n
     phase_done("main, Mixtral-8x7B widths: main_llm, HTTP serving, generation, training; "
                "DeepSeek-V3 widths trained (phase 4)")
+    corpus_work = tempfile.TemporaryDirectory()
+    os.chdir(corpus_work.name)       # main_llm --local_datasets reads ./data
+    try:
+        corpora = phase_corpus(corpus_work.name)
+        for name, n in phase_local(device, corpus_work.name).items():
+            cli_launches[name] += n
+        for name, n in phase_train_data(corpus_work.name, corpora).items():
+            cli_launches[name] += n
+    finally:
+        os.chdir(cwd)
+        corpus_work.cleanup()
+    torch.cuda.empty_cache()
+    phase_done("main, local corpora: save_to_disk directories, main_llm --local_datasets at "
+               "Llama-2-7B widths, train_llm --data (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)
@@ -6397,6 +6901,15 @@ def main() -> int:
     phase_anchor_moe(device)
     phase_done("anchors: tiny MoE and DeepSeek models trained and served, card against host "
                "CPU (phase 5)")
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            phase_anchor_local(device, work)
+        finally:
+            os.chdir(cwd)
+    phase_anchor_lora_serving(device)
+    phase_done("anchors: code_llm_small on local corpora and with multi-LoRA, card against "
+               "host CPU (phase 5)")
 
     missing = [name for name in KERNEL_NAMES
                if (direct[name][1] if name in direct else cli_launches[name]) <= 0]

@@ -26,11 +26,14 @@ the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
 directory; a sliced (SliceGPT) model is evaluated for perplexity only, and
 not saved. ``--evaluate_downstream`` scores the offline task pack of
 ``--task-pack`` (or $SSP_X_VIT_TASK_PACK; the lm-eval harness leg is not
-ported, ROADMAP.md A.10e). Every run uses the deterministic synthetic token
-streams: the corpora are not in the repository. ``--local_datasets`` raises
-NotImplementedError naming its ROADMAP.md item.
+ported, ROADMAP.md A.10e). With a model directory holding a byte-level
+``tokenizer.json``, ``--local_datasets`` reads the corpora from
+``./data/{wikitext2,c4_val,fineweb_edu,c4_train}``, each a
+``datasets.save_to_disk`` directory (``llm/arrow_ipc.py``; nothing is
+downloaded); every other run uses the deterministic synthetic token streams.
 
-``run(args, model=None)`` returns a dict: perplexities, the qualitative
+``run(args, model=None)`` returns a dict: the corpora used (``corpora``:
+``local`` or ``synthetic``), perplexities, the qualitative
 (prompt, answer) pairs, the downstream results, pruned blocks, kept width,
 achieved sparsity, SliceGPT's ``new_dim``, EvoPress's masks and selection
 records, the ablation rows, and the wall seconds and kernel launches of each
@@ -106,7 +109,7 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--ablation-quick', action='store_true')
     parser.add_argument('--local_datasets', action='store_true')
     parser.add_argument('--synthetic-data', action='store_true',
-                        help="Deterministic synthetic token streams (the only data source so far)")
+                        help="Deterministic synthetic token streams instead of the corpora")
     parser.add_argument('--seq-len', type=int, default=2048)
     parser.add_argument('--num-calibration', type=int, default=256)
     parser.add_argument('--num-calibration-2ssp', type=int, default=32)
@@ -129,15 +132,6 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument('--logging', type=str, default='INFO',
                         choices=['DEBUG', 'INFO', 'WARNING', 'ERROR', 'CRITICAL'])
     return parser
-
-
-def _reject_unported(args) -> None:
-    unported = {
-        "--local_datasets (the corpus readers, ROADMAP.md A.10a)": args.local_datasets,
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def load_model(args, device):
@@ -193,13 +187,41 @@ def _reject_for_deepseek(args, cfg) -> None:
                          "ablation suite assumes the llama layout)")
 
 
-def load_corpora(args, cfg):
-    """(wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids) token streams:
-    the deterministic synthetic ones (seeds 1-4), as the JAX CLI falls back to."""
+def load_corpora(args, cfg, report: Optional[Dict[str, Any]] = None):
+    """(wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids) token streams, as
+    the JAX CLI makes them: with a model directory and without
+    ``--synthetic-data``, the corpora tokenized by the directory's tokenizer
+    (``./data/{wikitext2,c4_val,fineweb_edu,c4_train}`` with
+    ``--local_datasets``; without it nothing is downloaded, so the loaders
+    give None), all four or none, FineWeb-Edu cut to its first 500 texts;
+    otherwise, or when any of that fails, the deterministic synthetic streams
+    (seeds 1-4) with the JAX CLI's warning. ``report["corpora"]`` is set to
+    ``"local"`` or ``"synthetic"``."""
     from ssp_x_vit_tpu_torch.llm import datasets as D
 
-    if not args.synthetic_data:
-        logging.warning("Real corpora are not in the repository; using synthetic token streams")
+    report = report if report is not None else {}
+    if not args.synthetic_data and os.path.isdir(args.model):
+        try:
+            from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+            tok = load_tokenizer(args.model)
+            base = "./data" if args.local_datasets else None
+            wik = D.load_wikitext2(base and f"{base}/wikitext2")
+            c4v = D.load_c4(base and f"{base}/c4_val", split="validation")
+            fwe = D.load_fineweb_edu(base and f"{base}/fineweb_edu")
+            c4t = D.load_c4(base and f"{base}/c4_train", split="train")
+            if all(x is not None for x in (wik, c4v, fwe, c4t)):
+                streams = (D.tokenize_corpus(wik, tok), D.tokenize_corpus(c4v, tok),
+                           D.tokenize_corpus(fwe[:500], tok), D.tokenize_corpus(c4t, tok))
+                report["corpora"] = "local"
+                logging.info("Using the local corpora under ./data: "
+                             + ", ".join(f"{n} {s.shape[1]} tokens" for n, s in zip(
+                                 ("wikitext2", "c4_val", "fineweb_edu", "c4_train"), streams)))
+                return streams
+        except Exception as e:   # the JAX CLI's fallback: any failure -> synthetic streams
+            logging.warning(f"Real datasets unavailable ({e}); falling back to synthetic")
+
+    report["corpora"] = "synthetic"
     logging.info("Using deterministic synthetic token streams")
     n = args.seq_len * (args.num_calibration + 8)
     return tuple(D.synthetic_token_stream(n, cfg.vocab_size, seed=s) for s in (1, 2, 3, 4))
@@ -238,7 +260,6 @@ class _Phases:
 
 
 def run(args, model=None) -> Dict[str, Any]:
-    _reject_unported(args)
     from ssp_x_vit_tpu_torch.device import resolve_device
     from ssp_x_vit_tpu_torch.utils.seeding import set_seed
     from ssp_x_vit_tpu_torch.llm import datasets as D
@@ -272,11 +293,11 @@ def run(args, model=None) -> Dict[str, Any]:
     if is_deepseek:
         _reject_for_deepseek(args, cfg)
 
-    wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids = load_corpora(args, cfg)
+    result: Dict[str, Any] = {"model_type": model_type, "quantize": args.quantize, "runs": []}
+    wikitext_ids, c4_val_ids, fineweb_ids, c4_train_ids = load_corpora(args, cfg, result)
     calibration = D.get_calibration(c4_train_ids, args.num_calibration, seq_len=args.seq_len)
     calibration_2ssp = calibration[: args.num_calibration_2ssp]
     first_sample = calibration[0]
-    result: Dict[str, Any] = {"model_type": model_type, "quantize": args.quantize, "runs": []}
 
     def run_evals(p, c, attn_gate=None, mlp_gate=None) -> Dict[str, Any]:
         phases.start("evaluation")

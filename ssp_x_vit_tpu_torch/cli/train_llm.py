@@ -6,6 +6,9 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead)::
     # a fresh bf16 model of a given shape on the synthetic token stream
     python -m ssp_x_vit_tpu_torch.cli.train_llm --init-json cfg.json --steps 4 \\
         --batch-size 1 --seq-len 2048 --synthetic-data
+    # train on a save_to_disk corpus directory that holds a byte-level tokenizer.json
+    python -m ssp_x_vit_tpu_torch.cli.train_llm --model ckpts/code_llm_small \\
+        --data corpus_dir --steps 200 --batch-size 4 --seq-len 512
     # continue training a native model on a pre-tokenized uint16 corpus
     python -m ssp_x_vit_tpu_torch.cli.train_llm --model ckpts/code_llm_small \\
         --data-bin ckpts/code_llm_small/corpus_slice/train.bin --steps 200 \\
@@ -21,8 +24,12 @@ mixtral and qwen3_moe included) or a ``tiny-random*`` alias (the DeepSeek/MLA
 MoE model) and makes a fresh bf16 model. Checkpoints are ``torch.save``
 files (params, optimizer state, update); rerunning with the same ``--checkpoint-dir`` resumes where the
 previous run stopped. ``--save-model`` writes the trained model as a native
-directory, or with ``--save-format hf`` as an HF one (``export_hf_llama``). Flags of parts not ported yet raise NotImplementedError
-naming the ROADMAP.md item.
+directory, or with ``--save-format hf`` as an HF one (``export_hf_llama``).
+``--data DIR`` trains on the ``text`` column of a ``datasets.save_to_disk``
+directory (``llm/arrow_ipc.py``) tokenized by the directory's byte-level
+``tokenizer.json`` (the JAX CLI calls ``transformers.AutoTokenizer``; any other
+tokenizer raises naming ROADMAP.md A.10f); a directory that holds no corpus
+falls back to the synthetic stream with the JAX CLI's warning.
 
 ``run(args)`` returns a dict: the history of ``[TRAIN-LOG]`` records, the
 final loss, the run's seconds and the trained (params, cfg).
@@ -63,8 +70,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--no-remat", action="store_true")
     p.add_argument("--data", default=None,
-                   help="Local dataset dir (not ported: ROADMAP.md A.10a); a missing dir "
-                        "falls back to the synthetic token stream")
+                   help="A datasets.save_to_disk directory whose text column is tokenized by "
+                        "its byte-level tokenizer.json; one that fails to load falls back to "
+                        "the synthetic token stream")
     p.add_argument("--data-bin", default=None,
                    help="Pre-tokenized uint16 token-id file (memmapped)")
     p.add_argument("--init-json", default=None,
@@ -87,17 +95,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _reject_unported(args) -> None:
-    unported = {
-        "--data with a local corpus (the corpus readers, ROADMAP.md A.10a)":
-            bool(args.data) and not args.synthetic_data and not args.data_bin
-            and os.path.exists(args.data),
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} is not ported yet")
-
-
 def _load_any(name: str, seed: int, device):
     from ssp_x_vit_tpu_torch.cli.main_llm import load_model
 
@@ -107,7 +104,10 @@ def _load_any(name: str, seed: int, device):
 def _token_batches(args, cfg):
     """(microbatches [b, s+1], stream for eval): deterministic and restartable
     for resume, as the JAX CLI makes them."""
-    from ssp_x_vit_tpu_torch.llm.datasets import synthetic_token_stream
+    from ssp_x_vit_tpu_torch.llm.datasets import (
+        load_wikitext2, synthetic_token_stream, tokenize_corpus,
+    )
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
 
     n_micro = args.steps * args.accum
     per = args.batch_size * (args.seq_len + 1)
@@ -129,10 +129,22 @@ def _token_batches(args, cfg):
         val_bin = os.path.join(os.path.dirname(args.data_bin), "val.bin")
         ev = np.memmap(val_bin, dtype=np.uint16, mode="r") if os.path.exists(val_bin) else ids
         return gen(), np.asarray(ev[-64 * (args.seq_len + 1):], np.int32)
+    ids = None
     if args.data and not args.synthetic_data:
-        logging.warning(f"dataset {args.data} not found; synthetic fallback")
-    need = args.num_tokens or n_micro * per
-    ids = synthetic_token_stream(need, cfg.vocab_size, seed=args.seed).reshape(-1)
+        texts = load_wikitext2(args.data)
+        if texts is None:
+            logging.warning(f"dataset load failed (no corpus at {args.data}); synthetic fallback")
+        else:
+            # a directory without a byte-level tokenizer.json raises naming ROADMAP.md A.10f
+            tok = load_tokenizer(args.data)
+            try:
+                ids = tokenize_corpus(texts, tok)
+            except TypeError as e:      # a null row: "\n\n".join fails, as in the JAX CLI
+                logging.warning(f"dataset load failed ({e}); synthetic fallback")
+    if ids is None:
+        need = args.num_tokens or n_micro * per
+        ids = synthetic_token_stream(need, cfg.vocab_size, seed=args.seed)
+    ids = ids.reshape(-1)
     n = min(n_micro, ids.size // per)
     if n == 0:
         raise SystemExit(f"need >= {per} tokens for one microbatch, got {ids.size}")
@@ -140,7 +152,6 @@ def _token_batches(args, cfg):
 
 
 def run(args) -> Dict[str, Any]:
-    _reject_unported(args)
     import torch
 
     from ssp_x_vit_tpu_torch.device import resolve_device

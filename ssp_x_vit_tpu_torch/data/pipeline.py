@@ -2,9 +2,10 @@
 deterministic synthetic dataset and the committed procgen slice (counterpart of
 ``ssp_x_vit_tpu/data/pipeline.py``).
 
-- Batches are assembled with a numpy gather (the JAX package's optional native
-  loader is not needed at these sizes), moved to the device as uint8, and
-  normalized there: ``(x / 255 - 0.5) / 0.5``, channels-last [b, H, W, C].
+- Batches are assembled by the native gather (``data/native_loader.py``: the
+  sampled images and their horizontal flips in one multithreaded pass), moved
+  to the device as uint8, and normalized there: ``(x / 255 - 0.5) / 0.5``,
+  channels-last [b, H, W, C].
 - Images of another size than the model's are resized as
   ``jax.image.resize(..., "cubic")`` resizes them: Keys cubic (a = -0.5), taps
   outside the image dropped and the rest renormalized, antialiased when
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssp_x_vit_tpu_torch.data.native_loader import gather_batch
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 
 IMAGENET_VIT_MEAN = (0.5, 0.5, 0.5)
@@ -148,12 +150,9 @@ class DataPipeline:
         end = (n // self.batch_size) * self.batch_size if self.drop_remainder else n
         for start in range(0, end, self.batch_size):
             idx = order[start: start + self.batch_size]
-            imgs = self.images[idx]
-            if self.flip:
-                flips = rng.random(len(idx)) < 0.5
-                imgs[flips] = imgs[flips, :, ::-1]
-            px = preprocess_batch(torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device),
-                                  self.img_size)
+            flips = (rng.random(len(idx)) < 0.5).astype(np.uint8) if self.flip else None
+            imgs = gather_batch(self.images, idx, flips)
+            px = preprocess_batch(torch.from_numpy(imgs).to(self.device), self.img_size)
             labels = torch.from_numpy(self.labels[idx].astype(np.int64)).to(self.device)
             yield {"pixel_values": px, "labels": labels}
 

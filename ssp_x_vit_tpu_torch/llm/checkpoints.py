@@ -52,16 +52,21 @@ def llm_params_from_jax(tree: Dict[str, Any], *, device: DeviceLike = None,
     of the family layouts; plain, ``_q`` int8, ``_q4`` packed int4 and
     ``_scale`` leaves) -> the same nested dict of tensors on ``device``.
     ``dtype`` applies to the float weights; integer codes keep their dtype and
-    the per-channel ``_scale`` leaves stay float32, as the quantizers make them."""
+    the per-channel ``_scale`` leaves stay float32, as the quantizers make them.
+    Multi-LoRA banks (``<target>_lora_a`` / ``_lora_b`` leaves) and LoRA
+    adapter trees (``{target: {"a", "b"}}``) keep their own float dtype: a
+    bank stays float on any base (``llm/multilora.py``)."""
     dev = resolve_device(device)
 
     def convert(node):
         out: Params = {}
+        adapter = set(node) == {"a", "b"}
         for k, v in node.items():
             if isinstance(v, dict):
                 out[k] = convert(v)
             else:
-                leaf_dtype = torch.float32 if k.endswith("_scale") else dtype
+                leaf_dtype = (torch.float32 if k.endswith("_scale") else
+                              None if adapter or k.endswith(("_lora_a", "_lora_b")) else dtype)
                 out[k] = to_tensor(np.asarray(v), dev, leaf_dtype)
         return out
 

@@ -1,34 +1,54 @@
-"""LLM corpora and calibration splitting (own copy of the numpy parts of
-``ssp_x_vit_tpu/llm/datasets.py``; the token streams are bit-identical).
+"""LLM corpora and calibration splitting (counterpart of
+``ssp_x_vit_tpu/llm/datasets.py``; the synthetic token streams are
+bit-identical).
 
-The three corpus loaders (wikitext2, C4, FineWeb-Edu) return ``None``: their
-files are not in the repository and nothing is downloaded, so every run uses
-the deterministic synthetic token stream, as the JAX package does offline.
-The readers of local corpus directories come with ROADMAP.md A.10a.
-``tokenize_corpus`` turns texts into one token stream with a tokenizer
-(``llm/tokenizer.py``).
+The three corpus loaders (wikitext2, C4, FineWeb-Edu) read a local
+``datasets.save_to_disk`` directory through ``llm/arrow_ipc.py`` and return its
+``text`` column as a list of ``str`` (``None`` for a null row), as the JAX
+package's ``load_from_disk(local_dir)["text"]`` reads it. Any failure prints
+the JAX package's ``[INFO] <name> unavailable (<Type>); use
+synthetic_token_stream`` and returns ``None``; so does a call without an
+existing local directory, since nothing is downloaded (the JAX package tries
+the hub there). ``tokenize_corpus`` turns texts into one token stream with a
+tokenizer (``llm/tokenizer.py``).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 import numpy as np
 
+from ssp_x_vit_tpu_torch.llm.arrow_ipc import read_column
+
+
+def _load_local(name: str, local_dir: Optional[str]) -> Optional[List[Optional[str]]]:
+    try:
+        if not (local_dir and os.path.exists(local_dir)):
+            raise FileNotFoundError(f"no local {name} directory (nothing is downloaded)")
+        return list(read_column(local_dir, "text"))
+    except Exception as e:      # the JAX loaders' fallback: any failure -> synthetic stream
+        print(f"[INFO] {name} unavailable ({type(e).__name__}); use synthetic_token_stream")
+        return None
+
 
 def load_wikitext2(local_dir: Optional[str] = None):
-    """wikitext-2 test split texts; ``None`` until the corpus loaders are ported."""
-    return None
+    """wikitext-2 test split texts from a local ``save_to_disk`` directory,
+    or None (reference src/datasets.py:4-17)."""
+    return _load_local("wikitext2", local_dir)
 
 
 def load_c4(local_dir: Optional[str] = None, split: str = "validation"):
-    """C4 texts; ``None`` until the corpus loaders are ported."""
-    return None
+    """C4 texts from a local ``save_to_disk`` directory, or None (reference
+    src/datasets.py:19-56; ``split`` picks the hub slice, which is not read)."""
+    return _load_local("c4", local_dir)
 
 
 def load_fineweb_edu(local_dir: Optional[str] = None):
-    """FineWeb-Edu texts; ``None`` until the corpus loaders are ported."""
-    return None
+    """FineWeb-Edu texts from a local ``save_to_disk`` directory, or None
+    (reference src/datasets.py:58-75)."""
+    return _load_local("fineweb-edu", local_dir)
 
 
 def synthetic_token_stream(num_tokens: int, vocab_size: int, seed: int = 0) -> np.ndarray:

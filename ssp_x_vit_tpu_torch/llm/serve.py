@@ -26,8 +26,13 @@ it holds no cache state, so a cached decode equals the full forward; their
 
 Also kept here for the paged path: the prompt buckets, rotary embedding at
 per-sequence positions, the QKV projection of one block, the final norm + lm
-head, ``split_layers`` and ``pack_llm_params_for_serving``. Multi-LoRA
-(``lora_ids``) raises naming ROADMAP.md A.10; DeepSeek/MLA generation is
+head, ``split_layers`` and ``pack_llm_params_for_serving``. Multi-LoRA: a
+tree with a bank attached (``llm/multilora.py``) serves one adapter per row,
+chosen by ``lora_ids [b]`` (0 = the base model), on every cache kind; the
+deltas ride the attention projections as plain ops, as in the JAX package, and
+the generation entry points gather each row's bank slices once
+(``multilora.gather_lora_rows``) instead of at every step. The paged servers
+take no ``lora_ids``, as in the JAX package. DeepSeek/MLA generation is
 ``llm/deepseek.py`` (``deepseek_generate``).
 ``llm/aot.py`` (XLA ahead-of-time compilation) has no counterpart.
 """
@@ -46,6 +51,7 @@ from ssp_x_vit_tpu_torch.llm.model import (
     LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm, _moe_mlp,
     require_llama_config, rms_norm,
 )
+from ssp_x_vit_tpu_torch.llm.multilora import LORA_SUFFIX_A, gather_lora_rows, lora_delta
 from ssp_x_vit_tpu_torch.llm.rope import rope_freqs
 from ssp_x_vit_tpu_torch.llm.sampling import (
     SamplerState, SamplingParams, init_sampler_state, slot_state_row, vectorized_sample,
@@ -57,7 +63,6 @@ from ssp_x_vit_tpu_torch.ops.kernels.quant_fused_mlp import fused_mlp_int8
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
-_LORA_NOT_PORTED = "multi-LoRA serving (lora_ids, llm/multilora.py) is not ported yet: ROADMAP.md A.10"
 # Band bound of the full-attention layers of a mixed-window config: farther
 # than any position distance (the JAX package's LlamaConfig._FULL_BOUND role).
 _FULL_BOUND = 1 << 30
@@ -131,10 +136,13 @@ def cache_compute_dtype(ck) -> torch.dtype:
 
 
 def _block_qkv(x: torch.Tensor, bp: Params, cfg: LlamaConfig, positions: torch.Tensor,
-               compute_dtype, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               compute_dtype, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               lora_ids: Optional[torch.Tensor] = None):
     """q [b, s, nq, hd], k and v [b, s, nkv, hd] of one block at per-sequence
     rotary ``positions [b, s]``; takes the fused ``qkv_kernel`` of
-    :func:`pack_llm_params_for_serving` or the three separate projections."""
+    :func:`pack_llm_params_for_serving` or the three separate projections.
+    ``lora_ids [b]``: each row's adapter delta is added per target after the
+    packed split (``multilora.lora_delta``; None: the base projections)."""
     b, s, _ = x.shape
     if any(k.startswith("qkv_kernel") for k in bp):
         qkv = _mm(x, bp, "qkv_kernel", compute_dtype)
@@ -145,6 +153,12 @@ def _block_qkv(x: torch.Tensor, bp: Params, cfg: LlamaConfig, positions: torch.T
         q = _mm(x, bp, "q_kernel", compute_dtype)
         k = _mm(x, bp, "k_kernel", compute_dtype)
         v = _mm(x, bp, "v_kernel", compute_dtype)
+    if lora_ids is not None:
+        dq, dk, dv = (lora_delta(x, bp, t, lora_ids, compute_dtype)
+                      for t in ("q_kernel", "k_kernel", "v_kernel"))
+        q = q if dq is None else q + dq
+        k = k if dk is None else k + dk
+        v = v if dv is None else v + dv
     if "q_bias" in bp:
         q = q + bp["q_bias"].to(compute_dtype)
         k = k + bp["k_bias"].to(compute_dtype)
@@ -244,6 +258,32 @@ def split_layers(params: Params, cfg: LlamaConfig) -> List[Layer]:
                 bp[name] = val[i]
         layers.append((bp, j))
     return layers
+
+
+def _lora_ids(params: Params, lora_ids, b: int, device) -> Optional[torch.Tensor]:
+    """``lora_ids`` (a sequence, array or tensor of ``b`` adapter slots) as an
+    int64 tensor on ``device``, checked on the host against the attached
+    bank's slot count (an index past the bank would fault on the card);
+    None stays None."""
+    if lora_ids is None:
+        return None
+    ids = np.asarray(lora_ids.cpu() if isinstance(lora_ids, torch.Tensor) else lora_ids,
+                     np.int64).reshape(-1)
+    if ids.size != b:
+        raise ValueError(f"{ids.size} lora_ids for a batch of {b}")
+    slots = [v.shape[1] for k, v in params["blocks"].items() if k.endswith(LORA_SUFFIX_A)]
+    if slots and (ids.min() < 0 or ids.max() >= slots[0]):
+        raise ValueError(f"lora_ids {ids.tolist()} outside the bank's slots [0, {slots[0]})")
+    return torch.as_tensor(ids, device=device)
+
+
+def _gathered_layers(layers: List[Layer], ids: Optional[torch.Tensor], compute_dtype
+                     ) -> List[Layer]:
+    """``layers`` with each bank slice's rows for ``ids`` gathered once for a
+    whole generation (the ids do not change in it); unchanged for None."""
+    if ids is None:
+        return layers
+    return [(gather_lora_rows(bp, ids, compute_dtype), j) for bp, j in layers]
 
 
 # ------------------------------------------------------------------ cache ---
@@ -404,10 +444,11 @@ def _attend_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions:
 
 
 def _proj_o(attn: torch.Tensor, bp: Params, compute_dtype, lora_ids=None) -> torch.Tensor:
-    """o-projection (no bias: callers add the architecture's biases)."""
-    if lora_ids is not None:
-        raise NotImplementedError(_LORA_NOT_PORTED)
-    return _mm(attn, bp, "o_kernel", compute_dtype)
+    """o-projection plus the rows' adapter delta under ``lora_ids`` (no bias:
+    callers add the architecture's biases)."""
+    out = _mm(attn, bp, "o_kernel", compute_dtype)
+    d = lora_delta(attn, bp, "o_kernel", lora_ids, compute_dtype)
+    return out if d is None else out + d
 
 
 def _attn_branch(h, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_positions,
@@ -417,10 +458,9 @@ def _attn_branch(h, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_
     layouts. Rolling-cache PREFILL (s > 1) attends on the in-layer k/v, then
     fills the W-slot buffer with the newest W keys. ``layer_idx``: ck_l/cv_l
     are the full 5D caches and this layer's row is written in place; ``rope``:
-    the forward's cos/sin tables at ``rope_positions``."""
-    if lora_ids is not None:
-        raise NotImplementedError(_LORA_NOT_PORTED)
-    q, k, v = _block_qkv(h, bp, cfg, rope_positions, compute_dtype, rope)
+    the forward's cos/sin tables at ``rope_positions``; ``lora_ids``: the
+    rows' adapters (see :func:`_block_qkv`)."""
+    q, k, v = _block_qkv(h, bp, cfg, rope_positions, compute_dtype, rope, lora_ids)
     if rolling is not None and q.shape[1] > 1:
         attn = _attend_direct(q, k, v, global_positions, pad_lens, cfg)
         nk, nv = _rolling_prefill_write(_take_layer(ck_l, layer_idx), _take_layer(cv_l, layer_idx),
@@ -474,17 +514,17 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
     ``[b, s]``: pad-corrected rotary (OPT: learned) positions; write_pos: the
     host-integer cache write offset (rolling callers pass pos mod W);
     rolling: the slot count of a rolling cache; layer_idx: the host-integer
-    row of the full 5D caches this layer's attention owns."""
-    if lora_ids is not None:
-        raise NotImplementedError(_LORA_NOT_PORTED)
+    row of the full 5D caches this layer's attention owns; lora_ids ``[b]``:
+    each row's adapter on the attention projections (None: the base model)."""
     attn_kw = dict(global_positions=global_positions, rope_positions=rope_positions,
                    pad_lens=pad_lens, write_pos=write_pos, compute_dtype=compute_dtype,
-                   rolling=rolling, window_bound=window_bound, layer_idx=layer_idx, rope=rope)
+                   rolling=rolling, lora_ids=lora_ids, window_bound=window_bound,
+                   layer_idx=layer_idx, rope=rope)
     if cfg.is_opt:
         if has_attn:
             h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
             attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-            x = x + _proj_o(attn, bp, compute_dtype) + bp["o_bias"].to(compute_dtype)
+            x = x + _proj_o(attn, bp, compute_dtype, lora_ids) + bp["o_bias"].to(compute_dtype)
         h2 = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
         hm = _mm(h2, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
         mlp = _mm(torch.relu(hm), bp, "fc2_kernel", compute_dtype) + \
@@ -496,7 +536,7 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
         delta = torch.zeros_like(x)
         if has_attn:
             attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-            delta = _proj_o(attn, bp, compute_dtype) + bp["o_bias"].to(compute_dtype)
+            delta = _proj_o(attn, bp, compute_dtype, lora_ids) + bp["o_bias"].to(compute_dtype)
         hm = _mm(h, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
         mlp = _mm(gelu(hm), bp, "fc2_kernel", compute_dtype) + bp["fc2_bias"].to(compute_dtype)
         return x + delta + mlp, ck_l, cv_l
@@ -504,7 +544,7 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
     if has_attn:
         h = rms_norm(x, bp["ln1"], cfg.rms_eps)
         attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-        attn = _proj_o(attn, bp, compute_dtype)
+        attn = _proj_o(attn, bp, compute_dtype, lora_ids)
         if "o_bias" in bp:
             attn = attn + bp["o_bias"].to(compute_dtype)
         if cfg.is_gemma2:
@@ -556,12 +596,14 @@ def prefill(params: Params, tokens: torch.Tensor, cache_k, cache_v, cfg: LlamaCo
             layers: Optional[List[Layer]] = None):
     """Run LEFT-padded prompts ``[b, p_pad]`` through the model, filling the
     cache; ``pad_lens [b]`` = p_pad - prompt_len per row. ``rolling`` = W slot
-    count of a rolling cache. ``layers``: :func:`split_layers` of ``params``,
+    count of a rolling cache. ``lora_ids [b]``: each row's adapter slot of an
+    attached bank (0 = base). ``layers``: :func:`split_layers` of ``params``,
     if already made. Returns (logits at the last position [b, V] fp32,
     cache_k, cache_v)."""
     require_llama_config(cfg)
     compute_dtype = cache_compute_dtype(cache_k)
     b, p_pad = tokens.shape
+    lora_ids = _lora_ids(params, lora_ids, b, tokens.device)
     x = _embed_tokens(params, tokens, cfg, compute_dtype)
     idx = torch.arange(p_pad, device=tokens.device)
     global_positions = idx[None].expand(b, p_pad)
@@ -600,6 +642,7 @@ def decode_step(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: Llam
     """One token per row (``[b]``) at the shared global position ``pos`` (a
     host integer); returns (logits [b, V] fp32, caches)."""
     require_llama_config(cfg)
+    lora_ids = _lora_ids(params, lora_ids, token.shape[0], token.device)
     return _decode_body(params, token, cache_k, cache_v, cfg, int(pos), pad_lens, rolling,
                         lora_ids, layers)
 
@@ -658,6 +701,7 @@ def decode_scan(params: Params, first_token: torch.Tensor, cache_k, cache_v, cfg
     b = first_token.shape[0]
     state = _default_state(sp, penalty_state, rng, b, cfg.vocab_size, first_token.device)
     layers = layers if layers is not None else split_layers(params, cfg)
+    lora_ids = _lora_ids(params, lora_ids, b, first_token.device)
     token, pos, out = first_token, int(start_pos), []
     for _ in range(num_steps):
         logits, cache_k, cache_v = _decode_body(params, token, cache_k, cache_v, cfg, pos,
@@ -693,6 +737,7 @@ def decode_while(params: Params, first_token: torch.Tensor, cache_k, cache_v, cf
     b = first_token.shape[0]
     state = _default_state(sp, penalty_state, rng, b, cfg.vocab_size, first_token.device)
     layers = layers if layers is not None else split_layers(params, cfg)
+    lora_ids = _lora_ids(params, lora_ids, b, first_token.device)
     out = torch.full((num_steps, b), eos_token_id, dtype=torch.int64, device=first_token.device)
     done = first_token == eos_token_id
     eos = torch.full_like(first_token, eos_token_id)
@@ -777,7 +822,10 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
     :func:`init_cache` on the parameters' device); ``rolling=True`` bounds the
     cache to ``cfg.sliding_window`` slots (exact: the window already hides
     everything older); ``rng``: an int seed for sampled rows; with
-    ``eos_token_id`` and ``early_stop`` the loop is :func:`decode_while`."""
+    ``eos_token_id`` and ``early_stop`` the loop is :func:`decode_while`.
+    ``lora_ids [b]``: each row's adapter slot of the bank attached to
+    ``params`` (``multilora.attach_lora_bank``; 0 = the base model); the rows'
+    bank slices are gathered once for the generation."""
     require_llama_config(cfg)
     device = params["embed"].device
     single = _is_single(input_ids)
@@ -790,7 +838,9 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
         cache_k, cache_v = init_cache(cfg, b, cache_len, cache_dtype, device)
     else:
         cache_k, cache_v = cache_factory(cfg, b, cache_len, cache_dtype)
-    layers = split_layers(params, cfg)
+    lora_ids = _lora_ids(params, lora_ids, b, device)
+    layers = _gathered_layers(split_layers(params, cfg), lora_ids,
+                              cache_compute_dtype(cache_k))
     tok = torch.as_tensor(tokens.astype(np.int64), device=device)
     pads = torch.as_tensor(pad_lens.astype(np.int64), device=device)
     logits, cache_k, cache_v = prefill(params, tok, cache_k, cache_v, cfg, pads, rolling=W,
@@ -830,7 +880,8 @@ def greedy_generate_kv(params: Params, cfg: LlamaConfig, input_ids, *, max_lengt
                        rolling: bool = False, lora_ids=None):
     """KV-cached greedy decoding with a host round trip per token (early eos
     stop). Rows that hit eos keep decoding but their outputs are trimmed.
-    ``rolling=True``: window-bounded cache (see :func:`generate_kv_scan`)."""
+    ``rolling=True``: window-bounded cache, ``lora_ids``: per-row adapters
+    (see :func:`generate_kv_scan`)."""
     require_llama_config(cfg)
     device = params["embed"].device
     single = _is_single(input_ids)
@@ -842,7 +893,8 @@ def greedy_generate_kv(params: Params, cfg: LlamaConfig, input_ids, *, max_lengt
         cache_k, cache_v = init_rolling_cache(cfg, b, cache_dtype, device)
     else:
         cache_k, cache_v = init_cache(cfg, b, p_pad + max_steps, cache_dtype, device)
-    layers = split_layers(params, cfg)
+    lora_ids = _lora_ids(params, lora_ids, b, device)
+    layers = _gathered_layers(split_layers(params, cfg), lora_ids, cache_compute_dtype(cache_k))
     pads = torch.as_tensor(pad_lens.astype(np.int64), device=device)
     logits, cache_k, cache_v = prefill(params, torch.as_tensor(tokens.astype(np.int64),
                                                                device=device),

@@ -28,11 +28,13 @@ def test_port_and_chip_smoke_never_import_jax():
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                     or m == "ssp_x_vit_tpu" or m.startswith("ssp_x_vit_tpu."))
+                     or m == "ssp_x_vit_tpu" or m.startswith("ssp_x_vit_tpu.")
+                     or m.split(".")[0] in ("pyarrow", "datasets"))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 42, names
-        assert "ssp_x_vit_tpu_torch.parallel.moe" in names, names
+        assert len(names) >= 45, names
+        for name in ("parallel.moe", "llm.arrow_ipc", "llm.multilora", "data.native_loader"):
+            assert "ssp_x_vit_tpu_torch." + name in names, names
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
@@ -53,7 +55,7 @@ def test_no_import_statement_names_a_package_the_card_machine_lacks():
     ``pandas``)."""
     import ast
 
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "arrow_corpus.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "ssp_x_vit_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     found = []
@@ -176,9 +178,11 @@ def test_serving_entry_points_raise_without_a_gpu(monkeypatch):
 def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
     """What stays unported on the serving paths raises naming its item:
     tokenizers other than byte-level BPE (A.10f: a ``--tokenizer`` directory
-    without a byte-level ``tokenizer.json``), multi-LoRA (A.10: ``lora_ids``)
-    and a config that is neither family (the DeepSeek/MLA engine is tested in
-    tests/test_torch_paged_mla.py)."""
+    without a byte-level ``tokenizer.json``) and a config that is neither
+    family (the DeepSeek/MLA engine is tested in tests/test_torch_paged_mla.py).
+    Multi-LoRA (``lora_ids``, once refused naming A.10) serves: id 0 is the
+    base model, id 1 its adapter (tests/test_torch_multilora.py holds it
+    against the JAX package)."""
     from ssp_x_vit_tpu_torch.cli import serve_http
     from ssp_x_vit_tpu_torch.llm import serve
     from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
@@ -190,8 +194,18 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
     tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,
                        intermediate_size=24)
     params = init_llama_params(None, tiny, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        serve.generate_kv_scan(params, tiny, [[1, 2, 3]], max_length=8, lora_ids=[0])
+    from ssp_x_vit_tpu_torch.llm.lora import init_lora, merge_lora
+    from ssp_x_vit_tpu_torch.llm.multilora import attach_lora_bank, build_lora_bank
+
+    adapter = init_lora(torch.Generator().manual_seed(1), params, rank=2)
+    for ab in adapter.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=torch.Generator().manual_seed(2))
+    served = attach_lora_bank(params, build_lora_bank([adapter]))
+    got = serve.generate_kv_scan(served, tiny, [[1, 2, 3]] * 2, max_length=8, lora_ids=[0, 1],
+                                 cache_dtype=torch.float32)
+    for row, tree in zip(got, (params, merge_lora(params, adapter))):
+        np.testing.assert_array_equal(row, serve.generate_kv_scan(
+            tree, tiny, [1, 2, 3], max_length=8, cache_dtype=torch.float32))
     with pytest.raises(TypeError, match="LlamaConfig"):
         ServingEngine({}, object())   # neither a LlamaConfig nor a DeepseekConfig
 
@@ -217,15 +231,19 @@ def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
 
 
 def test_unported_llm_flags_name_the_roadmap_item(tmp_path):
-    """--local_datasets still raises naming its item; the DeepSeek models
-    (the two tiny names and a native directory with kv_lora_rank) now load
-    and run."""
+    """--local_datasets (once refused naming A.10a) runs: with a model that is
+    not a directory it takes the synthetic streams, as the JAX CLI does
+    (tests/test_torch_local_corpora.py reads real ./data corpora); the
+    DeepSeek models (the two tiny names and a native directory with
+    kv_lora_rank) load and run."""
     from ssp_x_vit_tpu_torch.cli import main_llm
     from ssp_x_vit_tpu_torch.llm import deepseek
 
     base = ["--backend", "cpu", "--model", "tiny-random"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10a"):
-        main_llm.run(main_llm.build_argparser().parse_args(base + ["--local_datasets"]))
+    out = main_llm.run(main_llm.build_argparser().parse_args(
+        base + ["--local_datasets", "--dense", "--evaluate_perplexity", "--seq-len", "32",
+                "--num-calibration", "1"]))
+    assert out["corpora"] == "synthetic" and np.isfinite(out["dense"]["ppl"])
     for model in ("tiny-random-deepseek", "tiny-random-deepseek-dense"):
         args = main_llm.build_argparser().parse_args(["--backend", "cpu", "--model", model])
         params, cfg = main_llm.load_model(args, torch.device("cpu"))

@@ -340,15 +340,29 @@ def test_sampled_rows_reproduce_per_seed_and_stay_in_the_filtered_support(llama,
 def test_helpers_and_unported_parts():
     """Prompt preparation and trimming equal the JAX package's; init_cache
     refuses to place a cache without a GPU unless asked for the CPU; lora_ids
-    raises naming its ROADMAP item; an MoE model generates the JAX tokens."""
+    (once refused naming ROADMAP.md A.10) select each row's adapter of an
+    attached bank, and without a bank serve the base model; an MoE model
+    generates the JAX tokens."""
     for prompts in ([[1, 2, 3], [4]], np.arange(5), [7, 8]):
         for x, y in zip(tserve._prepare_prompts(prompts, 40), jserve._prepare_prompts(prompts, 40)):
             np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError, match="max_length"):
         tserve._prepare_prompts([[1] * 10], 10)
     _, _, tparams, tcfg = make_model(seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tserve.generate_kv_scan(tparams, tcfg, [[1, 2]], max_length=6, lora_ids=[0])
+    from ssp_x_vit_tpu_torch.llm.lora import init_lora, merge_lora
+    from ssp_x_vit_tpu_torch.llm.multilora import attach_lora_bank, build_lora_bank
+
+    adapter = init_lora(torch.Generator().manual_seed(4), tparams, rank=2)
+    for ab in adapter.values():
+        ab["b"] = 0.5 * torch.randn(ab["b"].shape, generator=torch.Generator().manual_seed(5))
+    served = attach_lora_bank(tparams, build_lora_bank([adapter]))
+    kw = dict(max_length=10, cache_dtype=torch.float32)
+    got = tserve.generate_kv_scan(served, tcfg, [[1, 2], [1, 2]], lora_ids=[1, 0], **kw)
+    np.testing.assert_array_equal(got[0], tserve.generate_kv_scan(
+        merge_lora(tparams, adapter), tcfg, [1, 2], **kw))
+    np.testing.assert_array_equal(got[1], tserve.generate_kv_scan(tparams, tcfg, [1, 2], **kw))
+    np.testing.assert_array_equal(
+        tserve.generate_kv_scan(tparams, tcfg, [1, 2], lora_ids=[0], **kw), got[1])
     # MoE configs (once refused naming ROADMAP.md A.11c) generate: a top-1
     # model's greedy tokens are the JAX package's
     jp, jc, tp, tc = make_model(seed=2, num_experts=2)

@@ -10,9 +10,9 @@
   losses and the eval perplexity within 1e-3 relative (the two round the bf16
   parameter update at other places), the learning rates exactly.
 - ``--save-format hf`` writes an HF directory that loads back to the trained
-  values; ``--data`` with a local corpus raises NotImplementedError naming
-  the ROADMAP item, and a missing ``--data`` directory falls back to the
-  synthetic stream.
+  values; a ``--data`` directory without a corpus, or a missing one, falls
+  back to the synthetic stream (a corpus directory is read:
+  ``tests/test_torch_local_corpora.py``).
 """
 
 import json
@@ -93,8 +93,10 @@ def test_unported_flags_and_the_offline_fallback(tmp_path):
     assert cfg == out["cfg"]
     for k, v in out["params"]["blocks"].items():
         assert torch.equal(back["blocks"][k], v.float()), k
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        tcli.run(_args(*base, "--data", str(tmp_path)))
+    # a --data directory that holds no corpus (once refused naming ROADMAP.md A.10a)
+    # falls back to the synthetic stream, as the JAX CLI does
+    out = tcli.run(_args(*base, "--data", str(tmp_path), "--log-every", "1"))
+    assert np.isfinite(out["final_loss"])
     out = tcli.run(_args(*base, "--data", str(tmp_path / "missing"), "--log-every", "1"))
     assert np.isfinite(out["final_loss"])
     with pytest.raises(SystemExit, match="--model or --init-json"):
