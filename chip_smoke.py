@@ -3414,11 +3414,12 @@ def profile_train_step(params, cfg, device) -> None:
         log(f"[PROFILE]   {ms:8.3f} ms {100 * ms / total_ms:5.1f}%  x{e.count:<5d} {e.key[:90]}")
 
 
-def train_cli_run(model_cfg: dict, what: str, tag: str, data=None) -> tuple:
+def train_cli_run(model_cfg: dict, what: str, tag: str, data=None,
+                  updates: int = TRAIN_UPDATES) -> tuple:
     """The training CLI (``cli.train_llm``) on a fresh bf16 model of the
     ``LlamaConfig`` fields ``model_cfg`` (``--init-json``): b=1, s=2048, remat
     on, the synthetic stream (``data``: ``--data`` that corpus directory
-    instead), ``TRAIN_UPDATES`` updates, the counts set to 0 just before it. Losses (an MoE model's load-balance term included) finite
+    instead), ``updates`` updates, the counts set to 0 just before it. Losses (an MoE model's load-balance term included) finite
     at every update; flash forward launches = layers x updates x 2 (forward
     and remat recompute), each backward kernel = layers x updates. Returns
     (the run's result, its launches)."""
@@ -3430,7 +3431,7 @@ def train_cli_run(model_cfg: dict, what: str, tag: str, data=None) -> tuple:
     from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
 
     source = ["--data", data] if data else ["--synthetic-data"]
-    argv = ["--init-json", json.dumps(model_cfg), "--steps", str(TRAIN_UPDATES),
+    argv = ["--init-json", json.dumps(model_cfg), "--steps", str(updates),
             "--batch-size", "1", "--seq-len", "2048", *source, "--log-every", "1",
             "--backend", "cuda"]
     log(f"[{tag}] train_llm {' '.join(argv)}")
@@ -3451,12 +3452,12 @@ def train_cli_run(model_cfg: dict, what: str, tag: str, data=None) -> tuple:
         f"{hist[-1]['tok_per_s']} tokens/s over the run ({2048 / per_update[-1]:.0f} at the last "
         f"update); peak {peak:.1f} GiB")
     log(f"[{tag}] train_llm launches {json.dumps({k: n for k, n in counts.items() if n})}")
-    if len(hist) != TRAIN_UPDATES or not all(math.isfinite(h["loss"]) for h in hist):
+    if len(hist) != updates or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train_llm {what}: losses {[h['loss'] for h in hist]}")
     layers = model_cfg["num_layers"]
-    want = {"flash_attention": layers * TRAIN_UPDATES * 2,
-            "flash_attention_bwd_dq": layers * TRAIN_UPDATES,
-            "flash_attention_bwd_dkv": layers * TRAIN_UPDATES}
+    want = {"flash_attention": layers * updates * 2,
+            "flash_attention_bwd_dq": layers * updates,
+            "flash_attention_bwd_dkv": layers * updates}
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"train_llm {what} launches {counts} != {want}")
     return out, counts
@@ -6429,6 +6430,339 @@ def phase_train_data(work: str, corpora: dict) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ A.10f ---
+# SentencePiece-style and Split-pattern tokenizers (llm/hf_tokenizer.py,
+# llm/spm_model.py): the committed fixtures of tests/fixtures/tokenizers
+# reproduced on this host, which has no tokenizers library, then the text
+# paths on the Llama-2-style one.
+
+SPM_FIXTURES = ("llama2", "qwen_split", "unigram")
+SPM_TRAIN_UPDATES = 2
+SPM_SERVE_TOKENS = 24
+SPM_QUALITATIVE_LENGTH = 48
+
+
+def _fixture_dir(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "tokenizers", name)
+
+
+def check_tokenizer_fixtures() -> None:
+    """[SPM] host fixtures: every committed fixture (``expected.json``, written
+    by ``scripts/make_tokenizer_fixtures.py`` from the ``tokenizers`` library)
+    encodes its fixed texts, with and without special tokens, to the committed
+    ids and decodes them to the committed text; the whole decoded ``val.bin``
+    text (one string) goes to the committed length and sha256 of the ids; then
+    a 1,000,000-character string through the Llama-2-style fixture (no
+    pre-tokenizer: one word for the heap merge). Seconds and tokens/s on this
+    host's CPU."""
+    import hashlib
+
+    import numpy as np
+
+    from ssp_x_vit_tpu_torch.llm.hf_tokenizer import HFTokenizer
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+
+    ids = np.fromfile(os.path.join(_code_llm_small(), "corpus_slice", "val.bin"), np.uint16)
+    text = load_tokenizer(_code_llm_small()).decode(ids.tolist())
+    for name in SPM_FIXTURES:
+        d = _fixture_dir(name)
+        with open(os.path.join(d, "expected.json"), encoding="utf-8") as f:
+            want = json.load(f)
+        t0 = time.perf_counter()
+        tok = load_tokenizer(d)
+        load_s = time.perf_counter() - t0
+        if not isinstance(tok, HFTokenizer):
+            raise AssertionError(f"[SPM] {name}: load_tokenizer gave {type(tok).__name__}")
+        for i, t in enumerate(want["texts"]):
+            got = (tok(t)["input_ids"], tok(t, add_special_tokens=False)["input_ids"],
+                   tok.decode(want["ids"][i]), tok.decode(want["ids"][i], skip_special_tokens=True))
+            ref = (want["ids"][i], want["ids_plain"][i], want["decoded"][i],
+                   want["decoded_skip"][i])
+            if got != ref:
+                raise AssertionError(f"[SPM] {name}: fixed text {i} ({t[:40]!r}) differs from "
+                                     "the committed ids or text")
+        specials = (tok.bos_token_id, tok.eos_token_id, tok.all_special_ids, tok.vocab_size)
+        if specials != (want["bos_token_id"], want["eos_token_id"], want["all_special_ids"],
+                        want["vocab_size"]):
+            raise AssertionError(f"[SPM] {name}: special ids {specials}")
+        t0 = time.perf_counter()
+        val = tok(text, add_special_tokens=False)["input_ids"]
+        enc_s = time.perf_counter() - t0
+        digest = hashlib.sha256(np.asarray(val, "<i4").tobytes()).hexdigest()
+        if len(val) != want["val"]["tokens"] or digest != want["val"]["sha256"]:
+            raise AssertionError(f"[SPM] {name}: val text -> {len(val)} ids, sha256 {digest}")
+        log(f"[SPM] fixture {name}: loaded in {load_s:.3f} s; {len(want['texts'])} fixed texts == "
+            f"the committed ids (with / without special tokens) and text (skipping / keeping "
+            f"them); val text ({len(text)} chars, one string) -> {len(val)} ids == the committed "
+            f"length and sha256 in {enc_s:.3f} s = {len(val) / enc_s:.0f} tokens/s (host CPU)")
+    tok = load_tokenizer(_fixture_dir("llama2"))
+    big = (text * 3)[:1_000_000]
+    t0 = time.perf_counter()
+    n = len(tok.encode(big, add_special_tokens=False))
+    big_s = time.perf_counter() - t0
+    merger = tok.model.merger
+    if merger.engine != "native" or merger.native_batches < 1:
+        raise AssertionError("[SPM] the native heap merge was not the one in use")
+    log(f"[SPM] llama2 fixture: a 1,000,000-character string (one word) -> {n} ids in "
+        f"{big_s:.3f} s = {n / big_s:.0f} tokens/s by the heap merge (native/bpe_heap.cc)")
+
+
+def _beam_tie_gap(host, cfg, prompt, a, b) -> float:
+    """How far apart, on the host CPU, the two continuations' summed log
+    probabilities lie up to and including their first differing token (the
+    beam search's own bf16 compute)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.generate import full_logits
+
+    k = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)) - 1)
+
+    def score(seq):
+        with torch.no_grad():
+            logits = full_logits(host, torch.tensor([prompt + seq[:k + 1]]), cfg, torch.bfloat16)
+        logp = torch.log_softmax(logits[0].float(), dim=-1)
+        return sum(float(logp[len(prompt) - 1 + j, seq[j]]) for j in range(k + 1))
+    return abs(score(a) - score(b))
+
+
+def phase_spm(device, work: str, corpora: dict) -> dict:
+    """[SPM]: the fixtures (``check_tokenizer_fixtures``), then the text paths
+    on the Llama-2-style fixture (``Prepend`` + ``Replace``, byte fallback,
+    ``LlamaTokenizerFast``'s BOS) as the tokenizer of the ``[LOCAL]``
+    directory (Llama-2-7B widths, 4 layers, random bf16 weights):
+
+    - ``main_llm --local_datasets`` 25% 2SSP as ``[LOCAL]`` runs it: corpora
+      ``local``, sparsity within 0.02, flash launched in every phase that
+      runs attention;
+    - ``serve_http`` on that directory (8 slots, bf16 pools): 4 text prompts
+      cut from the val documents, each streamed and not, all at once: the
+      prompt ids the engine gets are the tokenizer's, BOS first; streamed text
+      == not streamed (all eight reach the engine at once, so twins decode in
+      the same batched steps); ``paged_attention_write`` = 4 layers x decode steps
+      and no other paged kernel; each token within 5e-2 of max(1, max
+      |logit|) of its prompt run alone; the text is the incremental decode of
+      the ids (``_StreamState``, as the JAX server decodes);
+    - ``train_llm --data`` at Llama-2-7B width and depth (b=1, s=2048, remat,
+      2 updates) on the ``[TRAIN]`` documents with that tokenizer: the first
+      microbatch == the host tokenization; flash / dq / dk-dv = 32 x updates
+      x 2 / x 1 / x 1;
+    - ``qualitative_results`` on ``code_llm_small``'s weights (fp32) with the
+      Qwen-style ``Split`` fixture (ids under its vocabulary of 8192): each
+      answer is the decoded beam (5 beams, as the JAX package generates),
+      which ends at ``max_length`` or at ``eos_token_id``, and equals the host
+      CPU's, but where the two beams' host scores lie within 1e-3.
+
+    Returns the kernel launches of the four runs."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.cli import main_llm, serve_http, train_llm
+    from ssp_x_vit_tpu_torch.llm.checkpoints import load_llm_model
+    from ssp_x_vit_tpu_torch.llm.datasets import tokenize_corpus
+    from ssp_x_vit_tpu_torch.llm.generate import beam_generate, qualitative_results
+    from ssp_x_vit_tpu_torch.llm.hf_tokenizer import HFTokenizer
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig
+    from ssp_x_vit_tpu_torch.llm.server_http import _StreamState, create_server
+    from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
+    from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES, launch_counts, reset_launch_counts
+
+    launches = {name: 0 for name in KERNEL_NAMES}
+
+    def add(counts):
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+
+    t0 = time.perf_counter()
+    check_tokenizer_fixtures()
+    log(f"[SPM] fixtures: {time.perf_counter() - t0:.1f} s")
+    llama2 = _fixture_dir("llama2")
+    model_dir = os.path.join(work, "llama-2-7b-width-4-layers")      # saved by phase_local
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(llama2, name), model_dir)
+    tok = load_tokenizer(model_dir)
+    if not isinstance(tok, HFTokenizer) or tok.bos_token_id != 1 or tok.eos_token_id != 2:
+        raise AssertionError("[SPM] the model directory's tokenizer is not the Llama-2-style one")
+
+    # main_llm --local_datasets
+    argv = ["--model", model_dir, "--local_datasets", "--seq-len", "2048", "--num-calibration",
+            "16", "--num-calibration-2ssp", "8", "--backend", "cuda", "--evaluate_perplexity",
+            "--dense", "--pruning_method", "2ssp", "--sparsity_rate", "0.25", "--logging",
+            "WARNING"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main_llm.run(main_llm.build_argparser().parse_args(argv))
+    seconds = time.perf_counter() - t0
+    add(launch_counts)
+    (entry,) = out["runs"]
+    flash = {ph: c["flash_attention"] for ph, c in out["kernel_launches"].items()
+             if c["flash_attention"]}
+    log(f"[SPM] main_llm --local_datasets (Llama-2-style tokenizer.json): {seconds:.1f} s, corpora "
+        f"{out['corpora']}; seconds by phase {_phase_seconds(out)}; flash_attention launches by "
+        f"phase {json.dumps(flash)}; dense ppl {out['dense']['ppl']:.3f}, after 25% 2SSP "
+        f"{entry['ppl']:.3f}, achieved sparsity {entry['achieved_sparsity']:.4f}")
+    if out["corpora"] != "local":
+        raise AssertionError(f"[SPM] main_llm --local_datasets used the {out['corpora']} streams")
+    if abs(entry["achieved_sparsity"] - 0.25) > 0.02:
+        raise AssertionError(f"[SPM] achieved sparsity {entry['achieved_sparsity']} vs 0.25")
+    for phase in ("stats", "candidates", "evaluation"):
+        if out["kernel_launches"][phase]["flash_attention"] <= 0:
+            raise AssertionError(f"[SPM] flash_attention not launched in the {phase} phase")
+
+    # serve_http on the same directory: text prompts, streamed and not
+    params, cfg = load_llm_model(model_dir, device=device, dtype=torch.bfloat16)
+    texts = [d for d in corpora["wikitext2"] if 400 <= len(d) <= 1600][:4]
+    argv = ["--model", model_dir, "--backend", "cuda", "--port", "0", "--max-batch", "8",
+            "--page-size", str(PAGE), "--num-pages", "512", "--max-context", "2048"]
+    log(f"[SPM] serve_http {' '.join(argv)}")
+    args = serve_http.build_argparser().parse_args(argv)
+    engine, eos = serve_http.build_engine(args, model=(params, cfg))
+    kwargs = serve_http.server_kwargs(args, eos)
+    if not isinstance(kwargs["tokenizer"], HFTokenizer):
+        raise AssertionError("[SPM] serve_http did not load the directory's tokenizer.json")
+    requests = [dict(prompt=t, max_tokens=SPM_SERVE_TOKENS, temperature=0, stream=s)
+                for t in texts for s in (True, False)]
+    # every request reaches the engine at once, so all are admitted in one round
+    # and decode in the same batched steps: a streamed twin and its plain one
+    # then see the same bf16 products, and their tokens must be equal
+    seen, together = [], threading.Barrier(len(requests))
+    submit = engine.submit
+
+    def recording_submit(prompt_ids, **kw):
+        seen.append(list(prompt_ids))
+        together.wait(timeout=300)
+        return submit(prompt_ids, **kw)
+    engine.submit = recording_submit
+    srv = create_server(engine, **kwargs)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    responses = [None] * len(requests)
+    errors = []
+
+    def client(i):
+        try:
+            responses[i] = _post_text(srv.server_address[1], "/v1/completions", requests[i])
+        except Exception as e:   # re-raised below, in the main thread
+            errors.append((i, e))
+
+    try:
+        reset_launch_counts()
+        steps0 = engine.decode_steps
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        run = dict(launches=dict(launch_counts), decode_steps=engine.decode_steps - steps0)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.shutdown()
+        thread.join(timeout=30)
+    if errors or any(r is None for r in responses):
+        raise AssertionError(f"[SPM] serve_http: a request failed: {errors[:1]}")
+    add(run["launches"])
+    prompt_ids = [tok.encode(t) for t in texts]
+    if sorted(seen) != sorted(prompt_ids * 2) or any(p[0] != tok.bos_token_id for p in seen):
+        raise AssertionError("[SPM] the served prompt ids are not the tokenizer's with BOS first")
+    for i in range(len(texts)):
+        streamed, once = responses[2 * i], responses[2 * i + 1]
+        # the text is the incremental decode of the served ids (the JAX server's
+        # _StreamState: each token decodes all ids so far), streamed or not
+        replay = _StreamState(tok, [])
+        want = "".join(replay.push(t) for t in once["tokens"]) + replay.finalize()
+        if streamed["text"] != once["text"] or once["text"] != want:
+            raise AssertionError(f"[SPM] prompt {i}: streamed {streamed['text']!r} / not "
+                                 f"streamed {once['text']!r} / replayed {want!r}; ids "
+                                 f"{once['tokens']}, streamed ids {streamed['tokens']}")
+        if once["finish"] != "length" or len(once["tokens"]) != SPM_SERVE_TOKENS:
+            raise AssertionError(f"[SPM] prompt {i} ended {once['finish']} after "
+                                 f"{len(once['tokens'])} tokens")
+    _expect_decode_launches("[SPM] serve_http", run, cfg, ("paged_attention_write",))
+    alone_requests = [dict(prompt=p, temperature=0) for p in prompt_ids]
+    _check_greedy_alone(params, cfg, device, alone_requests, responses[1::2], torch.bfloat16,
+                        "[SPM] text prompts")
+    n_tokens = sum(len(r["tokens"]) for r in responses[1::2]) * 2
+    firsts = ", ".join("no text" if r["first_s"] is None else f"{r['first_s']:.3f}"
+                       for r in responses[0::2])
+    log(f"[SPM] serve_http: {len(requests)} text requests (prompts of "
+        f"{[len(p) for p in prompt_ids]} ids, BOS first) in {serve_s:.2f} s = "
+        f"{n_tokens / serve_s:.1f} tokens/s; time to first token of the streamed ones "
+        f"{firsts} s; streamed == not "
+        f"streamed; {run['decode_steps']} decode steps, paged_attention_write "
+        f"{run['launches']['paged_attention_write']} launches")
+    del params, engine
+    torch.cuda.empty_cache()
+
+    # train_llm --data with the Llama-2-style tokenizer
+    data = os.path.join(work, "train_corpus_spm")
+    _arrow_corpus().write_dataset(data, corpora["c4_train"])
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(llama2, name), data)
+    args = train_llm.build_argparser().parse_args(
+        ["--data", data, "--steps", str(SPM_TRAIN_UPDATES), "--batch-size", "1", "--seq-len",
+         "2048"])
+    t0 = time.perf_counter()
+    batches, stream = train_llm._token_batches(args, LlamaConfig(**LLAMA_2_7B))
+    cut_s = time.perf_counter() - t0
+    want = tokenize_corpus(corpora["c4_train"], tok).reshape(-1)[:2049]
+    if not np.array_equal(np.asarray(batches[0]).reshape(-1), want):
+        raise AssertionError("[SPM] train_llm --data: the first microbatch is not the host "
+                             "tokenization of the directory's text")
+    log(f"[SPM] train_llm --data: {len(corpora['c4_train'])} documents -> {stream.size} ids "
+        f"(the byte-level tokenizer made 131072 of the same text) in {cut_s:.2f} s; the first "
+        f"microbatch == the host tokenization")
+    _, counts = train_cli_run(LLAMA_2_7B, "Llama-2-7B width on --data, Llama-2-style tokenizer",
+                              "SPM", data=data, updates=SPM_TRAIN_UPDATES)
+    add(counts)
+    torch.cuda.empty_cache()
+
+    # qualitative_results with the Qwen-style Split fixture on code_llm_small
+    qwen = _fixture_dir("qwen_split")
+    qtok = load_tokenizer(qwen)
+    params, cfg = load_llm_model(_code_llm_small(), device=device, dtype=torch.float32)
+    host = _tree_to(params, "cpu", torch.float32)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = qualitative_results(params, cfg, qwen, max_length=SPM_QUALITATIVE_LENGTH)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    add(launch_counts)
+    flash = launch_counts["flash_attention"]
+    if qtok.eos_token_id is None or qtok.eos_token_id >= cfg.vocab_size:
+        raise AssertionError("[SPM] the Qwen-style fixture has no EOS inside the vocabulary")
+    for prompt, answer in answers:
+        ids = qtok(prompt)["input_ids"]
+        kw = dict(max_length=SPM_QUALITATIVE_LENGTH, num_beams=5, eos_token_id=qtok.eos_token_id)
+        card = beam_generate(params, cfg, np.asarray(ids), **kw).tolist()
+        t0 = time.perf_counter()
+        ref = beam_generate(host, cfg, np.asarray(ids), **kw).tolist()
+        host_s = time.perf_counter() - t0
+        if qtok.decode(card, skip_special_tokens=True) != answer:
+            raise AssertionError(f"[SPM] qualitative_results: {prompt!r} is not its decoded beam")
+        if len(card) != SPM_QUALITATIVE_LENGTH and card[-1] != qtok.eos_token_id:
+            raise AssertionError(f"[SPM] {prompt!r}: {len(card)} ids, neither max_length nor EOS")
+        gap = 0.0 if card == ref else _beam_tie_gap(host, cfg, ids, card[len(ids):],
+                                                    ref[len(ids):])
+        log(f"[SPM] qualitative_results {prompt!r} (Qwen-style Split tokenizer, code_llm_small, "
+            f"5 beams): {len(card)} ids, "
+            f"{'EOS' if card[-1] == qtok.eos_token_id else 'max_length'}; card "
+            f"{'==' if card == ref else '!='} host CPU ({host_s:.2f} s on the host)"
+            + ("" if card == ref else f", host score gap at the first difference {gap:.2e}")
+            + f"; answer {answer[:100]!r}")
+        if card != ref and gap > 1e-3:
+            raise AssertionError(f"[SPM] {prompt!r}: the card's beam differs from the host's")
+    log(f"[SPM] qualitative_results on the card: {card_s:.2f} s, flash_attention {flash} "
+        f"launches (the beams replayed for the checks not counted)")
+    return launches
+
+
 def make_adapters(shapes_tree, n: int, rank: int, scale: float, seed: int) -> list:
     """``n`` LoRA adapters on q/k/v/o for the stacked kernels of
     ``shapes_tree`` (``init_lora``'s a, and b ~ N(0, scale) so each one binds),
@@ -6872,12 +7206,17 @@ def main() -> int:
             cli_launches[name] += n
         for name, n in phase_train_data(corpus_work.name, corpora).items():
             cli_launches[name] += n
+        torch.cuda.empty_cache()
+        phase_done("main, local corpora: save_to_disk directories, main_llm --local_datasets at "
+                   "Llama-2-7B widths, train_llm --data (phase 4)")
+        for name, n in phase_spm(device, corpus_work.name, corpora).items():
+            cli_launches[name] += n
     finally:
         os.chdir(cwd)
         corpus_work.cleanup()
     torch.cuda.empty_cache()
-    phase_done("main, local corpora: save_to_disk directories, main_llm --local_datasets at "
-               "Llama-2-7B widths, train_llm --data (phase 4)")
+    phase_done("main, SentencePiece and Split tokenizers: fixtures, main_llm --local_datasets, "
+               "serve_http text prompts, train_llm --data, qualitative_results (phase 4)")
     phase_anchor(device)
     phase_finetune_host(device)
     phase_anchor_lora_llm(device)

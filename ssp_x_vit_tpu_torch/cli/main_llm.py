@@ -21,13 +21,13 @@ or a local HF directory (``config.json`` + ``*.safetensors``, read by
 DeepSeek models take every method but SliceGPT, 2SSP only on dense-GLU
 configs, and no ``--ablation``, each refused with the JAX CLI's message.
 ``--evaluate_qualitative`` generates text for two prompts with the
-directory's byte-level ``tokenizer.json`` (without one it warns and skips, as
-the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
+directory's tokenizer (``llm/tokenizer.py`` ``load_tokenizer``; without one it
+warns and skips, as the JAX CLI does); ``--save-format hf`` writes ``export_hf_llama``'s
 directory; a sliced (SliceGPT) model is evaluated for perplexity only, and
 not saved. ``--evaluate_downstream`` scores the offline task pack of
 ``--task-pack`` (or $SSP_X_VIT_TASK_PACK; the lm-eval harness leg is not
-ported, ROADMAP.md A.10e). With a model directory holding a byte-level
-``tokenizer.json``, ``--local_datasets`` reads the corpora from
+ported, ROADMAP.md A.10e). With a model directory holding a tokenizer
+(``tokenizer.json`` or ``tokenizer.model``), ``--local_datasets`` reads the corpora from
 ``./data/{wikitext2,c4_val,fineweb_edu,c4_train}``, each a
 ``datasets.save_to_disk`` directory (``llm/arrow_ipc.py``; nothing is
 downloaded); every other run uses the deterministic synthetic token streams.

@@ -18,9 +18,12 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead)::
 
 ``--model`` is a ``tiny-random*`` alias, a native model directory or a local HF
 directory, as for ``cli.main_llm``. ``--tokenizer DIR`` names a directory
-holding a byte-level BPE ``tokenizer.json`` (``llm/tokenizer.py``); without it
-the ``--model`` directory's own ``tokenizer.json`` is used when there is one,
-and otherwise the server takes token-id prompts only.
+holding a ``tokenizer.json`` or a ``tokenizer.model`` (``llm/tokenizer.py``
+``load_tokenizer``; one with neither raises ``OSError``); without it the
+``--model`` directory's own ``tokenizer.json`` is used when there is one, as
+the JAX CLI does, and otherwise the server takes token-id prompts only. Text
+and chat prompts are encoded with the special tokens the tokenizer adds
+(Llama's BOS), as ``tokenizer.encode`` does in the JAX server.
 
 ``build_engine(args, model=None)`` builds the serving engine from parsed
 arguments; ``model=(params, cfg)`` serves a model the caller built.
@@ -40,8 +43,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="Native or HF model directory, or a tiny-random* alias (see "
                         "cli.main_llm) for an offline smoke server")
     p.add_argument("--tokenizer", default=None,
-                   help="Directory holding a byte-level BPE tokenizer.json (default: the "
-                        "--model directory's, if it has one)")
+                   help="Directory holding a tokenizer.json or tokenizer.model (default: "
+                        "the --model directory's tokenizer.json, if it has one)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--served-model-name", default=None,

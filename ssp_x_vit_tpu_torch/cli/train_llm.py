@@ -6,7 +6,7 @@ Usage (on the card; ``--backend cpu`` runs the plain PyTorch path instead)::
     # a fresh bf16 model of a given shape on the synthetic token stream
     python -m ssp_x_vit_tpu_torch.cli.train_llm --init-json cfg.json --steps 4 \\
         --batch-size 1 --seq-len 2048 --synthetic-data
-    # train on a save_to_disk corpus directory that holds a byte-level tokenizer.json
+    # train on a save_to_disk corpus directory that holds its tokenizer
     python -m ssp_x_vit_tpu_torch.cli.train_llm --model ckpts/code_llm_small \\
         --data corpus_dir --steps 200 --batch-size 4 --seq-len 512
     # continue training a native model on a pre-tokenized uint16 corpus
@@ -26,10 +26,11 @@ files (params, optimizer state, update); rerunning with the same ``--checkpoint-
 previous run stopped. ``--save-model`` writes the trained model as a native
 directory, or with ``--save-format hf`` as an HF one (``export_hf_llama``).
 ``--data DIR`` trains on the ``text`` column of a ``datasets.save_to_disk``
-directory (``llm/arrow_ipc.py``) tokenized by the directory's byte-level
-``tokenizer.json`` (the JAX CLI calls ``transformers.AutoTokenizer``; any other
-tokenizer raises naming ROADMAP.md A.10f); a directory that holds no corpus
-falls back to the synthetic stream with the JAX CLI's warning.
+directory (``llm/arrow_ipc.py``) tokenized by the directory's tokenizer
+(``llm/tokenizer.py`` ``load_tokenizer``: a ``tokenizer.json`` of any ported
+family or a ``tokenizer.model``, where the JAX CLI calls
+``transformers.AutoTokenizer``); a directory that holds no corpus, or no
+tokenizer, falls back to the synthetic stream with the JAX CLI's warning.
 
 ``run(args)`` returns a dict: the history of ``[TRAIN-LOG]`` records, the
 final loss, the run's seconds and the trained (params, cfg).
@@ -135,11 +136,9 @@ def _token_batches(args, cfg):
         if texts is None:
             logging.warning(f"dataset load failed (no corpus at {args.data}); synthetic fallback")
         else:
-            # a directory without a byte-level tokenizer.json raises naming ROADMAP.md A.10f
-            tok = load_tokenizer(args.data)
             try:
-                ids = tokenize_corpus(texts, tok)
-            except TypeError as e:      # a null row: "\n\n".join fails, as in the JAX CLI
+                ids = tokenize_corpus(texts, load_tokenizer(args.data))
+            except (OSError, TypeError) as e:   # no tokenizer, or a null row, as in the JAX CLI
                 logging.warning(f"dataset load failed ({e}); synthetic fallback")
     if ids is None:
         need = args.num_tokens or n_micro * per

@@ -7,9 +7,9 @@ back to an offline task pack (``llm/taskpack.py``). ``lm_eval`` is on neither
 machine this port runs on, so only the task-pack leg is ported:
 ``lm_eval_available()`` is False without importing anything, and the harness
 adapters (``make_jax_lm``, ``eval_zero_shot``) raise naming ROADMAP.md A.10e.
-The task pack's text goes through the model directory's byte-level
-``tokenizer.json`` (``llm/tokenizer.py``), or raw UTF-8 bytes otherwise,
-where the JAX module would try ``transformers.AutoTokenizer`` first.
+The task pack's text goes through the model directory's tokenizer
+(``llm/tokenizer.py`` ``load_tokenizer``), or raw UTF-8 bytes when it has
+none, where the JAX module would try ``transformers.AutoTokenizer``.
 """
 
 from __future__ import annotations
@@ -28,17 +28,24 @@ _HARNESS_NOT_PORTED = ("the lm-eval harness leg is not ported: lm_eval is on nei
 
 
 def _make_offline_encode(model_name_or_dir: str):
-    """Tokenizer for the task-pack leg: the directory's byte-level
-    ``tokenizer.json`` when it has one, raw UTF-8 byte ids otherwise."""
-    tok_json = os.path.join(model_name_or_dir, "tokenizer.json") \
-        if os.path.isdir(model_name_or_dir) else None
-    if tok_json and os.path.exists(tok_json):
-        from ssp_x_vit_tpu_torch.llm.tokenizer import ByteLevelBPETokenizer
+    """Tokenizer for the task-pack leg: the directory's tokenizer through
+    ``load_tokenizer`` without special tokens (the byte-level
+    ``tokenizer.json`` class, any other ``tokenizer.json`` pipeline, or
+    ``tokenizer.model``), raw UTF-8 byte ids when the directory has none.
+    The JAX module reads any ``tokenizer.json`` with its byte-level class
+    (which raises ``ValueError`` on a SentencePiece-style one) and hands the
+    rest to ``transformers.AutoTokenizer``."""
+    if os.path.isdir(model_name_or_dir):
+        from ssp_x_vit_tpu_torch.llm.tokenizer import load_tokenizer
 
-        tok = ByteLevelBPETokenizer.from_file(tok_json)
-        return lambda s: tok.encode(s)
-    logging.warning(f"no tokenizer for {model_name_or_dir!r} (no byte-level tokenizer.json; "
-                    "transformers.AutoTokenizer is not ported, ROADMAP.md A.10f); "
+        try:
+            tok = load_tokenizer(model_name_or_dir)
+            return lambda s: tok(s, add_special_tokens=False)["input_ids"]
+        except OSError as e:
+            reason = str(e)
+    else:
+        reason = "not a directory"
+    logging.warning(f"no tokenizer for {model_name_or_dir!r} ({reason}); "
                     "falling back to raw UTF-8 byte ids — scores are only comparable "
                     "against the same byte encoding")
     return lambda s: [int(b) for b in s.encode("utf-8")]

@@ -8,9 +8,10 @@ beam selection over the contiguous KV cache of ``llm/serve.py`` (the beam
 reorder is an ``index_select`` of the cache rows). All run on the device of the
 parameters. ``generate_response`` turns a text prompt into text through a
 tokenizer; ``qualitative_results`` runs it on two fixed prompts with the model
-directory's byte-level ``tokenizer.json`` (``llm/tokenizer.py``), which adds no
-BOS and has no ``eos_token_id`` (the JAX package's ``AutoTokenizer`` may add
-and stop on them).
+directory's tokenizer (``llm/tokenizer.py`` ``load_tokenizer``, where the JAX
+package calls ``transformers.AutoTokenizer``): a SentencePiece-style or
+``Split``-pattern tokenizer adds its BOS and generation stops at its
+``eos_token_id``; the byte-level ``tokenizer.json`` class adds neither.
 """
 
 from __future__ import annotations
@@ -230,7 +231,7 @@ def qualitative_results(params, cfg: LlamaConfig, model_name_or_dir: str,
 
     try:
         tokenizer = load_tokenizer(model_name_or_dir)
-    except (NotImplementedError, ValueError, OSError) as e:
+    except (ValueError, OSError) as e:
         logging.warning(f"Tokenizer unavailable ({e}); skipping qualitative results")
         return None
     results = []

@@ -13,7 +13,7 @@ continuous-batching stack consumable by standard OpenAI SDK clients.
 
 Two prompt modes:
 
-- with a tokenizer (``llm.tokenizer.ByteLevelBPETokenizer`` or anything with
+- with a tokenizer (``llm.tokenizer.load_tokenizer``'s, or anything with
   ``encode``/``decode``): ``prompt`` is a string (or list of strings → one
   choice each), responses carry decoded ``text``, and ``stop`` strings are
   honored (generation is cancelled server-side as soon as a stop string

@@ -1,25 +1,37 @@
-"""Byte-level BPE tokenizer (counterpart of ``ssp_x_vit_tpu/llm/tokenizer.py``).
+"""Tokenizers of a model directory (counterpart of ``ssp_x_vit_tpu/llm/tokenizer.py``).
 
-Reads byte-level BPE ``tokenizer.json`` files (GPT-2 / qwen2-class) and
-encodes and decodes as the JAX package's ``ByteLevelBPETokenizer`` does, with
-the standard library and numpy only:
+``load_tokenizer`` dispatches as the JAX package does: a ``tokenizer.json``
+that ``ByteLevelBPETokenizer`` takes goes there; any other ``tokenizer.json``
+runs its whole pipeline in ``llm/hf_tokenizer.py`` (SentencePiece-style BPE
+with byte fallback, byte-level BPE with its own ``Split`` patterns, Unigram;
+where the JAX package calls ``transformers.AutoTokenizer``); a directory with
+only a ``tokenizer.model`` is read by ``llm/spm_model.py``; a directory with
+neither raises ``OSError``.
+
+``ByteLevelBPETokenizer`` reads byte-level BPE ``tokenizer.json`` files
+(GPT-2 / qwen2-class) and encodes and decodes as the JAX package's class of
+that name does, with the standard library and numpy only:
 
 - the GPT-2 pre-tokenizer
   ``'s|'t|'re|'ve|'m|'ll|'d| ?L+| ?N+| ?[^\\sLN]+|\\s+(?!\\S)|\\s+`` as a ``re``
-  pattern whose classes are built once from ``unicodedata``: letters are the
-  categories L*, numbers N*, whitespace is Unicode White_Space
-  (``str.isspace()`` without U+001C-U+001F, which ``re``'s ``\\s`` wrongly
-  includes). Code points assigned after this Python's Unicode version are
-  unassigned (Cn) here, so they fall in the "other" class;
+  pattern whose classes are built once from ``unicodedata``
+  (``llm/unicode_re.py``): letters are the categories L*, numbers N*,
+  whitespace is Unicode White_Space (``str.isspace()`` without
+  U+001C-U+001F, which ``re``'s ``\\s`` wrongly includes). Code points assigned
+  after this Python's Unicode version are unassigned (Cn) here, so they fall
+  in the "other" class;
 - the ranked-merge loop over a batch of pre-tokens in C++ (``native/bpe.cc``,
   built with g++ into ``build/native/<hash>/`` at first use and loaded with
   ctypes when a tokenizer is made). ``engine="python"`` runs the plain Python
   loop (``_merge_py``) instead. A native engine that fails to build or load
   raises: it never becomes the Python loop on its own.
 
-Only the base vocabulary is encoded and decoded, as in the JAX package: added
-tokens (``<|endoftext|>``) are not matched in text and are dropped by
-``decode``. No BOS is added and there is no ``eos_token_id``.
+That class encodes and decodes the base vocabulary only, as the JAX one does:
+added tokens (``<|endoftext|>``) are not matched in text and are dropped by
+``decode``; it adds no BOS and has no ``eos_token_id``. The pipeline
+tokenizers of ``llm/hf_tokenizer.py`` match added tokens, add what the
+directory's post-processor or tokenizer class adds (Llama's BOS) and have
+``bos_token_id`` / ``eos_token_id``.
 """
 
 from __future__ import annotations
@@ -31,41 +43,39 @@ import json
 import os
 import re
 import subprocess
-import sys
 import threading
-import unicodedata
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from ssp_x_vit_tpu_torch.llm.unicode_re import compile_onig
 
 _ROOT = Path(__file__).resolve().parents[2]
 BPE_SOURCE = _ROOT / "native" / "bpe.cc"
 BUILD_ROOT = _ROOT / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
-_NOT_BYTE_LEVEL = ("only byte-level BPE tokenizer.json files are ported; SentencePiece / "
-                   "Metaspace tokenizers (Llama-2's tokenizer.json among them) are not "
-                   "ported yet (ROADMAP.md A.10f)")
-
 _lock = threading.Lock()
 _lib = None
 
 
-def _build_native() -> Path:
-    """Compile ``native/bpe.cc`` unless its library for this source and these
-    flags exists; return the library's path. The output directory is keyed by
-    a hash of both, and the library is written under a temporary name and
-    renamed, so a concurrent build never loads a half-written file."""
+def _build_native(source: Path = None, lib_name: str = "libssp_bpe.so") -> Path:
+    """Compile ``source`` (default ``native/bpe.cc``) unless its library for
+    this source and these flags exists; return the library's path. The output
+    directory is keyed by a hash of both, and the library is written under a
+    temporary name and renamed, so a concurrent build never loads a
+    half-written file."""
+    source = BPE_SOURCE if source is None else source
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(BPE_SOURCE.read_bytes())
+    h.update(source.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    so = out_dir / "libssp_bpe.so"
+    so = out_dir / lib_name
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libssp_bpe.so.{os.getpid()}.{threading.get_ident()}.tmp"
+        tmp = out_dir / f"{lib_name}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                               str(BPE_SOURCE)], capture_output=True, text=True, timeout=300)
+                               str(source)], capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"native BPE build failed (exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
@@ -115,43 +125,38 @@ def bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, [chr(c) for c in cs]))
 
 
-def _class(pred) -> str:
-    """A ``re`` character-class body for the code points satisfying ``pred``."""
-    parts, start = [], None
-    for c in range(sys.maxunicode + 2):
-        inside = c <= sys.maxunicode and pred(c)
-        if inside and start is None:
-            start = c
-        elif not inside and start is not None:
-            lo, hi = re.escape(chr(start)), re.escape(chr(c - 1))
-            parts.append(lo if start == c - 1 else f"{lo}-{hi}")
-            start = None
-    return "".join(parts)
+GPT2_PATTERN = r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
 
 
-@functools.lru_cache(maxsize=1)
 def gpt2_pattern() -> "re.Pattern":
     """The GPT-2 pre-tokenization pattern with \\p{L}, \\p{N} and \\s spelled
-    out from ``unicodedata`` (built once per process, ~1 s)."""
-    cats = [unicodedata.category(chr(c))[0] for c in range(sys.maxunicode + 1)]
-    letter = _class(lambda c: cats[c] == "L")
-    number = _class(lambda c: cats[c] == "N")
-    space = _class(lambda c: chr(c).isspace() and not 0x1C <= c <= 0x1F)
-    return re.compile(rf"'s|'t|'re|'ve|'m|'ll|'d| ?[{letter}]+| ?[{number}]+"
-                      rf"| ?[^{space}{letter}{number}]+|[{space}]+(?![^{space}])|[{space}]+")
+    out from ``unicodedata`` (``llm/unicode_re.py``; built once per process, ~1 s)."""
+    return compile_onig(GPT2_PATTERN)
 
 
-def load_tokenizer(model_dir: str, *, engine: str = "native") -> "ByteLevelBPETokenizer":
-    """The byte-level BPE tokenizer of a local model directory (its
-    ``tokenizer.json``). Anything else raises NotImplementedError: the JAX
-    package hands it to ``transformers.AutoTokenizer``, which is not ported."""
+def load_tokenizer(model_dir: str, *, engine: str = "native"):
+    """The tokenizer of a local model directory, in the JAX package's order:
+    its ``tokenizer.json`` through ``ByteLevelBPETokenizer`` when that class
+    takes the file; else the file's whole pipeline (``llm/hf_tokenizer.py``,
+    where the JAX package calls ``transformers.AutoTokenizer``); else the
+    directory's SentencePiece ``tokenizer.model`` (``llm/spm_model.py``).
+    A directory with neither file raises ``OSError``, as ``AutoTokenizer``
+    fails on one; a pipeline node that is not ported raises ``ValueError``
+    naming it."""
     path = os.path.join(model_dir, "tokenizer.json")
-    if not os.path.exists(path):
-        raise NotImplementedError(f"{model_dir} has no tokenizer.json; {_NOT_BYTE_LEVEL}")
-    try:
-        return ByteLevelBPETokenizer.from_file(path, engine=engine)
-    except ValueError as e:
-        raise NotImplementedError(f"{path}: {e}; {_NOT_BYTE_LEVEL}") from e
+    if os.path.exists(path):
+        try:
+            return ByteLevelBPETokenizer.from_file(path, engine=engine)
+        except ValueError:
+            from ssp_x_vit_tpu_torch.llm.hf_tokenizer import HFTokenizer
+
+            return HFTokenizer.from_dir(model_dir, engine=engine)
+    if os.path.exists(os.path.join(model_dir, "tokenizer.model")):
+        from ssp_x_vit_tpu_torch.llm.spm_model import load_spm_tokenizer
+
+        return load_spm_tokenizer(model_dir, engine=engine)
+    raise OSError(f"{model_dir} holds neither tokenizer.json nor tokenizer.model: "
+                  "no tokenizer to load")
 
 
 class ByteLevelBPETokenizer:

@@ -43,16 +43,17 @@ def test_port_and_chip_smoke_never_import_jax():
 
 
 FORBIDDEN = ("jax", "jaxlib", "ssp_x_vit_tpu", "regex", "transformers", "tokenizers",
-             "safetensors", "datasets", "ml_dtypes", "torchvision", "PIL", "pyarrow", "pandas")
+             "sentencepiece", "google", "safetensors", "datasets", "ml_dtypes", "torchvision",
+             "PIL", "pyarrow", "pandas")
 
 
 def test_no_import_statement_names_a_package_the_card_machine_lacks():
     """Every ``import`` / ``from`` statement of the port and of chip_smoke.py,
     at any depth (a function's lazy import included), read with ``ast``:
     none names JAX, the JAX package, or a package the card's machine does not
-    have (``regex``, ``transformers``, ``tokenizers``, ``safetensors``,
-    ``datasets``, ``ml_dtypes``, ``torchvision``, ``PIL``, ``pyarrow``,
-    ``pandas``)."""
+    have (``regex``, ``transformers``, ``tokenizers``, ``sentencepiece``,
+    ``google`` (protobuf), ``safetensors``, ``datasets``, ``ml_dtypes``,
+    ``torchvision``, ``PIL``, ``pyarrow``, ``pandas``)."""
     import ast
 
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "arrow_corpus.py")]
@@ -176,10 +177,13 @@ def test_serving_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
-    """What stays unported on the serving paths raises naming its item:
-    tokenizers other than byte-level BPE (A.10f: a ``--tokenizer`` directory
-    without a byte-level ``tokenizer.json``) and a config that is neither
-    family (the DeepSeek/MLA engine is tested in tests/test_torch_paged_mla.py).
+    """What the serving paths refuse: a ``--tokenizer`` directory with
+    neither ``tokenizer.json`` nor ``tokenizer.model`` raises ``OSError``, as
+    ``AutoTokenizer`` does (every tokenizer family the JAX package reads
+    through it is ported since A.10f; a tokenizer node that is not ported
+    names A.10g, tests/test_torch_spm_model.py), and a config that is neither
+    family raises (the DeepSeek/MLA engine is tested in
+    tests/test_torch_paged_mla.py).
     Multi-LoRA (``lora_ids``, once refused naming A.10) serves: id 0 is the
     base model, id 1 its adapter (tests/test_torch_multilora.py holds it
     against the JAX package)."""
@@ -188,7 +192,7 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
     from ssp_x_vit_tpu_torch.llm.engine import ServingEngine
     from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.10f"):
+    with pytest.raises(OSError, match="neither tokenizer.json nor tokenizer.model"):
         serve_http.server_kwargs(serve_http.build_argparser().parse_args(
             ["--model", "tiny-random", "--backend", "cpu", "--tokenizer", str(tmp_path)]), None)
     tiny = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, num_kv_heads=2,

@@ -180,7 +180,8 @@ def test_train_llm_data_matches_the_jax_cli(tmp_path, caplog):
     """``--data`` on a corpus directory with the tokenizer beside it: the port's
     microbatches and eval stream are the JAX CLI's (AutoTokenizer); a run
     trains on them; a directory without a corpus falls back in both; a corpus
-    with a tokenizer that is not byte-level BPE raises naming A.10f."""
+    whose tokenizer.json is not byte-level BPE (a Metaspace pre-tokenizer over
+    the byte-level vocabulary) cuts the JAX CLI's microbatches too."""
     data = tmp_path / "corpus"
     datasets.Dataset.from_dict({"text": documents("train", 0, 4000)}).save_to_disk(str(data))
     shutil.copy(TOKENIZER, data)
@@ -214,5 +215,9 @@ def test_train_llm_data_matches_the_jax_cli(tmp_path, caplog):
     spec = json.loads((data / "tokenizer.json").read_text())
     spec["pre_tokenizer"] = {"type": "Metaspace", "replacement": "▁"}
     (sentencepiece / "tokenizer.json").write_text(json.dumps(spec))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.10f"):
-        ttrain._token_batches(_train_args(ttrain, sentencepiece), cfg)
+    tb, ts = ttrain._token_batches(_train_args(ttrain, sentencepiece), cfg)
+    jb, js = jtrain._token_batches(_train_args(jtrain, sentencepiece),
+                                   jmodel.LlamaConfig(**TINY))
+    np.testing.assert_array_equal(np.stack(tb), np.asarray(jb))
+    np.testing.assert_array_equal(ts, np.asarray(js).reshape(-1))
+    assert ts.size > 3000

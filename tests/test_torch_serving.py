@@ -13,6 +13,7 @@ greedy continuation (fp32 pools, same process, same arithmetic: exact).
 
 import http.client
 import json
+import os
 import threading
 
 import jax.numpy as jnp
@@ -363,9 +364,15 @@ def test_cli_builds_an_engine_on_the_cpu_backend(greedy_ref, params):
         assert len(engine.submit([3, 5, 7, 11], max_new_tokens=4).result(timeout=120)) == 4
     finally:
         engine.shutdown()
-    # a --tokenizer directory without a byte-level tokenizer.json raises (A.10f)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+    # a --tokenizer directory with neither tokenizer.json nor tokenizer.model raises, as
+    # AutoTokenizer does; a SentencePiece-style one serves text (tests/test_torch_tokenizer_paths.py)
+    with pytest.raises(OSError, match="neither tokenizer.json nor tokenizer.model"):
         tcli.server_kwargs(parser.parse_args(["--model", "tiny-random", "--backend", "cpu",
                                               "--tokenizer", "somewhere"]), None)
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "tokenizers",
+                           "llama2")
+    tok = tcli.server_kwargs(parser.parse_args(["--model", "tiny-random", "--backend", "cpu",
+                                                "--tokenizer", fixture]), None)["tokenizer"]
+    assert tok.encode("hi")[0] == tok.bos_token_id == 1
     assert tcli.server_kwargs(parser.parse_args(["--model", "tiny-random"]), None)[
         "tokenizer"] is None

@@ -146,10 +146,19 @@ def _variant(tmp_path, name, edit):
 
 
 def test_refusals_match_jax_and_load_tokenizer_names_the_roadmap_item(tmp_path):
+    """The byte-level class refuses what the JAX one refuses; ``load_tokenizer``
+    then runs the file's whole pipeline (``llm/hf_tokenizer.py``, the ids of
+    the ``tokenizers`` library on the same file), names ROADMAP.md A.10g for a
+    WordPiece model, and raises ``OSError`` on a directory with no tokenizer."""
+    tokenizers = pytest.importorskip("tokenizers")
+    from ssp_x_vit_tpu_torch.llm.hf_tokenizer import HFTokenizer
+
     metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first"}
     split = {"type": "Sequence", "pretokenizers": [
-        {"type": "Split", "pattern": {"Regex": "\\d{1,3}"}, "behavior": "Isolated"},
-        {"type": "ByteLevel", "add_prefix_space": False, "use_regex": False}]}
+        {"type": "Split", "pattern": {"Regex": "\\d{1,3}"}, "behavior": "Isolated",
+         "invert": False},
+        {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+         "use_regex": False}]}
     cases = {
         "wordpiece": (lambda tj: tj["model"].update(type="WordPiece"), "unsupported tokenizer"),
         "metaspace": (lambda tj: tj.update(pre_tokenizer=metaspace), "no ByteLevel"),
@@ -162,9 +171,17 @@ def test_refusals_match_jax_and_load_tokenizer_names_the_roadmap_item(tmp_path):
             jtok.ByteLevelBPETokenizer.from_file(path)
         with pytest.raises(ValueError, match=match):
             ttok.ByteLevelBPETokenizer.from_file(path)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.10f"):
-            ttok.load_tokenizer(d)
-    with pytest.raises(NotImplementedError, match=r"no tokenizer\.json.*ROADMAP\.md A\.10f"):
+        if name == "wordpiece":
+            with pytest.raises(ValueError, match=r"WordPiece.*ROADMAP\.md A\.10g"):
+                ttok.load_tokenizer(d)
+            continue
+        port, ref = ttok.load_tokenizer(d), tokenizers.Tokenizer.from_file(path)
+        assert isinstance(port, HFTokenizer)
+        for text in ("hello 12345 world", "  two\nlines ü", *NAMED.values()):
+            ids = port.encode(text)
+            assert ids == ref.encode(text).ids
+            assert port.decode(ids) == ref.decode(ids, skip_special_tokens=False)
+    with pytest.raises(OSError, match="neither tokenizer.json nor tokenizer.model"):
         ttok.load_tokenizer(str(tmp_path))
     prefixed = _variant(tmp_path, "prefix", lambda tj: tj["pre_tokenizer"].update(
         add_prefix_space=True))
