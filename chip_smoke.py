@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   card name and power limit (nvidia-smi), torch/CUDA versions; TF32 off.
-2. build    nvcc-builds every kernel source of the port in parallel; ptxas's
+2. build    nvcc-builds every kernel source of the port in parallel (and, beside
+            them, g++ builds the image reader ``native/image_decode.cc``); ptxas's
             registers and spills per kernel ([BUILD] lines, one per bf16
             flash instantiation and per bf16 ViT GEMM and attention-core
             instantiation).
@@ -97,7 +98,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             98), (9, 69)); logits against the plain blocks on the card, launches
             at the shortened lengths, latency with and without the schedule),
             ``vit_procgen`` token-pruned top-1 on the card against the host CPU,
-            and the cubic resize on the card against the host; then the LLM
+            and the cubic resize on the card against the host; then
+            Oxford-IIIT-Pet on disk ([PET]): the committed fixtures
+            (``tests/fixtures/pets``) decoded by the port's JPEG / PNG reader
+            on the host against their ``expected.json`` digests, the C++
+            resize against ``resize_plain``, a Pets directory at the dataset's
+            counts (3,680 + 3,669 copies of the fixtures) through
+            ``load_srp_dataset`` for both splits (seconds, images/s, threads,
+            peak host RSS), ``load_srp_model`` on a B/16 AugReg ``.npz`` with
+            37 classes, ``two_ssp_prune_vit`` at 0.25 and ``evaluate_top1`` on
+            the whole test split before and after (sparsity within 0.02 of
+            the plan, rows 1 and 3 at their predicted launches, one batch's
+            logits against the plain blocks), one evaluation batch under
+            ``utils.profiling.trace`` (each of the rows' kernels in its Chrome
+            trace, every launch with its kernel event);
+            then the LLM
             comparison methods through ``cli.main_llm.run`` at Llama-2-7B
             widths (random bf16 weights; depth cut to 4 layers, 8 for
             EvoPress; 16 calibration windows of 2048 where the CLI defaults to
@@ -195,6 +210,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -4212,6 +4228,300 @@ def phase_srp(work: str, models: str, device) -> dict:
     return totals, b16_scores
 
 
+PETS_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "pets")
+PETS_SPLITS = {"trainval": 3680, "test": 3669}   # Oxford-IIIT-Pet's split sizes, 37 breeds
+
+
+@contextlib.contextmanager
+def build_host_library():
+    """g++-build the image reader (``native/image_decode.cc``) on a thread of
+    its own while the block runs (the nvcc builds); yields a dict whose
+    ``seconds`` the build fills in. A failed build raises on exit."""
+    import threading
+
+    from ssp_x_vit_tpu_torch.data import image_decode
+
+    result, errors = {"seconds": 0.0}, []
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            image_decode.native_library()
+        except Exception as e:  # re-raised below, on the caller's thread
+            errors.append(e)
+        result["seconds"] = time.perf_counter() - t0
+
+    worker = threading.Thread(target=run, name="g++ image_decode")
+    worker.start()
+    try:
+        yield result
+    finally:
+        worker.join()
+    if errors:
+        raise errors[0]
+
+
+def write_pets_full_count(root: str) -> tuple:
+    """``root/oxford-iiit-pet`` at the dataset's counts: 37 breeds, 3680
+    trainval and 3669 test entries in the annotation format, entry i a copy
+    of the committed fixture i mod 20 (sorted by name). Returns (the fixture
+    names, {split: fixture index per entry}, {split: label per entry})."""
+    import numpy as np
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    src_dir = os.path.join(PETS_FIXTURES, "oxford-iiit-pet", "images")
+    names = sorted(os.listdir(src_dir))
+    data = []
+    for name in names:
+        with open(os.path.join(src_dir, name), "rb") as f:
+            data.append(f.read())
+    base = os.path.join(root, "oxford-iiit-pet")
+    os.makedirs(os.path.join(base, "images"))
+    os.makedirs(os.path.join(base, "annotations"))
+
+    def write(i):
+        cls = i % 37 + 1
+        with open(os.path.join(base, "images", f"breed{cls:02d}_{i}.jpg"), "wb") as f:
+            f.write(data[i % len(names)])
+
+    with ThreadPoolExecutor(8) as pool:   # file creation dominates on the card's host
+        list(pool.map(write, range(sum(PETS_SPLITS.values()))))
+    sources, labels, i = {}, {}, 0
+    for split, n in PETS_SPLITS.items():
+        lines, src, lab = [], [], []
+        for _ in range(n):
+            cls = i % 37 + 1
+            species, breed = (1, cls) if cls <= 12 else (2, cls - 12)   # 12 cat, 25 dog breeds
+            lines.append(f"breed{cls:02d}_{i} {cls} {species} {breed}\n")
+            src.append(i % len(names))
+            lab.append(cls - 1)
+            i += 1
+        with open(os.path.join(base, "annotations", f"{split}.txt"), "w") as f:
+            f.writelines(lines)
+        sources[split], labels[split] = np.asarray(src), np.asarray(lab, np.int32)
+    return names, sources, labels
+
+
+@contextlib.contextmanager
+def plain_vit_blocks():
+    """Rows 1 and 3 swapped for their plain versions in ``models/vit.py``."""
+    from ssp_x_vit_tpu_torch.models import vit
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
+    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ff
+
+    saved = vit.fused_attn_block_v2, vit.fused_ffn_block
+    vit.fused_attn_block_v2, vit.fused_ffn_block = (fab.fused_attn_block_v2_plain,
+                                                    ff.fused_ffn_block_plain)
+    try:
+        yield
+    finally:
+        vit.fused_attn_block_v2, vit.fused_ffn_block = saved
+
+
+def phase_pets(device) -> dict:
+    """Oxford-IIIT-Pet on disk ([PET]). (a) Every committed fixture decoded
+    by the port's reader on this host: the sha256 of its RGB and of its 224
+    resize equal ``expected.json`` (Pillow's), and the C++ resize equals
+    ``resize_plain``. (b) A Pets directory at the dataset's counts (copies of
+    the fixtures) through ``load_srp_dataset`` for both splits, onto the card:
+    seconds, images/s, threads, peak host RSS; every image equals its
+    fixture's resize in the seeded order, the labels too. (c) ``load_srp_model``
+    on a B/16 AugReg ``.npz`` with 37 classes selected from ``index.csv``,
+    top-1 on the whole test split, ``two_ssp_prune_vit`` at 0.25 (calibration:
+    two trainval batches; candidates: the first 5 test batches), top-1 again:
+    the achieved sparsity within 0.02 of the plan, rows 1 and 3 launched the
+    predicted number of times, no plain block on the card, one batch's logits
+    within 5e-2 (scaled) of the plain blocks'. (d) One evaluation batch under
+    ``utils.profiling.trace``: its Chrome trace holds every kernel of the
+    rows that the batch launched, and a kernel event for every launch in it;
+    a trace short of kernels counts only when ``trace`` flagged every one it
+    lacks, and then the batch is traced again (up to 4 traces). Returns the
+    launches of (c) and (d) without the plain comparison's."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.data import image_decode as idec
+    from ssp_x_vit_tpu_torch.data.srp import load_srp_dataset, load_srp_model
+    from ssp_x_vit_tpu_torch.evaluation.classify import evaluate_top1
+    from ssp_x_vit_tpu_torch.models.vit import vit_forward_materialized
+    from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ssp_x_vit_tpu_torch.pruning import count_total_params, two_ssp_prune_vit
+    from ssp_x_vit_tpu_torch.utils.profiling import WARM_KERNELS, launches_without_kernel, trace
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    smi = nvidia_smi_line()
+    t_phase = t0 = time.perf_counter()
+    with open(os.path.join(PETS_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    resized = {}
+    for name, e in sorted(expected["files"].items()):
+        rgb = idec.decode_rgb(os.path.join(PETS_FIXTURES, "oxford-iiit-pet", "images", name))
+        small = idec.resize(rgb, 224)
+        if sha(rgb) != e["rgb_sha256"] or sha(small) != e["resized_224_sha256"]:
+            raise AssertionError(f"[PET] {name} ({e['kind']}): digest differs from expected.json")
+        if not np.array_equal(small, idec.resize_plain(rgb, 224)):
+            raise AssertionError(f"[PET] {name}: the C++ resize differs from resize_plain")
+        resized[name] = small
+    log(f"[PET] {len(resized)} fixtures: RGB and 224-resize sha256 equal expected.json (Pillow "
+        f"{expected['pillow']} on libjpeg-turbo {expected['libjpeg_turbo']}); the C++ resize "
+        f"equals resize_plain on each; {time.perf_counter() - t0:.2f} s on the host; {smi}")
+
+    totals = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        names, sources, labels = write_pets_full_count(root)
+        n_png = sum(1 for n in names if expected["files"][n]["kind"].startswith("PNG"))
+        log(f"[PET] wrote oxford-iiit-pet at full count ({PETS_SPLITS}, 37 breeds; {n_png} of "
+            f"the {len(names)} fixtures copied round-robin are PNG) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        pipes = {}
+        for split, n in PETS_SPLITS.items():
+            t0 = time.perf_counter()
+            out, before, peak = _peak_rss_during(lambda: load_srp_dataset(
+                "oxford-iiit-pet", split=split, res=224, batch_size=64, root=root,
+                device=device))
+            seconds = time.perf_counter() - t0
+            pipes[split] = out
+            order = np.random.default_rng(42).permutation(n)
+            src, lab = sources[split][order], labels[split][order]
+            start = 0
+            for p in (out if isinstance(out, tuple) else (out,)):
+                sel = src[start:start + len(p.images)]
+                if not np.array_equal(p.labels, lab[start:start + len(p.images)]) or not all(
+                        np.array_equal(p.images[sel == f], np.broadcast_to(
+                            resized[names[f]], (int((sel == f).sum()), 224, 224, 3)))
+                        for f in range(len(names))):
+                    raise AssertionError(f"[PET] {split}: images or labels differ from the "
+                                         "fixtures' in the seeded order")
+                start += len(p.images)
+            n_png_split = int(sum((sources[split] == f).sum() for f, nm in enumerate(names)
+                                  if expected["files"][nm]["kind"].startswith("PNG")))
+            log(f"[PET] load_srp_dataset('oxford-iiit-pet', split={split!r}, res=224): {n} images "
+                f"({n_png_split} PNG) decoded and resized in {seconds:.2f} s, {n / seconds:.1f} "
+                f"images/s, {idec.affinity_threads()} threads, peak host RSS "
+                f"{peak / 2**20:.0f} MiB (before {before / 2**20:.0f} MiB); images and labels "
+                f"equal the fixtures' in the seeded order; {smi}")
+
+        t0 = time.perf_counter()
+        models = os.path.join(root, "models")
+        os.makedirs(models)
+        write_augreg_npz(os.path.join(models, "augreg_B16_pet_224.npz"), "B/16", 37, seed=5)
+        with open(os.path.join(models, "index.csv"), "w") as f:
+            f.write("name,ds,filename,final_val,adapt_ds,adapt_filename,adapt_final_val\n"
+                    "B/16,i21k,augreg_B16_i21k,0.80,,,\n"
+                    "B/16,oxford-iiit-pet,augreg_B16_i21k,0,oxford-iiit-pet,augreg_B16_pet_224,"
+                    "0.90\n")
+        params, cfg = load_srp_model("B/16", "oxford-iiit-pet", models_dir=models, device=device)
+        if (cfg.num_classes, cfg.image_size) != (37, 224):
+            raise AssertionError(f"[PET] load_srp_model gave {cfg}")
+        calib = pipes["trainval"][0].batches(2)
+        test = pipes["test"].batches()
+        setup = time.perf_counter() - t0
+        p0 = count_total_params(cfg)
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        with watch_vit_blocks() as seen, torch.inference_mode():
+            acc0 = evaluate_top1(params, cfg, test)
+            pruned, pcfg, res = two_ssp_prune_vit(params, cfg, 0.25, calibration_batches=calib,
+                                                  eval_batches=test)
+            acc1 = evaluate_top1(pruned, pcfg, test)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        plan = res.plan
+        est = plan.estimated_total_removed_params / p0
+        achieved = 1.0 - count_total_params(pcfg) / p0
+        k, nb, cand = len(res.pruned_attention_blocks), len(test), min(5, len(test))
+        # evaluation before, the 13 candidates x 5 batches, the calibration
+        # stats, then the evaluation after (no attention in the K pruned blocks)
+        want = {"fused_attn_block_v2": 12 * nb + 13 * 12 * cand + 12 * len(calib) + (12 - k) * nb,
+                "fused_ffn_block": 12 * nb + 13 * 12 * cand + 12 * len(calib) + 12 * nb}
+        log(f"[PET] B/16 (37 classes, random weights) 2SSP at 0.25: planned sparsity {est:.4f}, "
+            f"achieved {achieved:.4f} (K={plan.blocks_to_prune} attention blocks "
+            f"{res.pruned_attention_blocks}, {plan.per_block_neurons_to_prune} FFN neurons per "
+            f"block); top-1 on the {PETS_SPLITS['test']} test images {acc0:.4f} -> {acc1:.4f}; "
+            f"{seconds:.2f} s (model and batches {setup:.2f} s); launches "
+            f"{json.dumps({n: c for n, c in launches.items() if c})}, predicted {json.dumps(want)}; "
+            f"{smi}")
+        if abs(achieved - est) > 0.02 or abs(achieved - 0.25) > 0.02:
+            raise AssertionError(f"[PET] achieved sparsity {achieved} vs plan {est}")
+        if any(launches[name] != n for name, n in want.items()) or launches["fused_attn_block"] \
+                or sum(seen["plain_on_card"].values()):
+            raise AssertionError(f"[PET] launches {launches} vs {want}; plain on the card "
+                                 f"{dict(seen['plain_on_card'])}")
+        px = test[0]["pixel_values"]
+        with torch.inference_mode():
+            got = vit_forward_materialized(pruned, px, pcfg, compute_dtype=torch.bfloat16)
+            with plain_vit_blocks():
+                ref = vit_forward_materialized(pruned, px, pcfg, compute_dtype=torch.bfloat16)
+        err, rel = scaled_err(got, ref)
+        log(f"[PET] pruned B/16 bf16 b=64, one test batch: kernel path vs plain blocks on the "
+            f"card max_abs_err={err:.3e} scaled={rel:.3e} tol=5e-2")
+        if not torch.isfinite(got.float()).all() or rel > 5e-2:
+            raise AssertionError("[PET] pruned logits disagree with the plain blocks")
+
+        # row 1 per block with attention: LayerNorm, QKV GEMM, core, projection
+        # GEMM; row 3 per block: LayerNorm, fc1 GEMM, fc2 GEMM
+        want_events = {"layer_norm_kernel": (12 - k) + 12,
+                       "gemm_kernel": 2 * (12 - k) + 2 * 12, "core_kernel": 12 - k}
+        # The profiler can lose a trace's first kernels (PERF.md, Findings): trace
+        # opens with WARM_KERNELS kernels of its own and warns of every later
+        # launch left without its kernel event. So every row kernel a trace
+        # lacks must be a flagged launch, and one trace of the batch (of up
+        # to 4) must be whole.
+        for attempt in range(1, 5):
+            with tempfile.TemporaryDirectory() as trace_dir:
+                reset_launch_counts()
+                with trace(trace_dir), torch.inference_mode():
+                    evaluate_top1(pruned, pcfg, test, max_batches=1)
+                for name, n in launch_counts.items():
+                    totals[name] = totals.get(name, 0) + n
+                (trace_file,) = os.listdir(trace_dir)
+                path = os.path.join(trace_dir, trace_file)
+                missing = launches_without_kernel(path, WARM_KERNELS)
+                warm_lost = launches_without_kernel(path) - missing
+                with open(path) as f:
+                    every = json.load(f)["traceEvents"]
+            events = [e for e in every if e.get("cat") == "kernel"]
+            counts = {kind: sum(1 for e in events if "ssp::" in e["name"] and kind in e["name"])
+                      for kind in want_events}
+            lacking = sum(want_events.values()) - sum(counts.values())
+            lost = ""
+            if missing:   # when, after the window opened, the lost kernels were launched
+                ran = {e.get("args", {}).get("correlation") for e in events}
+                start = min([float(e["ts"]) for e in every if e.get("cat") == "Trace"]
+                            or [float(e["ts"]) for e in every if "ts" in e])
+                launches = sorted((float(e["ts"]) - start, e.get("args", {}).get("correlation"))
+                                  for e in every
+                                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                                  and "LaunchKernel" in e.get("name", ""))[WARM_KERNELS:]
+                late = [t for t, corr in launches if corr not in ran]
+                lost = f", launched {min(late) / 1e3:.3f}-{max(late) / 1e3:.3f} ms after the " \
+                       "window opened"
+            log(f"[PET] utils.profiling.trace over one evaluation batch, trace {attempt}: "
+                f"{len(events)} device kernel events in {trace_file}, the rows' "
+                f"{json.dumps(counts)} (want {json.dumps(want_events)}); {missing} kernel "
+                f"launches without their kernel event{lost}; {warm_lost} of trace's "
+                f"{WARM_KERNELS} warm-up kernels lost")
+            if any(counts[n] > want_events[n] for n in counts) or lacking > missing:
+                raise AssertionError(f"[PET] trace kernel events {counts} (want {want_events}) "
+                                     f"with {missing} launches flagged: kernels lost unflagged")
+            if counts == want_events and not missing:
+                break
+        else:
+            raise AssertionError("[PET] no trace of one batch held all its kernels in 4")
+    log(f"[PET] phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return totals
+
+
 def phase_mask_grid(work: str, models: str, score_files, device) -> dict:
     """normalize_scores on two ViT-B/16 score files (12 x 3072), then a
     summation and a consensus grid (sizes {2}, prune {20}), each one
@@ -4378,30 +4688,15 @@ def phase_token_pruning(device) -> dict:
     ((3, 49), (6, 33)): the card's top-1 equals the host CPU's (differences
     only where the host's top-2 margin is under 1e-3), beside the unpruned
     top-1. Returns the phase's launches (the plain comparisons launch none)."""
-    import contextlib
-
     import torch
 
     from ssp_x_vit_tpu_torch.cli.common import resolve_model
     from ssp_x_vit_tpu_torch.data.pipeline import DataPipeline, load_procgen_slice
     from ssp_x_vit_tpu_torch.evaluation.latency import measure_latency_fn
-    from ssp_x_vit_tpu_torch.models import vit
     from ssp_x_vit_tpu_torch.models.persistence import load_pruned_model
     from ssp_x_vit_tpu_torch.models.token_pruning import vit_forward_token_pruned
     from ssp_x_vit_tpu_torch.models.vit import cast_params
-    from ssp_x_vit_tpu_torch.ops.kernels import fused_attn_block as fab
-    from ssp_x_vit_tpu_torch.ops.kernels import fused_ffn as ff
     from ssp_x_vit_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-
-    @contextlib.contextmanager
-    def plain_blocks():
-        saved = vit.fused_attn_block_v2, vit.fused_ffn_block
-        vit.fused_attn_block_v2, vit.fused_ffn_block = (fab.fused_attn_block_v2_plain,
-                                                        ff.fused_ffn_block_plain)
-        try:
-            yield
-        finally:
-            vit.fused_attn_block_v2, vit.fused_ffn_block = saved
 
     params, cfg = resolve_model("vit-b16", device=device)
     bf16 = cast_params(params, torch.bfloat16)
@@ -4414,7 +4709,7 @@ def phase_token_pruning(device) -> dict:
             got = vit_forward_token_pruned(bf16, px, cfg, TOKEN_SCHEDULE,
                                            compute_dtype=torch.bfloat16)
         launches = dict(launch_counts)
-        with plain_blocks():
+        with plain_vit_blocks():
             ref = vit_forward_token_pruned(bf16, px, cfg, TOKEN_SCHEDULE,
                                            compute_dtype=torch.bfloat16)
         dense = vit_forward_token_pruned(bf16, px, cfg, (), compute_dtype=torch.bfloat16)
@@ -7079,9 +7374,11 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     t0 = time.perf_counter()
-    build.build_all()
+    with build_host_library() as host_build:
+        build.build_all()
     log(f"[BUILD] {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s, "
-        f"parallel over {len(build.SOURCES)} sources)")
+        f"parallel over {len(build.SOURCES)} sources; beside it g++ "
+        f"native/image_decode.cc {host_build['seconds']:.1f} s)")
     for name, text in build.build_log.items():
         entry = ""
         for line in text.splitlines():
@@ -7188,6 +7485,10 @@ def main() -> int:
     check_resize(device)
     log(f"[TOKEN] phase (with the resize check): {time.perf_counter() - t0:.1f} s")
     phase_done("main, SRP checkpoints, mask grids, token pruning (phase 4)")
+    for name, n in phase_pets(device).items():
+        cli_launches[name] += n
+    phase_done("main, Oxford-IIIT-Pet on disk: the reader, load_srp_dataset at full count, "
+               "B/16 2SSP (phase 4)")
     for name, n in phase_llm_methods(device).items():
         cli_launches[name] += n
     phase_done("main, SliceGPT, EvoPress, ablations, task pack at Llama-2-7B width (phase 4)")

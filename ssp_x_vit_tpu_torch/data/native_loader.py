@@ -5,9 +5,10 @@
 flips into one contiguous uint8 batch in a single multithreaded pass (the
 library's ``normalize_batch_f32`` has no caller: ``DataPipeline`` normalizes
 on the device). The library is compiled with g++ into ``build/native/<hash>/`` at first use
-(the hash covers the source and the flags, as ``llm/tokenizer.py`` builds
-``native/bpe.cc``); ``native/*.so`` is never used. A failed build raises: the
-JAX package falls back to numpy in silence, the port does not.
+(the hash covers the source and the flags; ``build_library`` also builds
+``native/image_decode.cc`` and the tokenizers' ``native/bpe*.cc``);
+``native/*.so`` is never used. A failed build raises: the JAX package falls
+back to numpy in silence, the port does not.
 ``gather_batch_plain`` is the numpy version the tests hold it against.
 """
 
@@ -32,21 +33,22 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build_native() -> Path:
-    """Compile ``native/dataloader.cc`` unless its library for this source and
-    these flags exists; return the library's path (written under a temporary
-    name and renamed, so a concurrent build never loads a half-written file)."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(LOADER_SOURCE.read_bytes())
+def build_library(source: Path, lib_name: str, flags=CXX_FLAGS) -> Path:
+    """Compile ``source`` with g++ unless its library for this source and
+    these flags exists; return the library's path (under ``BUILD_ROOT/<hash>``,
+    written under a temporary name and renamed, so a concurrent build never
+    loads a half-written file). A failed build raises ``RuntimeError``."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    so = out_dir / "libssp_dataloader.so"
+    so = out_dir / lib_name
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libssp_dataloader.so.{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                               str(LOADER_SOURCE)], capture_output=True, text=True, timeout=300)
+        tmp = out_dir / f"{lib_name}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run([os.environ.get("CXX", "g++"), *flags, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
-            raise RuntimeError(f"native dataloader build failed (exit {proc.returncode}):\n"
+            raise RuntimeError(f"native {source.name} build failed (exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)
     return so
@@ -57,7 +59,7 @@ def native_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build_native()))
+            lib = ctypes.CDLL(str(build_library(LOADER_SOURCE, "libssp_dataloader.so")))
             lib.gather_batch_u8.restype = None
             lib.gather_batch_u8.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,

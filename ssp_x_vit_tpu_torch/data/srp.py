@@ -8,13 +8,20 @@ Checkpoint selection is the JAX package's ``index.csv`` logic (stdlib ``csv``):
      adapt_ds==dataset) and sort by adapt_final_val ascending;
   3. take the ``top10_idx``-th from the end of that list.
 
+Oxford-IIIT-Pet is read as torchvision's ``OxfordIIITPet`` reads it
+(``data/pets.py``) and every image is ``Image.open(p).convert("RGB").resize((res,
+res))`` bit for bit, through the repository's own JPEG / PNG reader and
+Pillow's bicubic resize (``data/image_decode.py``).
+
 Differences from the JAX package, both on purpose:
 - Nothing is downloaded. The JAX package tries urllib, curl and unverified
   SSL for a checkpoint missing from ``models_dir``; the port raises
   ``FileNotFoundError`` naming the AugReg URL and the local path to put it at.
-- Oxford-IIIT-Pet's images are JPEGs, and the port has no image decoder: a
-  Pets directory on disk raises ``NotImplementedError`` (ROADMAP.md A.7d).
-  Without one, both packages use the synthetic stand-in.
+- A Pets file on disk that the reader cannot take (another format, a
+  truncated file, a malformed annotation line) raises ``ValueError`` naming
+  it. The JAX package's ``except Exception`` would quietly swap the whole
+  split for the synthetic stand-in. Without the dataset (no ``images`` or no
+  ``annotations`` directory) both use the synthetic stand-in.
 """
 
 from __future__ import annotations
@@ -131,9 +138,12 @@ def load_srp_dataset(
     device: DeviceLike = None,
 ):
     """SRP dataset loaders (reference process_datasets.py): CIFAR-100 from its
-    on-disk batches, 0.5-normalized, resized; trainval gets a seeded 90/10
+    on-disk batches or Oxford-IIIT-Pet from its images (decoded and resized to
+    ``res`` on the host), 0.5-normalized, resized; trainval gets a seeded 90/10
     split. Returns DataPipeline(s) on ``device``; the synthetic stand-in when
     the dataset is not on disk."""
+    from ssp_x_vit_tpu_torch.data.image_decode import load_resized
+    from ssp_x_vit_tpu_torch.data.pets import pets_split
     from ssp_x_vit_tpu_torch.data.pipeline import (
         DataPipeline, _load_cifar_arrays, synthetic_dataset,
     )
@@ -148,10 +158,12 @@ def load_srp_dataset(
         if arrays is not None:
             tr_x, tr_y, te_x, te_y = arrays
             images, labels = (tr_x, tr_y) if train else (te_x, te_y)
-    elif os.path.isdir(os.path.join(root or "data/", "oxford-iiit-pet")):
-        raise NotImplementedError(
-            "Oxford-IIIT-Pet on disk is JPEG images, and the port has no image decoder "
-            "(ROADMAP.md A.7d); move the directory away to use the synthetic stand-in")
+    else:
+        found = pets_split(root or "data/", "trainval" if train else "test")
+        if found is not None:
+            paths, ys = found
+            images = load_resized(paths, res)
+            labels = np.asarray(ys, np.int32)
 
     if images is None:
         print(f"[INFO] {dataset} not on disk; using deterministic synthetic stand-in")

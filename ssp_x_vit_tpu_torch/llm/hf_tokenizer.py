@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ssp_x_vit_tpu_torch.data import native_loader
 from ssp_x_vit_tpu_torch.llm import tokenizer as _native
 from ssp_x_vit_tpu_torch.llm.unicode_re import class_body, compile_onig, ranges
 
@@ -82,7 +83,8 @@ def heap_library() -> ctypes.CDLL:
     global _heap_lib
     with _heap_lock:
         if _heap_lib is None:
-            lib = ctypes.CDLL(str(_native._build_native(HEAP_SOURCE, "libssp_bpe_heap.so")))
+            lib = ctypes.CDLL(str(native_loader.build_library(HEAP_SOURCE,
+                                                               "libssp_bpe_heap.so")))
             lib.bpe_heap_init.restype = ctypes.c_void_p
             lib.bpe_heap_init.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 4
             lib.bpe_heap_free.argtypes = [ctypes.c_void_p]

@@ -21,7 +21,8 @@ that name does, with the standard library and numpy only:
   after this Python's Unicode version are unassigned (Cn) here, so they fall
   in the "other" class;
 - the ranked-merge loop over a batch of pre-tokens in C++ (``native/bpe.cc``,
-  built with g++ into ``build/native/<hash>/`` at first use and loaded with
+  built with g++ into ``build/native/<hash>/`` at first use
+  (``data/native_loader.build_library``) and loaded with
   ctypes when a tokenizer is made). ``engine="python"`` runs the plain Python
   loop (``_merge_py``) instead. A native engine that fails to build or load
   raises: it never becomes the Python loop on its own.
@@ -38,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import json
 import os
 import re
@@ -49,38 +49,14 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ssp_x_vit_tpu_torch.data import native_loader
 from ssp_x_vit_tpu_torch.llm.unicode_re import compile_onig
 
 _ROOT = Path(__file__).resolve().parents[2]
 BPE_SOURCE = _ROOT / "native" / "bpe.cc"
-BUILD_ROOT = _ROOT / "build" / "native"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _lib = None
-
-
-def _build_native(source: Path = None, lib_name: str = "libssp_bpe.so") -> Path:
-    """Compile ``source`` (default ``native/bpe.cc``) unless its library for
-    this source and these flags exists; return the library's path. The output
-    directory is keyed by a hash of both, and the library is written under a
-    temporary name and renamed, so a concurrent build never loads a
-    half-written file."""
-    source = BPE_SOURCE if source is None else source
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(source.read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    so = out_dir / lib_name
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{lib_name}.{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                               str(source)], capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"native BPE build failed (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    return so
 
 
 def native_library() -> ctypes.CDLL:
@@ -88,7 +64,7 @@ def native_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build_native()))
+            lib = ctypes.CDLL(str(native_loader.build_library(BPE_SOURCE, "libssp_bpe.so")))
             lib.bpe_init.restype = ctypes.c_void_p
             lib.bpe_init.argtypes = [ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_void_p]

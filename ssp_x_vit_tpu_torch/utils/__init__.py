@@ -1,1 +1,2 @@
-"""Training-state checkpointing and seeding (counterpart of ``ssp_x_vit_tpu/utils``)."""
+"""Training-state checkpointing, seeding, tagged log lines and profiler traces
+(counterpart of ``ssp_x_vit_tpu/utils``)."""

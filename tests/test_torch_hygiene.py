@@ -33,7 +33,9 @@ def test_port_and_chip_smoke_never_import_jax():
         print(len(names), bad)
         assert not bad, bad
         assert len(names) >= 45, names
-        for name in ("parallel.moe", "llm.arrow_ipc", "llm.multilora", "data.native_loader"):
+        for name in ("parallel.moe", "llm.arrow_ipc", "llm.multilora", "data.native_loader",
+                     "data.image_decode", "data.png", "data.pets", "utils.logging",
+                     "utils.profiling"):
             assert "ssp_x_vit_tpu_torch." + name in names, names
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -215,16 +217,19 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
 
 
 def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
-    """What the ViT side still refuses names its item: an Oxford-IIIT-Pet
-    directory on disk (A.7d: JPEGs, no image decoder on the card's machine),
-    and --data-parallel over more than one CUDA device (A.11), faked here by
-    claiming two devices (the check comes before any CUDA work)."""
+    """What the ViT side still refuses names its item: --data-parallel over
+    more than one CUDA device (A.11), faked here by claiming two devices (the
+    check comes before any CUDA work). An Oxford-IIIT-Pet directory on disk
+    (once refused naming A.7d) loads: the committed fixtures' test split,
+    decoded by the port's own reader."""
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
     from ssp_x_vit_tpu_torch.data.srp import load_srp_dataset
 
-    (tmp_path / "oxford-iiit-pet" / "images").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.7d"):
-        load_srp_dataset("oxford-iiit-pet", root=str(tmp_path), device="cpu")
+    test = load_srp_dataset("oxford-iiit-pet", root=os.path.join(ROOT, "tests", "fixtures", "pets"),
+                            res=32, batch_size=4, device="cpu")
+    assert test.images.shape == (10, 32, 32, 3) and test.images.dtype == np.uint8
+    assert sorted(test.labels.tolist()) == [1, 3, 4, 8, 10, 13, 16, 25, 29, 36]
+    assert next(iter(test))["pixel_values"].shape == (4, 32, 32, 3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)

@@ -39,6 +39,7 @@ import torch_tokenizer_dirs as dirs
 from ssp_x_vit_tpu.llm.tokenizer import load_tokenizer as jax_load_tokenizer
 from ssp_x_vit_tpu_torch.llm import hf_tokenizer as hft
 from ssp_x_vit_tpu_torch.llm import spm_model
+from ssp_x_vit_tpu_torch.data import native_loader
 from ssp_x_vit_tpu_torch.llm import tokenizer as ttok
 
 pb = pytest.importorskip("transformers.utils.sentencepiece_model_pb2_new")
@@ -239,8 +240,8 @@ def test_a_failed_heap_build_raises(monkeypatch, tmp_path):
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(hft, "_heap_lib", None)
     monkeypatch.setattr(hft, "HEAP_SOURCE", bad)
-    monkeypatch.setattr(ttok, "BUILD_ROOT", tmp_path / "build")
-    with pytest.raises(RuntimeError, match="native BPE build failed"):
+    monkeypatch.setattr(native_loader, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match=r"native bpe_heap\.cc build failed"):
         ttok.load_tokenizer(dirs.fixture_dir("llama2"))
     plain = ttok.load_tokenizer(dirs.fixture_dir("llama2"), engine="python")
     assert plain.encode("hello") == jax_load_tokenizer(dirs.fixture_dir("llama2")).encode("hello")

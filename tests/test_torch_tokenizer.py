@@ -27,6 +27,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from ssp_x_vit_tpu.llm import tokenizer as jtok
+from ssp_x_vit_tpu_torch.data import native_loader
 from ssp_x_vit_tpu_torch.llm import tokenizer as ttok
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,10 +122,10 @@ def test_a_failed_native_build_raises(monkeypatch, tmp_path):
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(ttok, "_lib", None)
     monkeypatch.setattr(ttok, "BPE_SOURCE", bad)
-    monkeypatch.setattr(ttok, "BUILD_ROOT", tmp_path / "build")
-    with pytest.raises(RuntimeError, match="native BPE build failed"):
+    monkeypatch.setattr(native_loader, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match=r"native bpe\.cc build failed"):
         ttok.ByteLevelBPETokenizer.from_file(TOKENIZER_JSON)
-    with pytest.raises(RuntimeError, match="native BPE build failed"):
+    with pytest.raises(RuntimeError, match=r"native bpe\.cc build failed"):
         ttok.load_tokenizer(os.path.dirname(TOKENIZER_JSON))
     assert not ttok.native_available()
     plain = ttok.ByteLevelBPETokenizer.from_file(TOKENIZER_JSON, engine="python")
