@@ -65,6 +65,19 @@ Phases, in order; any failure raises and the script exits non-zero:
             for bit outside trash page 0, the same bits twice, planted faults
             rejected, timed (events, device, host enqueue) at both V3 shapes;
             the standalone row write + attention driven against it.
+3p. parallel [PARALLEL]: ``scripts/torch_parallel_phase.py`` as a world of one
+            process per visible card over NCCL (``torch.distributed.run``):
+            the on-path kernels at tp = 2 / 4 shard shapes against their plain
+            versions (rows 1-3 at 6 and 3 heads, row 5 at 16 and 8 heads, row
+            11 at f = 5504 / 2752, row 10 on the replicated int4 down
+            projection), then ``auto_2ssp --data-parallel`` at ViT-B/16, a
+            tensor-parallel ViT top-1, and at Llama-2-7B widths cut to 2
+            layers sharded perplexity, ``tp_generate_kv_scan`` (int8 tree and
+            cache; int4 tree), a dp x tp and an FSDP train step, each held to
+            the single-process path in the same worker (on one card: the same
+            plan, blocks, neurons, top-1 and tokens; perplexity, loss and
+            parameters within 1e-6). The workers' launches join the kernels
+            line.
 4. main     the 2SSP CLI (``cli.auto_2ssp.run``) on full-width ViT-B/16 with
             random weights and the synthetic dataset, finetuned first
             (``--do-finetune``: one epoch, 32 steps at b=32, bf16, every step
@@ -154,7 +167,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``lora_ids`` (0, 1, 2, 3, 0, 1, 2, 3), 64 decode steps of
             ``generate_kv_scan``: id-0 rows bit for bit the batch without ids,
             every token within 5e-2 of its prompt run alone with its id,
-            ``fused_mlp_int8`` = 32 x 65; ms per decode step with and without
+            ``fused_mlp_int8`` = 16 x 65 (contiguous serving and [LORA] run the
+            first 16 layers, ``CONTIGUOUS_LAYERS``); ms per decode step with and without
             ids); then local corpora: ``corpus_slice`` decoded, cut into
             documents at blank lines and written as ``save_to_disk``
             directories by ``scripts/arrow_corpus.py`` ([CORPUS], read back
@@ -651,8 +665,9 @@ def check_vit_gemm_edges(device) -> None:
     where its tiles change course: M = 1, 197, 300, 12608 (split-K at the
     small ones), (K, N) = (192, 576), (768, 2305), (682, 250) (element loads
     where K or N is not a multiple of 8), A one element off 16 bytes; each
-    epilogue, GELU with the mask and the stats; the output's bits equal on a
-    second launch without stats. fp32 and bf16."""
+    epilogue (the bias one with and without a gate), GELU with the mask and
+    the stats; the output's bits equal on a second launch without stats.
+    fp32 and bf16."""
     import torch
 
     from ssp_x_vit_tpu_torch.ops.kernels import build
@@ -679,7 +694,8 @@ def check_vit_gemm_edges(device) -> None:
                 mask = (torch.rand(n, generator=gen, device=device) > 0.3).float()
                 for offset in (0, 1):
                     a = rn(m, k, offset=offset)
-                    for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_GELU, dict(mask=mask)),
+                    for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_BIAS, dict(gate=gate)),
+                                    (build.EPI_GELU, dict(mask=mask)),
                                     (build.EPI_RESIDUAL, dict(resid=resid, gate=gate))):
                         stats = (torch.empty(m // seq, n, device=device)
                                  if epi == build.EPI_GELU else None)
@@ -699,7 +715,8 @@ def check_vit_gemm_edges(device) -> None:
                             raise AssertionError(f"{what}: scaled error {rel:.3e}, stats {s_rel:.3e}")
                         worst, worst_stats = max(worst, rel), max(worst_stats, s_rel)
         log(f"[KERNEL] gemm edges {dn} (M 1/197/300/12608, (K, N) (192, 576) / (768, 2305) / "
-            f"(682, 250), A off 16 bytes, bias / gelu+mask+stats / residual, same bits twice): "
+            f"(682, 250), A off 16 bytes, bias / gated bias / gelu+mask+stats / residual, same bits "
+            f"twice): "
             f"scaled={worst:.3e} stats_rel={worst_stats:.3e} tol={TOL[dn]} ok")
 
 
@@ -2964,6 +2981,9 @@ def phase_serving(device, params, cfg) -> dict:
 
 
 GEN_MAX_LENGTH = 640  # prompt + generation of the contiguous-serving runs
+# Llama-2-7B widths cut to this depth for the contiguous-serving and multi-LoRA
+# runs, cut from 32 to keep the script inside its time limit
+CONTIGUOUS_LAYERS = 16
 GEN_PROMPTS = (64, 512)  # shortest and longest prompt of the b=8 runs
 
 
@@ -3049,11 +3069,12 @@ def _profile_decode(params, cfg, device, cache_dtype, prompts, lora_ids=None) ->
 
 
 def phase_contiguous(device, params, cfg) -> dict:
-    """Contiguous KV serving at the full width and depth of Llama-2-7B: the
-    model quantized to int8 on the card, ``generate_kv_scan`` at b=8 on
+    """Contiguous KV serving at the full width of Llama-2-7B (the first
+    ``CONTIGUOUS_LAYERS`` layers of the phase-4 model): the model quantized to
+    int8 on the card, ``generate_kv_scan`` at b=8 on
     left-padded prompts of 64-512 tokens (max_length 640, greedy) with a bf16
     cache and then an int8 cache, each MLP through ``fused_mlp_int8`` (exactly
-    32 launches per forward); every batch token held to the same prompt run
+    one launch per layer and forward); every batch token held to the same prompt run
     alone at b=1; b=1 on the bf16 tree (no kernel of this package on its
     path); the prefill / decode-step split and a profiler split of decode
     steps; then multi-LoRA on the int8 tree (``phase_lora``). Returns the
@@ -7293,6 +7314,66 @@ def phase_anchor_lora_serving(device) -> None:
         raise AssertionError("[LORA] anchor: the id-0 row differs from the base model's")
 
 
+PARALLEL_TIMEOUT_S = 300   # the [PARALLEL] world's own bound (~70-120 s on one card)
+
+
+def phase_parallel(device) -> dict:
+    """[PARALLEL]: ``scripts/torch_parallel_phase.py`` as a world of one process
+    per visible card over NCCL (``torch.distributed.run``), after the kernel
+    libraries are built here; its workers hold each parallel path against the
+    single-process path and the on-path kernels at tp = 2 / 4 shard shapes
+    against their plain versions. A worker that fails, or a world still running
+    after ``PARALLEL_TIMEOUT_S``, fails the phase (the world is killed). Returns
+    the launches of the parallel paths per kernel."""
+    import signal
+    import socket
+
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels import build
+
+    build.build_all()   # built once here: the workers find the libraries
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "parallel.json")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+               f"--nproc_per_node={cards}", "--master_addr=127.0.0.1", f"--master_port={port}",
+               os.path.join(here, "scripts", "torch_parallel_phase.py"), "--out", out]
+        log(f"[PARALLEL] {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"[PARALLEL] world still running after {PARALLEL_TIMEOUT_S} s")
+        if rc != 0:
+            raise AssertionError(f"[PARALLEL] world exited with {rc}")
+        with open(out) as f:
+            result = json.load(f)
+    failed = [c for c in result["checks"] if not c["ok"]]
+    if failed or not result["checks"]:
+        raise AssertionError(f"[PARALLEL] failed checks: {failed}")
+    launches = {k: n for k, n in result["launches"].items() if n}
+    log(f"[PARALLEL] world {result['world']} x {result['device']}, NCCL {result['nccl']}: "
+        f"{len(result['checks'])} checks passed, {time.perf_counter() - t0:.1f} s with the "
+        f"launch ({result['total_seconds']} s in the workers); seconds by part "
+        f"{json.dumps(result['seconds'])}; launches of the parallel paths (rank 0) "
+        f"{json.dumps(launches)}; card {nvidia_smi_line()}")
+    for name in ("fused_attn_block_v2", "fused_attn_block", "fused_ffn_block", "flash_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "quant4_matmul",
+                 "fused_mlp_int8"):
+        if result["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"[PARALLEL] {name} never launched on the parallel paths")
+    return result["launches"]
+
+
 def flash_build_summary(build_log) -> list:
     """One [BUILD] line per bf16 flash kernel instantiation (the wgmma
     kernels: forward, dq, dk/dv at head_dim tiles 64 / 128 / 256): ptxas's
@@ -7430,6 +7511,9 @@ def main() -> int:
                         ("" if "write" in name else ", instead of the row write and this"), n)
     phase_done("kernels (phase 3)")
     cli_launches = {name: 0 for name in KERNEL_NAMES}
+    for name, n in phase_parallel(device).items():
+        cli_launches[name] += n
+    phase_done("parallel: data and tensor parallelism over NCCL, one process per card")
     a7c_work = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as out_root:
         for name, n in phase_main(out_root, device).items():
@@ -7447,7 +7531,7 @@ def main() -> int:
     for name, n in phase_serving(device, *llama).items():
         cli_launches[name] += n
     phase_done("main, serving (phase 4)")
-    for name, n in phase_contiguous(device, *llama).items():
+    for name, n in phase_contiguous(device, *_first_layers(*llama, CONTIGUOUS_LAYERS)).items():
         cli_launches[name] += n
     del llama
     torch.cuda.empty_cache()

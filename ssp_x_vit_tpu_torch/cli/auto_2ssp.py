@@ -17,9 +17,20 @@ native one, with the JAX CLI's notice). ``--use-srp-checkpoint`` loads a local
 SRP AugReg checkpoint chosen from ``index.csv`` (``data/srp.py``; nothing is
 downloaded), ``--dataset cifar10|cifar100`` (``--load-cifar``) reads CIFAR
 from its on-disk batch files, ``--export-framework-prefix`` writes the
-Pures-framework score and mask files, and ``--data-parallel`` is a no-op on
-one device, as the JAX CLI on one chip; with more than one CUDA device it
-raises (sharding is ROADMAP.md A.11d).
+Pures-framework score and mask files.
+
+``--data-parallel`` splits every test and calibration batch over the ranks
+of a data mesh (``parallel/mesh.py``), one process per card: the top-1
+counts, the candidates' scores and the FFN importance sums are summed over
+the ranks, so every rank makes the same decisions; rank 0 alone prints,
+measures latency and writes the report and artifacts. From the command line
+with more than one visible card the CLI starts one worker per card itself,
+under ``torch.distributed.run`` (:func:`launcher_argv`); under ``torchrun``
+each process joins the world from its environment (``--backend cpu``: gloo
+over CPU processes). In one
+process with one device it is a no-op, as the JAX CLI on one chip; ``run()``
+in one process with more than one card raises, since the workers are
+processes.
 
 ``run(args, model=None)`` runs on ``model=(params, cfg)`` when the caller built
 one (the CLI's setup otherwise), and also returns, beside the report, under
@@ -35,6 +46,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import sys
 import time
 from pathlib import Path
 from typing import Any, Dict
@@ -101,7 +114,41 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def _data_parallel_mesh(args):
+    """The data mesh of ``--data-parallel`` (under a distributed environment,
+    a world of one included), or None where the flag is a no-op (one process
+    outside one, one device)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.parallel import mesh as pmesh
+
+    if not args.data_parallel:
+        return None
+    if pmesh.distributed_env() or torch.distributed.is_initialized():
+        pmesh.init_distributed(args.backend)
+        return pmesh.make_mesh(model=1)
+    if args.backend == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        raise ValueError(
+            f"--data-parallel over {torch.cuda.device_count()} CUDA devices runs one process per "
+            "device: start it as `python -m ssp_x_vit_tpu_torch.cli.auto_2ssp` (which starts "
+            "them under torch.distributed.run) or under torchrun; run() is one process")
+    return None
+
+
 def run(args, model=None) -> Dict[str, Any]:
+    """One process of the CLI (a rank of the data mesh under ``--data-parallel``)."""
+    import torch
+
+    mesh = _data_parallel_mesh(args)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    with contextlib.ExitStack() as stack:
+        if not lead:   # rank 0 alone prints
+            stack.enter_context(contextlib.redirect_stdout(stack.enter_context(
+                open(os.devnull, "w"))))
+        return _run(args, model, mesh, lead)
+
+
+def _run(args, model, mesh, lead: bool) -> Dict[str, Any]:
     import torch
 
     from ssp_x_vit_tpu_torch.cli.common import resolve_dataset, resolve_model
@@ -120,10 +167,19 @@ def run(args, model=None) -> Dict[str, Any]:
     import dataclasses
 
     device = resolve_device(args.backend)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--data-parallel over {torch.cuda.device_count()} CUDA devices is not ported yet "
-            "(ROADMAP.md A.11d, parallel/); with one device it is a no-op")
+    data_group = None if mesh is None else mesh.get_group("data")
+
+    def from_lead(value: float) -> float:
+        """Rank 0's number on every rank (latency is measured there alone)."""
+        if mesh is None:
+            return value
+        t = torch.tensor([value if lead else 0.0], dtype=torch.float64, device=device)
+        torch.distributed.broadcast(t, src=0)
+        return float(t)
+
+    def latency(p, c) -> float:
+        return from_lead(measure_latency(p, c, batch_size=1) if lead else 0.0)
+
     set_seed(args.seed)
     run_id = time.strftime("%Y%m%d-%H%M%S")
     print(f"[INFO] Using backend: {device.type}"
@@ -201,11 +257,20 @@ def run(args, model=None) -> Dict[str, Any]:
             params = finetune(params, cfg, lambda: iter(train), epochs=args.ft_epochs,
                               lr=args.ft_lr, trainable=trainable, losses=ft_losses)
 
+    if mesh is not None:
+        from ssp_x_vit_tpu_torch.parallel.mesh import replicate, shard_batch
+
+        replicate(mesh, params)
+        test_batches = [shard_batch(mesh, b) for b in test_batches]
+        calib_batches = [shard_batch(mesh, b) for b in calib_batches]
+        if mesh.size(0) > 1:
+            print(f"[INFO] Data-parallel eval over {mesh.size(0)} devices")
+
     # Baseline metrics
     params_before = count_total_params(cfg)
     with phase("baseline"):
-        latency_baseline = measure_latency(params, cfg, batch_size=1)
-        acc_baseline = evaluate_top1(params, cfg, test_batches)
+        latency_baseline = latency(params, cfg)
+        acc_baseline = evaluate_top1(params, cfg, test_batches, data_group=data_group)
 
     plan = None
     if args.stage == "both":
@@ -240,6 +305,7 @@ def run(args, model=None) -> Dict[str, Any]:
             params, cfg, calib_batches or test_batches,
             importance_mode=args.depth_importance,
             batch_limit=args.eval_batches, min_remaining=args.min_remaining,
+            data_group=data_group,
         )
         with phase("candidates"):
             att_imp = iface.fit_attention()
@@ -276,8 +342,8 @@ def run(args, model=None) -> Dict[str, Any]:
 
     params_after_stage1 = count_total_params(work_cfg) if args.stage != "s2" else params_before
     with phase("stage1"):
-        latency_stage1 = measure_latency(work_params, work_cfg, batch_size=1)
-        acc_stage1 = evaluate_top1(work_params, work_cfg, test_batches)
+        latency_stage1 = latency(work_params, work_cfg)
+        acc_stage1 = evaluate_top1(work_params, work_cfg, test_batches, data_group=data_group)
 
     pruned_indices = []
     if args.stage in ("both", "s2"):
@@ -299,8 +365,8 @@ def run(args, model=None) -> Dict[str, Any]:
 
     params_after_stage2 = count_total_params(work_cfg)
     with phase("materialized"):
-        latency_stage2 = measure_latency(work_params, work_cfg, batch_size=1)
-        acc_stage2 = evaluate_top1(work_params, work_cfg, test_batches)
+        latency_stage2 = latency(work_params, work_cfg)
+        acc_stage2 = evaluate_top1(work_params, work_cfg, test_batches, data_group=data_group)
 
     quant_params = None
     quant_metrics: Dict[str, Any] = {}
@@ -310,8 +376,9 @@ def run(args, model=None) -> Dict[str, Any]:
         with phase("quantize"):
             quant_params = quantize_vit_params_int8(work_params, work_cfg)
             quant_metrics = {
-                "latency_int8_ms": round(measure_latency(quant_params, work_cfg, batch_size=1), 2),
-                "acc_int8": round(evaluate_top1(quant_params, work_cfg, test_batches), 4),
+                "latency_int8_ms": round(latency(quant_params, work_cfg), 2),
+                "acc_int8": round(evaluate_top1(quant_params, work_cfg, test_batches,
+                                                data_group=data_group), 4),
             }
         print(f"[QUANT] int8: latency {quant_metrics['latency_int8_ms']} ms, "
               f"top-1 {quant_metrics['acc_int8']}")
@@ -323,76 +390,82 @@ def run(args, model=None) -> Dict[str, Any]:
     # --- artifacts ---
     out_root = Path(args.out_root or "runs/auto_2ssp")
     reports_dir = out_root / "reports"
-    artifacts_dir = out_root / "artifacts" / run_id
-    artifacts_dir.mkdir(parents=True, exist_ok=True)
 
-    ffn_map = {f"{b}:{j}": float(v) for b, vec in enumerate(mlp_imp_arr) for j, v in enumerate(vec)}
-    ffn_importances_path = artifacts_dir / "iterative_vit_b16_ffn_importances.json"
-    with open(ffn_importances_path, "w", encoding="utf-8") as f:
-        json.dump({"ffn": ffn_map}, f, ensure_ascii=False, indent=2)
-    print(f"[ARTIFACT] FFN importances saved to: {ffn_importances_path}")
+    def write_artifacts() -> Dict[str, Any]:
+        """The artifact files (rank 0 alone under --data-parallel)."""
+        artifacts_dir = out_root / "artifacts" / run_id
+        artifacts_dir.mkdir(parents=True, exist_ok=True)
 
-    artifacts: Dict[str, Any] = {"pruned_block_indices": pruned_indices,
-                                 "ffn_importances_path": str(ffn_importances_path)}
+        ffn_map = {f"{b}:{j}": float(v) for b, vec in enumerate(mlp_imp_arr) for j, v in enumerate(vec)}
+        ffn_importances_path = artifacts_dir / "iterative_vit_b16_ffn_importances.json"
+        with open(ffn_importances_path, "w", encoding="utf-8") as f:
+            json.dump({"ffn": ffn_map}, f, ensure_ascii=False, indent=2)
+        print(f"[ARTIFACT] FFN importances saved to: {ffn_importances_path}")
 
-    if ffn_masks is not None:
-        ffn_masks_path = artifacts_dir / "ffn_prune_masks.json"
-        with open(ffn_masks_path, "w", encoding="utf-8") as f:
-            json.dump({
-                "format_version": 1,
-                "stage": "s1",
-                "strategy": "act_l2",
-                "min_remaining": args.min_remaining,
-                "s1_sparsity": args.s1_sparsity,
-                "block_inter_sizes": [work_cfg.logical_block_intermediate(i) for i in range(B)],
-                "masks": ffn_masks,
-                "indices": ffn_indices,
-            }, f, indent=2)
-        print(f"[ARTIFACT] FFN prune masks saved to: {ffn_masks_path}")
-        artifacts["ffn_prune_masks_path"] = str(ffn_masks_path)
+        artifacts: Dict[str, Any] = {"pruned_block_indices": pruned_indices,
+                                     "ffn_importances_path": str(ffn_importances_path)}
 
-    if pruned_indices:
-        attn_indices_path = artifacts_dir / "attention_pruned_indices.json"
-        with open(attn_indices_path, "w", encoding="utf-8") as f:
-            json.dump({"format_version": 1, "stage": "s2", "indices": pruned_indices}, f, indent=2)
-        print(f"[ARTIFACT] Attention pruned indices saved to: {attn_indices_path}")
-        artifacts["attn_pruned_indices_path"] = str(attn_indices_path)
+        if ffn_masks is not None:
+            ffn_masks_path = artifacts_dir / "ffn_prune_masks.json"
+            with open(ffn_masks_path, "w", encoding="utf-8") as f:
+                json.dump({
+                    "format_version": 1,
+                    "stage": "s1",
+                    "strategy": "act_l2",
+                    "min_remaining": args.min_remaining,
+                    "s1_sparsity": args.s1_sparsity,
+                    "block_inter_sizes": [work_cfg.logical_block_intermediate(i) for i in range(B)],
+                    "masks": ffn_masks,
+                    "indices": ffn_indices,
+                }, f, indent=2)
+            print(f"[ARTIFACT] FFN prune masks saved to: {ffn_masks_path}")
+            artifacts["ffn_prune_masks_path"] = str(ffn_masks_path)
 
-    if args.save_adapter:
-        artifacts["adapter_path"] = save_cifar_adapter(
-            work_params, work_cfg, str(artifacts_dir),
-            extra={"model_name": args.model, "target_sparsity": args.target,
-                   "use_adapter": args.use_adapter, "replace_classifier": args.replace_classifier},
-        )
+        if pruned_indices:
+            attn_indices_path = artifacts_dir / "attention_pruned_indices.json"
+            with open(attn_indices_path, "w", encoding="utf-8") as f:
+                json.dump({"format_version": 1, "stage": "s2", "indices": pruned_indices}, f, indent=2)
+            print(f"[ARTIFACT] Attention pruned indices saved to: {attn_indices_path}")
+            artifacts["attn_pruned_indices_path"] = str(attn_indices_path)
 
-    if args.save_pruned_model:
-        from ssp_x_vit_tpu_torch.models.persistence import save_pruned_model
+        if args.save_adapter:
+            artifacts["adapter_path"] = save_cifar_adapter(
+                work_params, work_cfg, str(artifacts_dir),
+                extra={"model_name": args.model, "target_sparsity": args.target,
+                       "use_adapter": args.use_adapter, "replace_classifier": args.replace_classifier},
+            )
 
-        def save(path, p_, c_):
-            """HF when asked and the model has an HF form; else native, with a notice
-            (stage-2 attention removal and adapter heads have no HF ViT form)."""
-            if args.save_format == "hf":
-                from ssp_x_vit_tpu_torch.models.checkpoints import export_hf_vit
-                try:
-                    return export_hf_vit(path, p_, c_)
-                except ValueError as e:
-                    print(f"[INFO] hf export skipped ({e}); saving native")
-            return save_pruned_model(path, p_, c_)
+        if args.save_pruned_model:
+            from ssp_x_vit_tpu_torch.models.persistence import save_pruned_model
 
-        pruned_dir = out_root / "pruned_models" / run_id
-        save(str(pruned_dir), work_params, work_cfg)
-        artifacts["pruned_model_dir"] = str(pruned_dir)
-        if quant_params is not None:
-            qdir = out_root / "pruned_models" / f"{run_id}-int8"
-            save_pruned_model(str(qdir), quant_params, work_cfg)
-            artifacts["pruned_model_int8_dir"] = str(qdir)
+            def save(path, p_, c_):
+                """HF when asked and the model has an HF form; else native, with a notice
+                (stage-2 attention removal and adapter heads have no HF ViT form)."""
+                if args.save_format == "hf":
+                    from ssp_x_vit_tpu_torch.models.checkpoints import export_hf_vit
+                    try:
+                        return export_hf_vit(path, p_, c_)
+                    except ValueError as e:
+                        print(f"[INFO] hf export skipped ({e}); saving native")
+                return save_pruned_model(path, p_, c_)
 
-    if args.export_framework_prefix:
-        from ssp_x_vit_tpu_torch.masks.export import build_framework_exports
+            pruned_dir = out_root / "pruned_models" / run_id
+            save(str(pruned_dir), work_params, work_cfg)
+            artifacts["pruned_model_dir"] = str(pruned_dir)
+            if quant_params is not None:
+                qdir = out_root / "pruned_models" / f"{run_id}-int8"
+                save_pruned_model(str(qdir), quant_params, work_cfg)
+                artifacts["pruned_model_int8_dir"] = str(qdir)
 
-        build_framework_exports(args.export_framework_prefix, cfg, mlp_imp,
-                                att_imp, ffn_masks, pruned_indices)
-        artifacts["framework_export_prefix"] = args.export_framework_prefix
+        if args.export_framework_prefix:
+            from ssp_x_vit_tpu_torch.masks.export import build_framework_exports
+
+            build_framework_exports(args.export_framework_prefix, cfg, mlp_imp,
+                                    att_imp, ffn_masks, pruned_indices)
+            artifacts["framework_export_prefix"] = args.export_framework_prefix
+        return artifacts
+
+    artifacts = write_artifacts() if lead else {"pruned_block_indices": pruned_indices}
 
     report = {
         "config": {
@@ -447,10 +520,11 @@ def run(args, model=None) -> Dict[str, Any]:
             "est_error_params": plan.est_error_params,
         }
 
-    saved = save_report(report, out_dir=str(reports_dir), run_id=run_id)
     print("[SUMMARY]")
     print(json.dumps(report["metrics"], indent=2))
-    print(f"[INFO] Report saved to: {saved['json']} and {saved['md']}")
+    if lead:
+        saved = save_report(report, out_dir=str(reports_dir), run_id=run_id)
+        print(f"[INFO] Report saved to: {saved['json']} and {saved['md']}")
     report["kernel_launches"] = launches
     report["phase_seconds"] = seconds
     report["finetune_losses"] = ft_losses
@@ -458,8 +532,29 @@ def run(args, model=None) -> Dict[str, Any]:
     return report
 
 
+def launcher_argv(nprocs: int, argv) -> list:
+    """The command that runs this CLI with ``argv`` as a world of ``nprocs``
+    local workers under ``torch.distributed.run`` (which picks the port)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nprocs}", "-m", "ssp_x_vit_tpu_torch.cli.auto_2ssp", *argv]
+
+
 def main():
-    run(build_argparser().parse_args())
+    import torch
+
+    from ssp_x_vit_tpu_torch.parallel.mesh import distributed_env
+
+    args = build_argparser().parse_args()
+    if (args.data_parallel and args.backend == "cuda" and not distributed_env()
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        # One worker per visible card. The kernel libraries are built once
+        # here first, so the workers do not run nvcc side by side.
+        from ssp_x_vit_tpu_torch.ops.kernels import build
+
+        build.build_all()
+        cmd = launcher_argv(torch.cuda.device_count(), sys.argv[1:])
+        os.execv(cmd[0], cmd)
+    run(args)
 
 
 if __name__ == "__main__":

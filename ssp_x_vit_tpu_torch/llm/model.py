@@ -23,6 +23,16 @@ The large projections are ``torch.matmul`` (quantized ones go through
 a CUDA tensor and to ``sdpa_reference`` for a CPU tensor, decided by the
 tensor alone. The layer loop is a Python loop, so gemma-2's per-layer windows
 are static and take the kernel too.
+
+Tensor parallelism (``tp_group``; shards from ``parallel/llm_sharding.py``)
+is Megatron's split with the collectives written here, where the math needs
+them (``parallel/collectives.py``): the normalized activation enters the
+column-parallel q/k/v and gate/up (and the vocab-sharded lm_head) through
+``copy_to_tp``; the row-parallel o and down/fc2 products are summed over the
+group before their bias and before gemma-2's post-norms; a rank's head counts
+come from its weights' widths, not from ``cfg``. ``gather_layer`` (fully
+sharded training) maps a layer's local shards to its full weights inside the
+layer body, so a checkpointed layer gathers again in its backward.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.rope import RopeScaling, rope_freqs
 from ssp_x_vit_tpu_torch.ops.attention import flash_attention
 from ssp_x_vit_tpu_torch.ops.common import gelu, mm_quant, pick_param_variants
+from ssp_x_vit_tpu_torch.parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
 
 Params = Dict[str, Any]
 
@@ -304,11 +315,26 @@ def _mm(x, bp, name, compute_dtype):
     return mm_quant(x, bp, name, compute_dtype)
 
 
-def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], rope):
+def _row_parallel(h, bp, name, compute_dtype, tp=None):
+    """A row-parallel projection: this rank's columns of ``h`` times its rows of
+    the kernel, summed over the group here, BEFORE any bias is added (a bias
+    added on every rank would count tp times). An int4 row layer stays
+    replicated (its split-half nibble packing interleaves K rows, so its rows
+    cannot be split): it all-gathers its input and reduces nothing."""
+    if tp is None:
+        return _mm(h, bp, name, compute_dtype)
+    if name + "_q4" in bp:
+        return _mm(gather_from_tp(h, tp), bp, name, compute_dtype)
+    return reduce_from_tp(_mm(h, bp, name, compute_dtype), tp)
+
+
+def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], rope, tp=None):
     """Causal self attention of one layer; ``window`` is that layer's static
-    sliding window (None = full causal), ``rope`` the forward's cos/sin tables."""
+    sliding window (None = full causal), ``rope`` the forward's cos/sin tables,
+    ``tp`` the tensor-parallel group of a sharded layer."""
     b, s, d = x.shape
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    x = copy_to_tp(x, tp)
 
     q = _mm(x, bp, "q_kernel", compute_dtype)
     k = _mm(x, bp, "k_kernel", compute_dtype)
@@ -318,6 +344,8 @@ def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], ro
         k = k + bp["k_bias"].to(compute_dtype)
         v = v + bp["v_bias"].to(compute_dtype)
 
+    # this rank's heads, from the weights' widths (cfg's counts without tp)
+    nq, nkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(b, s, nq, hd).permute(0, 2, 1, 3)
     k = k.reshape(b, s, nkv, hd).permute(0, 2, 1, 3)
     v = v.reshape(b, s, nkv, hd).permute(0, 2, 1, 3)
@@ -339,7 +367,7 @@ def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], ro
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
                           window=window, softcap=cfg.attn_softcap)
     out = out.permute(0, 2, 1, 3).reshape(b, s, nq * hd)
-    out = _mm(out, bp, "o_kernel", compute_dtype)
+    out = _row_parallel(out, bp, "o_kernel", compute_dtype, tp)
     if "o_bias" in bp:
         out = out + bp["o_bias"].to(compute_dtype)
     return out
@@ -350,15 +378,17 @@ def _token_stats(h: torch.Tensor, stats_kind: str) -> torch.Tensor:
     return (h32.square() if stats_kind == "sumsq" else h32.abs()).sum(dim=1)
 
 
-def _phi_mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", act="gelu"):
+def _phi_mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", act="gelu",
+             tp=None):
     """fc1 -> activation -> fc2 MLP (phi-2: exact GELU; OPT: ReLU); the stats
     observe the fc2 input."""
-    h = _mm(x, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
+    h = _mm(copy_to_tp(x, tp), bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
     h = torch.relu(h) if act == "relu" else gelu(h)
     stats = _token_stats(h, stats_kind) if collect_stats else None
     if neuron_mask is not None:
         h = h * neuron_mask.to(h.dtype)
-    return _mm(h, bp, "fc2_kernel", compute_dtype) + bp["fc2_bias"].to(compute_dtype), stats
+    out = _row_parallel(h, bp, "fc2_kernel", compute_dtype, tp)
+    return out + bp["fc2_bias"].to(compute_dtype), stats
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -385,7 +415,9 @@ def _moe_mlp(x, bp, cfg: LlamaConfig, compute_dtype):
     return y.to(compute_dtype), aux["aux_loss"]
 
 
-def _mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", act=F.silu):
+def _mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", act=F.silu,
+         tp=None):
+    x = copy_to_tp(x, tp)
     g = _mm(x, bp, "gate_kernel", compute_dtype)
     u = _mm(x, bp, "up_kernel", compute_dtype)
     h = act(g) * u  # the down_proj input the 2SSP stage-1 statistic observes
@@ -393,18 +425,25 @@ def _mlp(x, bp, compute_dtype, neuron_mask, collect_stats, stats_kind="sumsq", a
     stats = _token_stats(h, stats_kind) if collect_stats else None
     if neuron_mask is not None:
         h = h * neuron_mask.to(h.dtype)
-    return _mm(h, bp, "down_kernel", compute_dtype), stats
+    return _row_parallel(h, bp, "down_kernel", compute_dtype, tp), stats
 
 
-def _head_logits(params, x, compute_dtype, final_softcap=None):
+def _head_logits(params, x, compute_dtype, final_softcap=None, tp=None):
     """Final lm_head projection -> fp32 logits: tied-embedding fallback,
-    int8/int4 heads via ``_mm``, optional bias, gemma-2 final soft-capping."""
-    if any(k in params for k in ("lm_head", "lm_head_q", "lm_head_q4")):
-        logits = _mm(x, params, "lm_head", compute_dtype).float()
+    int8/int4 heads via ``_mm``, optional bias, gemma-2 final soft-capping.
+    Under ``tp`` an untied head is vocab-sharded: every rank gathers the full
+    logits before the softcap, so the group holds the same bytes (a tied head
+    is the replicated embedding and needs nothing)."""
+    untied = any(k in params for k in ("lm_head", "lm_head_q", "lm_head_q4"))
+    sharded = tp is not None and untied
+    if untied:
+        logits = _mm(copy_to_tp(x, tp) if sharded else x, params, "lm_head", compute_dtype).float()
     else:
         logits = (x @ params["embed"].t().to(compute_dtype)).float()
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].float()
+    if sharded:
+        logits = gather_from_tp(logits, tp)
     if final_softcap is not None:
         logits = final_softcap * torch.tanh(logits / final_softcap)
     return logits
@@ -436,29 +475,34 @@ def _gated(branch: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
-                 collect_mlp_stats: bool, mlp_stats_kind: str):
+                 collect_mlp_stats: bool, mlp_stats_kind: str, tp=None, gather_layer=None):
     """One block of ``llama_forward``: (x out, MLP stats or None, MLP input, MLP
     output before gemma-2's post-norm, the MoE load-balance loss or None)."""
+    if gather_layer is not None:
+        bp = gather_layer(bp)
     if cfg.is_phi:
-        # phi-2 parallel residual: one LayerNorm feeds both branches
+        # phi-2 parallel residual: one LayerNorm feeds both branches; under tp
+        # each branch's row-parallel sum is reduced before its bias
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
-        attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
-        mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind)
+        attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp)
+        mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind,
+                                  tp=tp)
         return x + _gated(attn_out, ga) + _gated(mlp_out, gm), stats, h, mlp_out, None
     if cfg.is_opt:
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
     else:
         h = rms_norm(x, bp["ln1"], cfg.rms_eps)
-    attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope)
+    attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp)
     if cfg.is_gemma2:
         # gemma-2 post-norms: the residual deltas are RMS-normalized before the adds
+        # (under tp on the reduced sums)
         attn_out = rms_norm(attn_out, bp["ln1_post"], cfg.rms_eps)
     x = x + _gated(attn_out, ga)
     moe_loss = None
     if cfg.is_opt:
         mlp_in = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
         mlp_out, stats = _phi_mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
-                                  mlp_stats_kind, act="relu")
+                                  mlp_stats_kind, act="relu", tp=tp)
     elif cfg.num_experts:
         mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
         mlp_out, moe_loss = _moe_mlp(mlp_in, bp, cfg, compute_dtype)
@@ -466,7 +510,7 @@ def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
     else:
         mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
         mlp_out, stats = _mlp(mlp_in, bp, compute_dtype, nm, collect_mlp_stats,
-                              mlp_stats_kind, act=_glu_act(cfg))
+                              mlp_stats_kind, act=_glu_act(cfg), tp=tp)
     post = rms_norm(mlp_out, bp["ln2_post"], cfg.rms_eps) if cfg.is_gemma2 else mlp_out
     return x + _gated(post, gm), stats, mlp_in, mlp_out, moe_loss
 
@@ -485,6 +529,8 @@ def llama_forward(
     return_block_outputs: bool = False,
     compute_dtype=torch.bfloat16,
     remat: bool = False,
+    tp_group=None,
+    gather_layer=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """input_ids [b, s] -> (logits [b, s, V] fp32, aux).
 
@@ -506,6 +552,12 @@ def llama_forward(
     layer's forward, flash kernel included, instead of keeping its
     activations; it takes no MLP statistics or block outputs (an MoE layer's
     load-balance loss comes out of the checkpointed layer beside its output).
+
+    ``tp_group``: the tensor-parallel group of a ``shard_llama_params`` shard
+    (dense float, int8 or int4 trees; the full logits come back on every
+    rank); it takes no MoE, neuron mask or MLP statistics. ``gather_layer``:
+    a function from a layer's parameter dict to the one the layer runs
+    (fully sharded training's all-gather), called inside the layer body.
     """
     if cfg.pruned_attention_blocks:
         raise ValueError("use llama_forward_materialized for depth-materialized configs")
@@ -518,6 +570,10 @@ def llama_forward(
                 "route tokens per-expert and do not support neuron masks/stats")
     if remat and (collect_mlp_stats or collect_mlp_io_stats or return_block_outputs):
         raise ValueError("remat=True takes no aux outputs")
+    if tp_group is not None and (cfg.num_experts or collect_mlp_stats or collect_mlp_io_stats
+                                 or neuron_mask is not None):
+        raise ValueError("tensor parallelism takes no MoE (ROADMAP.md A.11d.2), neuron mask "
+                         "or MLP statistics")
     x = _embed(params, input_ids, cfg, compute_dtype)
     rope = rope_tables(input_ids.shape[1], cfg, x.device)
     blocks = params["blocks"]
@@ -534,13 +590,14 @@ def llama_forward(
             x, moe_loss = checkpoint(
                 lambda x_, bp=bp, i=i, ga=ga, gm=gm, nm=nm: _llama_layer(
                     x_, bp, i, cfg, compute_dtype, rope, ga, gm, nm, False,
-                    mlp_stats_kind)[::4],
+                    mlp_stats_kind, tp_group, gather_layer)[::4],
                 x, use_reentrant=False, preserve_rng_state=False)
             if moe_loss is not None:
                 record("moe_aux_loss", moe_loss)
             continue
         x, stats, mlp_in, mlp_out, moe_loss = _llama_layer(
-            x, bp, i, cfg, compute_dtype, rope, ga, gm, nm, collect_mlp_stats, mlp_stats_kind)
+            x, bp, i, cfg, compute_dtype, rope, ga, gm, nm, collect_mlp_stats, mlp_stats_kind,
+            tp_group, gather_layer)
         if moe_loss is not None:
             record("moe_aux_loss", moe_loss)
         if collect_mlp_stats:
@@ -553,7 +610,7 @@ def llama_forward(
             record("block_outputs", x)
 
     x = _final_norm(params, x, cfg)
-    logits = _head_logits(params, x, compute_dtype, cfg.final_softcap)
+    logits = _head_logits(params, x, compute_dtype, cfg.final_softcap, tp_group)
     return logits, {k: torch.stack(v) for k, v in aux.items()}
 
 

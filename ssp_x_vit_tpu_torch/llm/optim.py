@@ -113,12 +113,17 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, params: Dict, grads: Sequence[torch.Tensor], state: Dict,
-              frozen: Optional[Sequence[bool]] = None) -> bool:
+              frozen: Optional[Sequence[bool]] = None,
+              norm_groups: Optional[Sequence] = None) -> bool:
         """Take one microbatch's gradients (aligned with ``tree_leaves(params)``;
         fp32 ones are overwritten); update ``params`` and ``state`` in place.
         ``frozen`` (aligned the same way): leaves whose update is zeroed, so
         neither the step nor the weight decay moves them; their moments
-        still tick. True when an update was applied."""
+        still tick. ``norm_groups`` (aligned the same way, for a sharded
+        tree): the process group a leaf is sharded over, or None for a
+        replicated leaf; the clip norm then sums each group's squares over
+        its ranks and counts replicated leaves once. True when an update was
+        applied."""
         p_leaves = tree_leaves(params)
         if len(grads) != len(p_leaves):
             raise ValueError(f"{len(grads)} gradients for {len(p_leaves)} parameter leaves")
@@ -140,7 +145,9 @@ class AdamW:
         clip = None
         if self.grad_clip is not None:
             norm = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                                for g in grads]).square().sum().sqrt()
+                                for g in grads]).square()
+            norm = (norm.sum() if norm_groups is None
+                    else _sharded_sum(norm, norm_groups)).sqrt()
             # (g / norm) * max_norm when norm >= max_norm, else g / 1 * 1 (no host sync)
             small, one = norm < self.grad_clip, torch.ones_like(norm)
             clip = (torch.where(small, one, norm),
@@ -173,6 +180,24 @@ class AdamW:
                 acc.zero_()
         state["count"] = count
         return True
+
+
+def _sharded_sum(squares: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """Sum of per-leaf squared norms where a leaf sharded over a group holds
+    only its part: each group's sum is all-reduced over it, the replicated
+    leaves (None) are counted once."""
+    import torch.distributed as dist
+
+    total = squares[[g is None for g in groups]].sum()
+    seen: List = []
+    for group in groups:
+        if group is None or any(group is s for s in seen):
+            continue
+        seen.append(group)
+        part = squares[[g is group for g in groups]].sum()
+        dist.all_reduce(part, group=group)
+        total = total + part
+    return total
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,15 @@ the generation entry points gather each row's bank slices once
 take no ``lora_ids``, as in the JAX package. DeepSeek/MLA generation is
 ``llm/deepseek.py`` (``deepseek_generate``).
 ``llm/aot.py`` (XLA ahead-of-time compilation) has no counterpart.
+
+Tensor-parallel serving (``tp_group``, ``parallel/llm_sharding.py``): each
+rank holds its heads of q/k/v (a packed ``qkv_kernel`` holds
+``[q_r | k_r | v_r]``), its KV-cache heads and its columns of gate/up; the
+o and down products are summed over the group before their bias (an int4
+down projection is replicated and gathers its input instead), the
+unpacked int8 MLP runs ``fused_mlp_int8`` on the rank's columns and is summed
+after, and the vocab-sharded logits are gathered before sampling, so every
+rank picks the same token.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.llm.model import (
-    LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm, _moe_mlp,
+    LlamaConfig, Params, _embed_tokens, _glu_act, _layer_norm, _mm, _moe_mlp, _row_parallel,
     require_llama_config, rms_norm,
 )
 from ssp_x_vit_tpu_torch.llm.multilora import LORA_SUFFIX_A, gather_lora_rows, lora_delta
@@ -60,6 +69,7 @@ from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.common import gelu
 from ssp_x_vit_tpu_torch.ops.kernels.paged_attention import quantize_token_kv
 from ssp_x_vit_tpu_torch.ops.kernels.quant_fused_mlp import fused_mlp_int8
+from ssp_x_vit_tpu_torch.parallel.collectives import gather_from_tp, reduce_from_tp
 
 PROMPT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
@@ -146,8 +156,10 @@ def _block_qkv(x: torch.Tensor, bp: Params, cfg: LlamaConfig, positions: torch.T
     b, s, _ = x.shape
     if any(k.startswith("qkv_kernel") for k in bp):
         qkv = _mm(x, bp, "qkv_kernel", compute_dtype)
-        hq = cfg.num_heads * cfg.head_dim
-        hkv = cfg.num_kv_heads * cfg.head_dim
+        # a tensor-parallel rank's [q_r | k_r | v_r] is the same fraction of each
+        full = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+        hq = cfg.num_heads * cfg.head_dim * qkv.shape[-1] // full
+        hkv = cfg.num_kv_heads * cfg.head_dim * qkv.shape[-1] // full
         q, k, v = qkv.split((hq, hkv, hkv), dim=-1)
     else:
         q = _mm(x, bp, "q_kernel", compute_dtype)
@@ -163,9 +175,9 @@ def _block_qkv(x: torch.Tensor, bp: Params, cfg: LlamaConfig, positions: torch.T
         q = q + bp["q_bias"].to(compute_dtype)
         k = k + bp["k_bias"].to(compute_dtype)
         v = v + bp["v_bias"].to(compute_dtype)
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:  # qwen3: per-head RMSNorm over head_dim before rope
         q = rms_norm(q, bp["q_norm"], cfg.rms_eps)
         k = rms_norm(k, bp["k_norm"], cfg.rms_eps)
@@ -216,9 +228,10 @@ def _base_key(k: str) -> str:
     return k
 
 
-def _final_logits(params: Params, x: torch.Tensor, cfg: LlamaConfig, compute_dtype):
+def _final_logits(params: Params, x: torch.Tensor, cfg: LlamaConfig, compute_dtype, tp=None):
     """Final norm + lm_head -> fp32 logits (tied-embedding fallback, int8 head
-    with its scale applied in fp32, optional bias, gemma-2 final soft-capping)."""
+    with its scale applied in fp32, optional bias, gemma-2 final soft-capping;
+    a vocab-sharded head's logits gathered before the softcap under ``tp``)."""
     if cfg.is_phi or cfg.is_opt:
         x = _layer_norm(x, params["ln_final"], params["ln_final_bias"], cfg.layer_norm_eps)
     else:
@@ -232,6 +245,8 @@ def _final_logits(params: Params, x: torch.Tensor, cfg: LlamaConfig, compute_dty
         logits = (x @ head.to(compute_dtype)).float()
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].float()
+    if tp is not None and ("lm_head" in params or "lm_head_q" in params):
+        logits = gather_from_tp(logits, tp)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -388,10 +403,10 @@ def _attend_cached(q: torch.Tensor, ck, cv, query_positions: torch.Tensor,
     the logits and the value scales into the softmax weights; the products
     take the codes converted to q's dtype."""
     b, s_q, h, hd = q.shape
-    nkv = cfg.num_kv_heads
-    rep = h // nkv
     quant = isinstance(ck, dict)
     k_raw, v_raw = (ck["q"], cv["q"]) if quant else (ck, cv)
+    nkv = k_raw.shape[2]     # the cache's heads (a tensor-parallel rank's share)
+    rep = h // nkv
     key_idx = torch.arange(k_raw.shape[1], device=q.device)
     g = query_positions[:, :, None]
     if rolling is not None:
@@ -427,7 +442,7 @@ def _attend_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions:
     sliding-window band and left-pad mask. q ``[b, s, h, hd]``, k/v ``[b, s,
     nkv, hd]`` -> ``[b, s, h*hd]``."""
     b, s, h, hd = q.shape
-    rep = cfg.num_heads // cfg.num_kv_heads
+    rep = h // k.shape[2]
     kf = k.repeat_interleave(rep, dim=2) if rep > 1 else k
     vf = v.repeat_interleave(rep, dim=2) if rep > 1 else v
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / (hd ** 0.5)
@@ -443,10 +458,11 @@ def _attend_direct(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions:
     return torch.einsum("bhqk,bkhd->bqhd", w, vf).reshape(b, s, h * hd)
 
 
-def _proj_o(attn: torch.Tensor, bp: Params, compute_dtype, lora_ids=None) -> torch.Tensor:
+def _proj_o(attn: torch.Tensor, bp: Params, compute_dtype, lora_ids=None, tp=None
+            ) -> torch.Tensor:
     """o-projection plus the rows' adapter delta under ``lora_ids`` (no bias:
-    callers add the architecture's biases)."""
-    out = _mm(attn, bp, "o_kernel", compute_dtype)
+    callers add the architecture's biases; summed over ``tp`` here)."""
+    out = _row_parallel(attn, bp, "o_kernel", compute_dtype, tp)
     d = lora_delta(attn, bp, "o_kernel", lora_ids, compute_dtype)
     return out if d is None else out + d
 
@@ -490,22 +506,24 @@ def _fused_int8_route(bp: Params, cfg: LlamaConfig) -> bool:
             and not dispatch.use_w8a8())
 
 
-def _swiglu_mlp(h2: torch.Tensor, bp: Params, cfg: LlamaConfig, compute_dtype) -> torch.Tensor:
+def _swiglu_mlp(h2: torch.Tensor, bp: Params, cfg: LlamaConfig, compute_dtype, tp=None
+                ) -> torch.Tensor:
     if _fused_int8_route(bp, cfg):
-        return fused_mlp_int8(h2.contiguous(), bp["gate_kernel_q"], bp["gate_kernel_scale"],
-                              bp["up_kernel_q"], bp["up_kernel_scale"],
-                              bp["down_kernel_q"], bp["down_kernel_scale"])
+        # a rank's f/tp columns; down's per-column scale distributes over the sum
+        return reduce_from_tp(fused_mlp_int8(
+            h2.contiguous(), bp["gate_kernel_q"], bp["gate_kernel_scale"], bp["up_kernel_q"],
+            bp["up_kernel_scale"], bp["down_kernel_q"], bp["down_kernel_scale"]), tp)
     if any(k.startswith("gateup_kernel") for k in bp):
         g, u = _mm(h2, bp, "gateup_kernel", compute_dtype).chunk(2, dim=-1)
     else:
         g = _mm(h2, bp, "gate_kernel", compute_dtype)
         u = _mm(h2, bp, "up_kernel", compute_dtype)
-    return _mm(_glu_act(cfg)(g) * u, bp, "down_kernel", compute_dtype)
+    return _row_parallel(_glu_act(cfg)(g) * u, bp, "down_kernel", compute_dtype, tp)
 
 
 def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_positions,
                 pad_lens, write_pos, compute_dtype, has_attn=True, rolling: Optional[int] = None,
-                lora_ids=None, window_bound=None, layer_idx=None, rope=None):
+                lora_ids=None, window_bound=None, layer_idx=None, rope=None, tp=None):
     """One transformer layer over cached attention: OPT's sequential
     LayerNorm block, phi's parallel residual, or the llama layout (gemma-2
     post-norms included).
@@ -515,7 +533,8 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
     host-integer cache write offset (rolling callers pass pos mod W);
     rolling: the slot count of a rolling cache; layer_idx: the host-integer
     row of the full 5D caches this layer's attention owns; lora_ids ``[b]``:
-    each row's adapter on the attention projections (None: the base model)."""
+    each row's adapter on the attention projections (None: the base model);
+    tp: the tensor-parallel group of a sharded layer."""
     attn_kw = dict(global_positions=global_positions, rope_positions=rope_positions,
                    pad_lens=pad_lens, write_pos=write_pos, compute_dtype=compute_dtype,
                    rolling=rolling, lora_ids=lora_ids, window_bound=window_bound,
@@ -524,10 +543,11 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
         if has_attn:
             h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
             attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-            x = x + _proj_o(attn, bp, compute_dtype, lora_ids) + bp["o_bias"].to(compute_dtype)
+            x = x + _proj_o(attn, bp, compute_dtype, lora_ids, tp) + \
+                bp["o_bias"].to(compute_dtype)
         h2 = _layer_norm(x, bp["ln2"], bp["ln2_bias"], cfg.layer_norm_eps)
         hm = _mm(h2, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
-        mlp = _mm(torch.relu(hm), bp, "fc2_kernel", compute_dtype) + \
+        mlp = _row_parallel(torch.relu(hm), bp, "fc2_kernel", compute_dtype, tp) + \
             bp["fc2_bias"].to(compute_dtype)
         return x + mlp, ck_l, cv_l
 
@@ -536,15 +556,17 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
         delta = torch.zeros_like(x)
         if has_attn:
             attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-            delta = _proj_o(attn, bp, compute_dtype, lora_ids) + bp["o_bias"].to(compute_dtype)
+            delta = _proj_o(attn, bp, compute_dtype, lora_ids, tp) + \
+                bp["o_bias"].to(compute_dtype)
         hm = _mm(h, bp, "fc1_kernel", compute_dtype) + bp["fc1_bias"].to(compute_dtype)
-        mlp = _mm(gelu(hm), bp, "fc2_kernel", compute_dtype) + bp["fc2_bias"].to(compute_dtype)
+        mlp = _row_parallel(gelu(hm), bp, "fc2_kernel", compute_dtype, tp) + \
+            bp["fc2_bias"].to(compute_dtype)
         return x + delta + mlp, ck_l, cv_l
 
     if has_attn:
         h = rms_norm(x, bp["ln1"], cfg.rms_eps)
         attn, ck_l, cv_l = _attn_branch(h, bp, ck_l, cv_l, cfg, **attn_kw)
-        attn = _proj_o(attn, bp, compute_dtype, lora_ids)
+        attn = _proj_o(attn, bp, compute_dtype, lora_ids, tp)
         if "o_bias" in bp:
             attn = attn + bp["o_bias"].to(compute_dtype)
         if cfg.is_gemma2:
@@ -554,7 +576,7 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
     if cfg.num_experts:
         # the dropless expert MLP (float, int8 or int4 expert stacks)
         return x + _moe_mlp(h2, bp, cfg, compute_dtype)[0], ck_l, cv_l
-    mlp = _swiglu_mlp(h2, bp, cfg, compute_dtype)
+    mlp = _swiglu_mlp(h2, bp, cfg, compute_dtype, tp)
     if cfg.is_gemma2:
         mlp = rms_norm(mlp, bp["ln2_post"], cfg.rms_eps)
     return x + mlp, ck_l, cv_l
@@ -562,7 +584,7 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
 
 def _run_layers(params: Params, x, cache_k, cache_v, cfg: LlamaConfig, *, global_positions,
                 rope_positions, pad_lens, write_pos, compute_dtype, rolling: Optional[int] = None,
-                lora_ids=None, layers: Optional[List[Layer]] = None):
+                lora_ids=None, layers: Optional[List[Layer]] = None, tp=None):
     """Every layer in turn. Caches are addressed in place by the host-integer
     layer index (the compacted attention index of depth-materialized trees,
     ``cfg.attn_store_index``); gemma-2's mixed windows are static per layer;
@@ -570,7 +592,7 @@ def _run_layers(params: Params, x, cache_k, cache_v, cfg: LlamaConfig, *, global
     rope = None if cfg.is_opt else rope_tables_at(rope_positions, cfg)
     kw = dict(global_positions=global_positions, rope_positions=rope_positions,
               pad_lens=pad_lens, write_pos=write_pos, compute_dtype=compute_dtype,
-              rolling=rolling, lora_ids=lora_ids, rope=rope)
+              rolling=rolling, lora_ids=lora_ids, rope=rope, tp=tp)
     for i, (bp, j) in enumerate(layers if layers is not None else split_layers(params, cfg)):
         wb = None if cfg.uniform_window else (cfg.layer_window(i) or _FULL_BOUND)
         if j is None:
@@ -593,13 +615,14 @@ def _opt_positions(params: Params, x, rope_positions, compute_dtype):
 @torch.no_grad()
 def prefill(params: Params, tokens: torch.Tensor, cache_k, cache_v, cfg: LlamaConfig,
             pad_lens: torch.Tensor, rolling: Optional[int] = None, lora_ids=None,
-            layers: Optional[List[Layer]] = None):
+            layers: Optional[List[Layer]] = None, tp_group=None):
     """Run LEFT-padded prompts ``[b, p_pad]`` through the model, filling the
     cache; ``pad_lens [b]`` = p_pad - prompt_len per row. ``rolling`` = W slot
     count of a rolling cache. ``lora_ids [b]``: each row's adapter slot of an
     attached bank (0 = base). ``layers``: :func:`split_layers` of ``params``,
-    if already made. Returns (logits at the last position [b, V] fp32,
-    cache_k, cache_v)."""
+    if already made; ``tp_group``: the tensor-parallel group of a sharded tree
+    and cache. Returns (logits at the last position [b, V] fp32, cache_k,
+    cache_v)."""
     require_llama_config(cfg)
     compute_dtype = cache_compute_dtype(cache_k)
     b, p_pad = tokens.shape
@@ -613,13 +636,14 @@ def prefill(params: Params, tokens: torch.Tensor, cache_k, cache_v, cfg: LlamaCo
     x, cache_k, cache_v = _run_layers(
         params, x, cache_k, cache_v, cfg, global_positions=global_positions,
         rope_positions=rope_positions, pad_lens=pad_lens, write_pos=0,
-        compute_dtype=compute_dtype, rolling=rolling, lora_ids=lora_ids, layers=layers)
-    return _final_logits(params, x[:, -1:], cfg, compute_dtype)[:, 0], cache_k, cache_v
+        compute_dtype=compute_dtype, rolling=rolling, lora_ids=lora_ids, layers=layers,
+        tp=tp_group)
+    return _final_logits(params, x[:, -1:], cfg, compute_dtype, tp_group)[:, 0], cache_k, cache_v
 
 
 def _decode_body(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: LlamaConfig,
                  pos: int, pad_lens: torch.Tensor, rolling: Optional[int] = None, lora_ids=None,
-                 layers: Optional[List[Layer]] = None):
+                 layers: Optional[List[Layer]] = None, tp_group=None):
     compute_dtype = cache_compute_dtype(cache_k)
     b = token.shape[0]
     x = _embed_tokens(params, token, cfg, compute_dtype)[:, None, :]       # [b, 1, d]
@@ -631,20 +655,21 @@ def _decode_body(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: Lla
     x, cache_k, cache_v = _run_layers(
         params, x, cache_k, cache_v, cfg, global_positions=global_positions,
         rope_positions=rope_positions, pad_lens=pad_lens, write_pos=write_pos,
-        compute_dtype=compute_dtype, rolling=rolling, lora_ids=lora_ids, layers=layers)
-    return _final_logits(params, x, cfg, compute_dtype)[:, 0], cache_k, cache_v
+        compute_dtype=compute_dtype, rolling=rolling, lora_ids=lora_ids, layers=layers,
+        tp=tp_group)
+    return _final_logits(params, x, cfg, compute_dtype, tp_group)[:, 0], cache_k, cache_v
 
 
 @torch.no_grad()
 def decode_step(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: LlamaConfig,
                 pos: int, pad_lens: torch.Tensor, rolling: Optional[int] = None, lora_ids=None,
-                layers: Optional[List[Layer]] = None):
+                layers: Optional[List[Layer]] = None, tp_group=None):
     """One token per row (``[b]``) at the shared global position ``pos`` (a
     host integer); returns (logits [b, V] fp32, caches)."""
     require_llama_config(cfg)
     lora_ids = _lora_ids(params, lora_ids, token.shape[0], token.device)
     return _decode_body(params, token, cache_k, cache_v, cfg, int(pos), pad_lens, rolling,
-                        lora_ids, layers)
+                        lora_ids, layers, tp_group)
 
 
 def _sampler(sp: SamplingParams, prompts: Sequence[Sequence[int]], vocab_size: int,
@@ -687,7 +712,7 @@ def decode_scan(params: Params, first_token: torch.Tensor, cache_k, cache_v, cfg
                 rolling: Optional[int] = None, top_p: Optional[float] = None, lora_ids=None,
                 sampling: Optional[SamplingParams] = None,
                 penalty_state: Optional[SamplerState] = None,
-                layers: Optional[List[Layer]] = None):
+                layers: Optional[List[Layer]] = None, tp_group=None):
     """``num_steps`` decode steps with the token fed back on the device: a
     Python loop that reads nothing back, the tokens stacked on the device at
     the end. Greedy when temperature == 0, else temperature / top-k / top-p /
@@ -705,7 +730,7 @@ def decode_scan(params: Params, first_token: torch.Tensor, cache_k, cache_v, cfg
     token, pos, out = first_token, int(start_pos), []
     for _ in range(num_steps):
         logits, cache_k, cache_v = _decode_body(params, token, cache_k, cache_v, cfg, pos,
-                                                pad_lens, rolling, lora_ids, layers)
+                                                pad_lens, rolling, lora_ids, layers, tp_group)
         token, state = _next_token(logits, state)
         out.append(token)
         pos += 1
@@ -725,7 +750,7 @@ def decode_while(params: Params, first_token: torch.Tensor, cache_k, cache_v, cf
                  rng: Optional[int] = None, rolling: Optional[int] = None, lora_ids=None,
                  sampling: Optional[SamplingParams] = None,
                  penalty_state: Optional[SamplerState] = None,
-                 layers: Optional[List[Layer]] = None):
+                 layers: Optional[List[Layer]] = None, tp_group=None):
     """:func:`decode_scan` with an eos early exit: the loop stops once every
     row has emitted ``eos_token_id``. The check reads one flag back to the
     host every ``DECODE_WHILE_SYNC_EVERY`` (8) steps, the only sync of the
@@ -746,7 +771,7 @@ def decode_while(params: Params, first_token: torch.Tensor, cache_k, cache_v, cf
         if step % DECODE_WHILE_SYNC_EVERY == 0 and bool(done.all()):
             break
         logits, cache_k, cache_v = _decode_body(params, token, cache_k, cache_v, cfg, pos,
-                                                pad_lens, rolling, lora_ids, layers)
+                                                pad_lens, rolling, lora_ids, layers, tp_group)
         nxt, state = _next_token(logits, state)
         nxt = torch.where(done, eos, nxt)
         out[step] = nxt
@@ -811,7 +836,8 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
                      temperature: float = 0.0, top_k: Optional[int] = None,
                      top_p: Optional[float] = None, rng: Optional[int] = None,
                      cache_factory=None, rolling: bool = False, lora_ids=None,
-                     sampling: Optional[SamplingParams] = None, early_stop: bool = True):
+                     sampling: Optional[SamplingParams] = None, early_stop: bool = True,
+                     tp_group=None):
     """Prefill + one decode loop on the device that holds ``params``, the
     tokens copied to the host once at the end. ``input_ids``: one prompt or a
     list of prompts of different lengths (left-padded to a shared bucket).
@@ -825,8 +851,12 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
     ``eos_token_id`` and ``early_stop`` the loop is :func:`decode_while`.
     ``lora_ids [b]``: each row's adapter slot of the bank attached to
     ``params`` (``multilora.attach_lora_bank``; 0 = the base model); the rows'
-    bank slices are gathered once for the generation."""
+    bank slices are gathered once for the generation. ``tp_group``: the
+    tensor-parallel group of a ``shard_llama_params`` shard, with the cache
+    from ``llm_sharding.tp_cache_factory`` (``tp_generate_kv_scan``)."""
     require_llama_config(cfg)
+    if tp_group is not None and lora_ids is not None:
+        raise ValueError("tensor-parallel generation takes no lora_ids")
     device = params["embed"].device
     single = _is_single(input_ids)
     tokens, pad_lens, lens, p_pad = _prepare_prompts(input_ids, max_length)
@@ -844,7 +874,7 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
     tok = torch.as_tensor(tokens.astype(np.int64), device=device)
     pads = torch.as_tensor(pad_lens.astype(np.int64), device=device)
     logits, cache_k, cache_v = prefill(params, tok, cache_k, cache_v, cfg, pads, rolling=W,
-                                       lora_ids=lora_ids, layers=layers)
+                                       lora_ids=lora_ids, layers=layers, tp_group=tp_group)
     sp = _sampling(sampling, temperature, top_k, top_p)
     state = None
     if sp.needs_counts or not sp.greedy:
@@ -852,7 +882,7 @@ def generate_kv_scan(params: Params, cfg: LlamaConfig, input_ids, *, max_length:
         state = _sampler(sp, prompts, cfg.vocab_size, device, rng)
     first, state = _next_token(logits, state)
     kw = dict(rng=rng, sampling=sp, penalty_state=state, rolling=W, lora_ids=lora_ids,
-              layers=layers)
+              layers=layers, tp_group=tp_group)
     if num_steps <= 0:
         gen = first[None]
     elif eos_token_id is not None and early_stop:

@@ -90,15 +90,21 @@ def _to_tokens(tokens, device: torch.device) -> torch.Tensor:
 
 
 def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-                    compute_dtype=torch.bfloat16, remat: bool = True) -> torch.Tensor:
+                    compute_dtype=torch.bfloat16, remat: bool = True, tp_group=None,
+                    gather_layer=None) -> torch.Tensor:
     """Mean next-token NLL over tokens [b, s] (logits in fp32 for the softmax).
     Depth-materialized pruned configs train too; their forward has no
     checkpointed layer loop, so ``remat`` is a no-op there. DeepSeek/MLA
     configs take ``deepseek_forward``; a llama MoE config adds
-    ``router_aux_coef`` times the mean over layers of ``moe_aux_loss``."""
+    ``router_aux_coef`` times the mean over layers of ``moe_aux_loss``.
+    ``tp_group`` / ``gather_layer``: a sharded llama tree's
+    (``parallel/llm_sharding.py``), handed to ``llama_forward``."""
     _check_trainable(cfg)
     moe = getattr(cfg, "num_experts", 0)
-    if moe and not cfg.pruned_attention_blocks:   # the gated forward returns the aux loss
+    if tp_group is not None or gather_layer is not None:
+        logits, aux = llama_forward(params, tokens[:, :-1], cfg, compute_dtype=compute_dtype,
+                                    remat=remat, tp_group=tp_group, gather_layer=gather_layer)
+    elif moe and not cfg.pruned_attention_blocks:   # the gated forward returns the aux loss
         logits, aux = llama_forward(params, tokens[:, :-1], cfg, compute_dtype=compute_dtype,
                                     remat=remat)
     else:   # a depth-materialized MoE config raises in the materialized forward, as in JAX

@@ -23,6 +23,13 @@
   autograd Function when a gradient is wanted); both differentiate on any
   device (the fused attention kernels have no backward). This is the path of
   the finetune steps (``pruning/finetune.py``).
+- Tensor parallelism (``tp_group``, shards from
+  ``parallel/vit_sharding.py``): each rank holds whole heads of the fused QKV
+  and the projection's matching rows, and a slice of the FFN's columns. Its
+  block kernels run at its own head count and width with ``residual=False``
+  on every rank but the group's first, which adds the residual and the
+  biases; one all-reduce sums each branch, and the FFN statistics of the
+  ranks' columns are gathered back in column order.
 - Weight-only int8 trees (``models/quant.py``: ``<k>_q`` + ``<k>_scale``)
   run every projection through ``ops.common.mm_quant``, the block as plain
   PyTorch (:func:`_block_apply_quantized`), as the JAX package does.
@@ -39,6 +46,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
 from ssp_x_vit_tpu_torch.ops import dispatch
@@ -49,6 +57,7 @@ from ssp_x_vit_tpu_torch.ops.kernels.fused_attn_block import (
     fused_attn_block, fused_attn_block_plain, fused_attn_block_v2,
 )
 from ssp_x_vit_tpu_torch.ops.kernels.fused_ffn import fused_ffn_block
+from ssp_x_vit_tpu_torch.parallel.collectives import all_reduce_sum, gather_along
 
 Params = Dict[str, Any]
 
@@ -273,16 +282,26 @@ def _block_apply(
     collect_ffn_stats: bool,
     skip_attention_statically: bool = False,
     allow_fused_attn: bool = True,
+    group=None,
 ):
     """One pre-LN encoder block; gates are scalars (None = dense).
-    ``allow_fused_attn=False``: both branches without the fused block kernels."""
+    ``allow_fused_attn=False``: both branches without the fused block kernels.
+    ``group``: a tensor-parallel rank's block (see the module docstring): the
+    head count comes from the shard's weights, the first rank alone adds the
+    residual and the biases, and each branch's row-parallel partial is
+    all-reduced over the group, so the residual stream stays the same on
+    every rank (None: one process, no collective)."""
     if "fc1_kernel" not in bp:  # quantized tree (models/quant.py)
+        if group is not None:
+            raise ValueError("tensor-parallel ViT blocks take float weights, not int8 trees")
         return _block_apply_quantized(
             x, bp, cfg, attn_gate=attn_gate, mlp_gate=mlp_gate, neuron_mask=neuron_mask,
             collect_ffn_stats=collect_ffn_stats,
             skip_attention_statically=skip_attention_statically)
     eps = cfg.layernorm_eps
     if not allow_fused_attn:
+        if group is not None:
+            raise ValueError("tensor-parallel ViT blocks run the fused block kernels")
         if not skip_attention_statically:
             x = fused_attn_block_plain(x, bp["ln1_scale"], bp["ln1_bias"], bp["qkv_kernel"],
                                        bp.get("qkv_bias"), bp["proj_kernel"], bp.get("proj_bias"),
@@ -292,14 +311,27 @@ def _block_apply(
                                  bp.get("fc2_bias"), neuron_mask=neuron_mask,
                                  collect_stats=collect_ffn_stats)
         return x + dispatch.apply_gate(mlp, mlp_gate), stats
+    rank, n = (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+    lead = rank == 0
     if not skip_attention_statically:
-        attn = fused_attn_block_v2 if cfg.num_heads % 2 == 0 else fused_attn_block
-        x = attn(x, bp["ln1_scale"], bp["ln1_bias"], bp["qkv_kernel"], bp.get("qkv_bias"),
-                 bp["proj_kernel"], bp.get("proj_bias"), cfg.num_heads, eps=eps, gate=attn_gate)
-    return fused_ffn_block(x, bp["ln2_scale"], bp["ln2_bias"], bp["fc1_kernel"],
-                           bp.get("fc1_bias"), bp["fc2_kernel"], bp.get("fc2_bias"),
-                           neuron_mask=neuron_mask, gate=mlp_gate,
-                           collect_stats=collect_ffn_stats, eps=eps)
+        heads = bp["qkv_kernel"].shape[-1] // 3 // cfg.head_dim
+        attn = fused_attn_block_v2 if heads % 2 == 0 else fused_attn_block
+        x = all_reduce_sum(attn(
+            x, bp["ln1_scale"], bp["ln1_bias"], bp["qkv_kernel"], bp.get("qkv_bias"),
+            bp["proj_kernel"], bp.get("proj_bias") if lead else None, heads, eps=eps,
+            gate=attn_gate, residual=lead), group)
+    f = bp["fc1_kernel"].shape[-1]
+    if n > 1 and neuron_mask is not None and neuron_mask.shape[-1] == f * n:
+        neuron_mask = neuron_mask[..., rank * f:(rank + 1) * f]
+    x, stats = fused_ffn_block(x, bp["ln2_scale"], bp["ln2_bias"], bp["fc1_kernel"],
+                               bp.get("fc1_bias"), bp["fc2_kernel"],
+                               bp.get("fc2_bias") if lead else None, neuron_mask=neuron_mask,
+                               gate=mlp_gate, collect_stats=collect_ffn_stats, eps=eps,
+                               residual=lead)
+    x = all_reduce_sum(x, group)
+    if group is not None and stats is not None:
+        stats = gather_along(stats, -1, group)
+    return x, stats
 
 
 def _unbind_blocks(blocks: Params) -> Dict[str, Tuple[torch.Tensor, ...]]:
@@ -321,6 +353,7 @@ def vit_forward(
     return_block_outputs: bool = False,
     compute_dtype=torch.float32,
     allow_fused_attn: bool = True,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked (search-phase) forward over the stacked dense parameters.
 
@@ -333,6 +366,8 @@ def vit_forward(
         return_block_outputs: also return "block_outputs" [num_layers, batch, seq, hidden].
         allow_fused_attn: False runs every block without the fused block
             kernels (the path to differentiate on the card).
+        tp_group: the tensor-parallel group of a ``shard_vit_params`` shard
+            (None: one process); ``neuron_mask`` stays full width.
 
     Returns:
         (logits [batch, num_classes], aux dict with "cls_repr" and the optional outputs)
@@ -349,7 +384,8 @@ def vit_forward(
             attn_gate=None if attn_gate is None else attn_gate[i],
             mlp_gate=None if mlp_gate is None else mlp_gate[i],
             neuron_mask=None if neuron_mask is None else neuron_mask[i],
-            collect_ffn_stats=collect_ffn_stats, allow_fused_attn=allow_fused_attn)
+            collect_ffn_stats=collect_ffn_stats, allow_fused_attn=allow_fused_attn,
+            group=tp_group)
         if collect_ffn_stats:
             stats.append(st)
         if return_block_outputs:

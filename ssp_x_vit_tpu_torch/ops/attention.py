@@ -30,11 +30,14 @@ def multi_head_attention(
     """Fused-QKV multi-head self attention, x [batch, seq, hidden] -> same.
 
     ``qkv_kernel`` is [hidden, 3*hidden] with q|k|v concatenated on the output
-    axis; ``proj_kernel`` is [hidden, hidden]. ``use_flash`` None decides by
-    the tensor: the flash kernel on a CUDA tensor, ``sdpa_reference`` on a CPU
-    tensor (there is no sequence-length crossover in this package).
+    axis; ``proj_kernel`` is [hidden, hidden]. A tensor-parallel shard has
+    [hidden, 3*d_r] and [d_r, hidden] with ``num_heads`` of its own. ``use_flash``
+    None decides by the tensor: the flash kernel on a CUDA tensor,
+    ``sdpa_reference`` on a CPU tensor (there is no sequence-length crossover
+    in this package).
     """
-    b, s, d = x.shape
+    b, s, _ = x.shape
+    d = qkv_kernel.shape[-1] // 3
     head_dim = d // num_heads
     qkv = x @ qkv_kernel.to(x.dtype)
     if qkv_bias is not None:

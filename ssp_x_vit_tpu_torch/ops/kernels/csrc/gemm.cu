@@ -10,7 +10,9 @@
 // C[M, N] = epilogue(A[M, K] @ B[K, N]); A and C row-major activations, B a
 // row-major [in, out] weight (the JAX layout).
 //
-//   epilogue  0 (bias):      c = acc + bias
+//   epilogue  0 (bias):      c = gate * (acc + bias), gate as below, null = 1
+//                            (a tensor-parallel rank's partial of a gated
+//                            branch, whose residual another rank adds)
 //             1 (gelu):      h = gelu_erf(acc + bias); stats[img, n] += h^2 over
 //                            the rows of image img (pre-mask, fp32);
 //                            c = h * mask[n]
@@ -87,7 +89,7 @@ struct GemmArgs {
   int epi;
   const void* bias;   // [n] or null
   const void* resid;  // [m, n] (residual epilogue)
-  const float* gate;  // scalar on device (residual epilogue), null = 1
+  const float* gate;  // scalar on device (bias and residual epilogues), null = 1
   const float* mask;  // [n] fp32 or null (gelu epilogue)
   float* stats;       // [m / seq, n] fp32 or null (gelu epilogue)
   int seq;            // rows per image, for stats
@@ -118,7 +120,7 @@ __device__ __forceinline__ float epilogue_element(const GemmArgs& p, float gate,
   if (p.epi == kEpiResidual)
     C[o] = from_f<T>(to_f(static_cast<const T*>(p.resid)[o]) + gate * v);
   else
-    C[o] = from_f<T>(v);
+    C[o] = from_f<T>(gate * v);
   return 0.f;
 }
 
@@ -431,6 +433,8 @@ __device__ __forceinline__ void store_slab(const GemmArgs& p, const Unit& w, con
           } else if (residual) {
             const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&res[jj][h]);
             v[e] = (e ? __high2float(r) : __low2float(r)) + gate * v[e];
+          } else {
+            v[e] *= gate;  // 1 unless a gated partial asks for it
           }
         }
         const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);

@@ -33,6 +33,14 @@ On a CPU tensor each wrapper runs its plain version below (the XLA-branch math
 of ``models/vit.py:_block_apply``, with the plain core ``sdpa_reference`` on
 every device, so the plain version launches no kernel); a CUDA tensor always
 launches or raises.
+``residual=False`` leaves ``x`` out: ``gate * (proj(MHA(LN1(x))) +
+b_proj)``, the partial sum of a tensor-parallel rank (``models/vit.py``
+sums the ranks' partials, one of them with the residual and the bias). The
+shard's ``qkv_kernel`` is ``[d, 3 d_r]`` (this rank's heads of q, k and v),
+``proj_kernel`` ``[d_r, d]`` and ``num_heads`` its own head count; on the
+card the projection's epilogue is then the bias one with the gate, ``gate *
+(acc + b_proj)``, rounded once.
+
 The kernels have no backward, as the Pallas kernels have no JVP rule: on a
 CUDA tensor under autograd (grad mode on and an input that requires a
 gradient) the wrappers raise; differentiate through
@@ -58,14 +66,15 @@ SMEM_LIMIT_BYTES = 232_448  # per-block dynamic shared memory on the H100 (227 K
 
 
 def _attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                      num_heads, eps, gate):
+                      num_heads, eps, gate, residual=True):
     # The plain core on every device (``sdpa_reference``: fp32 logits and
     # softmax, P rounded to the operand dtype before P @ V, as the Pallas
     # kernels round it), so the plain version launches no kernel of this
     # package and a card check holds the kernels against plain PyTorch.
     attn = multi_head_attention(layer_norm(x, ln_scale, ln_bias, eps), qkv_kernel, qkv_bias,
                                 proj_kernel, proj_bias, num_heads, use_flash=False)
-    return x + dispatch.apply_gate(attn, gate)
+    attn = dispatch.apply_gate(attn, gate)
+    return x + attn if residual else attn
 
 
 def head_view(t: torch.Tensor, b: int, s: int, num_heads: int) -> torch.Tensor:
@@ -83,21 +92,23 @@ def attention_core_plain(qkv: torch.Tensor, b: int, s: int, num_heads: int) -> t
 
 
 def fused_attn_block_v2_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,
-                              proj_bias, num_heads, *, eps=1e-12, gate: Gate = None):
+                              proj_bias, num_heads, *, eps=1e-12, gate: Gate = None,
+                              residual: bool = True):
     """Plain PyTorch version of :func:`fused_attn_block_v2`."""
     return _attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,
-                             proj_bias, num_heads, eps, gate)
+                             proj_bias, num_heads, eps, gate, residual)
 
 
 def fused_attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,
-                           proj_bias, num_heads, *, eps=1e-12, gate: Gate = None):
+                           proj_bias, num_heads, *, eps=1e-12, gate: Gate = None,
+                           residual: bool = True):
     """Plain PyTorch version of :func:`fused_attn_block`."""
     return _attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,
-                             proj_bias, num_heads, eps, gate)
+                             proj_bias, num_heads, eps, gate, residual)
 
 
 def _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                     num_heads, eps, gate):
+                     num_heads, eps, gate, residual=True):
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias, gate)):
@@ -105,15 +116,16 @@ def _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, pr
                            "package); differentiate through vit_forward(..., "
                            "allow_fused_attn=False)")
     b, s, d = x.shape
-    if d % num_heads:
-        raise ValueError(f"hidden size {d} is not divisible by {num_heads} heads")
-    hd = d // num_heads
+    dh = qkv_kernel.shape[-1] // 3   # the heads' width: d, or a tensor-parallel rank's share
+    if dh % num_heads:
+        raise ValueError(f"attention width {dh} is not divisible by {num_heads} heads")
+    hd = dh // num_heads
     dispatch.check_operands(x, [
         ("ln_scale", ln_scale, (d,)), ("ln_bias", ln_bias, (d,)),
-        ("qkv_kernel", qkv_kernel, (d, 3 * d)), ("qkv_bias", qkv_bias, (3 * d,)),
-        ("proj_kernel", proj_kernel, (d, d)), ("proj_bias", proj_bias, (d,)),
+        ("qkv_kernel", qkv_kernel, (d, 3 * dh)), ("qkv_bias", qkv_bias, (3 * dh,)),
+        ("proj_kernel", proj_kernel, (dh, d)), ("proj_bias", proj_bias, (d,)),
     ])
-    if qkv_bias is None or proj_bias is None:
+    if qkv_bias is None or (residual and proj_bias is None):
         raise ValueError("the attention kernel takes qkv and projection biases")
     gate = dispatch.gate_tensor(gate, x.device)
     with torch.cuda.device(x.device):
@@ -122,36 +134,43 @@ def _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, pr
             raise ValueError(f"attention kernel takes head_dim <= 128 and K/V of one head in "
                              f"shared memory; s={s}, head_dim={hd} needs {smem} bytes")
         y = build.layer_norm(x, ln_scale, ln_bias, eps)
-        qkv = build.gemm(y, qkv_kernel, torch.empty((b * s, 3 * d), dtype=x.dtype, device=x.device),
+        qkv = build.gemm(y, qkv_kernel,
+                         torch.empty((b * s, 3 * dh), dtype=x.dtype, device=x.device),
                          build.EPI_BIAS, bias=qkv_bias)
-        o = build.attention(qkv, torch.empty((b * s, d), dtype=x.dtype, device=x.device),
+        o = build.attention(qkv, torch.empty((b * s, dh), dtype=x.dtype, device=x.device),
                             b, s, num_heads, hd, 1.0 / math.sqrt(hd))
-        out = build.gemm(o, proj_kernel, torch.empty_like(x), build.EPI_RESIDUAL, bias=proj_bias,
-                         resid=x, gate=gate)
-    return out
+        if residual:
+            return build.gemm(o, proj_kernel, torch.empty_like(x), build.EPI_RESIDUAL,
+                              bias=proj_bias, resid=x, gate=gate)
+        return build.gemm(o, proj_kernel, torch.empty_like(x), build.EPI_BIAS, bias=proj_bias,
+                          gate=gate)
 
 
 def fused_attn_block_v2(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                        num_heads: int, *, eps: float = 1e-12, gate: Gate = None):
+                        num_heads: int, *, eps: float = 1e-12, gate: Gate = None,
+                        residual: bool = True):
     """x [b, s, d] -> x + gate * proj(attention(LN(x))); even head counts."""
     if num_heads % 2:
         raise ValueError("fused_attn_block_v2 needs an even head count")
     if not dispatch.use_kernel(x):
         return fused_attn_block_v2_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias,
-                                         proj_kernel, proj_bias, num_heads, eps=eps, gate=gate)
+                                         proj_kernel, proj_bias, num_heads, eps=eps, gate=gate,
+                                         residual=residual)
     out = _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                           num_heads, eps, gate)
+                           num_heads, eps, gate, residual)
     launch_counts["fused_attn_block_v2"] += 1
     return out
 
 
 def fused_attn_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                     num_heads: int, *, eps: float = 1e-12, gate: Gate = None):
+                     num_heads: int, *, eps: float = 1e-12, gate: Gate = None,
+                     residual: bool = True):
     """x [b, s, d] -> x + gate * proj(attention(LN(x))); any head count."""
     if not dispatch.use_kernel(x):
         return fused_attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias,
-                                      proj_kernel, proj_bias, num_heads, eps=eps, gate=gate)
+                                      proj_kernel, proj_bias, num_heads, eps=eps, gate=gate,
+                                      residual=residual)
     out = _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                           num_heads, eps, gate)
+                           num_heads, eps, gate, residual)
     launch_counts["fused_attn_block"] += 1
     return out

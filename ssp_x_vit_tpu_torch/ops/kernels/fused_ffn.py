@@ -9,6 +9,12 @@ fused_ffn_block`` (``_ffn_block_kernel``):
 ``fused_ffn`` replaces ``fused_ffn.py:fused_ffn`` (``_ffn_kernel``): the same
 without the LayerNorm and the residual, ``fc2(mask * GELU(fc1 x + b1)) + b2``.
 
+``residual=False`` leaves ``x`` out of ``fused_ffn_block``: ``gate * (fc2(...)
++ b2)``, a tensor-parallel rank's partial sum over its columns of fc1 / rows
+of fc2 (``models/vit.py`` sums the ranks', one with the residual and b2); on
+the card fc2's epilogue is then the bias one with the gate, ``gate * (acc +
+b2)``, rounded once.
+
 Stats are taken after GELU and before the mask, in fp32, over all s tokens
 including CLS; the kernel never pads rows, so no padded row can enter them.
 
@@ -53,7 +59,7 @@ def gemm_plain(a, w, epi, *, bias=None, resid=None, gate=None, mask=None, seq=1,
                collect_stats=False):
     """Plain PyTorch version of one ``build.gemm`` launch: ``epilogue(a[m, k] @
     w[k, n])`` in fp32, rounded to a's dtype once, as the kernel stores it.
-    ``epi`` is ``build.EPI_BIAS`` (+ bias), ``EPI_GELU`` (GELU of the biased sum,
+    ``epi`` is ``build.EPI_BIAS`` (``gate * (sum + bias)``), ``EPI_GELU`` (GELU of the biased sum,
     stats = the sum of its squares over each image's ``seq`` rows in fp32
     [m / seq, n] when ``collect_stats``, then times ``mask``) or ``EPI_RESIDUAL``
     (``resid + gate * (sum + bias)``). Returns (out, stats or None)."""
@@ -69,6 +75,8 @@ def gemm_plain(a, w, epi, *, bias=None, resid=None, gate=None, mask=None, seq=1,
             v = v * mask.float()
     elif epi == build.EPI_RESIDUAL:
         v = resid.float() + (1.0 if gate is None else gate.float()) * v
+    elif gate is not None:
+        v = gate.float() * v
     return v.to(a.dtype), stats
 
 
@@ -90,12 +98,13 @@ def fused_ffn_plain(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, *,
 
 def fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
                           fc2_bias, *, neuron_mask=None, gate: Gate = None,
-                          collect_stats=False, eps=1e-12):
+                          collect_stats=False, eps=1e-12, residual=True):
     """Plain PyTorch version of :func:`fused_ffn_block`."""
     y = layer_norm(x, ln_scale, ln_bias, eps)
     out, stats = fused_ffn_plain(y, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
                                  neuron_mask=neuron_mask, collect_stats=collect_stats)
-    return x + dispatch.apply_gate(out, gate), stats
+    out = dispatch.apply_gate(out, gate)
+    return (x + out if residual else out), stats
 
 
 def _mask_tensor(neuron_mask, f, device):
@@ -107,9 +116,11 @@ def _mask_tensor(neuron_mask, f, device):
 
 
 def _ffn_cuda(x, ln, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
-              gate, collect_stats, eps):
+              gate, collect_stats, eps, residual=True):
     """Launch the LayerNorm (if ``ln``), fc1 and fc2 kernels; ``ln`` is
-    (scale, bias) or None, ``gate`` None means the plain ``+ b2`` epilogue."""
+    (scale, bias) or None. fc2's epilogue is the block's ``x + gate * (. +
+    b2)`` where ``ln`` is given and ``residual``, else ``gate * (. + b2)``
+    (``gate`` None = 1)."""
     b, s, d = x.shape
     f = fc1_kernel.shape[-1]
     dispatch.check_operands(x, [
@@ -124,10 +135,10 @@ def _ffn_cuda(x, ln, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
         stats = torch.empty((b, f), dtype=torch.float32, device=x.device) if collect_stats else None
         build.gemm(y, fc1_kernel, h, build.EPI_GELU, bias=fc1_bias, mask=mask, stats=stats, seq=s)
         out = torch.empty_like(x)
-        if gate is None:
-            build.gemm(h, fc2_kernel, out, build.EPI_BIAS, bias=fc2_bias)
-        else:
+        if ln is not None and residual:
             build.gemm(h, fc2_kernel, out, build.EPI_RESIDUAL, bias=fc2_bias, resid=x, gate=gate)
+        else:
+            build.gemm(h, fc2_kernel, out, build.EPI_BIAS, bias=fc2_bias, gate=gate)
     return out, stats
 
 
@@ -161,13 +172,14 @@ def _ffn_forward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask, col
 
 
 def _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                       neuron_mask, gate, collect_stats, eps):
+                       neuron_mask, gate, collect_stats, eps, residual=True):
     if not dispatch.use_kernel(x):
         return fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
                                      fc2_bias, neuron_mask=neuron_mask, gate=gate,
-                                     collect_stats=collect_stats, eps=eps)
+                                     collect_stats=collect_stats, eps=eps, residual=residual)
     out = _ffn_cuda(x, (ln_scale, ln_bias), fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                    neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps)
+                    neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps,
+                    residual)
     launch_counts["fused_ffn_block"] += 1
     return out
 
@@ -194,13 +206,14 @@ class _FusedFFN(torch.autograd.Function):
 class _FusedFFNBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                neuron_mask, gate, collect_stats, eps):
+                neuron_mask, gate, collect_stats, eps, residual):
         out, stats = _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
-                                        fc2_bias, neuron_mask, gate, collect_stats, eps)
+                                        fc2_bias, neuron_mask, gate, collect_stats, eps,
+                                        residual)
         ctx.save_for_backward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
                               neuron_mask, gate if isinstance(gate, torch.Tensor) else None)
         ctx.gate_value = None if isinstance(gate, torch.Tensor) else gate
-        ctx.eps = eps
+        ctx.eps, ctx.residual = eps, residual
         if stats is not None:
             ctx.mark_non_differentiable(stats)
         return out, stats
@@ -210,10 +223,11 @@ class _FusedFFNBlock(torch.autograd.Function):
         def plain(x, lns, lnb, w1, b1, w2, b2, mask, gate):
             return fused_ffn_block_plain(x, lns, lnb, w1, b1, w2, b2, neuron_mask=mask,
                                          gate=ctx.gate_value if gate is None else gate,
-                                         eps=ctx.eps)
+                                         eps=ctx.eps, residual=ctx.residual)
 
         *grads, g_mask, g_gate = _plain_vjp(ctx, plain, g_out)
-        return (*grads, None, g_gate, None, None)  # neuron_mask, gate, collect_stats, eps
+        # neuron_mask, gate, collect_stats, eps, residual
+        return (*grads, None, g_gate, None, None, None)
 
 
 def fused_ffn(
@@ -247,10 +261,12 @@ def fused_ffn_block(
     gate: Gate = None,
     collect_stats: bool = False,
     eps: float = 1e-12,
+    residual: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``x + gate * fc2(mask * GELU(fc1(LN(x))))`` and optional stats [b, f] fp32."""
+    """``x + gate * fc2(mask * GELU(fc1(LN(x))))`` and optional stats [b, f] fp32
+    (``residual=False``: without ``x``)."""
     if _needs_grad(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, gate):
         return _FusedFFNBlock.apply(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
-                                    fc2_bias, neuron_mask, gate, collect_stats, eps)
+                                    fc2_bias, neuron_mask, gate, collect_stats, eps, residual)
     return _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                              neuron_mask, gate, collect_stats, eps)
+                              neuron_mask, gate, collect_stats, eps, residual)

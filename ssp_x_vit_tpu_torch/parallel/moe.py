@@ -25,7 +25,9 @@ the combine over experts in fp32, rounding once, as the JAX package's one
 plain ``torch.matmul``: no Pallas kernel computes them there.
 
 Meshes (``mesh=`` of ``moe_ffn``, ``moe_param_specs``, ``shard_moe_params``)
-raise NotImplementedError naming ROADMAP.md A.11d.
+raise NotImplementedError naming ROADMAP.md A.11d.2 (expert parallelism, with
+the pipeline, ring and DeepSeek parallelism); data and tensor parallelism are
+``parallel/mesh.py``, ``vit_sharding.py`` and ``llm_sharding.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ Params = Dict[str, Any]
 # weights in the compute dtype, held at once
 EXPERT_CHUNK_BYTES = 1 << 30
 
-_MESH_NOT_PORTED = ("expert parallelism over a device mesh is not ported yet: "
-                    "parallel/ is ROADMAP.md A.11d")
+_MESH_NOT_PORTED = ("expert parallelism over a device mesh is not ported yet "
+                    "(ROADMAP.md A.11d.2)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,11 +40,16 @@ def copy_replace_attention_importance(
     batch_limit: int = 5,
     neuron_mask=None,
     verbose: bool = True,
+    data_group=None,
+    tp_group=None,
 ) -> Tuple[np.ndarray, float]:
     """Impact of bypassing each block's attention, measured as top-1 drop.
 
     Returns (impacts [num_layers], baseline_accuracy). ``batches`` must be
     re-iterable (a list): the baseline and all candidates share them.
+    ``data_group``: each rank holds its rows of the batches; the candidates'
+    counts are summed over the group, so every rank ranks the same scores;
+    ``tp_group``: ``params`` is a tensor-parallel shard (``vit_sharding``).
     """
     L = cfg.num_layers
     batches = list(batches)[: batch_limit if batch_limit is not None else None]
@@ -53,7 +58,8 @@ def copy_replace_attention_importance(
     for i in range(L):
         gates[i + 1, i] = 0.0
     accs = evaluate_top1_candidates(params, cfg, batches, gates, neuron_mask=neuron_mask,
-                                    max_batches=batch_limit)
+                                    max_batches=batch_limit, data_group=data_group,
+                                    tp_group=tp_group)
     baseline = float(accs[0])
     impacts = np.maximum(0.0, baseline - accs[1:]).astype(np.float32)
     if verbose:

@@ -16,6 +16,8 @@ DEPTH: [q,k,v,proj], [fc1,fc2]; WIDTH: [q,k], [v,proj], [fc1,fc2]; HEAD: [q,k],[
   package's ``error_policy="heuristic"`` fallback is not ported: a failing
   kernel on the card must never be hidden).
 - mlp importance (WIDTH): fused activation-L2 side-output, weight-L1 fallback.
+- ``data_group``: the batches are this rank's rows (data parallelism); both
+  importances are summed over the group, so every rank decides the same.
 """
 
 from __future__ import annotations
@@ -69,8 +71,10 @@ class Auto2SSPInterface(PruningInterface):
         importance_mode: str = "copy",
         batch_limit: int = 5,
         min_remaining: int = 256,
+        data_group=None,
     ):
         super().__init__(params, cfg, pruning_batches)
+        self.data_group = data_group
         self.att_prune_type = PruningTypes.DEPTH
         self.mlp_prune_type = PruningTypes.WIDTH
         self.importance_mode = importance_mode
@@ -80,7 +84,8 @@ class Auto2SSPInterface(PruningInterface):
     def _compute_mlp_importance(self) -> List[np.ndarray]:
         if self.batches is not None:
             imp = compute_ffn_activation_importance(
-                self.params, self.cfg, self.batches, batch_limit=self.batch_limit)
+                self.params, self.cfg, self.batches, batch_limit=self.batch_limit,
+                data_group=self.data_group)
         else:
             imp = weight_l1_importance(self.params)
         return [imp[i] for i in range(self.cfg.num_layers)]
@@ -90,7 +95,8 @@ class Auto2SSPInterface(PruningInterface):
         if self.importance_mode.lower() == "heuristic" or self.batches is None:
             return heuristic_attention_importance(L)
         impacts, _ = copy_replace_attention_importance(
-            self.params, self.cfg, self.batches, batch_limit=self.batch_limit, verbose=False)
+            self.params, self.cfg, self.batches, batch_limit=self.batch_limit, verbose=False,
+            data_group=self.data_group)
         return impacts
 
     def fit_attention(self) -> np.ndarray:

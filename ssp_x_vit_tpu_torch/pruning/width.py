@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ssp_x_vit_tpu_torch.models.vit import Params, ViTConfig, cast_params, vit_forward
+from ssp_x_vit_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def compute_ffn_activation_importance(
@@ -27,10 +28,15 @@ def compute_ffn_activation_importance(
     batches: Iterable[dict],
     *,
     batch_limit: Optional[int] = None,
+    data_group=None,
+    tp_group=None,
 ) -> np.ndarray:
     """Per-neuron importance [num_layers, d_int] fp32: mean over images of
     sqrt(sum over tokens of activation^2). Forwards run in fp32; the sums stay
-    on the device and cross to the host once."""
+    on the device and cross to the host once. ``data_group``: each rank holds
+    its rows of every batch, and the sums and the image count are summed over
+    the group; ``tp_group``: a tensor-parallel shard, whose statistics come
+    back gathered to the full width."""
     params = cast_params(params, torch.float32)
     sums: Optional[torch.Tensor] = None
     count = 0
@@ -38,12 +44,15 @@ def compute_ffn_activation_importance(
         if batch_limit is not None and i >= batch_limit:
             break
         px = batch["pixel_values"]
-        _, aux = vit_forward(params, px, cfg, collect_ffn_stats=True)
+        _, aux = vit_forward(params, px, cfg, collect_ffn_stats=True, tp_group=tp_group)
         acc = aux["ffn_stats"].sqrt().sum(dim=1)  # [L, F]
         sums = acc if sums is None else sums + acc
         count += int(px.shape[0])
     if sums is None:
         return np.zeros((cfg.num_layers, cfg.intermediate_size), np.float32)
+    if data_group is not None:
+        all_reduce_sum(sums, data_group)
+        count = int(all_reduce_sum(torch.tensor([count], device=sums.device), data_group))
     return (sums.cpu().numpy() / max(1, count)).astype(np.float32)
 
 

@@ -35,8 +35,11 @@ def test_port_and_chip_smoke_never_import_jax():
         assert len(names) >= 45, names
         for name in ("parallel.moe", "llm.arrow_ipc", "llm.multilora", "data.native_loader",
                      "data.image_decode", "data.png", "data.pets", "utils.logging",
-                     "utils.profiling"):
+                     "utils.profiling", "parallel.mesh", "parallel.collectives",
+                     "parallel.vit_sharding", "parallel.llm_sharding"):
             assert "ssp_x_vit_tpu_torch." + name in names, names
+        import torch.distributed
+        assert not torch.distributed.is_initialized()   # importing makes no process group
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
@@ -216,12 +219,15 @@ def test_unported_serving_parts_name_the_roadmap_item(tmp_path):
         ServingEngine({}, object())   # neither a LlamaConfig nor a DeepseekConfig
 
 
-def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
-    """What the ViT side still refuses names its item: --data-parallel over
-    more than one CUDA device (A.11), faked here by claiming two devices (the
-    check comes before any CUDA work). An Oxford-IIIT-Pet directory on disk
-    (once refused naming A.7d) loads: the committed fixtures' test split,
-    decoded by the port's own reader."""
+def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch, capsys):
+    """The ViT flags once refused naming their items now run. An
+    Oxford-IIIT-Pet directory on disk (once A.7d) loads: the committed
+    fixtures' test split, decoded by the port's own reader. --data-parallel
+    (once A.11d): in one process on the CPU it is a no-op, as the JAX CLI on
+    one device (the same report, no data-parallel line); run() in one process
+    with more than one CUDA device (faked here, the check comes before any
+    CUDA work) refuses, naming the launchers, since the workers are
+    processes (tests/test_torch_parallel_mesh.py runs a world of two)."""
     from ssp_x_vit_tpu_torch.cli import auto_2ssp
     from ssp_x_vit_tpu_torch.data.srp import load_srp_dataset
 
@@ -230,12 +236,21 @@ def test_unported_cli_flags_name_the_roadmap_item(tmp_path, monkeypatch):
     assert test.images.shape == (10, 32, 32, 3) and test.images.dtype == np.uint8
     assert sorted(test.labels.tolist()) == [1, 3, 4, 8, 10, 13, 16, 25, 29, 36]
     assert next(iter(test))["pixel_values"].shape == (4, 32, 32, 3)
+    base = ["--model", "tiny", "--target", "0.25", "--backend", "cpu", "--eval-batches", "1",
+            "--min-remaining", "32"]
+    reports = [auto_2ssp.run(auto_2ssp.build_argparser().parse_args(
+        base + flags + ["--out-root", str(tmp_path / str(len(flags)))]))
+        for flags in ([], ["--data-parallel"])]
+    assert "Data-parallel" not in capsys.readouterr().out
+    assert reports[0]["metrics"]["acc_stage2"] == reports[1]["metrics"]["acc_stage2"]
+    assert reports[0]["artifacts"]["pruned_block_indices"] == \
+        reports[1]["artifacts"]["pruned_block_indices"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     args = auto_2ssp.build_argparser().parse_args(["--model", "tiny", "--target", "0.25",
                                                    "--data-parallel"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.11"):
+    with pytest.raises(ValueError, match=r"one process per device.*torchrun"):
         auto_2ssp.run(args)
 
 
@@ -531,9 +546,10 @@ def test_vit_gemm_and_core_at_their_edges_on_the_card(cuda_device, dtype, tol):
     """The ViT block GEMM (csrc/gemm.cu) against gemm_plain where its tiles
     change course: M = 1, 197, 300 and 12608 rows (split-K at the small ones),
     (K, N) = (192, 576), (768, 2305) and (682, 250) (element loads where K or
-    N is not a multiple of 8), an A one element off 16 bytes; each epilogue,
-    GELU with the mask and the stats over images of 197, 25 or 1 rows; the
-    same bits on a second launch without stats. The attention core
+    N is not a multiple of 8), an A one element off 16 bytes; each epilogue
+    (the bias one with and without a gate), GELU with the mask and the stats
+    over images of 197, 25 or 1 rows; the same bits on a second launch
+    without stats. The attention core
     (csrc/attention.cu) against attention_core_plain at s = 1, 65, 197, 257
     and 300 and head_dim 32, 64, 128 (fp32: where a head's K and V fit in
     shared memory), by the scaled error and by flash_agrees on the
@@ -561,7 +577,8 @@ def test_vit_gemm_and_core_at_their_edges_on_the_card(cuda_device, dtype, tol):
             mask = (torch.rand(n, generator=gen, device=cuda_device) > 0.3).float()
             for offset in (False, True):
                 a = rn(m, k, offset=offset)
-                for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_GELU, dict(mask=mask)),
+                for epi, kw in ((build.EPI_BIAS, {}), (build.EPI_BIAS, dict(gate=gate)),
+                                (build.EPI_GELU, dict(mask=mask)),
                                 (build.EPI_RESIDUAL, dict(resid=resid, gate=gate))):
                     got = torch.empty(m, n, device=cuda_device, dtype=dtype)
                     stats = torch.empty(m // seq, n, device=cuda_device) if epi == build.EPI_GELU else None

@@ -189,13 +189,14 @@ def kernel_path_on_the_cpu(monkeypatch):
     the plain version; counts the launches."""
     launches = []
 
-    def fake_ffn_cuda(x, ln, w1, b1, w2, b2, mask, gate, collect_stats, eps):
+    def fake_ffn_cuda(x, ln, w1, b1, w2, b2, mask, gate, collect_stats, eps, residual=True):
         launches.append(ln is not None)
         if ln is None:
             return tfused.fused_ffn_plain(x, w1, b1, w2, b2, neuron_mask=mask,
                                           collect_stats=collect_stats)
         return tfused.fused_ffn_block_plain(x, ln[0], ln[1], w1, b1, w2, b2, neuron_mask=mask,
-                                            gate=gate, collect_stats=collect_stats, eps=eps)
+                                            gate=gate, collect_stats=collect_stats, eps=eps,
+                                            residual=residual)
 
     monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
     monkeypatch.setattr(tfused, "_ffn_cuda", fake_ffn_cuda)
