@@ -7320,9 +7320,11 @@ PARALLEL_TIMEOUT_S = 300   # the [PARALLEL] world's own bound (~70-120 s on one 
 def phase_parallel(device) -> dict:
     """[PARALLEL]: ``scripts/torch_parallel_phase.py`` as a world of one process
     per visible card over NCCL (``torch.distributed.run``), after the kernel
-    libraries are built here; its workers hold each parallel path against the
-    single-process path and the on-path kernels at tp = 2 / 4 shard shapes
-    against their plain versions. A worker that fails, or a world still running
+    libraries are built here; its workers hold each parallel path (data, tensor,
+    FSDP, pipeline, ring, expert and DeepSeek parallelism) against the
+    single-process path, the on-path kernels at tp = 2 / 4 shard shapes against
+    their plain versions, and the virtual ring and row 5 at query offsets
+    against the plain version. A worker that fails, or a world still running
     after ``PARALLEL_TIMEOUT_S``, fails the phase (the world is killed). Returns
     the launches of the parallel paths per kernel."""
     import signal
@@ -7366,6 +7368,10 @@ def phase_parallel(device) -> dict:
         f"launch ({result['total_seconds']} s in the workers); seconds by part "
         f"{json.dumps(result['seconds'])}; launches of the parallel paths (rank 0) "
         f"{json.dumps(launches)}; card {nvidia_smi_line()}")
+    for part, counts in result["part_launches"].items():
+        log(f"[PARALLEL] launches of {part}: {json.dumps(counts)}")
+    for hop, t in result["hop_times"].items():
+        log(f"[PARALLEL] ring hop {hop}: {json.dumps(t)}")
     for name in ("fused_attn_block_v2", "fused_attn_block", "fused_ffn_block", "flash_attention",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "quant4_matmul",
                  "fused_mlp_int8"):

@@ -82,6 +82,7 @@ class Run:
         from ssp_x_vit_tpu_torch.ops.kernels import KERNEL_NAMES
 
         self.launches = {name: 0 for name in KERNEL_NAMES}
+        self.part_launches, self.hop_times = {}, {}
 
     def log(self, msg: str) -> None:
         if self.rank == 0:
@@ -442,6 +443,614 @@ def llm_parts(run: Run, device, world: int) -> None:
             torch.cuda.empty_cache()
 
 
+# ------------------------------------------ pipeline, ring, expert, DeepSeek ---
+
+# The ring's attention shapes: Llama-2-7B (32 heads, head_dim 128) and
+# Gemma-2-9B's published config.json (16 heads over 8 KV heads, head_dim 256,
+# sliding window 4096, attention softcap 50), s = 8192 cut into 4 chunks.
+RING_SHAPES = {
+    "Llama-2-7B": dict(h=32, hkv=32, hd=128, window=None, softcap=None),
+    "Gemma-2-9B": dict(h=16, hkv=8, hd=256, window=4096, softcap=50.0),
+}
+RING_S, RING_N = 8192, 4
+LSE_TOL = 1e-3          # absolute, a hop's fp32 lse against the plain version's
+OFFSETS = ((4096, 4096), (2048, 3000), (1000, None))   # (q_offset, window) at Gemma-2 widths
+PIPE_LAYERS, PIPE_M, PIPE_B, PIPE_S = 4, 4, 4, 2048
+SP_WINDOWS, SP_SEQ = 2, 8192
+MICRO_RMS = 1e-2        # bf16 where microbatching changes the GEMMs' row counts
+LOSS_RTOL = 1e-5
+DS_LAYERS, DS_EXPERTS, DS_SEQ = 2, 32, 2048
+
+
+def rel_rms(got, ref) -> float:
+    d = (got.float() - ref.float()).pow(2).mean().sqrt()
+    return float(d / ref.float().pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def _plain_hop(q, k, v, **kw):
+    """flash_attention_plain(with_lse=True) a KV head group at a time (the
+    fp32 [s, s] logits of every head at once would not fit)."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import flash_attention_plain
+
+    rep = q.shape[1] // k.shape[1]
+    outs, lses = [], []
+    for j in range(k.shape[1]):
+        o, lse = flash_attention_plain(q[:, j * rep:(j + 1) * rep], k[:, j:j + 1],
+                                       v[:, j:j + 1], with_lse=True, **kw)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def _virtual_ring(q, k, v, c, *, shift=0, drop=None):
+    """The ring's hops over RING_N chunks in one process (``ring_hop`` /
+    ``merge_hop``); ``shift`` chunks added to every hop's offset (the diagonal
+    hop then sees its own chunk's later keys) and ``drop`` = (p, src) a hop
+    left out make the teeth."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.parallel.ring_attention import merge_hop, ring_hop
+
+    qs, ks, vs = (t.chunk(RING_N, dim=2) for t in (q, k, v))
+    outs = []
+    for p in range(RING_N):
+        acc = None
+        for src in range(p, -1, -1):
+            if (p, src) == drop:
+                continue
+            acc = merge_hop(acc, ring_hop(qs[p].contiguous(), ks[src].contiguous(),
+                                          vs[src].contiguous(), p + shift, src,
+                                          window=c["window"],
+                                          softcap=c["softcap"]))
+        outs.append(acc[0].to(q.dtype))
+    return torch.cat(outs, 2)
+
+
+def _hop_bound(b, h, hkv, sl, hd, pairs, elem=2):
+    """(bound ms, bound_by) of one hop: 4 hd operations a kept (query, key) pair;
+    q, k, v read and out written once, the fp32 lse written once."""
+    nbytes = (2 * b * h * sl * hd + 2 * b * hkv * sl * hd) * elem + 4 * b * h * sl
+    return cs._bound(4 * hd * pairs * b * h, nbytes, "bfloat16")
+
+
+def ring_kernels(run: Run, device) -> None:
+    """Rank 0 (not counted): the virtual ring on the flash kernel at both ring
+    shapes against the unsharded kernel and the plain version (``flash_errors``
+    within ``FLASH_LIMITS``), each hop's lse against the plain lse, and the
+    teeth (every off-diagonal hop one chunk further, a dropped hop); row 5 at
+    query offsets against its plain version with the same teeth; the hops'
+    times beside their bound and SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import (
+        FLASH_LIMITS, flash_agrees, flash_attention_forward, flash_errors,
+    )
+    from ssp_x_vit_tpu_torch.parallel.ring_attention import hop_mask
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(22)
+    rel_lim, tile_lim, _ = FLASH_LIMITS[torch.bfloat16]
+    sl = RING_S // RING_N
+    hops = {}
+    for name, c in RING_SHAPES.items():
+        q = torch.randn(1, c["h"], RING_S, c["hd"], generator=gen, device=device).bfloat16()
+        k, v = (torch.randn(1, c["hkv"], RING_S, c["hd"], generator=gen, device=device)
+                .bfloat16() for _ in range(2))
+        kw = dict(causal=True, window=c["window"], softcap=c["softcap"])
+        whole = flash_attention_forward(q, k, v, **kw)[0]
+        plain = _plain_hop(q, k, v, **kw)[0]
+        ring = _virtual_ring(q, k, v, c)
+        for ref, what in ((plain, "plain version"), (whole, "unsharded kernel")):
+            rel, tile = flash_errors(ring, ref)
+            run.check(f"virtual ring {name} s={RING_S} N={RING_N} vs the {what}: relative "
+                      "RMS error", rel, rel_lim)
+            run.check(f"virtual ring {name} vs the {what}: worst 64-row tile", tile, tile_lim)
+        worst = 0.0
+        for p in range(RING_N):
+            qc = q[:, :, p * sl:(p + 1) * sl].contiguous()
+            for src in range(p + 1):
+                mask = hop_mask(p, src, sl, window=c["window"])
+                if mask is None:
+                    continue
+                off, hc, hw = mask
+                kc, vc = (t[:, :, src * sl:(src + 1) * sl].contiguous() for t in (k, v))
+                got = flash_attention_forward(qc, kc, vc, causal=hc, window=hw,
+                                              softcap=c["softcap"], with_lse=True, q_offset=off)
+                want = _plain_hop(qc, kc, vc, causal=hc, window=hw, softcap=c["softcap"],
+                                  q_offset=off)
+                same_inf = bool(torch.equal(torch.isinf(got[1]), torch.isinf(want[1])))
+                run.check(f"hop {name} ({p}, {src}) lse -inf on the same rows", int(same_inf),
+                          1, "==")
+                fin = torch.isfinite(want[1])
+                worst = max(worst, float((got[1] - want[1])[fin].abs().max()))
+        run.check(f"hops {name}: max |lse - plain lse|", worst, LSE_TOL)
+        for what, bad in (("every hop's offset one chunk further",
+                           _virtual_ring(q, k, v, c, shift=1)),
+                          ("hop (3, 2) dropped", _virtual_ring(q, k, v, c, drop=(3, 2)))):
+            run.check(f"virtual ring {name} with {what} rejected by the flash criteria",
+                      int(flash_agrees(bad, plain)), 0, "==")
+        hops[name] = (q[:, :, 3 * sl:].contiguous(), k[:, :, :sl].contiguous(),
+                      v[:, :, :sl].contiguous(), k[:, :, 2 * sl:3 * sl].contiguous(),
+                      v[:, :, 2 * sl:3 * sl].contiguous())
+        del q, k, v, whole, plain, ring
+        torch.cuda.empty_cache()
+
+    q, k0, v0, _, _ = hops["Gemma-2-9B"]
+    cap = RING_SHAPES["Gemma-2-9B"]["softcap"]
+    for off, window in OFFSETS:
+        got = flash_attention_forward(q, k0, v0, causal=True, window=window, softcap=cap,
+                                      with_lse=True, q_offset=off)[0]
+        want = _plain_hop(q, k0, v0, causal=True, window=window, softcap=cap, q_offset=off)[0]
+        rel, tile = flash_errors(got, want)
+        run.check(f"row 5 at q_offset {off}, window {window}, Gemma-2-9B widths: relative "
+                  "RMS error", rel, rel_lim)
+        run.check(f"row 5 at q_offset {off}, window {window}: worst 64-row tile", tile,
+                  tile_lim)
+        shifted = flash_attention_forward(q, k0, v0, causal=True, window=window, softcap=cap,
+                                          q_offset=off + sl)[0]
+        run.check(f"row 5 at q_offset {off + sl} against the plain version at {off} rejected",
+                  int(flash_agrees(shifted, want)), 0, "==")
+
+    timings = {}
+    for label, name, kw, sdpa in (
+            ("diagonal", "Llama-2-7B", dict(causal=True), dict(is_causal=True)),
+            ("full off-diagonal", "Llama-2-7B", dict(causal=False), dict(is_causal=False)),
+            ("windowed off-diagonal (q_offset 4096)", "Gemma-2-9B",
+             dict(causal=True, window=4096, softcap=cap, q_offset=2 * sl), None)):
+        c = RING_SHAPES[name]
+        q, k0, v0, k2, v2 = hops[name]
+        kk, vv = (k2, v2) if label == "diagonal" else (k0, v0)   # values do not matter here
+        ms = cs.time_ms(lambda: flash_attention_forward(q, kk, vv, with_lse=True, **kw), 20)
+        if label == "diagonal":
+            pairs = sl * (sl + 1) // 2
+        elif label.startswith("full"):
+            pairs = sl * sl
+        else:
+            pairs = sum(max(0, min(sl, r + 2 * sl + 1) - max(0, r + 2 * sl - 4096 + 1))
+                        for r in range(sl))
+        bound, by = _hop_bound(1, c["h"], c["hkv"], sl, c["hd"], pairs)
+        sdpa_ms = None
+        if sdpa is not None:
+            sdpa_ms = cs.time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, **sdpa), 20)
+        timings[f"{label} {name}"] = dict(ms=round(ms, 4), bound_ms=round(bound, 4),
+                                          bound_by=by,
+                                          sdpa_ms=None if sdpa_ms is None else round(sdpa_ms, 4),
+                                          shape=[1, c["h"], c["hkv"], sl, c["hd"]])
+        run.log(f"hop {label} {name} [1, {c['h']}/{c['hkv']}, {sl}, {c['hd']}] bf16 with lse: "
+                f"{ms:.4f} ms (bound {bound:.4f} ms, {by}; SDPA "
+                f"{'n/a' if sdpa_ms is None else f'{sdpa_ms:.4f} ms'})")
+    run.hop_times = timings
+    del hops
+    torch.cuda.empty_cache()
+
+
+def _parallel_launches(run: Run, part: str, fn, need=()):
+    """``run.counted(fn)`` with the launches of this part kept apart; each
+    kernel of ``need`` must have launched."""
+    before = dict(run.launches)
+    out = run.counted(fn)
+    mine = {k: run.launches[k] - before[k] for k in run.launches if run.launches[k] - before[k]}
+    run.part_launches[part] = mine
+    for name in need:
+        run.check(f"{part}: {name} launches", mine.get(name, 0), 0, ">")
+    return out
+
+
+def seq_parts(run: Run, device, world: int) -> None:
+    """Sequence-parallel perplexity at Llama-2-7B widths (2 layers, bf16), 2
+    windows of 8192, against ``evaluate_perplexity``; on more cards also the
+    world's ring at both ring shapes against the unsharded kernel."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.evaluation import evaluate_perplexity
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params
+    from ssp_x_vit_tpu_torch.ops.kernels.flash_attention import (
+        FLASH_LIMITS, flash_attention_forward, flash_errors,
+    )
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel.collectives import gather_along
+    from ssp_x_vit_tpu_torch.parallel.ring_attention import (
+        evaluate_perplexity_seq_parallel, ring_attention,
+    )
+
+    cfg = LlamaConfig(**dict(cs.LLAMA_2_7B, num_layers=2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    ids = np.random.default_rng(23).integers(0, cfg.vocab_size, SP_WINDOWS * SP_SEQ)
+    with run.timed(f"perplexity {SP_WINDOWS} x {SP_SEQ} single process"):
+        single = evaluate_perplexity(params, cfg, ids, seq_len=SP_SEQ, enable_tqdm=False)
+    shapes = [(1, 1)] if world == 1 else [(1, world), (2, world // 2)]
+    for shape in shapes:
+        mesh = M.make_seq_mesh(*shape)
+        with run.timed(f"seq-parallel perplexity {SP_WINDOWS} x {SP_SEQ} mesh {shape}"):
+            ppl = _parallel_launches(
+                run, f"seq-parallel perplexity mesh {shape}",
+                lambda: evaluate_perplexity_seq_parallel(params, cfg, mesh, ids, seq_len=SP_SEQ,
+                                                         compute_dtype=torch.bfloat16),
+                need=("flash_attention",))
+        run.log(f"seq-parallel perplexity mesh {shape} {ppl!r}, single process {single!r}")
+        run.check(f"seq-parallel perplexity mesh {shape} relative difference",
+                  abs(ppl - single) / single, EXACT_TOL if world == 1 else MULTI_PPL_RTOL)
+    del params
+    torch.cuda.empty_cache()
+    if world == 1:
+        return
+    rel_lim, tile_lim, _ = FLASH_LIMITS[torch.bfloat16]
+    for name, c in RING_SHAPES.items():
+        q = torch.randn(1, c["h"], RING_S, c["hd"], generator=gen, device=device).bfloat16()
+        k, v = (torch.randn(1, c["hkv"], RING_S, c["hd"], generator=gen, device=device)
+                .bfloat16() for _ in range(2))
+        whole = flash_attention_forward(q, k, v, causal=True, window=c["window"],
+                                        softcap=c["softcap"])[0]
+        for shape in shapes:
+            mesh = M.make_seq_mesh(*shape)
+            g, n, r = mesh.get_group("seq"), M.axis_size(mesh, "seq"), M.axis_index(mesh, "seq")
+            sl = RING_S // n
+            local = [t[:, :, r * sl:(r + 1) * sl].contiguous() for t in (q, k, v)]
+            with run.timed(f"ring attention {name} s={RING_S} mesh {shape}"):
+                out = _parallel_launches(run, f"ring attention {name} mesh {shape}",
+                                         lambda: ring_attention(*local, g, n_chunks=n,
+                                                                window=c["window"],
+                                                                softcap=c["softcap"]),
+                                         need=("flash_attention",))
+            full = gather_along(out, 2, g)
+            rel, tile = flash_errors(full, whole)
+            run.check(f"ring {name} mesh {shape} vs the unsharded kernel: relative RMS", rel,
+                      rel_lim)
+            run.check(f"ring {name} mesh {shape}: worst 64-row tile", tile, tile_lim)
+
+
+def _grad_leaves(tree, leaves):
+    """{(key, block key, layer): gradient} of a ``trainable_tree``'s leaves."""
+    out, i = {}, 0
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            for bk, layers in v.items():
+                for j in range(len(layers)):
+                    out[(k, bk, j)] = leaves[i].grad
+                    i += 1
+        else:
+            out[(k,)] = leaves[i].grad
+            i += 1
+    return out
+
+
+def _single_reference(params, cfg, toks):
+    """(logits, loss, {(key, block key, layer): gradient}) of the single
+    process: ``llama_forward`` and the train step's forward and backward."""
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+    from ssp_x_vit_tpu_torch.llm.train import next_token_loss, trainable_tree
+
+    with torch.no_grad():
+        logits = llama_forward(params, toks, cfg)[0]
+    tree, leaves = trainable_tree(params)
+    loss = next_token_loss(tree, toks, cfg)   # make_llama_train_step's forward
+    loss.backward()
+    return logits, float(loss.detach()), _grad_leaves(tree, leaves)
+
+
+def _grad_keys(shard, layers):
+    """(key, block key, global layer) or (key,) of each leaf of a pipeline
+    shard, in ``optim.tree_leaves`` order."""
+    keys = []
+    for k, v in shard.items():
+        if isinstance(v, dict):
+            keys += [(k, bk, layers[j]) for bk in v for j in range(v[bk].shape[0])]
+        else:
+            keys.append((k,))
+    return keys
+
+
+def pipeline_parts(run: Run, device, world: int) -> None:
+    """The pipeline at Llama-2-7B widths cut to 4 layers (bf16), M = 4, b = 4,
+    s = 2048: the forward's logits, one GPipe and one 1F1B step's loss and
+    gradients (before the update), then each step's update. One card: each
+    against the single process. More cards: the logits against the
+    tensor-parallel forward on the same ``model`` cut (the same arithmetic),
+    the loss and gradients against the same pipeline at M = 1 (what
+    microbatching changes: the GEMMs' row counts), the loss also against the
+    single process."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, init_llama_params, llama_forward
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import pipeline as PP
+    from ssp_x_vit_tpu_torch.parallel.llm_sharding import shard_llama_params
+
+    cfg = LlamaConfig(**dict(cs.LLAMA_2_7B, num_layers=PIPE_LAYERS))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    params = init_llama_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    tokens = np.random.default_rng(24).integers(0, cfg.vocab_size, (PIPE_B, PIPE_S))
+    toks = torch.from_numpy(tokens).to(device)
+    with run.timed("pipeline reference forward, loss and gradients single process"):
+        single_logits, single_loss, single_grads = _single_reference(params, cfg, toks)
+    shapes = [(1, 1, 1)] if world == 1 else [(1, 2, 2), (1, 4, 1)]
+    for shape in shapes:
+        mesh = M.make_pipeline_mesh(*shape)
+        tp = shape[2]
+        layers = PP._stage_layers(mesh, cfg.num_layers)
+        shard = PP.shard_llama_params_pipeline(params, mesh, cfg)
+        ref_logits = single_logits
+        if tp > 1:
+            tpm = M.make_mesh(model=tp)
+            with torch.no_grad():
+                ref_logits = llama_forward(shard_llama_params(params, tpm, cfg), toks, cfg,
+                                           tp_group=tpm.get_group("model"))[0]
+        fwd = PP.make_pipeline_forward(mesh, cfg, num_microbatches=PIPE_M,
+                                       compute_dtype=torch.bfloat16)
+        with run.timed(f"pipeline forward mesh {shape}"):
+            logits = _parallel_launches(run, f"pipeline forward mesh {shape}",
+                                        lambda: fwd(shard, tokens), need=("flash_attention",))
+        run.log(f"pipeline forward mesh {shape} logits relative RMS against the single "
+                f"process: {rel_rms(logits, single_logits)!r}")
+        run.check(f"pipeline forward mesh {shape} logits relative RMS against "
+                  f"{'the single process' if world == 1 else f'the tp={tp} forward'}",
+                  rel_rms(logits, ref_logits), MICRO_RMS)
+        del logits, ref_logits
+        ref_loss, want = single_loss, single_grads
+        if world > 1:
+            with run.timed(f"pipeline M=1 loss and gradients mesh {shape}"):
+                ref_loss, ref = PP.make_pipeline_train_step(
+                    mesh, cfg, num_microbatches=1, compute_dtype=torch.bfloat16).grads(
+                        shard, tokens)
+            ref_loss = float(ref_loss)
+            want = dict(zip(_grad_keys(shard, layers), ref))
+        for sched in PP.SCHEDULES:
+            opt = AdamW(1e-4)
+            step = PP.make_pipeline_train_step(mesh, cfg, opt, num_microbatches=PIPE_M,
+                                               compute_dtype=torch.bfloat16, schedule=sched)
+            with run.timed(f"pipeline {sched} loss and gradients mesh {shape}"):
+                loss, grads = _parallel_launches(
+                    run, f"pipeline {sched} gradients mesh {shape}",
+                    lambda: step.grads(shard, tokens),
+                    need=("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+            loss = float(loss)
+            what = "the single process" if world == 1 else "the pipeline at M=1"
+            run.log(f"pipeline {sched} mesh {shape} loss {loss!r}, {what} {ref_loss!r}, single "
+                    f"process {single_loss!r}; 1F1B held at most {step.schedule.held_max} stage "
+                    "inputs")
+            run.check(f"pipeline {sched} mesh {shape} loss relative difference from {what}",
+                      abs(loss - ref_loss) / abs(ref_loss), LOSS_RTOL)
+            if world > 1:
+                run.check(f"pipeline {sched} mesh {shape} loss relative difference from the "
+                          "single process", abs(loss - single_loss) / abs(single_loss),
+                          MULTI_LOSS_RTOL)
+            pairs = [(g, want[key]) for g, key in zip(grads, _grad_keys(shard, layers))]
+            worst = max(rel_rms(g, w) for g, w in pairs)
+            whole = rel_rms(torch.cat([g.float().reshape(-1) for g, _ in pairs]),
+                            torch.cat([w.float().reshape(-1) for _, w in pairs]))
+            run.log(f"pipeline {sched} mesh {shape} gradients relative RMS against {what}: all "
+                    f"leaves {whole!r}, worst leaf {worst!r}")
+            if world == 1:
+                run.check(f"pipeline {sched} mesh {shape} worst leaf gradient relative RMS "
+                          f"against {what}", worst, MICRO_RMS)
+            else:   # the gradients' relative RMS where microbatching changes the GEMMs' rows
+                run.check(f"pipeline {sched} mesh {shape} gradients relative RMS against {what}",
+                          whole, MICRO_RMS)
+            del grads, pairs
+            fresh = PP.shard_llama_params_pipeline(
+                {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.clone()) for k, v in params.items()}, mesh, cfg)
+            state = opt.init(fresh)
+            with run.timed(f"pipeline {sched} train step mesh {shape}"):
+                _, _, loss2 = _parallel_launches(run, f"pipeline {sched} step mesh {shape}",
+                                                 lambda: step(fresh, state, tokens))
+            run.check(f"pipeline {sched} step mesh {shape} loss as before the update",
+                      abs(float(loss2) - loss) / abs(loss), LOSS_RTOL)
+            del fresh, state
+            torch.cuda.empty_cache()
+        del shard, want
+        torch.cuda.empty_cache()
+    del params, single_logits, single_grads
+    torch.cuda.empty_cache()
+
+
+def _v3(layers: int, dense: bool = False):
+    import dataclasses
+
+    from ssp_x_vit_tpu_torch.llm.deepseek import config_from_hf_deepseek
+
+    cfg = dataclasses.replace(config_from_hf_deepseek(cs.DEEPSEEK_V3_HF), num_layers=layers,
+                              first_k_dense_replace=1, n_routed_experts=DS_EXPERTS)
+    if dense:
+        cfg = dataclasses.replace(cfg, n_routed_experts=0, n_shared_experts=0)
+    return cfg
+
+
+def deepseek_parts(run: Run, device, world: int) -> None:
+    """DeepSeek-V3 widths cut to 2 layers (1 dense + 1 MoE of 32 routed
+    experts; bf16 weights): ``deepseek_generate`` on ``shard_deepseek_params``
+    (tp = the world), the MLA ring perplexity at s = 2048, one FSDP step; the
+    dense variant's pipeline forward."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.deepseek import (
+        deepseek_forward, deepseek_generate, init_deepseek_params,
+    )
+    from ssp_x_vit_tpu_torch.llm.evaluation import evaluate_perplexity
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW, tree_leaves
+    from ssp_x_vit_tpu_torch.llm.train import make_llama_train_step
+    from ssp_x_vit_tpu_torch.parallel import deepseek_parallel as DP
+    from ssp_x_vit_tpu_torch.parallel import llm_sharding as S
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel.ring_attention import evaluate_perplexity_seq_parallel
+
+    cfg = _v3(DS_LAYERS)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    params = init_deepseek_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    bias = params["moe_blocks"]["e_bias"]
+    bias.copy_((torch.rand(bias.shape, generator=gen, device=device) - 0.5) * 0.1)
+    rng = np.random.default_rng(25)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 64))
+    with run.timed("deepseek_generate b=2 +16 single process"):
+        ref = deepseek_generate(params, cfg, prompts, max_new_tokens=16)
+    tpm = M.make_mesh(model=world)
+    shard = S.shard_deepseek_params(params, tpm, cfg)
+    with run.timed(f"deepseek_generate b=2 +16 tp={world}"):
+        outs = _parallel_launches(run, f"deepseek_generate tp={world}",
+                                  lambda: deepseek_generate(shard, cfg, prompts,
+                                                            max_new_tokens=16,
+                                                            tp_group=tpm.get_group("model")))
+    del shard
+    if world == 1:
+        run.check("deepseek tp=1 tokens differing from the single process",
+                  sum(int((a != b).sum()) for a, b in zip(outs, ref)), 0, "==")
+    else:
+        worst = 0.0
+        with torch.no_grad():
+            for prompt, seq in zip(prompts, outs):
+                toks = torch.as_tensor(seq[None].astype("int64"), device=device)
+                logits = deepseek_forward(params, toks[:, :-1], cfg)
+                for pos in range(len(prompt), len(seq)):
+                    row = logits[0, pos - 1]
+                    best = float(row.max())
+                    worst = max(worst, (best - float(row[int(seq[pos])])) / max(1.0, abs(best)))
+        run.check(f"deepseek tp={world} served tokens' worst logit shortfall", worst,
+                  MULTI_TOKEN_TOL)
+
+    del outs, ref
+    torch.cuda.empty_cache()
+    ids = rng.integers(0, cfg.vocab_size, 2 * DS_SEQ)
+    with run.timed(f"deepseek perplexity 2 x {DS_SEQ} single process"):
+        single = evaluate_perplexity(params, cfg, ids, seq_len=DS_SEQ, enable_tqdm=False)
+    mesh = M.make_seq_mesh(1, world)
+    with run.timed(f"MLA ring perplexity 2 x {DS_SEQ} mesh (1, {world})"):
+        ppl = _parallel_launches(run, f"MLA ring perplexity mesh (1, {world})",
+                                 lambda: evaluate_perplexity_seq_parallel(params, cfg, mesh, ids,
+                                                                          seq_len=DS_SEQ))
+    run.log(f"MLA ring perplexity {ppl!r}, single process {single!r}")
+    run.check(f"MLA ring perplexity mesh (1, {world}) relative difference",
+              abs(ppl - single) / single, EXACT_TOL if world == 1 else MULTI_PPL_RTOL)
+
+    tokens = rng.integers(0, cfg.vocab_size, (max(2, world), 257))
+
+    def clone():
+        return {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.clone()) for k, v in params.items()}
+
+    opt = AdamW(1e-4)
+    ref_params = clone()
+    state = opt.init(ref_params)
+    with run.timed("deepseek train step single process"):
+        _, _, ref_loss = make_llama_train_step(cfg, opt)(ref_params, state, tokens)
+    # the updated reference waits on the host: the FSDP step below holds the
+    # tree, its gradients, both moments and AdamW's fp32 copies of a leaf
+    ref_leaves = [t.cpu() for t in tree_leaves(ref_params)]
+    del state, ref_params
+    dpm = M.make_mesh(model=1)
+    specs = S.fsdp_llama_param_specs_like(params, M.axis_size(dpm, "data"))
+    fsdp = S.shard_llama_params_fsdp(params, dpm)   # params is not used after this step
+    bias = fsdp["moe_blocks"]["e_bias"].clone()
+    del params
+    torch.cuda.empty_cache()
+    state = opt.init(fsdp)
+    with run.timed(f"deepseek FSDP step dp={world}"):
+        fsdp, state, loss = _parallel_launches(
+            run, f"deepseek FSDP step dp={world}",
+            lambda: S.make_fsdp_llama_train_step(dpm, cfg, opt, specs=specs)(fsdp, state, tokens))
+    loss, rl = float(loss), float(ref_loss)
+    run.check(f"deepseek FSDP dp={world} loss relative difference", abs(loss - rl) / abs(rl),
+              EXACT_TOL if world == 1 else MULTI_LOSS_RTOL)
+    run.check(f"deepseek FSDP dp={world} e_bias changed elements",
+              int((fsdp["moe_blocks"]["e_bias"] != bias).sum()), 0, "==")
+    if world == 1:
+        diff = max(float((a.float() - b.to(a.device).float()).abs().max())
+                   for a, b in zip(tree_leaves(fsdp), ref_leaves))
+        run.check("deepseek FSDP dp=1 parameters max |difference|", diff, EXACT_TOL)
+    del fsdp, state, ref_leaves
+    torch.cuda.empty_cache()
+
+    dcfg = _v3(DS_LAYERS, dense=True)
+    dparams = init_deepseek_params(gen, dcfg, dtype=torch.bfloat16, device=device)
+    tokens = rng.integers(0, dcfg.vocab_size, (2, 512))
+    shape = (1, 1, 1) if world == 1 else (1, 2, 2)
+    with torch.no_grad():   # the same work without the pipeline on the same model cut
+        if shape[2] == 1:
+            want = deepseek_forward(dparams, torch.from_numpy(tokens).to(device), dcfg)
+        else:
+            tpm = M.make_mesh(model=shape[2])
+            want = deepseek_forward(S.shard_deepseek_params(dparams, tpm, dcfg),
+                                    torch.from_numpy(tokens).to(device), dcfg,
+                                    tp_group=tpm.get_group("model"))
+    pm = M.make_pipeline_mesh(*shape)
+    sh = DP.shard_deepseek_params_pipeline(dparams, pm, dcfg)
+    fwd = DP.make_deepseek_pipeline_forward(pm, dcfg, num_microbatches=2,
+                                            compute_dtype=torch.bfloat16)
+    with run.timed(f"deepseek dense pipeline forward mesh {shape}"):
+        got = _parallel_launches(run, f"deepseek dense pipeline forward mesh {shape}",
+                                 lambda: fwd(sh, tokens))
+    run.check(f"deepseek dense pipeline mesh {shape} logits relative RMS against tp="
+              f"{shape[2]} without the pipeline", rel_rms(got, want), MICRO_RMS)
+    del dparams, sh, got, want
+    torch.cuda.empty_cache()
+
+
+def expert_parts(run: Run, device, world: int) -> None:
+    """Mixtral-8x7B widths cut to 2 layers: ``shard_moe_llama_params`` on the
+    (1, world) expert mesh (8 / world experts a card) against ``llama_forward``.
+    Both runs' top-2 choices are recorded (``parallel.moe._top_k``): a token
+    whose second-layer choice differs (the experts' bf16 sums over the cards
+    move a near-tie) is counted, and the logits of the tokens routed alike in
+    both layers are held to the single process's."""
+    import numpy as np
+    import torch
+
+    from ssp_x_vit_tpu_torch.llm.model import llama_forward
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import moe as MO
+    from ssp_x_vit_tpu_torch.parallel.llm_sharding import shard_moe_llama_params
+
+    params, cfg = cs.make_mixtral(device, 2)
+    toks = torch.from_numpy(np.random.default_rng(26).integers(0, cfg.vocab_size, (2, 512))
+                            ).to(device)
+    chosen, top_k = [], MO._top_k
+
+    def recording(probs, k):
+        out = top_k(probs, k)
+        chosen.append(out[1].sort(dim=-1).values)
+        return out
+
+    MO._top_k = recording
+    try:
+        with torch.no_grad():
+            want = llama_forward(params, toks, cfg)[0]
+            em = M.make_expert_mesh(1, world)
+            shard = shard_moe_llama_params(params, em)
+            with run.timed(f"MoE-llama expert forward mesh (1, {world})"):
+                got = _parallel_launches(
+                    run, f"MoE-llama expert forward mesh (1, {world})",
+                    lambda: llama_forward(shard, toks, cfg,
+                                          expert_group=em.get_group("expert"))[0],
+                    need=("flash_attention",))
+    finally:
+        MO._top_k = top_k
+    layers = cfg.num_layers
+    alike = torch.stack([(chosen[i] == chosen[layers + i]).all(-1) for i in range(layers)]
+                        ).all(0).reshape(toks.shape)
+    moved = int((~alike).sum())
+    run.log(f"MoE-llama expert mesh (1, {world}): {moved} of {alike.numel()} tokens routed to "
+            f"other experts than the single process; logits relative RMS over every token "
+            f"{rel_rms(got, want)!r}")
+    run.check(f"MoE-llama expert mesh (1, {world}) logits relative RMS over the tokens routed "
+              "alike", rel_rms(got[alike], want[alike]), EXACT_TOL if world == 1 else MULTI_LOSS_RTOL)
+    if world == 1:
+        run.check("MoE-llama expert mesh (1, 1) tokens routed to other experts", moved, 0, "==")
+    del params, shard, got, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", required=True, help="JSON written by rank 0")
@@ -470,9 +1079,19 @@ def main() -> int:
     llm_parts(run, device, world)
     dist.barrier()
     if rank == 0:
+        with run.timed("virtual ring and row 5 at offsets"):
+            ring_kernels(run, device)
+    dist.barrier()
+    seq_parts(run, device, world)
+    pipeline_parts(run, device, world)
+    deepseek_parts(run, device, world)
+    expert_parts(run, device, world)
+    dist.barrier()
+    if rank == 0:
         with open(args.out, "w") as f:
             json.dump({"world": world, "nccl": nccl, "device": torch.cuda.get_device_name(device),
                        "seconds": run.seconds, "launches": run.launches, "checks": run.checks,
+                       "part_launches": run.part_launches, "hop_times": run.hop_times,
                        "total_seconds": round(time.perf_counter() - t0, 3)}, f, indent=1)
     dist.destroy_process_group()
     return 0

@@ -28,6 +28,20 @@ stacked ``[L, ...]`` leaves (plain, ``_q`` int8, ``_q4`` packed int4 with
 with ``einsum`` outside any Pallas kernel); the projections go through
 ``ops.common.mm_quant``, so packed-int4 projections launch the dequant GEMM on
 the card. The paged MLA server is ``llm/paged_mla.py``.
+
+Tensor parallelism (``tp_group`` of ``deepseek_forward`` /
+``deepseek_generate``; shards from ``parallel/llm_sharding.py``
+``shard_deepseek_params``) is Megatron for MLA: ``q`` / ``q_b`` / ``kv_b``
+column-parallel over whole heads (a rank's head count comes from the widths),
+``o`` and the dense / shared ``down`` row-parallel (summed over the group; an
+int4 row layer stays whole and gathers its input), ``q_a`` / ``kv_a`` and the
+norms replicated, so the compressed latent is the same on every rank and the
+decode cache is not cut; the routed experts ``[E, d, f]`` cut on E, each rank
+running its range and the combine summed over the group; the lm_head cut on
+the vocabulary and gathered. Replicated activations enter the rank's own
+products through ``copy_to_tp``, so a replicated weight's gradient is whole on
+every rank. ``gather_layer`` (fully sharded training) maps a layer's shards to
+its full weights inside the layer body.
 """
 
 from __future__ import annotations
@@ -48,7 +62,8 @@ from ssp_x_vit_tpu_torch.llm.rope import (
     RopeScaling, export_rope_scaling, parse_rope_scaling, rope_freqs, yarn_get_mscale,
 )
 from ssp_x_vit_tpu_torch.ops.common import mm_quant, pick_param_variants
-from ssp_x_vit_tpu_torch.parallel.moe import dropless_experts, top_k_indices
+from ssp_x_vit_tpu_torch.parallel.collectives import copy_to_tp, gather_from_tp, reduce_from_tp
+from ssp_x_vit_tpu_torch.parallel.moe import grouped_dropless, top_k_indices
 
 Params = Dict[str, Any]
 
@@ -302,22 +317,35 @@ def _kv_b_matrix(bp, dt):
     return bp["kv_b_kernel"].to(dt)
 
 
-def _head_logits(x, params, dt):
-    """lm_head -> fp32 logits (tied-embedding fallback, int8 head via _mm)."""
+def _row(h, bp, name, dt, tp=None):
+    """A row-parallel projection summed over ``tp`` (an int4 one stays whole
+    and gathers its input instead, as the llama family's ``_row_parallel``)."""
+    if tp is None:
+        return _mm(h, bp, name, dt)
+    if name + "_q4" in bp:
+        return _mm(gather_from_tp(h, tp), bp, name, dt)
+    return reduce_from_tp(_mm(h, bp, name, dt), tp)
+
+
+def _head_logits(x, params, dt, tp=None):
+    """lm_head -> fp32 logits (tied-embedding fallback, int8 head via _mm);
+    under ``tp`` an untied head is vocab-sharded and gathered."""
     if "lm_head" in params or "lm_head_q" in params:
-        return _mm(x, params, "lm_head", dt).float()
+        logits = _mm(copy_to_tp(x, tp), params, "lm_head", dt).float()
+        return logits if tp is None else gather_from_tp(logits, tp)
     return (x @ params["embed"].t().to(dt)).float()
 
 
-def _mla_q(x, bp, cfg: DeepseekConfig, dt):
-    """[b, s, d] -> q [b, nq, s, qk_head_dim] (before rope)."""
+def _mla_q(x, bp, cfg: DeepseekConfig, dt, tp=None):
+    """[b, s, d] -> q [b, nq, s, qk_head_dim] (before rope); nq is this rank's
+    head count under ``tp``."""
     b, s, _ = x.shape
     if cfg.q_lora_rank is None:
-        q = _mm(x, bp, "q_kernel", dt)
+        q = _mm(copy_to_tp(x, tp), bp, "q_kernel", dt)
     else:
         qa = _rms(_mm(x, bp, "q_a_kernel", dt), bp["q_a_norm"], cfg.rms_eps)
-        q = _mm(qa, bp, "q_b_kernel", dt)
-    return q.reshape(b, s, cfg.num_heads, cfg.qk_head_dim).transpose(1, 2)
+        q = _mm(copy_to_tp(qa, tp), bp, "q_b_kernel", dt)
+    return q.reshape(b, s, -1, cfg.qk_head_dim).transpose(1, 2)
 
 
 def _mla_compressed(x, bp, cfg: DeepseekConfig, dt):
@@ -328,22 +356,24 @@ def _mla_compressed(x, bp, cfg: DeepseekConfig, dt):
     return _rms(c, bp["kv_a_norm"], cfg.rms_eps), k_rot
 
 
-def _mla_expand_kv(c_norm, bp, cfg: DeepseekConfig, dt):
-    """[b, s, kvr] -> (k_nope [b, nq, s, nope], v [b, nq, s, vd])."""
+def _mla_expand_kv(c_norm, bp, cfg: DeepseekConfig, dt, tp=None):
+    """[b, s, kvr] -> (k_nope [b, nq, s, nope], v [b, nq, s, vd]), nq this
+    rank's heads under ``tp``."""
     b, s, _ = c_norm.shape
-    kv = _mm(c_norm, bp, "kv_b_kernel", dt).reshape(
-        b, s, cfg.num_heads, cfg.qk_nope_head_dim + cfg.v_head_dim).transpose(1, 2)
+    kv = _mm(copy_to_tp(c_norm, tp), bp, "kv_b_kernel", dt).reshape(
+        b, s, -1, cfg.qk_nope_head_dim + cfg.v_head_dim).transpose(1, 2)
     return kv[..., :cfg.qk_nope_head_dim], kv[..., cfg.qk_nope_head_dim:]
 
 
-def _mla_attention(x, bp, cfg: DeepseekConfig, dt):
+def _mla_attention(x, bp, cfg: DeepseekConfig, dt, tp=None):
     """Full-sequence causal MLA attention of the post-ln1 ``x``. Returns
-    (out [b, s, d], c_norm [b, s, kvr], k_rot_roped [b, s, rd])."""
+    (out [b, s, d], c_norm [b, s, kvr], k_rot_roped [b, s, rd]); under ``tp``
+    the rank's heads, ``out`` summed over the group."""
     b, s, _ = x.shape
-    q = _mla_q(x, bp, cfg, dt)
+    q = _mla_q(x, bp, cfg, dt, tp)
     q_nope, q_rot = q[..., :cfg.qk_nope_head_dim], q[..., cfg.qk_nope_head_dim:]
     c_norm, k_rot_raw = _mla_compressed(x, bp, cfg, dt)
-    k_nope, v = _mla_expand_kv(c_norm, bp, cfg, dt)
+    k_nope, v = _mla_expand_kv(c_norm, bp, cfg, dt, tp)
 
     pos = torch.arange(s, device=x.device)
     cos, sin = _rope_tables(cfg, pos)                        # [s, rd]
@@ -351,24 +381,27 @@ def _mla_attention(x, bp, cfg: DeepseekConfig, dt):
     k_rot = _apply_rope(k_rot_raw, cos, sin, cfg.rope_interleave)        # [b, s, rd]
 
     scores = (_f32mm(q_nope, k_nope.transpose(-1, -2))
-              + _f32mm(q_rot, k_rot[:, None].transpose(-1, -2))) * mla_softmax_scale(cfg)
+              + _f32mm(q_rot, copy_to_tp(k_rot, tp)[:, None].transpose(-1, -2))
+              ) * mla_softmax_scale(cfg)
     causal = pos[None, :] <= pos[:, None]
     scores = torch.where(causal, scores, torch.full_like(scores, float("-inf")))
     probs = torch.softmax(scores, dim=-1)
     ctx = _f32mm(probs.to(dt), v).to(dt)                     # [b, nq, s, vd]
-    out = ctx.transpose(1, 2).reshape(b, s, cfg.num_heads * cfg.v_head_dim)
-    return _mm(out, bp, "o_kernel", dt), c_norm, k_rot
+    out = ctx.transpose(1, 2).reshape(b, s, -1)
+    return _row(out, bp, "o_kernel", dt, tp), c_norm, k_rot
 
 
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
-def _glu(x, bp, dt, names=("gate_kernel", "up_kernel", "down_kernel")):
-    """SwiGLU over named block params (quantization-aware via _mm)."""
+def _glu(x, bp, dt, names=("gate_kernel", "up_kernel", "down_kernel"), tp=None):
+    """SwiGLU over named block params (quantization-aware via _mm); under
+    ``tp`` gate / up column- and down row-parallel."""
+    x = copy_to_tp(x, tp)
     g = _mm(x, bp, names[0], dt)
     u = _mm(x, bp, names[1], dt)
-    return _mm(F.silu(g) * u, bp, names[2], dt)
+    return _row(F.silu(g) * u, bp, names[2], dt, tp)
 
 
 def _deepseek_route(xt, bp, cfg: DeepseekConfig):
@@ -399,15 +432,17 @@ def _deepseek_route(xt, bp, cfg: DeepseekConfig):
     return torch.zeros_like(scores).scatter_(1, top_e, w)    # [T, E]
 
 
-def _deepseek_moe(x, bp, cfg: DeepseekConfig, dt):
+def _deepseek_moe(x, bp, cfg: DeepseekConfig, dt, tp=None):
     """Dropless routed experts (every expert on every token, weighted by the
-    dense combine matrix) plus the always-on shared experts."""
+    dense combine matrix) plus the always-on shared experts. Under ``tp`` the
+    routing is computed on every rank, each runs its expert range and its
+    shared-expert columns, and both are summed over the group."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     sel = _deepseek_route(xt, bp, cfg).to(dt)                # [T, E]
-    routed = dropless_experts(xt, sel, bp, dt).reshape(b, s, d)
+    routed = grouped_dropless(xt, sel, bp, dt, tp).reshape(b, s, d)
     if cfg.n_shared_experts:
-        routed = routed + _glu(x, bp, dt, ("shared_gate", "shared_up", "shared_down"))
+        routed = routed + _glu(x, bp, dt, ("shared_gate", "shared_up", "shared_down"), tp)
     return routed
 
 
@@ -452,15 +487,23 @@ def _embed(params, input_ids, dt):
     return F.embedding(input_ids, params["embed"]).to(dt)
 
 
-def _layer(x, moe, ap, mp, cfg: DeepseekConfig, dt, ga, gm, collect_mlp_stats):
-    """One block: (x out, c and k_rot of its attention or None, MLP stats or None)."""
+def _layer(x, moe, ap, mp, cfg: DeepseekConfig, dt, ga, gm, collect_mlp_stats, tp=None,
+           gather_layer=None):
+    """One block: (x out, c and k_rot of its attention or None, MLP stats or None).
+    ``gather_layer(params, group_key)`` maps the layer's shards to its weights."""
+    if gather_layer is not None:
+        key = "moe_blocks" if moe else "dense_blocks"
+        ap = None if ap is None else gather_layer(ap, key)
+        mp = gather_layer(mp, key)
     c = kr = stats = None
     if ap is not None:
-        attn_out, c, kr = _mla_attention(_rms(x, ap["ln1"], cfg.rms_eps), ap, cfg, dt)
+        attn_out, c, kr = _mla_attention(_rms(x, ap["ln1"], cfg.rms_eps), ap, cfg, dt, tp)
         x = x + _gate(attn_out, ga, x.dtype)
     h = _rms(x, mp["ln2"], cfg.rms_eps)
     if moe:
-        mlp_out = _deepseek_moe(h, mp, cfg, dt)
+        mlp_out = _deepseek_moe(h, mp, cfg, dt, tp)
+    elif tp is not None:
+        mlp_out = _glu(h, mp, dt, tp=tp)
     else:
         g = _mm(h, mp, "gate_kernel", dt)
         u = _mm(h, mp, "up_kernel", dt)
@@ -473,7 +516,7 @@ def _layer(x, moe, ap, mp, cfg: DeepseekConfig, dt, ga, gm, collect_mlp_stats):
 
 def _run_forward(params, input_ids, cfg: DeepseekConfig, dt, *, attn_gate=None,
                  mlp_gate=None, collect_mlp_stats=False, return_block_outputs=False,
-                 logit_position=None, remat=False):
+                 logit_position=None, remat=False, tp=None, gather_layer=None):
     """The per-layer loop shared by both forwards: (logits, c [La, b, s, kvr],
     kr [La, b, s, rd] of the layers with attention, aux). ``remat``
     checkpoints each layer (non-reentrant): the backward recomputes it."""
@@ -482,7 +525,7 @@ def _run_forward(params, input_ids, cfg: DeepseekConfig, dt, *, attn_gate=None,
     for i, (moe, ap, mp) in enumerate(deepseek_layers(params, cfg)):
         ga = None if attn_gate is None else attn_gate[i]
         gm = None if mlp_gate is None else mlp_gate[i]
-        args = (moe, ap, mp, cfg, dt, ga, gm, collect_mlp_stats and not moe)
+        args = (moe, ap, mp, cfg, dt, ga, gm, collect_mlp_stats and not moe, tp, gather_layer)
         if remat:
             x, c, kr, st = checkpoint(_layer, x, *args, use_reentrant=False,
                                       preserve_rng_state=False)
@@ -503,7 +546,7 @@ def _run_forward(params, input_ids, cfg: DeepseekConfig, dt, *, attn_gate=None,
         aux["mlp_stats"] = torch.stack(stats)
     if return_block_outputs:
         aux["block_outputs"] = torch.stack(outs)
-    return _head_logits(x, params, dt), cs, krs, aux
+    return _head_logits(x, params, dt, tp), cs, krs, aux
 
 
 def _as_gates(g, device):
@@ -516,7 +559,7 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
                      compute_dtype=torch.bfloat16, return_caches: bool = False,
                      logit_position: Optional[int] = None, attn_gate=None, mlp_gate=None,
                      collect_mlp_stats: bool = False, return_block_outputs: bool = False,
-                     remat: bool = False):
+                     remat: bool = False, tp_group=None, gather_layer=None):
     """input_ids [b, s] -> logits [b, s, V] fp32. ``return_caches`` also
     returns the serving-cache tensors (c [L, b, s, kvr], k_rot [L, b, s, rd],
     rope applied); ``logit_position`` computes logits at that position only
@@ -525,7 +568,12 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
     tokens); ``collect_mlp_stats`` / ``return_block_outputs`` add an aux dict
     as a second output: ``mlp_stats`` [L, b, f] (dense-GLU configs only) and
     ``block_outputs`` [L, b, s, d]. ``remat=True`` (training under autograd)
-    checkpoints each layer; the backward recomputes its forward."""
+    checkpoints each layer; the backward recomputes its forward. ``tp_group``:
+    the tensor-parallel group of a ``shard_deepseek_params`` shard (no MLP
+    statistics; the full logits on every rank). ``gather_layer(params,
+    group_key)``: fully sharded training's per-layer all-gather."""
+    if tp_group is not None and collect_mlp_stats:
+        raise ValueError("tensor parallelism takes no MLP statistics")
     if cfg.pruned_attention_blocks:
         raise ValueError("use deepseek_forward_materialized for "
                          "attention-materialized configs")
@@ -537,7 +585,8 @@ def deepseek_forward(params: Params, input_ids: torch.Tensor, cfg: DeepseekConfi
     logits, cs, krs, aux = _run_forward(
         params, input_ids, cfg, compute_dtype, attn_gate=_as_gates(attn_gate, dev),
         mlp_gate=_as_gates(mlp_gate, dev), collect_mlp_stats=collect_mlp_stats,
-        return_block_outputs=return_block_outputs, logit_position=logit_position, remat=remat)
+        return_block_outputs=return_block_outputs, logit_position=logit_position, remat=remat,
+        tp=tp_group, gather_layer=gather_layer)
     want_aux = collect_mlp_stats or return_block_outputs
     if not return_caches:
         return (logits, aux) if want_aux else logits
@@ -565,16 +614,17 @@ def deepseek_forward_materialized(params: Params, input_ids: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _absorbed_kv_b(bp, cfg: DeepseekConfig, dt):
-    """kv_b folded per head for weight absorption: [kvr, nq, nope + vd]."""
-    return _kv_b_matrix(bp, dt).reshape(cfg.kv_lora_rank, cfg.num_heads,
+    """kv_b folded per head for weight absorption: [kvr, nq, nope + vd] (nq
+    this rank's heads of a tensor-parallel shard)."""
+    return _kv_b_matrix(bp, dt).reshape(cfg.kv_lora_rank, -1,
                                         cfg.qk_nope_head_dim + cfg.v_head_dim)
 
 
-def _absorbed_q(h, bp, cfg: DeepseekConfig, dt, cos, sin, wkv):
+def _absorbed_q(h, bp, cfg: DeepseekConfig, dt, cos, sin, wkv, tp=None):
     """The absorbed query of one position per row: h [b, d] post-ln1, cos/sin
     broadcastable to [b, nq, rd] -> (q_c [b, nq, kvr] in dt, q_rot [b, nq, rd])."""
     nope = cfg.qk_nope_head_dim
-    q = _mla_q(h[:, None], bp, cfg, dt)[:, :, 0]             # [b, nq, qk]
+    q = _mla_q(h[:, None], bp, cfg, dt, tp)[:, :, 0]         # [b, nq, qk]
     q_nope, q_rot = q[..., :nope], q[..., nope:]
     q_rot = _apply_rope(q_rot, cos, sin, cfg.rope_interleave)
     # [b, nq, nope] x [nq, nope, kvr] per head
@@ -582,22 +632,23 @@ def _absorbed_q(h, bp, cfg: DeepseekConfig, dt, cos, sin, wkv):
     return q_c.to(dt), q_rot
 
 
-def _absorbed_out(ctx_c, bp, cfg: DeepseekConfig, dt, wkv):
+def _absorbed_out(ctx_c, bp, cfg: DeepseekConfig, dt, wkv, tp=None):
     """Context in compressed space [b, nq, kvr] -> o_proj output [b, d]."""
     b = ctx_c.shape[0]
     nope = cfg.qk_nope_head_dim
     out = _f32mm(ctx_c.to(dt).transpose(0, 1), wkv[:, :, nope:].transpose(0, 1)).transpose(0, 1)
-    return _mm(out.to(dt).reshape(b, cfg.num_heads * cfg.v_head_dim), bp, "o_kernel", dt)
+    return _row(out.to(dt).reshape(b, -1), bp, "o_kernel", dt, tp)
 
 
-def _absorbed_decode_attention(x, bp, cfg: DeepseekConfig, dt, c_cache, kr_cache, t: int):
+def _absorbed_decode_attention(x, bp, cfg: DeepseekConfig, dt, c_cache, kr_cache, t: int,
+                               tp=None):
     """One decode position against the compressed cache (weight absorption).
     x [b, d] is the post-ln1 hidden state; c_cache [b, S, kvr] / kr_cache
     [b, S, rd] hold positions < t; this step's compressed vector is written at
     position t, in place, and attended to. Returns attn_out [b, d]."""
     cos, sin = _rope_tables(cfg, torch.full((1,), t, device=x.device))  # [1, rd]
     wkv = _absorbed_kv_b(bp, cfg, dt)
-    q_c, q_rot = _absorbed_q(x, bp, cfg, dt, cos, sin, wkv)
+    q_c, q_rot = _absorbed_q(x, bp, cfg, dt, cos, sin, wkv, tp)
 
     c_new, k_rot_raw = _mla_compressed(x[:, None], bp, cfg, dt)
     k_rot_new = _apply_rope(k_rot_raw, cos, sin, cfg.rope_interleave)   # [b, 1, rd]
@@ -610,11 +661,11 @@ def _absorbed_decode_attention(x, bp, cfg: DeepseekConfig, dt, c_cache, kr_cache
     scores = (_f32mm(q_c, c.transpose(1, 2)) + _f32mm(q_rot, kr.transpose(1, 2)))
     probs = torch.softmax(scores * mla_softmax_scale(cfg), dim=-1)
     ctx_c = _f32mm(probs.to(dt), c).to(dt)                   # [b, nq, kvr]
-    return _absorbed_out(ctx_c, bp, cfg, dt, wkv)
+    return _absorbed_out(ctx_c, bp, cfg, dt, wkv, tp)
 
 
 def _decode_step(params: Params, token: torch.Tensor, cfg: DeepseekConfig, dt,
-                 c_caches, kr_caches, t: int, layers=None):
+                 c_caches, kr_caches, t: int, layers=None, tp=None):
     """token [b] at position t -> logits [b, V]; the caches ([La, b, S, ...],
     one row per layer with attention) are written in place."""
     x = _embed(params, token, dt)                             # [b, d]
@@ -622,26 +673,31 @@ def _decode_step(params: Params, token: torch.Tensor, cfg: DeepseekConfig, dt,
     for moe, ap, mp in (layers if layers is not None else deepseek_layers(params, cfg)):
         if ap is not None:
             h = _rms(x, ap["ln1"], cfg.rms_eps)
-            x = x + _absorbed_decode_attention(h, ap, cfg, dt, c_caches[a], kr_caches[a], t)
+            x = x + _absorbed_decode_attention(h, ap, cfg, dt, c_caches[a], kr_caches[a], t,
+                                               tp)
             a += 1
         h2 = _rms(x, mp["ln2"], cfg.rms_eps)
-        mlp = _deepseek_moe(h2[:, None], mp, cfg, dt)[:, 0] if moe else _glu(h2, mp, dt)
+        mlp = (_deepseek_moe(h2[:, None], mp, cfg, dt, tp)[:, 0] if moe
+               else _glu(h2, mp, dt, tp=tp))
         x = x + mlp
     x = _rms(x, params["ln_final"], cfg.rms_eps)
-    return _head_logits(x, params, dt)
+    return _head_logits(x, params, dt, tp)
 
 
 
 @torch.no_grad()
 def deepseek_generate(params: Params, cfg: DeepseekConfig, prompt, *, max_new_tokens: int = 32,
-                      eos_token_id: Optional[int] = None, compute_dtype=torch.bfloat16):
+                      eos_token_id: Optional[int] = None, compute_dtype=torch.bfloat16,
+                      tp_group=None):
     """Greedy generation over the compressed MLA cache (absorbed decode) on
     the device of ``params``: one prefill through the full forward (which
     emits the cache), then a decode step per token.
 
     ``prompt`` is one id sequence [s] (returns one array: prompt + generation,
     trimmed at eos) or a same-length batch [b, s] (returns a list of such
-    arrays). The tokens stay on the device until the end."""
+    arrays). The tokens stay on the device until the end. ``tp_group``: the
+    tensor-parallel group of a ``shard_deepseek_params`` shard (the latent
+    cache is whole on every rank; every rank returns the same tokens)."""
     arr = np.asarray(prompt, np.int64)
     single = arr.ndim == 1
     batch = arr.reshape(1, -1) if single else arr
@@ -650,9 +706,16 @@ def deepseek_generate(params: Params, cfg: DeepseekConfig, prompt, *, max_new_to
     dt = compute_dtype
     device = params["embed"].device
 
-    prefill = deepseek_forward_materialized if cfg.pruned_attention_blocks else deepseek_forward
-    logits, (c, kr) = prefill(params, torch.as_tensor(batch, device=device), cfg,
-                              compute_dtype=dt, return_caches=True)
+    if cfg.pruned_attention_blocks:
+        if tp_group is not None:
+            raise ValueError("tensor parallelism takes unpruned DeepSeek trees")
+        logits, (c, kr) = deepseek_forward_materialized(
+            params, torch.as_tensor(batch, device=device), cfg, compute_dtype=dt,
+            return_caches=True)
+    else:
+        logits, (c, kr) = deepseek_forward(params, torch.as_tensor(batch, device=device), cfg,
+                                           compute_dtype=dt, return_caches=True,
+                                           tp_group=tp_group)
     first = logits[:, -1].argmax(dim=-1)                      # [b]
 
     c_caches = torch.zeros((c.shape[0], b, S, c.shape[-1]), dtype=dt, device=device)
@@ -668,7 +731,7 @@ def deepseek_generate(params: Params, cfg: DeepseekConfig, prompt, *, max_new_to
         # output is never used: max_new_tokens - 1 steps give the same tokens
         for t in range(s0, s0 + max_new_tokens - 1):
             token = _decode_step(params, token, cfg, dt, c_caches, kr_caches, t,
-                                 layers).argmax(dim=-1)
+                                 layers, tp_group).argmax(dim=-1)
             toks.append(token)
     gen = torch.stack(toks).cpu().numpy()                     # [n, b]
 

@@ -276,19 +276,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.float()).to(x.dtype)
 
 
-def rope_tables(s: int, cfg: LlamaConfig, device: torch.device
+def rope_tables(s: int, cfg: LlamaConfig, device: torch.device, start: int = 0
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """cos/sin ``[1, 1, s, rd]`` in fp32 for ``s`` positions (``rd`` = the
-    rotary dims: ``rotary_dim`` under partial rotary, else head_dim), with any
-    ``rope_scaling`` correction (llm/rope.py). None for OPT, which has no rope.
-    A forward makes them once and hands them to every layer."""
+    """cos/sin ``[1, 1, s, rd]`` in fp32 for positions ``start .. start + s - 1``
+    (``rd`` = the rotary dims: ``rotary_dim`` under partial rotary, else
+    head_dim), with any ``rope_scaling`` correction (llm/rope.py). None for
+    OPT, which has no rope. A forward makes them once and hands them to every
+    layer; a sequence-parallel rank makes them at its chunk's global positions."""
     if cfg.is_opt:
         return None
     hd = cfg.head_dim
     rd = cfg.rotary_dim if cfg.rotary_dim is not None and cfg.rotary_dim < hd else hd
     inv_freq_np, attn_scale = rope_freqs(cfg.rope_theta, rd, cfg.rope_scaling)
     inv_freq = torch.from_numpy(inv_freq_np).to(device)
-    pos = torch.arange(s, dtype=torch.float32, device=device)
+    pos = torch.arange(start, start + s, dtype=torch.float32, device=device)
     freqs = torch.outer(pos, inv_freq)                 # [s, rd/2]
     emb = torch.cat([freqs, freqs], dim=-1)            # [s, rd]
     return ((torch.cos(emb) * attn_scale)[None, None], (torch.sin(emb) * attn_scale)[None, None])
@@ -328,10 +329,13 @@ def _row_parallel(h, bp, name, compute_dtype, tp=None):
     return reduce_from_tp(_mm(h, bp, name, compute_dtype), tp)
 
 
-def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], rope, tp=None):
+def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], rope, tp=None,
+               attn_core=None):
     """Causal self attention of one layer; ``window`` is that layer's static
     sliding window (None = full causal), ``rope`` the forward's cos/sin tables,
-    ``tp`` the tensor-parallel group of a sharded layer."""
+    ``tp`` the tensor-parallel group of a sharded layer. ``attn_core(q, k, v,
+    window)`` replaces the flash call on roped q / k / v (the sequence-parallel
+    ring)."""
     b, s, d = x.shape
     hd = cfg.head_dim
     x = copy_to_tp(x, tp)
@@ -364,8 +368,11 @@ def _attention(x, bp, cfg: LlamaConfig, compute_dtype, window: Optional[int], ro
             q, k = _rope(q, k, rope)
 
     # GQA-native: K/V stay at nkv heads (the plain version repeats them itself)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
-                          window=window, softcap=cfg.attn_softcap)
+    if attn_core is not None:
+        out = attn_core(q.contiguous(), k.contiguous(), v.contiguous(), window)
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+                              window=window, softcap=cfg.attn_softcap)
     out = out.permute(0, 2, 1, 3).reshape(b, s, nq * hd)
     out = _row_parallel(out, bp, "o_kernel", compute_dtype, tp)
     if "o_bias" in bp:
@@ -399,19 +406,22 @@ def _layer_norm(x, scale, bias, eps):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def _moe_mlp(x, bp, cfg: LlamaConfig, compute_dtype):
+def _moe_mlp(x, bp, cfg: LlamaConfig, compute_dtype, group=None):
     """The mixture-of-experts block MLP: the dropless formulation of
     ``parallel/moe.py`` (every token through its routed experts, no capacity
     overflow), so a cached decode equals the full forward. The layer's slice
     holds the router and the expert stacks (float, ``_q`` or ``_q4`` with
-    ``_scale``). Returns (output, the layer's switch load-balance loss)."""
+    ``_scale``). ``group``: the tensor-parallel group of a ``model`` shard (the
+    experts' f axis cut) or the expert group of an ``expert`` shard (whole
+    experts); each rank's share is summed over it. Returns (output, the
+    layer's switch load-balance loss)."""
     from ssp_x_vit_tpu_torch.parallel.moe import MoEConfig, moe_ffn_dropless
 
     mcfg = MoEConfig(cfg.hidden_size, cfg.intermediate_size, cfg.num_experts,
                      cfg.expert_capacity_factor, top_k=cfg.moe_top_k)
     p = {k: v for k, v in bp.items() if k == "router" or k.startswith(
         ("gate_kernel", "up_kernel", "down_kernel"))}
-    y, aux = moe_ffn_dropless(p, x.to(compute_dtype), mcfg)
+    y, aux = moe_ffn_dropless(p, x.to(compute_dtype), mcfg, group=group)
     return y.to(compute_dtype), aux["aux_loss"]
 
 
@@ -475,16 +485,20 @@ def _gated(branch: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
-                 collect_mlp_stats: bool, mlp_stats_kind: str, tp=None, gather_layer=None):
+                 collect_mlp_stats: bool, mlp_stats_kind: str, tp=None, gather_layer=None,
+                 attn_core=None, expert_group=None):
     """One block of ``llama_forward``: (x out, MLP stats or None, MLP input, MLP
-    output before gemma-2's post-norm, the MoE load-balance loss or None)."""
+    output before gemma-2's post-norm, the MoE load-balance loss or None).
+    ``i`` is the global layer index (its window); ``attn_core`` replaces the
+    flash call (``_attention``); ``expert_group`` sums an expert shard's MoE."""
     if gather_layer is not None:
         bp = gather_layer(bp)
     if cfg.is_phi:
         # phi-2 parallel residual: one LayerNorm feeds both branches; under tp
         # each branch's row-parallel sum is reduced before its bias
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
-        attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp)
+        attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp,
+                              attn_core)
         mlp_out, stats = _phi_mlp(h, bp, compute_dtype, nm, collect_mlp_stats, mlp_stats_kind,
                                   tp=tp)
         return x + _gated(attn_out, ga) + _gated(mlp_out, gm), stats, h, mlp_out, None
@@ -492,7 +506,7 @@ def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
         h = _layer_norm(x, bp["ln1"], bp["ln1_bias"], cfg.layer_norm_eps)
     else:
         h = rms_norm(x, bp["ln1"], cfg.rms_eps)
-    attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp)
+    attn_out = _attention(h, bp, cfg, compute_dtype, cfg.layer_window(i), rope, tp, attn_core)
     if cfg.is_gemma2:
         # gemma-2 post-norms: the residual deltas are RMS-normalized before the adds
         # (under tp on the reduced sums)
@@ -505,7 +519,8 @@ def _llama_layer(x, bp, i, cfg: LlamaConfig, compute_dtype, rope, ga, gm, nm,
                                   mlp_stats_kind, act="relu", tp=tp)
     elif cfg.num_experts:
         mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
-        mlp_out, moe_loss = _moe_mlp(mlp_in, bp, cfg, compute_dtype)
+        mlp_out, moe_loss = _moe_mlp(mlp_in, bp, cfg, compute_dtype,
+                                     tp if tp is not None else expert_group)
         stats = None
     else:
         mlp_in = rms_norm(x, bp["ln2"], cfg.rms_eps)
@@ -531,6 +546,7 @@ def llama_forward(
     remat: bool = False,
     tp_group=None,
     gather_layer=None,
+    expert_group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """input_ids [b, s] -> (logits [b, s, V] fp32, aux).
 
@@ -554,8 +570,11 @@ def llama_forward(
     load-balance loss comes out of the checkpointed layer beside its output).
 
     ``tp_group``: the tensor-parallel group of a ``shard_llama_params`` shard
-    (dense float, int8 or int4 trees; the full logits come back on every
-    rank); it takes no MoE, neuron mask or MLP statistics. ``gather_layer``:
+    (dense float, int8 or int4 trees, and MoE trees with float or int8 experts
+    cut on their f axis; the full logits come back on every rank); it takes no
+    neuron mask or MLP statistics. ``expert_group``: the expert group of a
+    ``shard_moe_llama_params`` shard (whole experts per rank, summed over the
+    group). ``gather_layer``:
     a function from a layer's parameter dict to the one the layer runs
     (fully sharded training's all-gather), called inside the layer body.
     """
@@ -570,10 +589,11 @@ def llama_forward(
                 "route tokens per-expert and do not support neuron masks/stats")
     if remat and (collect_mlp_stats or collect_mlp_io_stats or return_block_outputs):
         raise ValueError("remat=True takes no aux outputs")
-    if tp_group is not None and (cfg.num_experts or collect_mlp_stats or collect_mlp_io_stats
+    if tp_group is not None and (collect_mlp_stats or collect_mlp_io_stats
                                  or neuron_mask is not None):
-        raise ValueError("tensor parallelism takes no MoE (ROADMAP.md A.11d.2), neuron mask "
-                         "or MLP statistics")
+        raise ValueError("tensor parallelism takes no neuron mask or MLP statistics")
+    if tp_group is not None and expert_group is not None:
+        raise ValueError("a tree is sharded over model or over expert, not both")
     x = _embed(params, input_ids, cfg, compute_dtype)
     rope = rope_tables(input_ids.shape[1], cfg, x.device)
     blocks = params["blocks"]
@@ -590,14 +610,14 @@ def llama_forward(
             x, moe_loss = checkpoint(
                 lambda x_, bp=bp, i=i, ga=ga, gm=gm, nm=nm: _llama_layer(
                     x_, bp, i, cfg, compute_dtype, rope, ga, gm, nm, False,
-                    mlp_stats_kind, tp_group, gather_layer)[::4],
+                    mlp_stats_kind, tp_group, gather_layer, expert_group=expert_group)[::4],
                 x, use_reentrant=False, preserve_rng_state=False)
             if moe_loss is not None:
                 record("moe_aux_loss", moe_loss)
             continue
         x, stats, mlp_in, mlp_out, moe_loss = _llama_layer(
             x, bp, i, cfg, compute_dtype, rope, ga, gm, nm, collect_mlp_stats, mlp_stats_kind,
-            tp_group, gather_layer)
+            tp_group, gather_layer, expert_group=expert_group)
         if moe_loss is not None:
             record("moe_aux_loss", moe_loss)
         if collect_mlp_stats:

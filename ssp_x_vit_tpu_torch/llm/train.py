@@ -97,11 +97,17 @@ def next_token_loss(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     checkpointed layer loop, so ``remat`` is a no-op there. DeepSeek/MLA
     configs take ``deepseek_forward``; a llama MoE config adds
     ``router_aux_coef`` times the mean over layers of ``moe_aux_loss``.
-    ``tp_group`` / ``gather_layer``: a sharded llama tree's
-    (``parallel/llm_sharding.py``), handed to ``llama_forward``."""
+    ``tp_group`` / ``gather_layer``: a sharded tree's
+    (``parallel/llm_sharding.py``), handed to ``llama_forward`` or
+    ``deepseek_forward``."""
     _check_trainable(cfg)
     moe = getattr(cfg, "num_experts", 0)
-    if tp_group is not None or gather_layer is not None:
+    if is_deepseek(cfg) and (tp_group is not None or gather_layer is not None):
+        from ssp_x_vit_tpu_torch.llm.deepseek import deepseek_forward
+
+        logits = deepseek_forward(params, tokens[:, :-1], cfg, compute_dtype=compute_dtype,
+                                  remat=remat, tp_group=tp_group, gather_layer=gather_layer)
+    elif tp_group is not None or gather_layer is not None:
         logits, aux = llama_forward(params, tokens[:, :-1], cfg, compute_dtype=compute_dtype,
                                     remat=remat, tp_group=tp_group, gather_layer=gather_layer)
     elif moe and not cfg.pruned_attention_blocks:   # the gated forward returns the aux loss

@@ -52,8 +52,8 @@ SIGNATURES = {
         "ssp_attention_smem_bytes": ([_I, _I, _I], ctypes.c_longlong),
     },
     "flash_attention": {
-        "ssp_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P],
-                                _I),
+        "ssp_flash_attention": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _I,
+                                 _P], _I),
     },
     "flash_attention_bwd": {
         "ssp_flash_attention_bwd_dq": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -261,14 +261,16 @@ def attention(qkv: torch.Tensor, out: torch.Tensor, b: int, s: int, heads: int,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, *,
                     scale: float, causal: bool, window: int, softcap: float,
-                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    lse: Optional[torch.Tensor] = None, q_offset: int = 0) -> torch.Tensor:
     """out[b, h, s, hd] = softmax(mask(softcap(q k^T * scale))) v for contiguous
     q [b, h, s, hd] and k, v [b, hkv, s, hd]; ``window`` and ``softcap`` <= 0 mean none.
-    ``lse`` (fp32 [b, h, s]), when given, receives each row's log-sum-exp."""
+    ``lse`` (fp32 [b, h, s]), when given, receives each row's log-sum-exp.
+    ``q_offset`` (>= 0) puts query row r at key position r + q_offset in the masks."""
     b, h, s, hd = q.shape
     check(library("flash_attention").ssp_flash_attention(
         DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        k.shape[1], s, hd, scale, int(causal), window, softcap, _ptr(lse), _stream()),
+        k.shape[1], s, hd, scale, int(causal), window, softcap, _ptr(lse), int(q_offset),
+        _stream()),
         "ssp_flash_attention")
     return out
 

@@ -12,7 +12,8 @@
 // end, as the Pallas kernel divides after P V). Numerics follow the Pallas
 // kernel and sdpa_reference: fp32 logits, softcap on the scaled logits before
 // the mask, mask by absolute row and column (col <= row, row - col < window,
-// col < s), p rounded to v's dtype before P V, the row sum taken in fp32.
+// col < s; row shifted by q_offset, the ring hop's query chunk sitting
+// q_offset keys after its key chunk), p rounded to v's dtype before P V, the row sum taken in fp32.
 //
 // Key tiles wholly above the diagonal or wholly outside the window are
 // skipped, so causal attention costs about half the rectangle and a window
@@ -86,13 +87,15 @@ struct Args {
   int window;     // <= 0: none
   float softcap;  // <= 0: none
   int tma;        // bf16: the producer loads by TMA (else by elements)
+  int q_offset;   // >= 0: query row r sits at position r + q_offset of the keys
 };
 
-// Key tiles [lo, hi) of width bk that query rows [r_lo, r_end) need.
+// Key tiles [lo, hi) of width bk that query rows [r_lo, r_end) need (lo == hi:
+// none, when the window's band at the query offset misses every key).
 __device__ __forceinline__ void key_tiles(const Args& p, int r_lo, int r_end, int bk, int& lo, int& hi) {
   const int n_tiles = (p.s + bk - 1) / bk;
-  hi = p.causal ? min(n_tiles, (r_end - 1) / bk + 1) : n_tiles;
-  lo = (p.causal && p.window > 0) ? max(0, r_lo - p.window + 1) / bk : 0;
+  hi = p.causal ? min(n_tiles, (r_end - 1 + p.q_offset) / bk + 1) : n_tiles;
+  lo = (p.causal && p.window > 0) ? min(hi, max(0, r_lo + p.q_offset - p.window + 1) / bk) : 0;
 }
 
 // Key tiles of width bk that the query rows [q0, q0 + BQ) need.
@@ -100,12 +103,13 @@ __device__ __forceinline__ void tile_range(const Args& p, int q0, int bk, int& l
   key_tiles(p, q0, min(q0 + BQ, p.s), bk, lo, hi);
 }
 
-// False where the mask removes (row, col).
+// False where the mask removes (row, col); the mask sees row + q_offset.
 __device__ __forceinline__ bool keep(const Args& p, int row, int col) {
   bool ok = col < p.s;
   if (p.causal) {
-    ok = ok && col <= row;
-    if (p.window > 0) ok = ok && (row - col < p.window);
+    const int r = row + p.q_offset;
+    ok = ok && col <= r;
+    if (p.window > 0) ok = ok && (r - col < p.window);
   }
   return ok;
 }
@@ -114,8 +118,9 @@ __device__ __forceinline__ bool keep(const Args& p, int row, int col) {
 __device__ __forceinline__ bool tile_masked(const Args& p, int r0, int nr, int c0, int nc) {
   if (c0 + nc > p.s) return true;
   if (!p.causal) return false;
-  if (c0 + nc - 1 > r0) return true;
-  return p.window > 0 && r0 + nr - 1 - c0 >= p.window;
+  const int r = r0 + p.q_offset;
+  if (c0 + nc - 1 > r) return true;
+  return p.window > 0 && r + nr - 1 - c0 >= p.window;
 }
 
 // Scaled, soft-capped logit of (row, col), or -inf where the mask removes it.
@@ -541,21 +546,22 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 }  // namespace ssp
 
 // q [b, h, s, hd], k/v [b, hkv, s, hd], o [b, h, s, hd], all contiguous and of
-// one dtype. window <= 0 and softcap <= 0 mean none. hd up to 256. lse, when
+// one dtype. window <= 0 and softcap <= 0 mean none. hd up to 256. q_offset
+// (>= 0) shifts every query row's position in the causal and window masks. lse, when
 // not null, receives the fp32 [b, h, s] log-sum-exp of each row's logits (-inf
 // for a row with no key) for the backward kernels; the no-grad callers pass null.
 extern "C" int ssp_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int b, int h, int hkv, int s, int hd, float scale,
                                    int causal, int window, float softcap, float* lse,
-                                   void* stream) {
+                                   int q_offset, void* stream) {
   using namespace ssp;
   using namespace ssp::flash;
   if (b <= 0 || h <= 0 || hkv <= 0 || s <= 0 || hd <= 0 || hd > 256 || h % hkv != 0 ||
-      h > 65535 || b > 65535)
+      h > 65535 || b > 65535 || q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto is16 = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const int tma = hd % 8 == 0 && is16(q) && is16(k) && is16(v);
-  const Args p{q, k, v, o, lse, b, h, hkv, s, hd, scale, causal, window, softcap, tma};
+  const Args p{q, k, v, o, lse, b, h, hkv, s, hd, scale, causal, window, softcap, tma, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kBF16) {

@@ -89,16 +89,38 @@ def flash_agrees(got: torch.Tensor, plain: torch.Tensor) -> bool:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = False, window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
+                          softcap: Optional[float] = None, q_offset: int = 0,
+                          with_lse: bool = False):
     """Plain PyTorch version: repeat K/V over the query group, then
-    ``sdpa_reference`` (the whole [s, s] logits in fp32)."""
+    ``sdpa_reference`` (the whole [s, s] logits in fp32). ``q_offset`` puts
+    query row r at key position r + q_offset in the causal and window masks;
+    ``with_lse`` returns (out, fp32 [b, h, s] row log-sum-exp). Under either, a
+    row whose keys are all masked gets an output of 0 and an lse of -inf, as
+    the kernel does."""
     from ssp_x_vit_tpu_torch.ops.attention import sdpa_reference
 
     rep = q.shape[1] // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    return sdpa_reference(q, k, v, causal=causal, window=window, softcap=softcap)
+    if q_offset == 0 and not with_lse:
+        return sdpa_reference(q, k, v, causal=causal, window=window, softcap=softcap)
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal attention")
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if causal:
+        qi = torch.arange(q.shape[2], device=q.device)[:, None] + q_offset
+        ki = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = ki <= qi
+        if window is not None:
+            mask = mask & (qi - ki < window)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    weights = torch.exp(logits - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    out = torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -166,17 +188,22 @@ def _options(window: Optional[int], softcap: Optional[float]) -> dict:
 
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool = False, window: Optional[int] = None,
-                            softcap: Optional[float] = None, with_lse: bool = False
+                            softcap: Optional[float] = None, with_lse: bool = False,
+                            q_offset: int = 0
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch of the forward kernel on CUDA tensors: (out, lse), lse the
-    fp32 [b, h, s] row log-sum-exp when ``with_lse``, else None."""
+    fp32 [b, h, s] row log-sum-exp when ``with_lse``, else None. ``q_offset``
+    (>= 0) puts query row r at key position r + q_offset in the masks (a ring
+    hop over an earlier key chunk); a row with no key gets 0 and lse -inf."""
     _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     b, h, s, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
         build.flash_attention(q, k, v, out, scale=1.0 / math.sqrt(hd), causal=causal, lse=lse,
-                              **_options(window, softcap))
+                              q_offset=q_offset, **_options(window, softcap))
     launch_counts["flash_attention"] += 1
     return out, lse
 

@@ -22,6 +22,26 @@ pairs):
 - :func:`fsdp_gather`: all-gather along an axis forward, reduce-scatter
   backward (a fully sharded weight used inside a layer body).
 
+Point-to-point hand-offs along a named axis (pipeline stages, the ring of
+sequence parallelism) go through ``batch_isend_irecv`` with the group's
+neighbours in rank order:
+
+- :func:`exchange`: any set of sends and receives to relative neighbours as
+  one batch (the 1F1B tick's four hand-offs, a ring hop's rotation);
+- :func:`send_next` / :func:`recv_prev` and the reverse :func:`send_prev` /
+  :func:`recv_next`; under autograd ``send_next``'s backward receives the
+  cotangent from the next rank and ``recv_prev``'s sends it to the previous
+  one (``_SendNext`` / ``_RecvPrev``), so a GPipe backward runs the reverse
+  hand-offs by itself;
+- :func:`ring_rotate`: JAX's ``ppermute`` with ``perm = [(i, (i+1) % n)]``
+  (the identity at n = 1, which sends nothing), and :func:`ring_rotate_start`,
+  which posts it and returns a handle to wait on, so a hop's kernel runs while
+  the next chunk travels.
+
+NCCL creates a group's communicator at its first collective, which every rank
+of the group must join; :func:`warm_group` runs a one-element all-reduce
+first, so the first point-to-point batch never creates it.
+
 ``all_gather_single`` / ``reduce_scatter_single`` are taken where this
 PyTorch has them (2.13 deprecates the ``*_tensor`` names), else the
 ``*_tensor`` names.
@@ -122,6 +142,121 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return scatter_sum_along(g, ctx.dim, ctx.group), None, None
+
+
+def _peer(group, offset: int) -> int:
+    """The global rank ``offset`` places after this one in ``group``'s order."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    return dist.get_global_rank(group, (r + offset) % n)
+
+
+_WARM = set()
+
+
+def warm_group(group, device) -> None:
+    """One all-reduce of an element over ``group`` (once per group and process)."""
+    if group is None or id(group) in _WARM:
+        return
+    dist.all_reduce(torch.zeros(1, device=device), group=group)
+    _WARM.add(id(group))
+
+
+class Pending:
+    """Posted hand-offs: ``wait()`` returns the received buffers (and keeps the
+    sent tensors alive until then)."""
+
+    def __init__(self, works, sent, received):
+        self.works, self.sent, self.received = works, sent, received
+
+    def wait(self):
+        for w in self.works:
+            w.wait()
+        self.works, self.sent = [], []
+        return self.received
+
+
+def exchange(sends, recvs, group) -> Pending:
+    """Post ``sends`` [(tensor, offset)] and ``recvs`` [(buffer, offset)] to the
+    ranks ``offset`` away in ``group`` as one ``batch_isend_irecv``."""
+    sent = [t.contiguous() for t, _ in sends]
+    ops = [dist.P2POp(dist.isend, t, _peer(group, off), group=group)
+           for t, (_, off) in zip(sent, sends)]
+    ops += [dist.P2POp(dist.irecv, buf, _peer(group, off), group=group) for buf, off in recvs]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(works, sent, [buf for buf, _ in recvs])
+
+
+def _recv(shape, dtype, device, offset: int, group) -> torch.Tensor:
+    buf = torch.empty(shape, dtype=dtype, device=device)
+    exchange([], [(buf, offset)], group).wait()
+    return buf
+
+
+def send_prev(t: torch.Tensor, group) -> None:
+    exchange([(t, -1)], [], group).wait()
+
+
+def recv_next(shape, dtype, device, group) -> torch.Tensor:
+    return _recv(shape, dtype, device, 1, group)
+
+
+class _SendNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.meta = group, (x.shape, x.dtype, x.device)
+        exchange([(x.detach(), 1)], [], group).wait()
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        return recv_next(*ctx.meta, ctx.group), None
+
+
+class _RecvPrev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, anchor, shape, dtype, group):
+        ctx.group = group
+        return _recv(shape, dtype, anchor.device, -1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_prev(g, ctx.group)
+        return None, None, None, None
+
+
+def send_next(x: torch.Tensor, group) -> torch.Tensor:
+    """Send ``x`` to the next rank of ``group``. Returns a zero scalar: under
+    autograd add it to the loss, and the backward receives ``x``'s cotangent
+    from the next rank there."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SendNext.apply(x, group)
+    exchange([(x, 1)], [], group).wait()
+    return x.new_zeros(())
+
+
+def recv_prev(shape, dtype, device, group, *, requires_grad: bool = False) -> torch.Tensor:
+    """A tensor received from the previous rank of ``group``; with
+    ``requires_grad`` its cotangent goes back to that rank in the backward."""
+    if requires_grad and torch.is_grad_enabled():
+        anchor = torch.zeros((), device=device, requires_grad=True)
+        return _RecvPrev.apply(anchor, tuple(shape), dtype, group)
+    return _recv(shape, dtype, device, -1, group)
+
+
+def ring_rotate_start(tensors, group) -> Pending:
+    """Post one ring step of a tensor or a tuple of them: each to the next
+    rank, the previous rank's into new buffers (``.wait()``, in order). At one
+    rank nothing travels."""
+    tensors = (tensors,) if isinstance(tensors, torch.Tensor) else tuple(tensors)
+    if group is None or dist.get_world_size(group) == 1:
+        return Pending([], [], list(tensors))
+    return exchange([(t, 1) for t in tensors], [(torch.empty_like(t), -1) for t in tensors],
+                    group)
+
+
+def ring_rotate(t: torch.Tensor, group) -> torch.Tensor:
+    """JAX's ``ppermute(t, perm=[(i, (i + 1) % n)])`` over ``group``."""
+    return ring_rotate_start(t, group).wait()[0]
 
 
 def copy_to_tp(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -24,8 +24,16 @@ train steps below:
 - Each rank holds whole KV heads: ``num_kv_heads % model`` is refused
   (GSPMD would reshard a cut head for JAX).
 
-The mixture-of-experts and DeepSeek placements are the second parallel slice
-(ROADMAP.md A.11d.2) and raise here.
+- Mixture-of-experts llama trees: under ``model`` the expert stacks cut their
+  f axis (gate / up column-, down row-parallel; an int4 expert stack is
+  refused, its packing interleaves f); under ``expert``
+  (``shard_moe_llama_params``) a rank holds whole experts and
+  ``llama_forward(..., expert_group=)`` sums their outputs.
+- DeepSeek / MLA trees (``shard_deepseek_params``): Megatron for MLA, the
+  routed experts cut on E (``llm/deepseek.py`` runs the collectives);
+  quantized leaves are cut like their float kernels, where GSPMD keeps JAX's
+  ``_q`` leaves whole. FSDP trains DeepSeek trees too: the layer bodies of
+  ``dense_blocks`` / ``moe_blocks`` gather their weights, ``e_bias`` frozen.
 """
 
 from __future__ import annotations
@@ -126,9 +134,12 @@ def _cut_packed(t: torch.Tensor, sizes, rank: int, n: int) -> torch.Tensor:
 
 def _check_tp(params: Params, cfg: LlamaConfig, tp: int) -> None:
     require_llama_config(cfg)
-    if cfg.num_experts:
-        raise NotImplementedError("tensor-parallel MoE placement is ROADMAP.md A.11d.2")
     blocks = params["blocks"]
+    if cfg.num_experts and tp > 1 and any(k.endswith("_q4") and k.startswith(
+            ("gate_kernel", "up_kernel", "down_kernel")) for k in blocks):
+        raise ValueError("int4 expert stacks cannot be cut on their f axis (the nibble "
+                         "packing interleaves it): shard the float or int8 tree, or place "
+                         "whole experts with shard_moe_llama_params")
     if any(k.endswith(("_lora_a", "_lora_b")) for k in blocks):
         raise ValueError("shard the base tree before attaching LoRA adapters")
     for what, n in (("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads)):
@@ -361,17 +372,12 @@ def shard_llama_params_fsdp(params: Params, mesh) -> Params:
             "FSDP shards over 'data' only and would silently drop a megatron 'model' "
             "placement — use a model=1 mesh (fsdp x tp composition is future work; dp x tp "
             "lives in make_sharded_llama_train_step)")
-    dp, r = axis_size(mesh, "data"), axis_index(mesh, "data")
-    specs = fsdp_llama_param_specs_like(params, dp)
-
-    def place(v, spec):
-        return _cut(v, spec.index("data"), r, dp) if "data" in spec else v
-
-    return {k: ({bk: place(bv, specs[k][bk]) for bk, bv in v.items()} if isinstance(v, dict)
-                else place(v, specs[k])) for k, v in params.items()}
+    dp = axis_size(mesh, "data")
+    return _place(params, fsdp_llama_param_specs_like(params, dp), "data",
+                  axis_index(mesh, "data"), dp)
 
 
-def make_fsdp_llama_train_step(mesh, cfg: LlamaConfig, optimizer=None, *, specs,
+def make_fsdp_llama_train_step(mesh, cfg, optimizer=None, *, specs,
                                compute_dtype=torch.bfloat16, remat: bool = True):
     """FSDP training step ``step(params, opt_state, tokens)`` on a
     ``shard_llama_params_fsdp`` shard, updated in place; ``specs`` are
@@ -381,28 +387,32 @@ def make_fsdp_llama_train_step(mesh, cfg: LlamaConfig, optimizer=None, *, specs,
     gather's backward reduce-scatters their gradients; the top-level leaves
     are gathered once a step. AdamW holds moments for the local shard only
     (``optimizer.init(shard)``); the clip norm sums the shards' squares over
-    ``data``. Requires a model=1 mesh."""
+    ``data``. Requires a model=1 mesh. ``cfg`` may be a ``DeepseekConfig``:
+    the ``dense_blocks`` / ``moe_blocks`` layer bodies gather their weights and
+    ``e_bias``'s update is zeroed, as in the single-device step."""
+    from ssp_x_vit_tpu_torch.llm.deepseek import is_deepseek
     from ssp_x_vit_tpu_torch.llm.optim import AdamW
     from ssp_x_vit_tpu_torch.llm.train import frozen_leaves, next_token_loss, trainable_tree
 
-    require_llama_config(cfg)
+    if not is_deepseek(cfg):
+        require_llama_config(cfg)
     if axis_size(mesh, "model") != 1:
         raise ValueError("FSDP step requires a model=1 mesh (see shard_llama_params_fsdp)")
     optimizer = optimizer or AdamW(1e-4)
     dp, dg = axis_size(mesh, "data"), mesh.get_group("data")
-    block_specs = specs["blocks"]
+    stacks = ("dense_blocks", "moe_blocks") if is_deepseek(cfg) else ("blocks",)
 
     def gather(t, spec, offset):
         if "data" not in spec:
             return t
         return fsdp_gather(t, spec.index("data") - offset, dg)
 
-    def gather_layer(bp):
-        return {k: gather(v, block_specs[k], 1) for k, v in bp.items()}
+    def gather_layer(bp, key="blocks"):
+        return {k: gather(v, specs[key][k], 1) for k, v in bp.items()}
 
     def step(params: Params, opt_state: Dict, tokens):
         tree, leaves = trainable_tree(params)
-        full = {k: (v if k == "blocks" else gather(v, specs[k], 0)) for k, v in tree.items()}
+        full = {k: (v if k in stacks else gather(v, specs[k], 0)) for k, v in tree.items()}
         loss = next_token_loss(full, _local_rows(mesh, tokens, params["embed"].device), cfg,
                                compute_dtype=compute_dtype, remat=remat,
                                gather_layer=gather_layer)
@@ -420,24 +430,105 @@ def make_fsdp_llama_train_step(mesh, cfg: LlamaConfig, optimizer=None, *, specs,
     return step
 
 
-# -------------------------------------------- expert and MLA placement (A.11d.2) ---
+# ----------------------------------------- MoE-llama expert-parallel placement ---
 
-def _second_slice(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md A.11d.2: pipeline, ring, "
-                              "expert and DeepSeek parallelism)")
+_MOE_KEYS = frozenset({"gate_kernel", "up_kernel", "down_kernel"})
 
 
-def moe_llama_param_specs_like(params: Params):
-    _second_slice("the MoE-llama expert-parallel placement")
+def moe_llama_param_specs_like(params: Params) -> Dict[str, Any]:
+    """Specs of a MoE-llama tree (``num_experts`` > 0): the expert axis of the
+    stacked expert leaves ``[L, E, ...]`` (float, ``_q``, ``_q4`` and their
+    ``_scale``) over ``expert``; attention, norms, router and embeddings
+    replicated."""
+    specs: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k == "blocks":
+            specs["blocks"] = {
+                bk: ((None, "expert") + (None,) * (bv.dim() - 2)
+                     if _split_key(bk)[0] in _MOE_KEYS and bv.dim() >= 3 else _rep(bv.dim()))
+                for bk, bv in v.items()}
+        else:
+            specs[k] = _rep(v.dim())
+    return specs
 
 
-def shard_moe_llama_params(params: Params, mesh):
-    _second_slice("the MoE-llama expert-parallel placement")
+def _place(params: Params, specs, axis: str, r: int, n: int) -> Params:
+    """Every leaf cut on the axis its spec names ``axis`` (rank ``r`` of ``n``)."""
+    def place(key, v, spec):
+        if axis not in spec or n == 1:
+            return v
+        ax = spec.index(axis)
+        if v.shape[ax] % n:
+            raise ValueError(f"{key} axis {ax} of {tuple(v.shape)} not divisible by "
+                             f"{axis}-axis size {n}")
+        return _cut(v, ax, r, n)
+
+    return {k: ({bk: place(bk, bv, specs[k][bk]) for bk, bv in v.items()} if isinstance(v, dict)
+                else place(k, v, specs[k])) for k, v in params.items()}
 
 
-def deepseek_param_specs_like(params: Params):
-    _second_slice("the DeepSeek / MLA tensor-parallel placement")
+def shard_moe_llama_params(params: Params, mesh) -> Params:
+    """This rank's experts over the mesh's ``expert`` axis; run it with
+    ``llama_forward(..., expert_group=mesh.get_group("expert"))``."""
+    return _place(params, moe_llama_param_specs_like(params), "expert",
+                  axis_index(mesh, "expert"), axis_size(mesh, "expert"))
 
 
-def shard_deepseek_params(params: Params, mesh, cfg):
-    _second_slice("the DeepSeek / MLA tensor-parallel placement")
+# ------------------------------------------ DeepSeek / MLA tensor parallelism ---
+
+# head-major output-dim kernels (an equal cut of the last axis is whole heads)
+# and their row-parallel consumers
+_DS_COL = frozenset({"q_kernel", "q_b_kernel", "kv_b_kernel",
+                     "gate_kernel", "up_kernel", "shared_gate", "shared_up"})
+_DS_ROW = frozenset({"o_kernel", "down_kernel", "shared_down"})
+
+
+def _ds_block_spec(group: str, key: str, ndim: int) -> Spec:
+    base, kind = _split_key(key)
+    if group == "moe_blocks" and base in _MOE_KEYS:     # routed experts [L, E, ...]
+        return (None, "model") + (None,) * (ndim - 2)
+    if base in _DS_COL:
+        return _rep(ndim - 1) + ("model",)
+    if base in _DS_ROW:
+        return _rep(ndim) if kind in ("q4", "scale") else _rep(ndim - 2) + ("model", None)
+    return _rep(ndim)
+
+
+def deepseek_param_specs_like(params: Params) -> Dict[str, Any]:
+    """Megatron-for-MLA specs of a DeepSeek tree: column-parallel q / q_b /
+    kv_b (head-major) and the dense / shared gate / up, row-parallel o / down /
+    shared_down, the routed experts ``[L, E, d, f]`` over E, q_a / kv_a, norms,
+    router and ``e_bias`` replicated, the untied lm_head over the vocabulary.
+    A float tree's specs are JAX's; quantized leaves follow their float
+    kernel's cut (JAX keeps them whole)."""
+    specs: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k in ("dense_blocks", "moe_blocks"):
+            specs[k] = {bk: _ds_block_spec(k, bk, bv.dim()) for bk, bv in v.items()}
+        else:
+            specs[k] = _top_key_spec(k, v.dim())
+    return specs
+
+
+def shard_deepseek_params(params: Params, mesh, cfg) -> Params:
+    """This rank's tensor-parallel shard over the mesh's ``model`` axis (JAX's
+    divisibility refusals); run it with ``deepseek_forward`` /
+    ``deepseek_generate(..., tp_group=mesh.get_group("model"))``."""
+    tp = axis_size(mesh, "model")
+    if cfg.num_heads % tp:
+        raise ValueError(f"num_heads {cfg.num_heads} not divisible by "
+                         f"model-axis size {tp}")
+    if cfg.n_routed_experts and cfg.n_routed_experts % tp:
+        raise ValueError(f"n_routed_experts {cfg.n_routed_experts} not "
+                         f"divisible by model-axis size {tp}")
+    if cfg.vocab_size % tp:
+        raise ValueError(f"vocab_size {cfg.vocab_size} not divisible by "
+                         f"model-axis size {tp}")
+    if cfg.n_dense_layers and cfg.intermediate_size % tp:
+        raise ValueError(f"intermediate_size {cfg.intermediate_size} not "
+                         f"divisible by model-axis size {tp}")
+    if cfg.n_moe_layers and cfg.n_shared_experts and \
+            (cfg.moe_intermediate_size * cfg.n_shared_experts) % tp:
+        raise ValueError("shared-expert width not divisible by model axis")
+    return _place(params, deepseek_param_specs_like(params), "model",
+                  axis_index(mesh, "model"), tp)

@@ -6,8 +6,11 @@ package's axis names:
 
 - ``data``  — batch data parallelism (calibration / eval / training batches)
 - ``model`` — tensor parallelism (attention heads, FFN columns, vocab)
+- ``pipe``  — pipeline stages (``make_pipeline_mesh``: ``(data, pipe, model)``)
+- ``seq``   — the ring of sequence parallelism (``make_seq_mesh``: ``(data, seq)``)
+- ``expert`` — expert parallelism (``make_expert_mesh``: ``(data, expert)``)
 
-``model`` is the inner dimension, so a model group is made of neighbouring
+The last axis is the inner dimension, so a model group is made of neighbouring
 ranks, as ``make_mesh`` lays out JAX devices. The port runs one process per
 card (the JAX package drives every device from one process): a process joins
 its world through :func:`init_distributed`, which follows the ``torchrun``
@@ -24,11 +27,15 @@ import datetime
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 AXES = ("data", "model")
+PIPELINE_AXES = ("data", "pipe", "model")
+SEQ_AXES = ("data", "seq")
+EXPERT_AXES = ("data", "expert")
 _ENV = ("RANK", "WORLD_SIZE")
 
 
@@ -106,8 +113,40 @@ def make_hybrid_mesh(n_hosts: int, ici_data: int = 1, model: int = 1) -> DeviceM
     return DeviceMesh(_device_type(), grid, mesh_dim_names=AXES)
 
 
+def _named_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]) -> DeviceMesh:
+    """A mesh of the world's first ranks in row-major order, refused (JAX's
+    message) when the world is too small."""
+    n = int(np.prod(shape))
+    world = dist.get_world_size()
+    if world < n:
+        raise ValueError(f"need {n} devices, have {world}")
+    return DeviceMesh(_device_type(), torch.arange(n).reshape(shape), mesh_dim_names=names)
+
+
+def make_pipeline_mesh(data: int = 1, pipe: int = 2, model: int = 1) -> DeviceMesh:
+    """(data, pipe, model) mesh of the pipeline (JAX ``parallel/pipeline.py``)."""
+    return _named_mesh((data, pipe, model), PIPELINE_AXES)
+
+
+def make_seq_mesh(data: int = 1, seq: int = 1) -> DeviceMesh:
+    """(data, seq) mesh of ring-attention sequence parallelism."""
+    return _named_mesh((data, seq), SEQ_AXES)
+
+
+def make_expert_mesh(data: int = 1, expert: int = 1) -> DeviceMesh:
+    """(data, expert) mesh of expert parallelism."""
+    return _named_mesh((data, expert), EXPERT_AXES)
+
+
+def _axis(mesh: DeviceMesh, axis: str) -> int:
+    names = mesh.mesh_dim_names
+    if axis not in names:
+        raise ValueError(f"mesh {names} has no axis {axis!r}")
+    return names.index(axis)
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.size(AXES.index(axis))
+    return mesh.size(_axis(mesh, axis))
 
 
 def axis_index(mesh: DeviceMesh, axis: str) -> int:
@@ -115,7 +154,7 @@ def axis_index(mesh: DeviceMesh, axis: str) -> int:
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError(f"rank {dist.get_rank()} is not on the mesh")
-    return coord[AXES.index(axis)]
+    return coord[_axis(mesh, axis)]
 
 
 def batch_sharding(mesh: DeviceMesh, ndim: int) -> Tuple[Optional[str], ...]:

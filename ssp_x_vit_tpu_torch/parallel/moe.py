@@ -24,10 +24,15 @@ the combine over experts in fp32, rounding once, as the JAX package's one
 ``einsum`` over E does. Like the JAX package's ``einsum``, these products are
 plain ``torch.matmul``: no Pallas kernel computes them there.
 
-Meshes (``mesh=`` of ``moe_ffn``, ``moe_param_specs``, ``shard_moe_params``)
-raise NotImplementedError naming ROADMAP.md A.11d.2 (expert parallelism, with
-the pipeline, ring and DeepSeek parallelism); data and tensor parallelism are
-``parallel/mesh.py``, ``vit_sharding.py`` and ``llm_sharding.py``.
+Expert parallelism (``moe_param_specs``, ``shard_moe_params``, ``moe_ffn(...,
+mesh=)`` on a ``(data, expert)`` mesh): a rank holds E / ep whole experts.
+Where GSPMD moves the dispatched ``[E, C, d]`` activations with an all-to-all
+for JAX, here every rank of the ``expert`` group computes the same routing on
+the same tokens, runs its own experts' slice of the dispatch and combine, and
+the combine is summed over the group (``collectives.reduce_from_tp``), so
+``y`` and ``aux`` are the single device's on every rank. The dropless
+products take ``group=`` the same way (``dropless_experts`` on the rank's
+expert range, or on every expert's slice of f for a tensor-parallel shard).
 """
 
 from __future__ import annotations
@@ -36,18 +41,17 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ssp_x_vit_tpu_torch.device import DeviceLike, resolve_device
+from ssp_x_vit_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 Params = Dict[str, Any]
 
 # bytes of a chunk's [n, T, f] / [n, T, d] expert products, and of a chunk's
 # weights in the compute dtype, held at once
 EXPERT_CHUNK_BYTES = 1 << 30
-
-_MESH_NOT_PORTED = ("expert parallelism over a device mesh is not ported yet "
-                    "(ROADMAP.md A.11d.2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +85,40 @@ def init_moe_params(gen: Optional[torch.Generator], cfg: MoEConfig, dtype=torch.
             "down_kernel": nrm(E, f, d)}
 
 
-def moe_param_specs():
-    raise NotImplementedError(_MESH_NOT_PORTED)
+def moe_param_specs() -> Dict[str, Tuple[Optional[str], ...]]:
+    """JAX's PartitionSpecs as tuples: the expert axis of the stacks over
+    ``expert``, the router replicated."""
+    return {"router": (None, None), "gate_kernel": ("expert", None, None),
+            "up_kernel": ("expert", None, None), "down_kernel": ("expert", None, None)}
 
 
 def shard_moe_params(params: Params, mesh) -> Params:
-    raise NotImplementedError(_MESH_NOT_PORTED)
+    """This rank's experts (axis 0 cut over the mesh's ``expert`` axis); the
+    router is the same tensor."""
+    from ssp_x_vit_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    ep, r = axis_size(mesh, "expert"), axis_index(mesh, "expert")
+    out = {}
+    for k, v in params.items():
+        spec = moe_param_specs().get(k, (None,) * v.dim())
+        if "expert" in spec:
+            if v.shape[0] % ep:
+                raise ValueError(f"{k}: {v.shape[0]} experts not divisible by expert-axis "
+                                 f"size {ep}")
+            n = v.shape[0] // ep
+            v = v[r * n:(r + 1) * n].contiguous()
+        out[k] = v
+    return out
+
+
+def _expert_range(stack: torch.Tensor, num_experts: int, group) -> Tuple[int, int]:
+    """[e0, e1) of the experts this rank's stack holds: all of them, unless
+    the stack is an expert shard (fewer than ``num_experts``)."""
+    n = stack.shape[0]
+    if n == num_experts:
+        return 0, n
+    e0 = dist.get_rank(group) * n
+    return e0, e0 + n
 
 
 def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -113,9 +145,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     """x [b, s, d] -> (y [b, s, d], aux) through capacity-routed expert FFNs.
     aux: ``load`` (per-expert fraction of the routed top-k assignments [E]),
     ``dropped`` (fraction of tokens with no surviving assignment) and
-    ``aux_loss`` (the switch load-balance loss)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+    ``aux_loss`` (the switch load-balance loss). ``mesh``: a ``(data,
+    expert)`` mesh and ``params`` this rank's ``shard_moe_params``; every rank
+    of the expert group passes the same x and gets the same y and aux."""
+    group = None if mesh is None else mesh.get_group("expert")
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = b * s
@@ -143,11 +176,15 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: MoEConfig, mesh=None):
     # membership over every routed choice, as the dropless path counts it
     onehot = F.one_hot(top_e, E).sum(dim=1)
 
-    ex_in = torch.einsum("tec,td->ecd", dispatch, xt)                   # [E, C, d]
+    e0, e1 = _expert_range(params["gate_kernel"], E, group)
+    if group is not None:
+        xt, dispatch, combine = (copy_to_tp(t, group) for t in (xt, dispatch, combine))
+    ex_in = torch.einsum("tec,td->ecd", dispatch[:, e0:e1], xt)         # [E_local, C, d]
     g = torch.matmul(ex_in, params["gate_kernel"].to(x.dtype))
     u = torch.matmul(ex_in, params["up_kernel"].to(x.dtype))
     ex_out = torch.matmul(F.silu(g) * u, params["down_kernel"].to(x.dtype))
-    y = torch.einsum("tec,ecd->td", combine, ex_out).reshape(b, s, d)
+    y = torch.einsum("tec,ecd->td", combine[:, e0:e1], ex_out)
+    y = reduce_from_tp(y, group).reshape(b, s, d)
 
     load = onehot.float().mean(dim=0)
     aux = {"load": load, "dropped": 1.0 - keep_any.float().mean(),
@@ -202,12 +239,28 @@ def dropless_experts(xt: torch.Tensor, sel: torch.Tensor, p: Params, dt) -> torc
     return out.to(dt)
 
 
-def moe_ffn_dropless(params: Params, x: torch.Tensor, cfg: MoEConfig):
+def grouped_dropless(xt: torch.Tensor, sel: torch.Tensor, p: Params, dt, group) -> torch.Tensor:
+    """:func:`dropless_experts` of this rank's share, summed over ``group``:
+    an expert shard runs its expert range (the columns of ``sel`` it holds),
+    a tensor-parallel shard every expert's slice of f; both sum in ``dt``.
+    ``xt`` and ``sel`` enter through ``copy_to_tp``, so their gradients are
+    whole on every rank. ``group`` None is :func:`dropless_experts`."""
+    if group is None:
+        return dropless_experts(xt, sel, p, dt)
+    stack = next(p[k] for k in ("gate_kernel", "gate_kernel_q", "gate_kernel_q4") if k in p)
+    e0, e1 = _expert_range(stack, sel.shape[1], group)
+    local = dropless_experts(copy_to_tp(xt, group), copy_to_tp(sel, group)[:, e0:e1], p, dt)
+    return reduce_from_tp(local, group)
+
+
+def moe_ffn_dropless(params: Params, x: torch.Tensor, cfg: MoEConfig, group=None):
     """Dropless MoE: x [b, s, d] -> (y [b, s, d] in x's dtype, aux). Every
     token goes through every expert; the gates select and weight the outputs
     (top-1: the argmax's probability; top-k: the k probabilities renormalized
     over the k). aux as :func:`moe_ffn`'s, ``dropped`` 0; ``load`` counts
-    top-k membership (a gate that rounds to 0 in x's dtype does not count)."""
+    top-k membership (a gate that rounds to 0 in x's dtype does not count).
+    ``group``: the experts of a sharded tree, summed over it
+    (:func:`grouped_dropless`)."""
     b, s, d = x.shape
     E = cfg.num_experts
     xt = x.reshape(b * s, d)
@@ -221,7 +274,7 @@ def moe_ffn_dropless(params: Params, x: torch.Tensor, cfg: MoEConfig):
         top_p, top_e = _top_k(probs, cfg.top_k)
         sel = torch.zeros_like(probs).scatter(1, top_e, top_p).to(x.dtype)
         member = (sel > 0).float()
-    out = dropless_experts(xt, sel, params, x.dtype).reshape(b, s, d)
+    out = grouped_dropless(xt, sel, params, x.dtype, group).reshape(b, s, d)
     load = member.mean(dim=0)
     aux = {"load": load, "dropped": torch.zeros((), device=x.device),
            "aux_loss": E * (load * probs.mean(dim=0)).sum()}

@@ -36,7 +36,8 @@ def test_port_and_chip_smoke_never_import_jax():
         for name in ("parallel.moe", "llm.arrow_ipc", "llm.multilora", "data.native_loader",
                      "data.image_decode", "data.png", "data.pets", "utils.logging",
                      "utils.profiling", "parallel.mesh", "parallel.collectives",
-                     "parallel.vit_sharding", "parallel.llm_sharding"):
+                     "parallel.vit_sharding", "parallel.llm_sharding", "parallel.pipeline",
+                     "parallel.ring_attention", "parallel.deepseek_parallel"):
             assert "ssp_x_vit_tpu_torch." + name in names, names
         import torch.distributed
         assert not torch.distributed.is_initialized()   # importing makes no process group
@@ -53,15 +54,16 @@ FORBIDDEN = ("jax", "jaxlib", "ssp_x_vit_tpu", "regex", "transformers", "tokeniz
 
 
 def test_no_import_statement_names_a_package_the_card_machine_lacks():
-    """Every ``import`` / ``from`` statement of the port and of chip_smoke.py,
-    at any depth (a function's lazy import included), read with ``ast``:
+    """Every ``import`` / ``from`` statement of the port, of chip_smoke.py and of
+    its ``[PARALLEL]`` runner, at any depth (a function's lazy import included), read with ``ast``:
     none names JAX, the JAX package, or a package the card's machine does not
     have (``regex``, ``transformers``, ``tokenizers``, ``sentencepiece``,
     ``google`` (protobuf), ``safetensors``, ``datasets``, ``ml_dtypes``,
     ``torchvision``, ``PIL``, ``pyarrow``, ``pandas``)."""
     import ast
 
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "arrow_corpus.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "arrow_corpus.py"),
+             os.path.join(ROOT, "scripts", "torch_parallel_phase.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "ssp_x_vit_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     found = []
@@ -665,6 +667,41 @@ def test_llm_kernels_match_plain_versions_on_the_card(cuda_device, dtype, tol):
         assert launch_counts[name] - before[name] == len(cases)
     assert launch_counts["quant4_matmul"] - before["quant4_matmul"] == 4
     assert launch_counts["quant_matmul"] - before["quant_matmul"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_at_query_offsets_on_the_card(cuda_device, dtype):
+    """Row 5 with ``q_offset`` (a ring hop over an earlier key chunk): output
+    and lse against ``flash_attention_plain(q_offset=, with_lse=True)`` at head
+    dims 64 / 80 / 128 / 256, GQA, causal and windowed bands (one that leaves
+    late rows no key: output 0, lse -inf on the same rows), softcap and ragged
+    lengths; an offset one chunk off is rejected. Offset 0 is the existing
+    kernel (``test_flash_kernels_hold_every_row_on_the_card``)."""
+    from ssp_x_vit_tpu_torch.ops.kernels import flash_attention as tfa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cases = [(64, 4, 2, 200, 100, None, None), (128, 8, 8, 256, 256, 300, 50.0),
+             (80, 4, 1, 130, 64, None, None), (256, 2, 1, 128, 128, 128, None),
+             (128, 4, 4, 192, 96, 200, None)]   # hd, h, hkv, s, offset, window, softcap
+    for hd, h, hkv, s, off, window, cap in cases:
+        q = torch.randn(1, h, s, hd, generator=gen, device=cuda_device).to(dtype)
+        k, v = (torch.randn(1, hkv, s, hd, generator=gen, device=cuda_device).to(dtype)
+                for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cap)
+        out, lse = tfa.flash_attention_forward(q, k, v, with_lse=True, q_offset=off, **kw)
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, q_offset=off, with_lse=True, **kw)
+        assert tfa.flash_agrees(out, ref), (hd, off, tfa.flash_errors(out, ref))
+        assert torch.equal(torch.isinf(lse), torch.isinf(ref_lse)), (hd, off)
+        fin = torch.isfinite(ref_lse)
+        assert (lse - ref_lse)[fin].abs().max().item() <= 1e-3, (hd, off)
+        if window == 128:
+            assert torch.isinf(ref_lse).any() and not torch.isinf(ref_lse).all()
+            assert not out[torch.isinf(ref_lse)].any()
+        far = tfa.flash_attention_forward(q, k, v, q_offset=off + s // 2, **kw)[0]
+        assert not tfa.flash_agrees(far, ref), (hd, off)
+    with pytest.raises(ValueError, match="q_offset"):
+        tfa.flash_attention_forward(q, k, v, causal=True, q_offset=-1)
 
 
 @pytest.mark.cuda

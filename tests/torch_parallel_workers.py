@@ -236,4 +236,223 @@ def _np_tree(v):
     return v.detach().numpy().copy()
 
 
-TASKS = {"vit": vit_task, "llm": llm_task, "train": train_task}
+def _clone(tree):
+    return {k: (_clone(v) if isinstance(v, dict) else v.clone()) for k, v in tree.items()}
+
+
+def _cut_seq(t: torch.Tensor, mesh) -> torch.Tensor:
+    from ssp_x_vit_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    n, r = axis_size(mesh, "seq"), axis_index(mesh, "seq")
+    sl = t.shape[2] // n
+    return t[:, :, r * sl:(r + 1) * sl].contiguous()
+
+
+def ring_task(payload):
+    """Ring attention (each case's full output gathered over seq) and
+    sequence-parallel perplexity on the (1, 4) and (2, 2) seq meshes."""
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import ring_attention as R
+    from ssp_x_vit_tpu_torch.parallel.collectives import gather_along
+
+    meshes = {"1x4": M.make_seq_mesh(1, 4), "2x2": M.make_seq_mesh(2, 2)}
+    out = {}
+    for mname, mesh in meshes.items():
+        g, n = mesh.get_group("seq"), M.axis_size(mesh, "seq")
+        for name, c in payload["attn"].items():
+            q, k, v = (_cut_seq(torch.from_numpy(c[x]), mesh) for x in "qkv")
+            o = R.ring_attention(q, k, v, g, n_chunks=n, causal=True, window=c["window"],
+                                 softcap=c["softcap"], scale=c["scale"])
+            out[f"attn_{mname}_{name}"] = gather_along(o, 2, g).numpy()
+        for name, c in payload["ppl"].items():
+            cfg = LlamaConfig(**c["cfg"])
+            params = _llm_tree(c["params"])
+            out[f"ppl_{mname}_{name}"] = R.evaluate_perplexity_seq_parallel(
+                params, cfg, mesh, c["stream"], seq_len=c["seq_len"])
+            out[f"nll_{mname}_{name}"] = R.make_seq_parallel_nll(mesh, cfg)(
+                params, c["windows"]).numpy()
+    out["refuse_opt"] = _raises(R.make_seq_parallel_nll, meshes["1x4"],
+                                LlamaConfig(**payload["opt_cfg"]))
+    out["refuse_seq"] = _raises(R.make_seq_parallel_nll(meshes["1x4"], LlamaConfig(
+        **payload["ppl"]["llama"]["cfg"])), _llm_tree(payload["ppl"]["llama"]["params"]),
+        np.zeros((1, 6), np.int64))
+    return out
+
+
+def _np_shard(tree):
+    return {k: (_np_shard(v) if isinstance(v, dict) else v.detach().numpy().copy())
+            for k, v in tree.items()}
+
+
+def _grad_tree(params, grads):
+    """The reduced gradients (``optim.tree_leaves`` order) as a tree of stacks."""
+    out, i = {}, 0
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out[k] = {}
+            for bk, bv in v.items():
+                n = bv.shape[0]
+                out[k][bk] = torch.stack(grads[i:i + n]).numpy()
+                i += n
+        else:
+            out[k] = grads[i].numpy()
+            i += 1
+    return out
+
+
+def pipeline_task(payload):
+    """The llama pipeline on (1, 2, 2) and (1, 4, 1): logits, gradients, one
+    GPipe and one 1F1B AdamW step, 1F1B's held inputs, the refusals."""
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import pipeline as PP
+
+    out = {}
+    meshes = {s: M.make_pipeline_mesh(*s) for s in ((1, 2, 2), (1, 4, 1))}
+    for mshape, mesh in meshes.items():
+        out[f"coord_{mshape}"] = tuple(mesh.get_coordinate())
+        for name, c in payload["cases"].items():
+            cfg = LlamaConfig(**c["cfg"])
+            params = _llm_tree(c["params"])
+            shard = PP.shard_llama_params_pipeline(_clone(params), mesh, cfg)
+            fwd = PP.make_pipeline_forward(mesh, cfg, num_microbatches=2)
+            out[f"fwd_{mshape}_{name}"] = fwd(shard, c["tokens"]).numpy()
+            step = PP.make_pipeline_train_step(mesh, cfg, num_microbatches=2)
+            loss, grads = step.grads(shard, c["tokens"])
+            out[f"grad_{mshape}_{name}"] = (float(loss), _grad_tree(shard, grads))
+            if name != "llama":
+                continue
+            for sched in PP.SCHEDULES:
+                opt = AdamW(payload["lr"], eps=payload["eps"])
+                tree = PP.shard_llama_params_pipeline(_clone(params), mesh, cfg)
+                step = PP.make_pipeline_train_step(mesh, cfg, opt, num_microbatches=4,
+                                                   schedule=sched)
+                tree, _, loss = step(tree, opt.init(tree), payload["step_tokens"])
+                out[f"step_{mshape}_{sched}"] = (float(loss), _np_shard(tree))
+                out[f"held_{mshape}_{sched}"] = step.schedule.held_max
+    mesh = meshes[(1, 4, 1)]
+    c = payload["cases"]["llama"]
+    cfg, params = LlamaConfig(**c["cfg"]), _llm_tree(c["params"])
+    opt = AdamW(payload["lr"], eps=payload["eps"])
+    step = PP.make_pipeline_train_step_1f1b(mesh, cfg, opt, num_microbatches=8)
+    step(PP.shard_llama_params_pipeline(_clone(params), mesh, cfg), opt.init(
+        PP.shard_llama_params_pipeline(_clone(params), mesh, cfg)), payload["long_tokens"])
+    out["held_m8"] = step.schedule.held_max
+    refusals = {}
+    for name, (kind, kw) in payload["refusals"].items():
+        bad = LlamaConfig(**kw)
+        m = meshes[(1, 2, 2)]
+        if kind == "forward":
+            refusals[name] = _raises(PP.make_pipeline_forward, m, bad, num_microbatches=2)
+        elif kind == "batch":
+            fwd = PP.make_pipeline_forward(m, bad, num_microbatches=3)
+            refusals[name] = _raises(fwd, PP.shard_llama_params_pipeline(params, m, cfg),
+                                     np.zeros((4, 8), np.int64))
+        else:
+            refusals[name] = _raises(PP.make_pipeline_train_step, m, bad,
+                                     num_microbatches=2, schedule="zigzag")
+    out["refusals"] = refusals
+    return out
+
+
+def deepseek_task(payload):
+    """DeepSeek: the latent ring, tp = 4 generation, the placements' refusals,
+    FSDP, the dense pipeline and its MoE refusal."""
+    from ssp_x_vit_tpu_torch.llm.checkpoints import deepseek_params_from_jax
+    from ssp_x_vit_tpu_torch.llm.deepseek import DeepseekConfig, deepseek_generate
+    from ssp_x_vit_tpu_torch.llm.optim import AdamW
+    from ssp_x_vit_tpu_torch.parallel import deepseek_parallel as DP
+    from ssp_x_vit_tpu_torch.parallel import llm_sharding as S
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import ring_attention as R
+
+    def tree(t):
+        return deepseek_params_from_jax(t, device="cpu")
+
+    out = {}
+    cfg, params = DeepseekConfig(**payload["moe_cfg"]), tree(payload["moe_params"])
+    for shape in ((1, 4), (2, 2)):
+        out[f"ppl_{shape}"] = R.evaluate_perplexity_seq_parallel(
+            params, cfg, M.make_seq_mesh(*shape), payload["stream"], seq_len=payload["seq_len"])
+    tp4 = M.make_mesh(model=4)
+    shard = S.shard_deepseek_params(params, tp4, cfg)
+    out["tp_tokens"] = np.asarray(deepseek_generate(
+        shard, cfg, payload["prompt"], max_new_tokens=6, compute_dtype=torch.float32,
+        tp_group=tp4.get_group("model")))
+    out["tp_shapes"] = {k: {kk: tuple(vv.shape) for kk, vv in v.items()} if isinstance(v, dict)
+                        else tuple(v.shape) for k, v in shard.items()}
+    out["refusals"] = {name: _raises(S.shard_deepseek_params, tree(t), tp4, DeepseekConfig(**kw))
+                       for name, (kw, t) in payload["refusals"].items()}
+
+    dp4 = M.make_mesh(model=1)
+    full = tree(payload["moe_params"])
+    specs = S.fsdp_llama_param_specs_like(full, 4)
+    fsdp = S.shard_llama_params_fsdp(full, dp4)
+    opt = AdamW(payload["lr"], eps=payload["eps"])
+    state = opt.init(fsdp)
+    fsdp, state, loss = S.make_fsdp_llama_train_step(dp4, cfg, opt, specs=specs,
+                                                     compute_dtype=torch.float32)(
+        fsdp, state, payload["fsdp_tokens"])
+    out["fsdp"] = (float(loss), _np_shard(fsdp))
+    out["fsdp_specs"] = specs
+
+    dcfg, dparams = DeepseekConfig(**payload["dense_cfg"]), tree(payload["dense_params"])
+    for shape in ((1, 2, 2), (1, 4, 1)):
+        mesh = M.make_pipeline_mesh(*shape)
+        out[f"coord_{shape}"] = tuple(mesh.get_coordinate())
+        sh = DP.shard_deepseek_params_pipeline(_clone(dparams), mesh, dcfg)
+        out[f"fwd_{shape}"] = DP.make_deepseek_pipeline_forward(
+            mesh, dcfg, num_microbatches=2)(sh, payload["pipe_tokens"]).numpy()
+        opt = AdamW(payload["lr"], eps=payload["eps"])
+        step = DP.make_deepseek_pipeline_train_step(mesh, dcfg, opt, num_microbatches=2)
+        sh, _, loss = step(sh, opt.init(sh), payload["pipe_tokens"])
+        out[f"step_{shape}"] = (float(loss), _np_shard(sh))
+    out["refuse_moe"] = _raises(DP.make_deepseek_pipeline_forward,
+                                M.make_pipeline_mesh(1, 2, 2), cfg, num_microbatches=2)
+    return out
+
+
+def expert_task(payload):
+    """moe_ffn on the (1, 4) expert mesh; the MoE-llama forward with whole
+    experts per rank (expert mesh) and with their f axis cut (tp = 4)."""
+    from ssp_x_vit_tpu_torch.llm.model import LlamaConfig, llama_forward
+    from ssp_x_vit_tpu_torch.llm.quant import quantize_llm_params_int4, quantize_llm_params_int8
+    from ssp_x_vit_tpu_torch.parallel import llm_sharding as S
+    from ssp_x_vit_tpu_torch.parallel import mesh as M
+    from ssp_x_vit_tpu_torch.parallel import moe as MO
+
+    em, tp4 = M.make_expert_mesh(1, 4), M.make_mesh(model=4)
+    out = {}
+    for name, c in payload["moe"].items():
+        cfg = MO.MoEConfig(**c["cfg"])
+        shard = MO.shard_moe_params({k: torch.from_numpy(v) for k, v in c["params"].items()}, em)
+        y, aux = MO.moe_ffn(shard, torch.from_numpy(c["x"]), cfg, mesh=em)
+        out[f"moe_{name}"] = (y.numpy(), {k: v.numpy() for k, v in aux.items()},
+                              tuple(shard["gate_kernel"].shape))
+    cfg = LlamaConfig(**payload["llama_cfg"])
+    tokens = torch.from_numpy(payload["tokens"])
+    for quant in ("float", "int8", "int4"):
+        params = _llm_tree(payload["llama_params"])
+        if quant == "int8":
+            params = quantize_llm_params_int8(params, cfg)
+        elif quant == "int4":
+            params = quantize_llm_params_int4(params, cfg)
+        with torch.no_grad():
+            logits, aux = llama_forward(S.shard_moe_llama_params(params, em), tokens, cfg,
+                                        compute_dtype=torch.float32,
+                                        expert_group=em.get_group("expert"))
+            out[f"ep_{quant}"] = (logits.numpy(), aux["moe_aux_loss"].numpy())
+            if quant == "int4":
+                out["refuse_tp_int4"] = _raises(S.shard_llama_params, params, tp4, cfg)
+                continue
+            logits, aux = llama_forward(S.shard_llama_params(params, tp4, cfg), tokens, cfg,
+                                        compute_dtype=torch.float32,
+                                        tp_group=tp4.get_group("model"))
+            out[f"tp_{quant}"] = (logits.numpy(), aux["moe_aux_loss"].numpy())
+    return out
+
+
+TASKS = {"vit": vit_task, "llm": llm_task, "train": train_task, "ring": ring_task,
+         "pipeline": pipeline_task, "deepseek": deepseek_task, "expert": expert_task}
