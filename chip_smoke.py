@@ -156,7 +156,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             per layer and decode step and no other paged kernel; each token
             within 5e-2 of its prompt run alone with the served run's expert
             choices, the flips counted), a decode-step measurement,
-            ``generate_kv_scan`` at b=8, ``train_llm --init-json`` at 2 layers
+            ``generate_kv_scan`` at b=8 on the first 4 layers (cut from 8 to keep
+            the script within its time limit), ``train_llm --init-json`` at 2 layers
             (flash forward / dq / dk-dv launches = 2 x updates x 2 / x 1 / x 1),
             and DeepSeek-V3 widths cut to 4 layers and 32 routed experts
             trained through ``Trainer`` (``e_bias`` bit for bit unchanged).
@@ -169,9 +170,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             every token within 5e-2 of its prompt run alone with its id,
             ``fused_mlp_int8`` = 16 x 65 (contiguous serving and [LORA] run the
             first 16 layers, ``CONTIGUOUS_LAYERS``); ms per decode step with and without
-            ids); then local corpora: ``corpus_slice`` decoded, cut into
-            documents at blank lines and written as ``save_to_disk``
-            directories by ``scripts/arrow_corpus.py`` ([CORPUS], read back
+            ids); ahead-of-time artifacts ([AOT], ``scripts/torch_aot_phase.py``):
+            ``llm/aot.py`` exports on the card the ViT-B/16 (dense and 2SSP-materialized)
+            and ViT-Ti/16 classify forwards (b=64, bf16) and the serving bundles of
+            the [GEN] int8 tree (prefill at the 512 bucket + decode step, b=8, 640
+            cache slots) and of an int4 tree cut to 2 layers; a fresh process that
+            imports no model code loads them, runs the ViT artifacts (logits equal to
+            the live forward's) and drives 32 greedy tokens of the 8 prompts through
+            the int8 artifacts (== the live path's tokens; rows 1 / 3 = 12 a dense
+            B/16 call, row 2 = 12 a Ti/16 call, row 11 = 16 x 32, row 10 = 7 x 2 x 9,
+            counted while the artifacts run, none while exporting), against the live
+            path's first calls in another fresh process; then local corpora:
+            ``corpus_slice`` decoded, cut into documents at blank lines and
+            written as ``save_to_disk`` directories by
+            ``scripts/arrow_corpus.py`` ([CORPUS], read back
             equal), ``main_llm --local_datasets`` 25% 2SSP at Llama-2-7B
             widths cut to 4 layers from a saved directory ([LOCAL]: the
             corpora used, sparsity within 0.02, flash per phase) and
@@ -6071,8 +6083,9 @@ MIXTRAL_HF = {
     "sliding_window": None, "router_aux_loss_coef": 0.02, "max_position_embeddings": 32768,
     "tie_word_embeddings": False,
 }
-MOE_SERVE_LAYERS = 8     # Mixtral depth cut of the served and generated runs (11.87 B parameters)
-MOE_CLI_LAYERS = 4       # ... of the main_llm runs (the served model's first 4 layers)
+MOE_SERVE_LAYERS = 8     # Mixtral depth cut of the served runs (11.87 B parameters)
+MOE_CLI_LAYERS = 4       # ... of the main_llm runs and of generate_kv_scan (the served model's
+                         # first 4 layers; generation cut from 8 to keep chip_smoke.py's time)
 MOE_TRAIN_LAYERS = 2     # ... of the training run (3.16 B parameters, bf16 AdamW moments)
 DEEPSEEK_TRAIN_EXPERTS = 32   # V3's 256 routed experts cut so weights, grads and moments fit
 def make_mixtral(device, layers: int):
@@ -6291,7 +6304,8 @@ def _moe_generate(params, cfg, device) -> dict:
     launches = dict(launch_counts)
     steps = max_length - lo - 1
     n_gen = sum(len(o) - n for o, n in zip(outs, lens))
-    log(f"[MOE] generate_kv_scan b=8, prompts of {lo}-{hi} tokens (left-padded), max_length "
+    log(f"[MOE] generate_kv_scan b=8, {cfg.num_layers} layers, prompts of {lo}-{hi} tokens "
+        f"(left-padded), max_length "
         f"{max_length}: {steps} decode steps, {n_gen} tokens kept in {seconds:.2f} s = "
         f"{n_gen / seconds:.1f} tokens/s ({8 * (steps + 1) / seconds:.1f} counting every row's "
         f"step; the b=8 prefill of 8 x {hi} tokens included); peak "
@@ -6384,7 +6398,7 @@ def phase_moe(device) -> dict:
     kernel once per layer and decode step, no other paged kernel; each token
     held to its prompt run alone and routed as served), a decode-step
     measurement, and
-    ``generate_kv_scan`` at b=8; then training: ``train_llm`` at Mixtral
+    ``generate_kv_scan`` at b=8 on the first 4 layers; then training: ``train_llm`` at Mixtral
     widths and ``Trainer`` at DeepSeek-V3 widths. Returns launches per kernel."""
     import dataclasses
     import math
@@ -6450,7 +6464,7 @@ def phase_moe(device) -> dict:
     measure_decode(params, cfg, device)
     parts["served (bf16, int8 pools) + decode measurement"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    add(_moe_generate(params, cfg, device))
+    add(_moe_generate(*_first_layers(params, cfg, MOE_CLI_LAYERS), device))
     parts["generate_kv_scan b=8"] = time.perf_counter() - t0
     del params
     torch.cuda.empty_cache()
@@ -7317,6 +7331,23 @@ def phase_anchor_lora_serving(device) -> None:
 PARALLEL_TIMEOUT_S = 300   # the [PARALLEL] world's own bound (~70-120 s on one card)
 
 
+def phase_aot(device, params, cfg) -> dict:
+    """[AOT]: ``scripts/torch_aot_phase.py`` (``phase_aot``) on the Llama-2-7B
+    widths cut to ``CONTIGUOUS_LAYERS`` layers: ahead-of-time artifacts
+    (``llm/aot.py``) of the ViT-B/16 (dense and 2SSP-materialized) and
+    ViT-Ti/16 classify forwards and of the int8 and int4 serving bundles,
+    exported on the card, run in a fresh process that imports no model code,
+    held to the live path. Returns the artifacts' launches per kernel."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_aot_phase", os.path.join(here, "scripts", "torch_aot_phase.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    return runner.phase_aot(device, params, cfg)
+
+
 def phase_parallel(device) -> dict:
     """[PARALLEL]: ``scripts/torch_parallel_phase.py`` as a world of one process
     per visible card over NCCL (``torch.distributed.run``), after the kernel
@@ -7539,9 +7570,14 @@ def main() -> int:
     phase_done("main, serving (phase 4)")
     for name, n in phase_contiguous(device, *_first_layers(*llama, CONTIGUOUS_LAYERS)).items():
         cli_launches[name] += n
-    del llama
     torch.cuda.empty_cache()
     phase_done("main, contiguous serving (phase 4)")
+    for name, n in phase_aot(device, *_first_layers(*llama, CONTIGUOUS_LAYERS)).items():
+        cli_launches[name] += n
+    del llama
+    torch.cuda.empty_cache()
+    phase_done("main, ahead-of-time artifacts: ViT-B/16, ViT-Ti/16, Llama-2-7B widths "
+               "(phase 4)")
     for name, n in phase_main_train(device).items():
         cli_launches[name] += n
     torch.cuda.empty_cache()

@@ -11,14 +11,17 @@ position mod window).
 
 Differences from the JAX package, by design: the layer loop is a Python loop
 with host-integer layer indices (gemma-2's mixed windows are static per
-layer); caches are written in place (``copy_`` into the layer's rows) and every
+layer); caches are written in place (a slice ``copy_`` into the layer's rows at a
+host-integer offset, ``index_copy_`` at a decode step's tensor position) and every
 function that takes caches returns the objects it was given; the decode loops
 are Python loops whose tokens stay on the device and are copied to the host
 once at the end (``decode_while`` reads one flag back every
-``DECODE_WHILE_SYNC_EVERY`` steps); positions are host integers. The int8 SwiGLU MLP of unpacked int8
-llama trees goes through the hand-written ``fused_mlp_int8`` kernel (its plain
-version for CPU tensors); everything else here is plain PyTorch ops, as the
-JAX package leaves it to XLA. Everything runs under ``torch.no_grad()``.
+``DECODE_WHILE_SYNC_EVERY`` steps); a decode step's position becomes a 0-d
+tensor on the device and is read there only, so ``decode_step`` also takes
+one (the decode artifact of ``llm/aot.py`` takes it as an input). The int8 SwiGLU MLP
+of unpacked int8 llama trees goes through the hand-written ``fused_mlp_int8``
+kernel (its plain version for CPU tensors); everything else here is plain
+PyTorch ops, as the JAX package leaves it to XLA. Everything runs under ``torch.no_grad()``.
 MoE configs take the dropless expert MLP of ``llm/model.py`` (``_moe_mlp``):
 it holds no cache state, so a cached decode equals the full forward; their
 4-D expert stacks stay out of ``fused_mlp_int8`` and out of the packed
@@ -34,7 +37,8 @@ the generation entry points gather each row's bank slices once
 (``multilora.gather_lora_rows``) instead of at every step. The paged servers
 take no ``lora_ids``, as in the JAX package. DeepSeek/MLA generation is
 ``llm/deepseek.py`` (``deepseek_generate``).
-``llm/aot.py`` (XLA ahead-of-time compilation) has no counterpart.
+Ahead-of-time artifacts of ``prefill`` and ``decode_step`` (``torch.export``)
+are ``llm/aot.py``.
 
 Tensor-parallel serving (``tp_group``, ``parallel/llm_sharding.py``): each
 rank holds its heads of q/k/v (a packed ``qkv_kernel`` holds
@@ -49,7 +53,7 @@ rank picks the same token.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,6 +87,9 @@ DECODE_WHILE_SYNC_EVERY = 8
 # One layer's parameters and the cache row its attention owns (None: the
 # attention of this block was pruned away).
 Layer = Tuple[Params, Optional[int]]
+# A decode position: a host integer, or a 0-d int64 tensor on the device
+# (``llm/aot.py``'s decode artifact takes it as an input).
+Position = Union[int, torch.Tensor]
 
 
 def bucket_prompt_pad(n: int, buckets: Sequence[int] = PROMPT_BUCKETS) -> int:
@@ -97,9 +104,20 @@ def bucket_prompt_pad(n: int, buckets: Sequence[int] = PROMPT_BUCKETS) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _inv_freq(theta: float, rd: int, scaling, device: torch.device) -> Tuple[torch.Tensor, float]:
+def _inv_freq_cached(theta: float, rd: int, scaling, device: torch.device
+                     ) -> Tuple[torch.Tensor, float]:
     inv_freq_np, attn_scale = rope_freqs(theta, rd, scaling)
     return torch.from_numpy(inv_freq_np).to(device), attn_scale
+
+
+def _inv_freq(theta: float, rd: int, scaling, device: torch.device) -> Tuple[torch.Tensor, float]:
+    """The rotary frequencies on ``device``, made once per device; under a
+    ``torch.export`` trace they are made anew (a small constant of the
+    program), so the cache never keeps a traced tensor."""
+    if torch.compiler.is_compiling():
+        inv_freq_np, attn_scale = rope_freqs(theta, rd, scaling)
+        return torch.from_numpy(inv_freq_np).to(device), attn_scale
+    return _inv_freq_cached(theta, rd, scaling, device)
 
 
 def rope_tables_at(positions: torch.Tensor, cfg: LlamaConfig
@@ -351,21 +369,39 @@ def _take_layer(cache, layer_idx: Optional[int]):
     return cache[layer_idx]
 
 
-def _write_cache(ck_l, cv_l, k: torch.Tensor, v: torch.Tensor, write_pos: int,
+def _write_rows(rows: torch.Tensor, at, new: torch.Tensor) -> None:
+    """``rows[:, at] = new`` in place: ``at`` a slice, or an index tensor."""
+    if isinstance(at, slice):
+        rows[:, at].copy_(new)
+    else:
+        rows.index_copy_(1, at, new)
+
+
+def _write_cache(ck_l, cv_l, k: torch.Tensor, v: torch.Tensor, write_pos: Position,
                  layer_idx: Optional[int] = None):
     """In place: rows ``[write_pos, write_pos + s)`` of the layer's cache take
     k / v ``[b, s, nkv, hd]`` (int8 caches quantize per token and head).
-    ``layer_idx`` addresses a row of the full 5D caches, None a 4D cache.
-    Returns the objects it was given."""
+    ``write_pos``: a host integer (prefill, the speculative extend), written
+    by a slice copy, or a 0-d int64 tensor on the cache's device (every
+    decode step), written by ``index_copy_`` at ``write_pos + arange(s)`` and
+    never read on the host, so a ``torch.export`` trace keeps it an input.
+    The slice stays for the prefill: ``index_copy_`` of a 512-token prompt's
+    rows made a 16-layer int8 prefill at Llama-2-7B widths and b=8 0.8%
+    slower on an H100 (``scripts/torch_operator_ab.py``, PERF.md).
+    The rows must lie in the cache (an index past its end raises on the CPU
+    and is a device-side assert on the card). ``layer_idx`` addresses a row
+    of the full 5D caches, None a 4D cache. Returns the objects it was given."""
     s = k.shape[1]
+    at = (write_pos + torch.arange(s, device=k.device) if isinstance(write_pos, torch.Tensor)
+          else slice(write_pos, write_pos + s))
     for cache, new in ((ck_l, k), (cv_l, v)):
         rows = _take_layer(cache, layer_idx)
         if isinstance(rows, dict):
             codes, scales = _quantize_kv(new)
-            rows["q"][:, write_pos:write_pos + s].copy_(codes)
-            rows["s"][:, write_pos:write_pos + s].copy_(scales)
+            _write_rows(rows["q"], at, codes)
+            _write_rows(rows["s"], at, scales)
         else:
-            rows[:, write_pos:write_pos + s].copy_(new)
+            _write_rows(rows, at, new)
     return ck_l, cv_l
 
 
@@ -530,7 +566,8 @@ def _layer_step(x, bp, ck_l, cv_l, cfg: LlamaConfig, *, global_positions, rope_p
 
     global_positions ``[b, s]``: cache indices for the mask; rope_positions
     ``[b, s]``: pad-corrected rotary (OPT: learned) positions; write_pos: the
-    host-integer cache write offset (rolling callers pass pos mod W);
+    cache write offset, a host integer or a 0-d device tensor (rolling callers
+    pass pos mod W);
     rolling: the slot count of a rolling cache; layer_idx: the host-integer
     row of the full 5D caches this layer's attention owns; lora_ids ``[b]``:
     each row's adapter on the attention projections (None: the base model);
@@ -642,16 +679,19 @@ def prefill(params: Params, tokens: torch.Tensor, cache_k, cache_v, cfg: LlamaCo
 
 
 def _decode_body(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: LlamaConfig,
-                 pos: int, pad_lens: torch.Tensor, rolling: Optional[int] = None, lora_ids=None,
-                 layers: Optional[List[Layer]] = None, tp_group=None):
+                 pos: Position, pad_lens: torch.Tensor, rolling: Optional[int] = None,
+                 lora_ids=None, layers: Optional[List[Layer]] = None, tp_group=None):
     compute_dtype = cache_compute_dtype(cache_k)
     b = token.shape[0]
     x = _embed_tokens(params, token, cfg, compute_dtype)[:, None, :]       # [b, 1, d]
-    global_positions = torch.full((b, 1), pos, dtype=torch.int64, device=token.device)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int64, device=token.device)
+    # read on the device only (llm/aot.py's decode artifact takes pos as an input)
+    global_positions = pos.reshape(1, 1).expand(b, 1)
+    write_pos = pos if rolling is None else torch.remainder(pos, rolling)
     rope_positions = pos - pad_lens[:, None]
     if cfg.is_opt:
         x = _opt_positions(params, x, rope_positions, compute_dtype)
-    write_pos = pos if rolling is None else pos % rolling
     x, cache_k, cache_v = _run_layers(
         params, x, cache_k, cache_v, cfg, global_positions=global_positions,
         rope_positions=rope_positions, pad_lens=pad_lens, write_pos=write_pos,
@@ -662,14 +702,23 @@ def _decode_body(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: Lla
 
 @torch.no_grad()
 def decode_step(params: Params, token: torch.Tensor, cache_k, cache_v, cfg: LlamaConfig,
-                pos: int, pad_lens: torch.Tensor, rolling: Optional[int] = None, lora_ids=None,
-                layers: Optional[List[Layer]] = None, tp_group=None):
+                pos: Position, pad_lens: torch.Tensor, rolling: Optional[int] = None,
+                lora_ids=None, layers: Optional[List[Layer]] = None, tp_group=None):
     """One token per row (``[b]``) at the shared global position ``pos`` (a
-    host integer); returns (logits [b, V] fp32, caches)."""
+    host integer, or a 0-d int64 tensor on the device, which the step reads
+    there and never on the host: the same rows and logits); returns (logits
+    [b, V] fp32, caches). A contiguous cache of ``max_len`` slots takes
+    ``pos < max_len``: a row past its end raises on the CPU and is a
+    device-side assert on the card, which ends the process's CUDA context
+    (a rolling cache writes at ``pos % W``)."""
     require_llama_config(cfg)
     lora_ids = _lora_ids(params, lora_ids, token.shape[0], token.device)
-    return _decode_body(params, token, cache_k, cache_v, cfg, int(pos), pad_lens, rolling,
-                        lora_ids, layers, tp_group)
+    if isinstance(pos, torch.Tensor) and (pos.dim() != 0 or pos.dtype != torch.int64
+                                          or pos.device != token.device):
+        raise ValueError(f"a tensor position is a 0-d int64 tensor on {token.device}, got "
+                         f"{pos.dtype} {tuple(pos.shape)} on {pos.device}")
+    return _decode_body(params, token, cache_k, cache_v, cfg, pos, pad_lens, rolling, lora_ids,
+                        layers, tp_group)
 
 
 def _sampler(sp: SamplingParams, prompts: Sequence[Sequence[int]], vocab_size: int,

@@ -10,12 +10,11 @@ kernel cannot take raises in the kernel's wrapper; nothing falls back.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 MAX_ROWS = 65535 * 64  # GEMM grid: one 64-row tile per blockIdx.y
-_ONES: Dict[torch.device, torch.Tensor] = {}
 _W8A8 = False
 
 
@@ -64,17 +63,16 @@ def check_operands(x: torch.Tensor, operands: Sequence[Tuple[str, Optional[torch
             raise ValueError(f"{name} must be contiguous")
 
 
-def gate_tensor(gate: Union[None, float, torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The residual gate as a float32 scalar on ``device`` for the kernel to read.
+def gate_tensor(gate: Union[None, float, torch.Tensor], device: torch.device
+                ) -> Optional[torch.Tensor]:
+    """The residual gate as a kernel operator takes it (``ops/kernels/library.py``).
 
-    ``None`` is a cached 1.0; a float is filled on the device; a tensor must
-    already be a one-element float32 tensor there (e.g. a row of the
-    candidate-gate matrix), so no host sync happens per block."""
+    ``None`` stays ``None`` (the GEMM epilogue reads a null gate as 1); a float
+    is filled on the device as a float32 scalar; a tensor must already be a
+    one-element float32 tensor there (e.g. a row of the candidate-gate
+    matrix), so no host sync happens per block."""
     if gate is None:
-        ones = _ONES.get(device)
-        if ones is None:
-            ones = _ONES[device] = torch.ones((), dtype=torch.float32, device=device)
-        return ones
+        return None
     if not isinstance(gate, torch.Tensor):
         return torch.full((), float(gate), dtype=torch.float32, device=device)
     if gate.dtype != torch.float32 or gate.numel() != 1 or gate.device != device:

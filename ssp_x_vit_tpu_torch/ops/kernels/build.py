@@ -147,8 +147,19 @@ def build_all() -> Dict[str, Path]:
     return targets
 
 
+def not_traced(what: str) -> None:
+    """Raise under a ``torch.export`` or ``torch.compile`` trace: a launch, a
+    ticket buffer or a workspace made there would hold a traced tensor. Only
+    the custom operators of ``ops/kernels/library.py`` reach the card from a
+    traced program, inside their CUDA bodies, when it runs."""
+    if torch.compiler.is_compiling():
+        raise RuntimeError(f"{what} under a trace: this kernel is not a custom operator yet "
+                           "(ops/kernels/library.py lists those that are)")
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so`` with its C signatures declared."""
+    not_traced(f"the {name} kernel library")
     lib = _libraries.get(name)
     if lib is None:
         targets = build_all()
@@ -185,6 +196,7 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
     sums K or key splits inside its launch takes one ticket per output tile
     (the last split to arrive sums them all in order) and sets each counter
     back to 0, so one buffer per device serves every call in stream order."""
+    not_traced("the ticket counters")
     buf = _tickets.get(device.index)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
@@ -197,6 +209,7 @@ def workspace(device_index: int, n: int) -> torch.Tensor:
     device: a kernel that combines its key runs inside the launch writes and
     reads it within that launch, so calls in stream order share it (as they
     share ``tickets``)."""
+    not_traced("the workspace")
     buf = _workspaces.get(device_index)
     if buf is None or buf.numel() < n:
         buf = torch.empty(max(n, 1 << 16), dtype=torch.float32,

@@ -18,7 +18,11 @@ slice heads; the function is the same, so one CUDA path serves both. On the
 card each wrapper launches, on the current stream: the LayerNorm, the QKV
 GEMM with the bias epilogue (``csrc/gemm.cu``), the attention core
 (``csrc/attention.cu``), then the projection GEMM with the gated-residual
-epilogue, the gate read from a device scalar.
+epilogue, the gate read from a device scalar. The launches sit in the CUDA
+body of the custom operators ``torch.ops.ssp.fused_attn_block_v2`` /
+``fused_attn_block`` (``ops/kernels/library.py``), which the wrappers call on a
+CUDA tensor, so a ``torch.export`` trace records one operator node per block
+and the kernels launch (and are counted) when the exported program runs.
 
 What bounds it: at ViT-B (b=64, s=197, d=768, 12 heads) the block is ~67 GFLOP
 (QKV and projection 89%, attention core 11%) over ~40 MB of activations,
@@ -50,7 +54,6 @@ steps do.
 
 from __future__ import annotations
 
-import math
 from typing import Union
 
 import torch
@@ -58,11 +61,10 @@ import torch
 from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.attention import multi_head_attention, sdpa_reference
 from ssp_x_vit_tpu_torch.ops.common import layer_norm
-from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
+from ssp_x_vit_tpu_torch.ops.kernels import library
+from ssp_x_vit_tpu_torch.ops.kernels.library import SMEM_LIMIT_BYTES  # noqa: F401
 
 Gate = Union[None, float, torch.Tensor]
-
-SMEM_LIMIT_BYTES = 232_448  # per-block dynamic shared memory on the H100 (227 KB)
 
 
 def _attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
@@ -107,43 +109,12 @@ def fused_attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kern
                              proj_bias, num_heads, eps, gate, residual)
 
 
-def _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                     num_heads, eps, gate, residual=True):
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias, gate)):
+def _check_no_grad(*tensors) -> None:
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
         raise RuntimeError("the fused attention block kernels have no backward (as in the JAX "
                            "package); differentiate through vit_forward(..., "
                            "allow_fused_attn=False)")
-    b, s, d = x.shape
-    dh = qkv_kernel.shape[-1] // 3   # the heads' width: d, or a tensor-parallel rank's share
-    if dh % num_heads:
-        raise ValueError(f"attention width {dh} is not divisible by {num_heads} heads")
-    hd = dh // num_heads
-    dispatch.check_operands(x, [
-        ("ln_scale", ln_scale, (d,)), ("ln_bias", ln_bias, (d,)),
-        ("qkv_kernel", qkv_kernel, (d, 3 * dh)), ("qkv_bias", qkv_bias, (3 * dh,)),
-        ("proj_kernel", proj_kernel, (dh, d)), ("proj_bias", proj_bias, (d,)),
-    ])
-    if qkv_bias is None or (residual and proj_bias is None):
-        raise ValueError("the attention kernel takes qkv and projection biases")
-    gate = dispatch.gate_tensor(gate, x.device)
-    with torch.cuda.device(x.device):
-        smem = build.attention_smem_bytes(x.dtype, s, hd)
-        if hd > 128 or smem > SMEM_LIMIT_BYTES:
-            raise ValueError(f"attention kernel takes head_dim <= 128 and K/V of one head in "
-                             f"shared memory; s={s}, head_dim={hd} needs {smem} bytes")
-        y = build.layer_norm(x, ln_scale, ln_bias, eps)
-        qkv = build.gemm(y, qkv_kernel,
-                         torch.empty((b * s, 3 * dh), dtype=x.dtype, device=x.device),
-                         build.EPI_BIAS, bias=qkv_bias)
-        o = build.attention(qkv, torch.empty((b * s, dh), dtype=x.dtype, device=x.device),
-                            b, s, num_heads, hd, 1.0 / math.sqrt(hd))
-        if residual:
-            return build.gemm(o, proj_kernel, torch.empty_like(x), build.EPI_RESIDUAL,
-                              bias=proj_bias, resid=x, gate=gate)
-        return build.gemm(o, proj_kernel, torch.empty_like(x), build.EPI_BIAS, bias=proj_bias,
-                          gate=gate)
 
 
 def fused_attn_block_v2(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
@@ -156,10 +127,12 @@ def fused_attn_block_v2(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel,
         return fused_attn_block_v2_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias,
                                          proj_kernel, proj_bias, num_heads, eps=eps, gate=gate,
                                          residual=residual)
-    out = _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                           num_heads, eps, gate, residual)
-    launch_counts["fused_attn_block_v2"] += 1
-    return out
+    _check_no_grad(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias, gate)
+    library.check_attn_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
+                             num_heads, residual)
+    return torch.ops.ssp.fused_attn_block_v2(
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
+        dispatch.gate_tensor(gate, x.device), num_heads, eps, residual)
 
 
 def fused_attn_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
@@ -170,7 +143,9 @@ def fused_attn_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, pr
         return fused_attn_block_plain(x, ln_scale, ln_bias, qkv_kernel, qkv_bias,
                                       proj_kernel, proj_bias, num_heads, eps=eps, gate=gate,
                                       residual=residual)
-    out = _attn_block_cuda(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
-                           num_heads, eps, gate, residual)
-    launch_counts["fused_attn_block"] += 1
-    return out
+    _check_no_grad(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias, gate)
+    library.check_attn_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
+                             num_heads, residual)
+    return torch.ops.ssp.fused_attn_block(
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, proj_kernel, proj_bias,
+        dispatch.gate_tensor(gate, x.device), num_heads, eps, residual)

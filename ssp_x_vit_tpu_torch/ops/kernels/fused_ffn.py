@@ -18,10 +18,12 @@ b2)``, rounded once.
 Stats are taken after GELU and before the mask, in fp32, over all s tokens
 including CLS; the kernel never pads rows, so no padded row can enter them.
 
-On the card each wrapper launches, on the current stream: the LayerNorm
-(block only), the fc1 GEMM with the GELU/stats/mask epilogue
-(``csrc/gemm.cu``), then the fc2 GEMM with the bias (and gated residual)
-epilogue. What bounds it: at ViT-B (b=64, s=197, d=768, f=3072) the two
+On the card each wrapper calls its custom operator
+(``torch.ops.ssp.fused_ffn_block`` / ``fused_ffn``, ``ops/kernels/library.py``),
+whose CUDA body launches, on the current stream: the LayerNorm (block only),
+the fc1 GEMM with the GELU/stats/mask epilogue (``csrc/gemm.cu``), then the fc2
+GEMM with the bias (and gated residual) epilogue; a ``torch.export`` trace
+records the operator. What bounds it: at ViT-B (b=64, s=197, d=768, f=3072) the two
 products are ~119 GFLOP against ~80 MB of activations, compute-bound on the
 tensor cores in bf16; the [b*s, f] activation is written once and read once
 in the operand dtype between the two GEMMs (the Pallas kernel kept it in VMEM),
@@ -50,7 +52,7 @@ import torch
 
 from ssp_x_vit_tpu_torch.ops import dispatch
 from ssp_x_vit_tpu_torch.ops.common import gelu, layer_norm
-from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
+from ssp_x_vit_tpu_torch.ops.kernels import build, library
 
 Gate = Union[None, float, torch.Tensor]
 
@@ -107,39 +109,21 @@ def fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel
     return (x + out if residual else out), stats
 
 
-def _mask_tensor(neuron_mask, f, device):
-    if neuron_mask is None:
-        return None
-    if neuron_mask.device != device:
-        raise ValueError(f"neuron_mask is on {neuron_mask.device}, x on {device}")
-    return torch.broadcast_to(neuron_mask, (f,)).to(torch.float32).contiguous()
-
-
 def _ffn_cuda(x, ln, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
               gate, collect_stats, eps, residual=True):
-    """Launch the LayerNorm (if ``ln``), fc1 and fc2 kernels; ``ln`` is
-    (scale, bias) or None. fc2's epilogue is the block's ``x + gate * (. +
-    b2)`` where ``ln`` is given and ``residual``, else ``gate * (. + b2)``
-    (``gate`` None = 1)."""
-    b, s, d = x.shape
-    f = fc1_kernel.shape[-1]
-    dispatch.check_operands(x, [
-        ("ln_scale", ln[0] if ln else None, (d,)), ("ln_bias", ln[1] if ln else None, (d,)),
-        ("fc1_kernel", fc1_kernel, (d, f)), ("fc1_bias", fc1_bias, (f,)),
-        ("fc2_kernel", fc2_kernel, (f, d)), ("fc2_bias", fc2_bias, (d,)),
-    ])
-    mask = _mask_tensor(neuron_mask, f, x.device)
-    with torch.cuda.device(x.device):
-        y = x if ln is None else build.layer_norm(x, ln[0], ln[1], eps)
-        h = torch.empty((b * s, f), dtype=x.dtype, device=x.device)
-        stats = torch.empty((b, f), dtype=torch.float32, device=x.device) if collect_stats else None
-        build.gemm(y, fc1_kernel, h, build.EPI_GELU, bias=fc1_bias, mask=mask, stats=stats, seq=s)
-        out = torch.empty_like(x)
-        if ln is not None and residual:
-            build.gemm(h, fc2_kernel, out, build.EPI_RESIDUAL, bias=fc2_bias, resid=x, gate=gate)
-        else:
-            build.gemm(h, fc2_kernel, out, build.EPI_BIAS, bias=fc2_bias, gate=gate)
-    return out, stats
+    """The kernel's custom operator on a CUDA tensor (``ops/kernels/library.py``):
+    ``ssp::fused_ffn_block`` where ``ln`` is (scale, bias), else
+    ``ssp::fused_ffn``; ``gate`` as ``dispatch.gate_tensor`` makes it.
+    Returns (out, stats [b, f] fp32 or None)."""
+    library.check_ffn(x, ln, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask)
+    if ln is None:
+        out, stats = torch.ops.ssp.fused_ffn(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                                             neuron_mask, collect_stats)
+    else:
+        out, stats = torch.ops.ssp.fused_ffn_block(x, ln[0], ln[1], fc1_kernel, fc1_bias,
+                                                   fc2_kernel, fc2_bias, neuron_mask, gate,
+                                                   collect_stats, eps, residual)
+    return out, (stats if collect_stats else None)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -165,10 +149,8 @@ def _ffn_forward(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask, col
     if not dispatch.use_kernel(x):
         return fused_ffn_plain(x, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
                                neuron_mask=neuron_mask, collect_stats=collect_stats)
-    out = _ffn_cuda(x, None, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
-                    None, collect_stats, 0.0)
-    launch_counts["fused_ffn"] += 1
-    return out
+    return _ffn_cuda(x, None, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias, neuron_mask,
+                     None, collect_stats, 0.0)
 
 
 def _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
@@ -177,11 +159,9 @@ def _ffn_block_forward(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel, f
         return fused_ffn_block_plain(x, ln_scale, ln_bias, fc1_kernel, fc1_bias, fc2_kernel,
                                      fc2_bias, neuron_mask=neuron_mask, gate=gate,
                                      collect_stats=collect_stats, eps=eps, residual=residual)
-    out = _ffn_cuda(x, (ln_scale, ln_bias), fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
-                    neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps,
-                    residual)
-    launch_counts["fused_ffn_block"] += 1
-    return out
+    return _ffn_cuda(x, (ln_scale, ln_bias), fc1_kernel, fc1_bias, fc2_kernel, fc2_bias,
+                     neuron_mask, dispatch.gate_tensor(gate, x.device), collect_stats, eps,
+                     residual)
 
 
 class _FusedFFN(torch.autograd.Function):

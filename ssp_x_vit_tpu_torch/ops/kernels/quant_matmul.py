@@ -20,7 +20,9 @@ handful of rows. bf16 int4 walks stored rows, so each packed byte is fetched
 once and feeds both of its logical rows.
 
 On a CPU tensor each wrapper runs its plain version (unpack, cast, matmul,
-scale); a CUDA tensor always launches the kernel or raises.
+scale); a CUDA tensor calls the custom operator ``torch.ops.ssp.quant_matmul`` /
+``quant4_matmul`` (``ops/kernels/library.py``), whose CUDA body launches the
+kernel or raises, so a ``torch.export`` trace records the operator.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Tuple
 import torch
 
 from ssp_x_vit_tpu_torch.ops import dispatch
-from ssp_x_vit_tpu_torch.ops.kernels import build, launch_counts
+from ssp_x_vit_tpu_torch.ops.kernels import library
 
 
 def pack_int4(w_q4: torch.Tensor) -> torch.Tensor:
@@ -74,46 +76,17 @@ def quant4_matmul_plain(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor)
     return quant_matmul_plain(x, unpack_int4(w_p), scale)
 
 
-def _quant_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
-    k = x.shape[-1]
-    n = w.shape[-1]
-    k_rows = k if bits == 8 else k // 2
-    if bits == 4 and k % 2:
-        raise ValueError(f"int4 weights need even K, got {k}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernels take float32 or bfloat16 activations, got {x.dtype}")
-    if w.dtype != torch.int8 or tuple(w.shape) != (k_rows, n):
-        raise ValueError(f"weight must be int8 {(k_rows, n)}, got {w.dtype} {tuple(w.shape)}")
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (n,):
-        raise ValueError(f"scale must be float32 {(n,)}, got {scale.dtype} {tuple(scale.shape)}")
-    for name, t in (("weight", w), ("scale", scale)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if x.numel() == 0:
-        raise ValueError("x is empty")
-    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        build.quant_gemm(x, w, scale, out, bits)
-    return out
-
-
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``(x @ w_q.to(x.dtype)) * scale`` for int8 ``w_q`` [K, N]."""
     if not dispatch.use_kernel(x):
         return quant_matmul_plain(x, w_q, scale)
-    out = _quant_cuda(x, w_q, scale, 8)
-    launch_counts["quant_matmul"] += 1
-    return out
+    library.check_quant(x, w_q, scale, 8)
+    return torch.ops.ssp.quant_matmul(x, w_q, scale)
 
 
 def quant4_matmul(x: torch.Tensor, w_p: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``(x @ unpack_int4(w_p).to(x.dtype)) * scale`` for packed ``w_p`` [K/2, N]."""
     if not dispatch.use_kernel(x):
         return quant4_matmul_plain(x, w_p, scale)
-    out = _quant_cuda(x, w_p, scale, 4)
-    launch_counts["quant4_matmul"] += 1
-    return out
+    library.check_quant(x, w_p, scale, 4)
+    return torch.ops.ssp.quant4_matmul(x, w_p, scale)

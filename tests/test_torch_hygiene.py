@@ -37,7 +37,8 @@ def test_port_and_chip_smoke_never_import_jax():
                      "data.image_decode", "data.png", "data.pets", "utils.logging",
                      "utils.profiling", "parallel.mesh", "parallel.collectives",
                      "parallel.vit_sharding", "parallel.llm_sharding", "parallel.pipeline",
-                     "parallel.ring_attention", "parallel.deepseek_parallel"):
+                     "parallel.ring_attention", "parallel.deepseek_parallel", "llm.aot",
+                     "ops.kernels.library"):
             assert "ssp_x_vit_tpu_torch." + name in names, names
         import torch.distributed
         assert not torch.distributed.is_initialized()   # importing makes no process group
@@ -63,7 +64,9 @@ def test_no_import_statement_names_a_package_the_card_machine_lacks():
     import ast
 
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "arrow_corpus.py"),
-             os.path.join(ROOT, "scripts", "torch_parallel_phase.py")]
+             os.path.join(ROOT, "scripts", "torch_parallel_phase.py"),
+             os.path.join(ROOT, "scripts", "torch_aot_phase.py"),
+             os.path.join(ROOT, "scripts", "torch_operator_ab.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "ssp_x_vit_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     found = []
